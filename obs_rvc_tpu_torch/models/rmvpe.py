@@ -1,0 +1,192 @@
+"""RMVPE E2E pitch-salience network (counterpart of ``obs_rvc_tpu/models/rmvpe.py``).
+
+log-mel ``[B, 128, T]`` → salience ``[B, T, 360]``, T a multiple of 32:
+DeepUnet (encoder levels of ConvBlockRes + 2x2 mean pool, intermediate
+levels, decoder levels with a transposed conv and skip concat) → 3-channel
+3x3 conv → BiGRU (PyTorch's GRU: the (r, z, n) gate order the JAX module
+keeps) → Linear → sigmoid. Module names follow the published ``E2E`` so its
+state dict loads as is.
+
+The levels with at most ``CHAIN_MAX_CH`` channels (the C=16 and C=32 levels
+at the largest feature maps) run their ConvBlockRes chain through
+:func:`~obs_rvc_tpu_torch.ops.unet_block.conv_block_res_chain` with the
+BatchNorms folded, as the JAX package sends them to its Pallas kernel; the
+wider levels are plain ``conv2d`` layers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from obs_rvc_tpu_torch.ops.unet_block import conv_block_res_chain, fold_bn
+
+N_MELS = 128
+N_CLASS = 360
+#: levels with at most this many channels run through the chain kernel, as
+#: the JAX package's ``pallas_unet_max_ch`` sends them to its Pallas kernel
+CHAIN_MAX_CH = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class RMVPEConfig:
+    en_de_layers: int = 5
+    inter_layers: int = 4
+    n_blocks: int = 4
+    en_out_channels: int = 16
+    gru_hidden: int = 256
+    n_gru: int = 1
+
+
+class ConvBlockRes(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
+            nn.BatchNorm2d(out_ch),
+            nn.ReLU(),
+            nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False),
+            nn.BatchNorm2d(out_ch),
+            nn.ReLU(),
+        )
+        self.shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+
+    def forward(self, x):  # NCHW
+        y = self.conv(x)
+        return y + (self.shortcut(x) if self.shortcut is not None else x)
+
+    def folded(self) -> tuple:
+        """``(W1 [3,3,Cin,C], b1, W2 [3,3,C,C], b2, Wsc [Cin,C] | None, bsc | None)``
+        with both BatchNorms folded, the layout of the chain kernel."""
+        out = []
+        for conv, bn in ((self.conv[0], self.conv[1]), (self.conv[3], self.conv[4])):
+            out.extend(fold_bn(conv.weight.permute(2, 3, 1, 0), bn.weight, bn.bias,
+                               bn.running_mean, bn.running_var, bn.eps))
+        if self.shortcut is not None:
+            out += [self.shortcut.weight[:, :, 0, 0].T, self.shortcut.bias]
+        else:
+            out += [None, None]
+        return tuple(None if t is None else t.contiguous() for t in out)
+
+
+class _Chain(nn.ModuleList):
+    """A level's ConvBlockRes blocks; through the chain kernel when ``fused``."""
+
+    def __init__(self, in_ch: int, out_ch: int, n_blocks: int, fused: bool):
+        super().__init__([ConvBlockRes(in_ch, out_ch)]
+                         + [ConvBlockRes(out_ch, out_ch) for _ in range(n_blocks - 1)])
+        self.fused = fused
+        self._folded = None
+        self._folded_key = None
+
+    def _blocks(self) -> list[tuple]:
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters()) + tuple(
+            (b.data_ptr(), b._version) for b in self.buffers()
+        )
+        if self._folded_key != key:
+            with torch.no_grad():
+                self._folded = [blk.folded() for blk in self]
+            self._folded_key = key
+        return self._folded
+
+    def forward(self, x):  # NCHW
+        if self.fused:
+            y = conv_block_res_chain(x.permute(0, 2, 3, 1).contiguous(), self._blocks())
+            return y.permute(0, 3, 1, 2)
+        for blk in self:
+            x = blk(x)
+        return x
+
+
+class ResEncoderBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, pool: bool, n_blocks: int, fused: bool):
+        super().__init__()
+        self.conv = _Chain(in_ch, out_ch, n_blocks, fused)
+        self.pool = pool
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.pool:
+            return x, F.avg_pool2d(x, 2)  # (skip, pooled)
+        return x
+
+
+class ResDecoderBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, n_blocks: int, fused: bool):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.ConvTranspose2d(in_ch, out_ch, 3, stride=2, padding=1, output_padding=1, bias=False),
+            nn.BatchNorm2d(out_ch),
+            nn.ReLU(),
+        )
+        self.conv2 = _Chain(out_ch * 2, out_ch, n_blocks, fused)
+
+    def forward(self, x, skip):
+        return self.conv2(torch.cat((self.conv1(x), skip), dim=1))
+
+
+class _BiGRU(nn.Module):
+    def __init__(self, input_size: int, hidden: int, num_layers: int):
+        super().__init__()
+        self.gru = nn.GRU(input_size, hidden, num_layers, batch_first=True, bidirectional=True)
+
+    def forward(self, x):
+        return self.gru(x)[0]
+
+
+class RMVPE(nn.Module):
+    """mel ``[B, 128, T]`` → salience ``[B, T, 360]`` (T % 32 == 0)."""
+
+    def __init__(self, cfg: RMVPEConfig = RMVPEConfig()):
+        super().__init__()
+        self.cfg = cfg
+        unet = nn.Module()
+        encoder = nn.Module()
+        encoder.bn = nn.BatchNorm2d(1)
+        encoder.layers = nn.ModuleList()
+        in_ch, out_ch = 1, cfg.en_out_channels
+        for _ in range(cfg.en_de_layers):
+            encoder.layers.append(ResEncoderBlock(in_ch, out_ch, True, cfg.n_blocks,
+                                                  out_ch <= CHAIN_MAX_CH))
+            in_ch, out_ch = out_ch, out_ch * 2
+        unet.encoder = encoder
+        inter = nn.Module()
+        inter.layers = nn.ModuleList(
+            [ResEncoderBlock(in_ch, out_ch, False, cfg.n_blocks, False)]
+            + [ResEncoderBlock(out_ch, out_ch, False, cfg.n_blocks, False)
+               for _ in range(cfg.inter_layers - 1)]
+        )
+        unet.intermediate = inter
+        decoder = nn.Module()
+        decoder.layers = nn.ModuleList()
+        ch = out_ch
+        for _ in range(cfg.en_de_layers):
+            decoder.layers.append(ResDecoderBlock(ch, ch // 2, cfg.n_blocks,
+                                                  ch // 2 <= CHAIN_MAX_CH))
+            ch //= 2
+        unet.decoder = decoder
+        self.unet = unet
+        self.cnn = nn.Conv2d(cfg.en_out_channels, 3, 3, padding=1)
+        self.fc = nn.Sequential(
+            _BiGRU(3 * N_MELS, cfg.gru_hidden, cfg.n_gru),
+            nn.Linear(2 * cfg.gru_hidden, N_CLASS),
+        )
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        assert mel.shape[1] == N_MELS, f"expected [B, {N_MELS}, T], got {tuple(mel.shape)}"
+        assert mel.shape[2] % 32 == 0, "RMVPE frame count must be a multiple of 32"
+        x = self.unet.encoder.bn(mel.transpose(-1, -2).unsqueeze(1))  # [B, 1, T, 128]
+        skips = []
+        for layer in self.unet.encoder.layers:
+            skip, x = layer(x)
+            skips.append(skip)
+        for layer in self.unet.intermediate.layers:
+            x = layer(x)
+        for i, layer in enumerate(self.unet.decoder.layers):
+            x = layer(x, skips[-1 - i])
+        x = self.cnn(x)  # [B, 3, T, 128]
+        x = x.transpose(1, 2).flatten(-2)  # [B, T, 384], channel-major per frame
+        return torch.sigmoid(self.fc(x)).float()
