@@ -7,18 +7,29 @@
 Phases, each printing its own lines:
 
 1. device  the card's name and power limit, CUDA, nvcc and Triton versions
-2. build   compile the kernels under obs_rvc_tpu_torch/csrc with nvcc
+2. build   compile the kernels under obs_rvc_tpu_torch/csrc with nvcc, one
+           process per source, all at once
 3. parity  each CUDA kernel against its plain PyTorch version on the card,
-           at the main path's shapes, float32 and bfloat16, TF32 off
+           at the main path's shapes (float32 and bfloat16 for the U-Net
+           chain and the resblock bank; float32 for the log-mel frontend,
+           also at a ragged and an offline length and on silence), TF32 off
 4. main    RvcPipeline.step at the default geometry and full width (v2
            ContentVec, full RMVPE, 40 kHz synthesizer) on random weights,
            streaming a voiced test signal; the kernels' launch counters must
-           rise by 4 (U-Net chain) and 2 (resblock bank) per step; then
-           three chunks are rerun stage by stage on the card and on the CPU
-           with the same inputs, and each stage's time is taken apart
-5. timing  step p50/p95; each kernel's device time (CUDA events around a
-           CUDA graph of its calls) beside its bound, its plain version, a
-           cuDNN composite of the same function and its eager call; peak
+           rise by 1 (log-mel), 4 (U-Net chain) and 2 (resblock bank) per
+           step; then three chunks are rerun stage by stage on the card and
+           on the CPU with the same inputs, and each stage's time is taken
+           apart
+5. serve   the port's server (serve.server.main) on a thread at the same
+           geometry and width, listening on the duplex, WebSocket, RPC and
+           health ports: a StreamClient and a WsStreamClient stream the
+           voiced signal (12 and 4 chunks at least), RpcClient requests come
+           at two geometries (the launch one checked against an in-process
+           RvcEngine), and serve.cli converts a WAV file; every chunk and request served
+           must raise the counters by 1/4/2, and /metrics must count no error
+6. timing  step p50/p95; each kernel's device time (CUDA events around a
+           CUDA graph of its calls) beside its bound, its plain version, one
+           PyTorch composite of the same function and its eager call; peak
            device memory
 
 The line before the last is the card's name and power limit; before that a
@@ -33,9 +44,12 @@ import argparse
 import json
 import pathlib
 import platform
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -44,6 +58,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SEED = 0
 #: chunks streamed through the step on the card (the first 4 are warm-up)
 N_CHUNKS = 24
+#: chunks the serve phase streams through the duplex door, at least
+SERVE_CHUNKS = 12
+#: chunks it streams through the WebSocket door, at least
+WS_CHUNKS = 4
+OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
 
 
 def log(phase: str, msg: str) -> None:
@@ -128,6 +147,14 @@ BANK_SHAPES = [("ups2", 1, 7000, 64), ("ups3", 1, 14000, 32)]
 BANK_EXTRA_SHAPES = [("c16", 1, 28000, 16)]
 BANK_KS, BANK_DILS = (3, 7, 11), (1, 3, 5)
 N_BLOCKS = 4
+# (label, L, signal): the log-mel frontend's inputs. "main" is the RMVPE
+# window of the default chunk (T=64 frames); T=63 is off the kernel's
+# 4-frame blocks; 3 s is an offline length (T=301, past the Pallas kernel's
+# 256-frame tile)
+MEL_SHAPES = [("main", 10080, "voiced"), ("main-normal", 10080, "normal"), ("T63", 9920, "voiced"),
+              ("offline", 48000, "voiced"), ("silence", 10080, "silence")]
+MEL_MAIN = "main"
+MEL_BOUND = (2e-4, 1e-4)  # the JAX package's own bound for its Pallas kernel
 
 
 def chain_inputs(label, B, H, W, cin, C, device, rng):
@@ -182,6 +209,29 @@ def bank_flops_bytes(B, L, C, elem=4):
     return flops, 2 * B * L * C * elem + wbytes
 
 
+def mel_inputs(L, kind, device, rng):
+    import torch
+
+    x = {"voiced": voiced_signal(L, 16000), "normal": rng.standard_normal(L).astype(np.float32),
+         "silence": np.zeros(L, np.float32)}[kind]
+    return torch.from_numpy(x).to(device)
+
+
+def mel_flops_bytes(L, basis, n_fft=1024, hop=160):
+    """What the function needs per frame: the window product, one real FFT
+    of 1024 points (2.5 N log2 N, the usual count for a real transform), the
+    513 bins' magnitudes, the mel product over the basis's nonzero entries
+    (the triangles) and the 128 logs; bytes: the signal, the window, the
+    basis and the output, each once. The kernel's own 1024-term DFT sums do
+    about 60x these operations; they are its cost, not the function's."""
+    T = 1 + L // hop
+    n_bins = n_fft // 2 + 1
+    nnz = int((basis != 0).sum())
+    n_mels = basis.shape[0]
+    per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 4 * n_bins + 2 * nnz + n_mels
+    return T * per_frame, 4 * (L + n_fft + n_mels * n_bins + n_mels * T)
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_mem = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
@@ -190,7 +240,8 @@ def bound_ms(flops, nbytes):
 def phase_parity(report):
     import torch
 
-    from obs_rvc_tpu_torch.ops import resblock, unet_block
+    from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
+    from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -199,7 +250,20 @@ def phase_parity(report):
     dev = torch.device("cuda")
     bounds = {"chain": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 2e-2)},
               "bank": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 2e-2)}}
-    out = {"conv_block_res_chain": {}, "resblock_bank": {}}
+    out = {"conv_block_res_chain": {}, "resblock_bank": {}, "log_mel": {}}
+    mel = MelSpectrogram(device=dev)  # the step's basis and window
+    win, basis = mel.window, mel.mel_basis
+    for label, L, kind in MEL_SHAPES:
+        x = mel_inputs(L, kind, dev, rng)
+        got = stft_mel.log_mel(x, basis, win)
+        want = stft_mel.log_mel_plain(x, basis, win)
+        torch.cuda.synchronize()
+        err = check_close(f"log_mel {label}", got, want, *MEL_BOUND)
+        if kind == "silence":
+            check_close("log_mel silence = ln(1e-5)", got, torch.full_like(got, float(np.log(1e-5))), 1e-5, 0.0)
+        out["log_mel"][f"{label} float32"] = err
+        log("parity", f"log_mel {label} L={L} -> [128, {got.shape[1]}] {kind} float32: max abs err {err:.3e} "
+                      f"(bound {MEL_BOUND[0]}/{MEL_BOUND[1]}), |ref| max {float(want.abs().max()):.3g}")
     for label, B, H, W, cin, C in CHAIN_SHAPES:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
@@ -245,7 +309,6 @@ def phase_main(report, n_chunks):
     import torch
 
     from obs_rvc_tpu_torch.config import ChunkConfig
-    from obs_rvc_tpu_torch.ops import resblock, unet_block
     from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
 
     cfg = ChunkConfig.build()
@@ -267,8 +330,7 @@ def phase_main(report, n_chunks):
     outs, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    unet_block.LAUNCHES = 0
-    resblock.LAUNCHES = 0
+    reset_launches()
     for i, chunk in enumerate(chunks):
         if i in compare_at:
             saved[i] = state
@@ -277,12 +339,11 @@ def phase_main(report, n_chunks):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = {"conv_block_res_chain": unet_block.LAUNCHES, "resblock_bank": resblock.LAUNCHES}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     audio = torch.cat(outs).cpu()
     log("main", f"streamed {n_chunks} chunks; kernel launches {launches}")
-    if launches != {"conv_block_res_chain": 4 * n_chunks, "resblock_bank": 2 * n_chunks}:
-        raise AssertionError(f"expected 4 chain and 2 bank launches per step, got {launches}")
+    check_launches("main", launches, n_chunks)
     if audio.shape != (n_chunks * cfg.sample_frame_size,) or not bool(torch.isfinite(audio).all()):
         raise AssertionError(f"output shape {tuple(audio.shape)} or non-finite values")
     tail = audio[4 * cfg.sample_frame_size :]
@@ -300,6 +361,31 @@ def phase_main(report, n_chunks):
     compare_with_cpu(report, pipe, saved, chunks, controls)
     stage_breakdown(report, pipe, state, chunks[:12], controls)
     return pipe, state, chunks, controls
+
+
+#: launches of each kernel's wrapper per step (and per engine request)
+LAUNCHES_PER_STEP = {"log_mel": 1, "conv_block_res_chain": 4, "resblock_bank": 2}
+
+
+def _counter_modules():
+    from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
+
+    return {"log_mel": stft_mel, "conv_block_res_chain": unet_block, "resblock_bank": resblock}
+
+
+def reset_launches():
+    for mod in _counter_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in _counter_modules().items()}
+
+
+def check_launches(phase, launches, steps):
+    want = {k: v * steps for k, v in LAUNCHES_PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"{phase}: expected {want} launches for {steps} steps, got {launches}")
 
 
 def stage_breakdown(report, pipe, state, chunks, controls):
@@ -433,6 +519,177 @@ def compare_with_cpu(report, pipe, saved, chunks, controls):
 
 
 # ---------------------------------------------------------------------------
+# the serving front doors
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_metrics_settled(url, timeout_s=60.0) -> dict:
+    """/metrics once two reads a second apart agree (the sessions are done)."""
+    prev, deadline = None, time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            cur = json.loads(r.read())
+        if prev is not None and cur["chunks"] == prev["chunks"]:
+            return cur
+        prev = cur
+        time.sleep(1.0)
+    raise AssertionError(f"/metrics did not settle within {timeout_s} s")
+
+
+def stream_door(name, send_audio, wav, frame, chunk, want_chunks, sample_rate):
+    """Push ``wav`` through a streaming door in ``frame``-sample messages,
+    paced as an audio callback would push them, then silence until
+    ``want_chunks`` chunks came back; checks each reply and the total."""
+    out = []
+    for i in range(0, wav.size, frame):
+        out.append(send_audio(wav[i : i + frame]))
+        time.sleep(frame / sample_rate)
+    deadline = time.monotonic() + 120
+    while sum(o.size for o in out) < want_chunks * chunk and time.monotonic() < deadline:
+        out.append(send_audio(np.zeros(frame, np.float32)))
+        time.sleep(frame / sample_rate)
+    if any(o.size > frame or o.dtype != np.float32 for o in out):
+        raise AssertionError(f"{name}: a reply was longer than its {frame}-sample message or not float32")
+    streamed = np.concatenate(out)
+    if streamed.size < want_chunks * chunk:
+        raise AssertionError(f"{name}: {streamed.size} samples back, fewer than {want_chunks} chunks")
+    tail = streamed[2 * chunk :]
+    if not np.isfinite(streamed).all() or float(np.abs(tail).max()) < 1e-3:
+        raise AssertionError(f"{name}: the streamed audio is not finite or is silent")
+    return streamed
+
+
+def phase_serve(report, main_pipe):
+    """The port's server on a thread, driven through its front doors."""
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.serve import cli, server
+    from obs_rvc_tpu_torch.serve.rpc import RpcClient
+    from obs_rvc_tpu_torch.serve.stream_server import StreamClient
+    from obs_rvc_tpu_torch.serve.ws import WsStreamClient
+    from obs_rvc_tpu_torch.stream import RvcEngine
+    from obs_rvc_tpu_torch.utils import read_wav, write_wav
+
+    host = "127.0.0.1"
+    cfg = main_pipe.cfg
+    ports = {name: free_port() for name in ("duplex", "ws", "rpc", "health")}
+    # the defaults: the card, float32, v2 at 40 kHz, 0.3 s chunks; random weights from seed 0, fan-in
+    # scaled, as the main phase's pipeline
+    argv = ["--host", host, "--port", str(ports["duplex"]), "--ws-port", str(ports["ws"]),
+            "--rpc-port", str(ports["rpc"]), "--health-port", str(ports["health"])]
+    log("serve", "python -m obs_rvc_tpu_torch.serve.server " + " ".join(argv))
+    stop, listening, bound, failed = threading.Event(), threading.Event(), {}, []
+
+    def on_ready(b):
+        bound.update(b)
+        listening.set()
+
+    def run():
+        try:
+            server.main(argv, ready=on_ready, stop_event=stop)
+        except BaseException as e:  # reported on the main thread
+            failed.append(e)
+            listening.set()
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True, name="chip-smoke-server")
+    thread.start()
+    try:
+        if not listening.wait(600) or failed:
+            raise AssertionError(f"the server did not come up: {failed}")
+        log("serve", f"server listening in {time.perf_counter() - t0:.1f} s: {bound}")
+        metrics_url = f"http://{host}:{bound['health']}/metrics"
+        reset_launches()
+
+        # 1. the duplex stream and 2. its WebSocket form, each converting whole chunks
+        chunk, frame = cfg.sample_frame_size, 2400
+        for door, connect, n in (
+                ("duplex", lambda: StreamClient.connect_tcp(host, bound["duplex"], timeout=120), SERVE_CHUNKS),
+                ("websocket", lambda: WsStreamClient.connect(host, bound["ws"], timeout=120), WS_CHUNKS)):
+            wav = voiced_signal((n + 2) * chunk, cfg.sample_rate, seed=SEED + 2)
+            client, t_stream = connect(), time.perf_counter()
+            streamed = stream_door(door, client.send_audio, wav, frame, chunk, n, cfg.sample_rate)
+            client.close()
+            log("serve", f"{door}: {streamed.size} samples back ({streamed.size / chunk:.2f} chunks) in "
+                         f"{time.perf_counter() - t_stream:.1f} s, all finite, tail max |y| "
+                         f"{float(np.abs(streamed[2 * chunk :]).max()):.4f}")
+
+        # 3. the reference RPC door at the launch geometry and at the 0.5 s chunk's
+        cfg2 = ChunkConfig.build(sample_length=0.50)
+        requests = []
+        for i, c in enumerate([cfg, cfg, cfg, cfg2, cfg2]):
+            x = voiced_signal(c.input_buffer_16k_size, 16000, seed=SEED + 10 + i)
+            requests.append((c is cfg, (x, c.sample_frame_16k_size, 0, c.skip_head, c.return_length)))
+        rpc = RpcClient.connect_tcp(host, bound["rpc"], timeout=300)
+        replies, rtt = [], []
+        for _, req in requests:
+            t1 = time.perf_counter()
+            y = rpc.infer(*req)
+            rtt.append((time.perf_counter() - t1) * 1e3)
+            if y.shape != (req[4] * 400,) or not np.isfinite(y).all():
+                raise AssertionError(f"RPC reply of shape {y.shape} (want {(req[4] * 400,)}) or not finite")
+            replies.append(y)
+        rpc.close()
+        log("serve", "rpc: replies " + ", ".join(f"{y.size}" for y in replies) + " samples, all finite; "
+                     "round trips " + ", ".join(f"{v:.1f}" for v in rtt) + " ms")
+
+        # 4. the offline CLI on a WAV file
+        OUT_DIR.mkdir(exist_ok=True)
+        src, dst = OUT_DIR / "serve_in.wav", OUT_DIR / "serve_out.wav"
+        cli_chunks = 5
+        write_wav(src, voiced_signal(cli_chunks * chunk, cfg.sample_rate, seed=SEED + 3), cfg.sample_rate)
+        t1 = time.perf_counter()
+        cli.main([str(src), str(dst), "--metrics-json"])
+        converted, sr = read_wav(dst)
+        if sr != cfg.sample_rate or converted.shape != (1, cli_chunks * chunk) or \
+                not np.isfinite(converted).all() or float(np.abs(converted).max()) < 1e-3:
+            raise AssertionError(f"serve.cli wrote {converted.shape} at {sr} Hz, or silence")
+        log("serve", f"cli: {src.name} -> {dst.name}, {converted.shape[1]} samples in "
+                     f"{time.perf_counter() - t1:.1f} s (pipeline set-up included)")
+
+        metrics = wait_metrics_settled(metrics_url)
+        launches = read_launches()
+        served = metrics["chunks"] + len(requests) + cli_chunks
+        log("serve", f"/metrics {metrics}")
+        log("serve", f"launches {launches} for {metrics['chunks']} session chunks + {len(requests)} RPC "
+                     f"requests + {cli_chunks} CLI chunks")
+        check_launches("serve", launches, served)
+        if metrics["chunks"] < SERVE_CHUNKS or metrics["errors"] != 0:
+            raise AssertionError(f"/metrics counts {metrics['chunks']} chunks and {metrics['errors']} errors")
+    finally:
+        stop.set()
+        thread.join(30)
+    if thread.is_alive() or failed:
+        raise AssertionError(f"the server did not stop cleanly: {failed}")
+
+    # the launch-geometry replies against an in-process engine on the same
+    # weights, inputs and f0 history (the server's engine saw them first)
+    engine = RvcEngine(main_pipe)
+    rel = []
+    for (at_launch, req), y in zip(requests, replies):
+        if at_launch:
+            want = engine.infer(*req)
+            rel.append(float(np.abs(y - want).max()) / max(float(np.abs(want).max()), 1e-12))
+    log("serve", "rpc vs in-process engine, max|diff| / max|audio|: " + ", ".join(f"{r:.2e}" for r in rel)
+                 + " (bound 1e-3: the card's float32 sums are not bitwise repeatable)")
+    if max(rel) > 1e-3:
+        raise AssertionError(f"RPC replies disagree with the in-process engine: {rel}")
+    rtt_launch = [v for (at_launch, _), v in zip(requests, rtt) if at_launch]
+    report["serve"] = {
+        "ports": bound, "metrics": metrics, "launches": launches, "served_steps": served,
+        "rpc_round_trip_ms": rtt, "rpc_round_trip_p50_ms": float(np.percentile(rtt_launch, 50)),
+        "rpc_vs_engine_rel": rel, "session_chunk_p50_ms": metrics["p50_ms"],
+    }
+    log("serve", f"RPC round trip p50 {report['serve']['rpc_round_trip_p50_ms']:.2f} ms at the launch geometry; "
+                 f"session chunk p50 {metrics['p50_ms']:.2f} ms, p95 {metrics['p95_ms']:.2f} ms (/metrics)")
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -441,11 +698,21 @@ def phase_timing(report):
     import torch
     import torch.nn.functional as F
 
-    from obs_rvc_tpu_torch.ops import resblock, unet_block
+    from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
+    from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
 
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
     rows = {}
+
+    def mel_library(x, win, basis):
+        """One PyTorch composite of the same function: torch.stft (cuFFT),
+        magnitude, the mel product, log of the clamp."""
+        def run():
+            spec = torch.stft(x, n_fft=1024, hop_length=160, win_length=1024, window=win, center=True,
+                              pad_mode="reflect", return_complex=True).abs()
+            return torch.log(torch.clamp(basis @ spec, min=1e-5))
+        return run
 
     def chain_library(x, blocks):
         """cuDNN's best: NCHW channels_last convs, autotuned."""
@@ -501,7 +768,7 @@ def phase_timing(report):
         rows.setdefault(name, {})[shape_label] = r
         log("timing", f"{name} {shape_label}: kernel {r['ms']:.4f} ms on the device (runs {ms:.4f}, "
                       f"{ms2:.4f}), {eager_ms:.4f} ms called eagerly; plain {plain_ms:.4f} ms, "
-                      f"cuDNN autotuned {library_ms:.4f} ms, bound {b:.4f} ms "
+                      f"library {library_ms:.4f} ms, bound {b:.4f} ms "
                       f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
                       f"{flops / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, {b / r['ms']:.1%} of the bound")
 
@@ -515,15 +782,29 @@ def phase_timing(report):
         measure("resblock_bank", label, lambda: resblock.resblock_bank(x, params, BANK_KS, BANK_DILS),
                 lambda: resblock.resblock_bank_plain(x, params, BANK_KS, BANK_DILS),
                 bank_library(x, params), *bank_flops_bytes(B, L, C))
+    mel = MelSpectrogram(device=dev)
+    win, basis = mel.window, mel.mel_basis
+    for label, L, kind in MEL_SHAPES:
+        if label not in (MEL_MAIN, "offline"):
+            continue
+        x = mel_inputs(L, kind, dev, rng)
+        library = mel_library(x, win, basis)
+        err = check_close(f"log_mel library composite {label}", library(), stft_mel.log_mel_plain(x, basis, win),
+                          *MEL_BOUND)
+        log("timing", f"log_mel {label}: the torch.stft composite agrees with the plain version "
+                      f"(max abs err {err:.3e})")
+        measure("log_mel", label, lambda: stft_mel.log_mel(x, basis, win), lambda: stft_mel.log_mel_plain(x, basis, win),
+                library, *mel_flops_bytes(L, basis))
     report["timing"] = rows
 
 
 def kernel_line(report):
-    srcs = {"conv_block_res_chain": ("obs_rvc_tpu_torch/csrc/unet_block.cu", "obs_rvc_tpu/ops/unet_block.py:155"),
+    srcs = {"log_mel": ("obs_rvc_tpu_torch/csrc/stft_mel.cu", "obs_rvc_tpu/ops/stft_mel.py:70"),
+            "conv_block_res_chain": ("obs_rvc_tpu_torch/csrc/unet_block.cu", "obs_rvc_tpu/ops/unet_block.py:155"),
             "resblock_bank": ("obs_rvc_tpu_torch/csrc/resblock.cu", "obs_rvc_tpu/ops/resblock.py:298")}
     kernels = []
     for name, (src, replaces) in srcs.items():
-        main_labels = {s[0] for s in CHAIN_SHAPES + BANK_SHAPES}
+        main_labels = {s[0] for s in CHAIN_SHAPES + BANK_SHAPES} | {MEL_MAIN}
         rows = [r for label, r in report["timing"][name].items() if label in main_labels]
         f32_errs = [v for k, v in report["parity"][name].items() if k.endswith("float32")]
         kernels.append({
@@ -586,14 +867,14 @@ def main(argv=None) -> int:
     main_run = phase_main(report, N_CHUNKS)
     if args.profile:
         phase_profile(report, *main_run)
+    phase_serve(report, main_run[0])
     phase_timing(report)
     m = report["main"]
     log("timing", f"step p50 {m['step_p50_ms']:.2f} ms, p95 {m['step_p95_ms']:.2f} ms over "
                   f"{m['chunks'] - 4} steady chunks; real-time factor {m['rtf']:.4f} of the 300 ms chunk; "
                   f"peak device memory {m['peak_mem_bytes'] / 2**20:.1f} MiB")
-    out_dir = pathlib.Path(__file__).resolve().parent / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(kernel_line(report)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.device import resolve_device
 from obs_rvc_tpu_torch.dsp.stft import stft_magnitude
 from obs_rvc_tpu_torch.dsp.window import hann_window_periodic
+from obs_rvc_tpu_torch.ops import stft_mel
 
 
 def _hz_to_mel(f, htk: bool) -> np.ndarray:
@@ -96,11 +98,13 @@ class MelSpectrogram:
         self.win_length = win_length
         self.hop_length = hop_length
         self.clamp = clamp
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.mel_basis = torch.from_numpy(
             mel_filterbank(sample_rate, fft_size, n_mels, f_min, f_max, htk=htk, norm=norm)
         ).to(self.device)
-        self._windows: dict[int, torch.Tensor] = {}
+        #: the analysis window at keyshift 0
+        self.window = hann_window_periodic(win_length, device=self.device)
+        self._windows: dict[int, torch.Tensor] = {win_length: self.window}
 
     def _window(self, n: int) -> torch.Tensor:
         if n not in self._windows:
@@ -108,7 +112,17 @@ class MelSpectrogram:
         return self._windows[n]
 
     def __call__(self, signal: torch.Tensor, keyshift: int = 0) -> torch.Tensor:
-        """Log-mel spectrogram ``[n_mels, T]`` with ``T = 1 + L // hop``."""
+        """Log-mel spectrogram ``[n_mels, T]`` with ``T = 1 + L // hop``.
+
+        At keyshift 0 with the 1024-sample FFT and window this is the fused
+        frontend :func:`~obs_rvc_tpu_torch.ops.stft_mel.log_mel` (its CUDA
+        kernel on a card, its plain version on the CPU). Any other keyshift
+        or size takes the code below on every device: the fused frontend,
+        like the JAX package's Pallas kernel, never computes the keyshift
+        resize."""
+        if keyshift == 0 and self.fft_size == self.win_length == stft_mel.CUDA_FFT_SIZE:
+            return stft_mel.log_mel(signal, self.mel_basis, self.window,
+                                    hop_length=self.hop_length, clamp=self.clamp)
         factor = 2.0 ** (keyshift / 12.0)
         fft_size_new = int(round(self.fft_size * factor))
         win_length_new = int(round(self.win_length * factor))

@@ -16,6 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -28,6 +29,10 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+#: held while a wrapper adds to its ``LAUNCHES`` count: a server launches
+#: from several threads, and ``+=`` on a module global is not atomic
+COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
 #: ``-Xptxas -v`` output of each build made by this process, by source name
 build_logs: dict[str, str] = {}
 
@@ -84,11 +89,12 @@ def build(names=None) -> float:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _libs[name] = lib
+    with _LOAD_LOCK:  # the first launches may come from several threads at once
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _libs[name] = lib
     return lib
 
 

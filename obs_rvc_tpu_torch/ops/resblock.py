@@ -116,5 +116,6 @@ def _resblock_bank_cuda(x, bank_params, kernel_sizes, dilations) -> torch.Tensor
                     B, L, C, k, d, mode, dt_code, ctypes.c_float(1.0 / nbanks), stream)
             _cuda.check(rc, f"resblock_bank (k={k}, d={d})")
             src = dst
-    LAUNCHES += 1
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -105,5 +105,6 @@ def _chain_cuda(x, blocks) -> torch.Tensor:
                 _cuda.ptr(b2f), _cuda.ptr(wscf), _cuda.ptr(bscf), B, H, W, cin, C, dt_code, stream)
         _cuda.check(rc, f"conv_block_res_chain (block {i}, {cin}->{C})")
         src, cin = dst, C
-    LAUNCHES += 1
+    with _cuda.COUNT_LOCK:
+        LAUNCHES += 1
     return out

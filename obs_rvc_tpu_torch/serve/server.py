@@ -1,0 +1,150 @@
+"""One process that brings up every serving front door over one pipeline
+(counterpart of ``obs_rvc_tpu/serve/server.py``):
+
+- the duplex PCM stream over TCP (``stream_server``), a session per connection
+- the same protocol over WebSocket (``ws``)
+- the plugin's reference RPC protocol over TCP (``rpc``), on an ``RvcEngine``
+  that shares the pipeline's networks
+- HTTP ``/healthz`` and ``/metrics`` (``health``), one collector for all sessions
+
+::
+
+    python -m obs_rvc_tpu_torch.serve.server --port 7861 --ws-port 7862 \\
+        --rpc-port 17895 --health-port 8080 --model model.pth
+
+The flags are the JAX server's, so a command line carries over, plus
+``--device`` (default: the card). A port of 0 turns its front door off. The
+port's ``--dtype`` defaults to ``float32`` where the JAX server's defaults to
+``bfloat16``: bf16 compute is not ported (ROADMAP.md queue 1 item 6). Flags
+of modules not ported yet (the pool, the mesh, retrieval, CREPE/FCPE, the
+executable cache) exit with an error that names their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import threading
+from typing import Callable, Optional
+
+from obs_rvc_tpu_torch.serve.cli import add_model_flags, check_ported, pipeline_from_args
+
+logger = logging.getLogger(__name__)
+
+#: seconds to wait for every front door to listen
+READY_TIMEOUT_S = 60.0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="RVC streaming server on the PyTorch port")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7861, help="duplex TCP port (0 = off)")
+    p.add_argument("--ws-port", type=int, default=0, help="WebSocket port (0 = off)")
+    p.add_argument("--health-port", type=int, default=0, help="health/metrics HTTP port (0 = off)")
+    p.add_argument("--rpc-port", type=int, default=0, help="reference-compatible RPC port (0 = off)")
+    p.add_argument("--pool", type=int, default=0, help="not ported (ROADMAP.md queue 1 item 10)")
+    p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
+    p.add_argument("--device-sample-rate", type=int, default=48000)
+    add_model_flags(p, loudness_default=1.0)
+    p.add_argument("--step-mode", default="staged", choices=["staged", "fused"],
+                   help="accepted for the JAX server's command lines; both run the one eager step")
+    p.add_argument("--pool-io-dtype", default="float32", choices=["float32", "int16"],
+                   help="not ported (ROADMAP.md queue 1 item 10)")
+    p.add_argument("--pool-pipelined", action="store_true", help="not ported (ROADMAP.md queue 1 item 10)")
+    p.add_argument("--exec-cache", action="store_true", help="not ported (ROADMAP.md queue 1 item 14)")
+    p.add_argument("--stage-timing", action="store_true",
+                   help="collect per-stage p50s into /metrics (each stage then ends in a synchronize)")
+    return p
+
+
+def build_pipeline(args):
+    """``(pipeline, controls)`` from parsed flags."""
+    return pipeline_from_args(args, args.device_sample_rate)
+
+
+def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
+         stop_event: Optional[threading.Event] = None) -> None:
+    """Serve until ``stop_event`` is set (forever without one). ``ready``
+    receives ``{"duplex"|"ws"|"rpc"|"health": bound port}`` once every
+    front door that is on listens."""
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+
+    from obs_rvc_tpu_torch.serve.health import start_health_server
+    from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+    from obs_rvc_tpu_torch.serve.rpc import serve_tcp as rpc_serve_tcp
+    from obs_rvc_tpu_torch.serve.stream_server import serve_tcp
+    from obs_rvc_tpu_torch.serve.ws import serve_ws_tcp
+    from obs_rvc_tpu_torch.stream import StreamSession
+    from obs_rvc_tpu_torch.stream.engine import RvcEngine
+
+    pipe, controls = build_pipeline(args)
+    stop = stop_event if stop_event is not None else threading.Event()
+    # one scrape target aggregating every connection's session
+    metrics = ChunkMetrics(chunk_seconds=pipe.cfg.latency_seconds)
+
+    def make_session():
+        return StreamSession(pipe, controls, mode=args.step_mode, stage_timing=args.stage_timing,
+                             metrics=metrics)
+
+    bound: dict[str, int] = {}
+    failed: dict[str, BaseException] = {}
+    doors = []
+
+    def door(name, serve, *serve_args):
+        listening = threading.Event()
+
+        def on_ready(p):
+            bound[name] = p
+            listening.set()
+
+        def run():
+            try:
+                serve(*serve_args, ready=on_ready, stop_event=stop)
+            except Exception as e:
+                if listening.is_set():
+                    # a door that fails while serving ends alone, as a door's
+                    # thread does in the JAX server; the others go on serving
+                    logger.exception("front door %s failed", name)
+                    return
+                # a door that cannot listen ends the server
+                failed[name] = e
+                listening.set()
+                stop.set()
+
+        doors.append((threading.Thread(target=run, daemon=True, name=f"rvc-{name}"), listening))
+
+    if args.port:
+        door("duplex", serve_tcp, make_session, args.host, args.port)
+    if args.ws_port:
+        door("ws", serve_ws_tcp, make_session, args.host, args.ws_port)
+    if args.rpc_port:
+        door("rpc", rpc_serve_tcp, RvcEngine(pipe), args.host, args.rpc_port)
+    health = None
+    if args.health_port:
+        health, bound["health"] = start_health_server(metrics, args.host, args.health_port)
+        print(f"health/metrics on {args.host}:{bound['health']}", file=sys.stderr)
+    try:
+        for t, _ in doors:
+            t.start()
+        for _, listening in doors:
+            if not listening.wait(READY_TIMEOUT_S):
+                raise RuntimeError(f"a front door did not listen within {READY_TIMEOUT_S} s")
+        if failed:
+            raise RuntimeError(f"front doors failed to start: {failed}")
+        if ready is not None:
+            ready(dict(bound))
+        for t, _ in doors:
+            t.join()
+    finally:
+        stop.set()
+        for t, _ in doors:
+            t.join(timeout=5.0)
+        if health is not None:
+            health.shutdown()
+            health.server_close()
+
+
+if __name__ == "__main__":
+    main()

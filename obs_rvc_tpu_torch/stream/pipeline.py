@@ -13,12 +13,16 @@
 The networks live in :class:`RvcPipeline`'s modules; the step takes the
 stream's state and one chunk and returns the new state and the emitted
 audio. Each stage is a method of its own (``stage_*``), so callers can run
-and compare the stages one by one.
+and compare the stages one by one; ``step`` runs them in order and can
+time each. ``with_config`` gives the same pipeline at another geometry
+over the same networks (the engine's per-request geometries).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -26,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from obs_rvc_tpu_torch.config import ChunkConfig, RMVPE_HOP, ZC_16K, RvcModelVersion
+from obs_rvc_tpu_torch.device import resolve_device
 from obs_rvc_tpu_torch.dsp import (
     MelSpectrogram,
     apply_pitch_shift,
@@ -78,14 +83,8 @@ class StepControls:
         return StepControls(float(pitch_shift), float(rms_mix_rate), float(index_rate), int(sid))
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; with no card that is an error, never a silent
-    move to the CPU (pass ``device="cpu"`` for that)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+def _untimed(name: str, fn, *args):
+    return fn(*args)
 
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d, VitsLayerNorm)
@@ -136,7 +135,6 @@ class RvcPipeline:
         device=None,
     ):
         self.device = resolve_device(device)
-        self.cfg = cfg
         self.version = version
         self.f0_median_radius = f0_median_radius
         self.keyshift = keyshift
@@ -154,20 +152,42 @@ class RvcPipeline:
             )
         self.synth_cfg = synth_cfg
 
-        self.contentvec = ContentVec(self.contentvec_cfg).to(self.device).eval()
-        self.rmvpe = RMVPE(self.rmvpe_cfg).to(self.device).eval()
-        self.synthesizer = Synthesizer(self.synth_cfg).to(self.device).eval()
+        # the passthrough geometry (skip_inference) runs no network, so it builds none
+        self.contentvec = self.rmvpe = self.synthesizer = None
+        if not cfg.skip_inference:
+            self.contentvec = ContentVec(self.contentvec_cfg).to(self.device).eval()
+            self.rmvpe = RMVPE(self.rmvpe_cfg).to(self.device).eval()
+            self.synthesizer = Synthesizer(self.synth_cfg).to(self.device).eval()
         self.mel = MelSpectrogram(device=self.device)
+        self._set_geometry(cfg)
+
+    def _set_geometry(self, cfg: ChunkConfig) -> None:
+        """Everything that follows from the chunk geometry; raises
+        ``ValueError`` on one the step cannot run."""
+        cfg.validate()
+        t50 = feature_frames(cfg.input_buffer_16k_size)
+        feature_frames_100hz = 2 * t50 + 1
+        if cfg.skip_head + cfg.return_length > feature_frames_100hz:
+            raise ValueError(f"skip_head + return_length ({cfg.skip_head}+{cfg.return_length}) exceeds "
+                             f"the {feature_frames_100hz} feature frames of the input")
+        self.cfg = cfg
+        self.feature_frames_100hz = feature_frames_100hz
+        self.hubert_length = min(cfg.input_buffer_16k_size // ZC_16K, feature_frames_100hz)
         self._fade_in, self._fade_out = fade_windows(cfg.sola_buffer_frame_size, device=self.device)
         self._sid: dict[int, torch.Tensor] = {}
 
-        t50 = feature_frames(cfg.input_buffer_16k_size)
-        self.feature_frames_100hz = 2 * t50 + 1
-        self.hubert_length = min(cfg.input_buffer_16k_size // ZC_16K, self.feature_frames_100hz)
-        cfg.validate()
-        assert cfg.skip_head + cfg.return_length <= self.feature_frames_100hz
+    def with_config(self, cfg: ChunkConfig) -> "RvcPipeline":
+        """This pipeline at another geometry: the same options and the same
+        ``nn.Module`` objects (no networks are built or re-initialised), a
+        geometry of its own."""
+        other = copy.copy(self)
+        other._set_geometry(cfg)
+        return other
 
     def modules(self) -> dict[str, nn.Module]:
+        """The networks by name (none for the passthrough geometry)."""
+        if self.contentvec is None:
+            return {}
         return {"contentvec": self.contentvec, "rmvpe": self.rmvpe, "synthesizer": self.synthesizer}
 
     def init_params(self, seed: int = 0, std: Optional[float] = 0.02) -> None:
@@ -251,22 +271,51 @@ class RvcPipeline:
         chunk: torch.Tensor,
         controls: StepControls,
         rnd: Optional[torch.Tensor] = None,
+        stage_times: Optional[dict] = None,
     ) -> tuple[StreamState, torch.Tensor]:
         """One chunk ``[sample_frame_size]`` → ``(new state, emitted audio)``.
-        ``rnd`` is the ``[T, 192]`` prior noise (zeros when None)."""
+        ``rnd`` is the ``[T, 192]`` prior noise (zeros when None). With
+        ``stage_times`` (a dict), each stage ends in a device synchronize and
+        its wall ms is written under its name: diagnostics, not throughput."""
+        run = self._stage_runner(stage_times)
         cfg = self.cfg
-        buf, buf16 = self.stage_pre(state, chunk.to(self.device, torch.float32))
+        buf, buf16 = run("pre", self.stage_pre, state, chunk.to(self.device, torch.float32))
         if cfg.skip_inference:
             model_out, new_cache = buf16[-cfg.model_return_size :], state.cache_pitchf
         else:
-            model_out, new_cache = self._infer(state, buf16, controls, rnd)
-        emitted, new_sola = self.stage_post(buf, model_out, state.sola_buffer, controls.rms_mix_rate)
+            model_out, new_cache = self._infer(state.cache_pitchf, buf16, controls, rnd, run)
+        emitted, new_sola = run("post", self.stage_post, buf, model_out, state.sola_buffer,
+                                controls.rms_mix_rate)
         return StreamState(buf, buf16, new_sola, new_cache), emitted
 
-    def _infer(self, state, buf16, controls, rnd):
-        phone = self.stage_features(buf16)
-        new_cache, pitch, pitchf = self._pitch_cache_update(state.cache_pitchf, buf16, controls)
-        return self.stage_synth(phone, pitch, pitchf, controls.sid, rnd), new_cache
+    #: the JAX package's name for the stage-by-stage step; here the step is
+    #: always run stage by stage, so both names are one method
+    staged_step = step
+
+    def _stage_runner(self, stage_times: Optional[dict]):
+        """``run(name, fn, *args)``: calls ``fn``; with ``stage_times``, also
+        synchronizes the device and records the stage's wall ms."""
+        if stage_times is None:
+            return _untimed
+
+        def run(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            stage_times[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        return run
+
+    def _infer(self, cache, buf16, controls, rnd=None, run=None):
+        """The networks' part of the step: ``(model-rate audio, new f0 cache)``."""
+        run = run or _untimed
+        phone = run("features", self.stage_features, buf16)
+        mel = run("mel", self.stage_mel, buf16)
+        salience = run("salience", self.stage_salience, mel)
+        new_cache, pitch, pitchf = run("pitch_post", self.stage_pitch_post, cache, salience, controls)
+        return run("synth", self.stage_synth, phone, pitch, pitchf, controls.sid, rnd), new_cache
 
     def _pitch_cache_update(self, cache, buf16, controls):
         return self.stage_pitch_post(cache, self.stage_salience(self.stage_mel(buf16)), controls)

@@ -15,20 +15,26 @@ these tests do not need.)
 Float32 bounds 1e-4 abs / 1e-3 rel: the kernels sum the same products as
 cuDNN in another order, over up to 11 * 64 * 2 terms per output. bfloat16
 bounds are the JAX package's own for these kernels (bank 3e-2/2e-2, chain
-5e-2/2e-2). TF32 is off for the plain versions.
+5e-2/2e-2). TF32 is off for the plain versions. The log-mel kernel is held
+to the JAX package's own bound for its Pallas kernel (2e-4 abs / 1e-4 rel):
+the DFT sums 1024 products per bin in another order than the plain
+version's matmul, and the log turns that relative error into an absolute
+one.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from obs_rvc_tpu_torch.ops import resblock, unet_block
+from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
+from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
 
 pytestmark = pytest.mark.cuda
 
 BOUNDS = {
     "bank": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 2e-2)},
     "chain": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 2e-2)},
+    "mel": (2e-4, 1e-4),
 }
 
 
@@ -133,3 +139,54 @@ def test_wrappers_refuse_what_no_kernel_is_built_for(cuda):
     x, blocks = _chain(rng, 1, 8, 16, 8, 64, 1, cuda)
     with pytest.raises(NotImplementedError):
         unet_block.conv_block_res_chain(x, blocks)
+
+
+def _voiced_16k(n, seed=0):
+    t = np.arange(n) / 16000
+    f = 180.0 * 2 ** (0.5 * np.sin(2 * np.pi * 5.0 * t) / 12)
+    phase = 2 * np.pi * np.cumsum(f) / 16000
+    x = sum(0.3 / h * np.sin(h * phase) for h in range(1, 5))
+    return (x + 0.01 * np.random.default_rng(seed).standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("L,kind", [
+    (100, "normal"),     # shorter than one hop: T=1, the padding reflects more than once
+    (9920, "voiced"),    # T=63, off the 4-frame block grid
+    (10080, "voiced"),   # T=64, the main path's shape
+    (10080, "normal"),
+    (48000, "voiced"),   # T=301, an offline length
+    (10080, "silence"),
+    (10080, "loud"),     # x1e3 amplitude
+])
+def test_log_mel_kernel_matches_plain(cuda, L, kind):
+    rng = np.random.default_rng(L)
+    x = {"normal": rng.standard_normal(L).astype(np.float32), "voiced": _voiced_16k(L),
+         "silence": np.zeros(L, np.float32), "loud": 1e3 * _voiced_16k(L)}[kind]
+    sig = torch.from_numpy(x).to(cuda)
+    mel = MelSpectrogram(device=cuda)
+    basis, win = mel.mel_basis, mel.window
+    before = stft_mel.LAUNCHES
+    got = stft_mel.log_mel(sig, basis, win)
+    assert stft_mel.LAUNCHES == before + 1
+    want = stft_mel.log_mel_plain(sig, basis, win)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (128, 1 + L // 160)
+    if kind == "silence":
+        torch.testing.assert_close(got, torch.full_like(got, float(np.log(1e-5))), atol=1e-5, rtol=0)
+    _close(got, want, *BOUNDS["mel"])
+
+
+def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    mel = MelSpectrogram(device=cuda)
+    basis, win = mel.mel_basis, mel.window
+    x = torch.zeros(2 * 10080, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_mel.log_mel(x[::2], basis, win)
+    with pytest.raises(ValueError, match="dtype"):
+        stft_mel.log_mel(torch.zeros(10080, dtype=torch.float64, device=cuda), basis, win)
+    with pytest.raises(NotImplementedError, match="1024"):
+        stft_mel.log_mel(x, torch.zeros(128, 257, device=cuda), torch.ones(512, device=cuda))
+    # the CPU takes the plain version, whatever the layout or type
+    cpu = MelSpectrogram(device="cpu")
+    assert stft_mel.log_mel(torch.zeros(20160, dtype=torch.float64)[::2], cpu.mel_basis,
+                            cpu.window).shape == (128, 64)

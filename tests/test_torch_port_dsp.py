@@ -23,6 +23,8 @@ from obs_rvc_tpu_torch.dsp import f0 as tf0
 from obs_rvc_tpu_torch.dsp import window as twindow
 from obs_rvc_tpu_torch.stream.pipeline import slide_pitch_cache as t_slide
 
+from test_torch_port_models import few_torch_threads  # noqa: F401 (autouse fixture)
+
 
 def _rng(seed):
     return np.random.default_rng(seed)
@@ -88,7 +90,7 @@ def test_stft_magnitude_matches(fft, hop, n):
 @pytest.mark.parametrize("keyshift", [0, 3, -2])
 def test_log_mel_matches(keyshift):
     x = _rng(2).standard_normal(10080).astype(np.float32) * 0.3
-    got = _t(tdsp.MelSpectrogram()(torch.from_numpy(x), keyshift=keyshift))
+    got = _t(tdsp.MelSpectrogram(device="cpu")(torch.from_numpy(x), keyshift=keyshift))
     want = _j(jdsp.MelSpectrogram()(jnp.asarray(x), keyshift=keyshift))
     assert got.shape == want.shape == (128, 64)
     # log of a sum of float32 DFT magnitudes: 1e-5 relative in the mel

@@ -20,6 +20,8 @@ from obs_rvc_tpu.ops.unet_block import fold_bn as j_fold_bn
 from obs_rvc_tpu_torch.ops import resblock as t_resblock
 from obs_rvc_tpu_torch.ops import unet_block as t_unet
 
+from test_torch_port_models import few_torch_threads  # noqa: F401 (autouse fixture)
+
 
 def _bank_fixture(C, L, B=1, seed=0):
     rng = np.random.default_rng(seed)

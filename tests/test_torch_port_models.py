@@ -31,6 +31,19 @@ from obs_rvc_tpu_torch.models.rmvpe import RMVPE, RMVPEConfig
 from obs_rvc_tpu_torch.models.synthesizer import Synthesizer, SynthesizerConfig, sine_source
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """The suite runs six workers on the machine's cores, and a torch pool of
+    one thread per core in each of them oversubscribes the CPU many times
+    over (the port's files took nearly three times as long in parallel that
+    way). Each port test module runs torch on two threads and restores the
+    count after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomize(variables, seed=0):
     """Perturb norm scales, biases and BatchNorm statistics (variances kept
     positive); the other weights keep their random init."""

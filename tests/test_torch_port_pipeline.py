@@ -31,7 +31,7 @@ from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
 from obs_rvc_tpu_torch.models.weights import load_jax_params
 from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamState
 
-from test_torch_port_models import randomize
+from test_torch_port_models import few_torch_threads, randomize  # noqa: F401 (autouse fixture)
 
 CV = dict(dim=64, num_layers=2, tap_layer=2, num_heads=4, ffn_dim=128, out_dim=64)
 RM = dict(en_de_layers=3, inter_layers=1, n_blocks=2, en_out_channels=8, gru_hidden=32)
@@ -85,7 +85,7 @@ def _stream_and_compare(pipes, controls_kw, n_chunks):
     jc = JControls.default(**controls_kw)
     tc = StepControls.default(**controls_kw)
     jstate = jax.tree.map(jnp.asarray, JState.init(jpipe.cfg))
-    tstate = StreamState.init(cfg)
+    tstate = StreamState.init(cfg, device="cpu")
     for i in range(n_chunks):
         chunk = wav[i * cfg.sample_frame_size : (i + 1) * cfg.sample_frame_size]
         jnew, jout = jstep(params, jstate, jnp.asarray(chunk), jc)
@@ -178,7 +178,7 @@ def test_init_params_follows_the_fast_init_rule():
     assert torch.all(a.synthesizer.enc_p.encoder.norm_layers_1[0].gamma == 1)
     w = a.contentvec.encoder.layers[0].fc1.weight
     assert abs(float(w.detach().std()) - 0.02) < 0.002 and torch.all(a.contentvec.encoder.layers[0].fc1.bias == 0)
-    state = StreamState.init(cfg)
+    state = StreamState.init(cfg, device="cpu")
     state, out = a.step(state, torch.zeros(cfg.sample_frame_size), StepControls.default())
     assert out.shape == (cfg.sample_frame_size,) and torch.isfinite(out).all()
     cleared = state.clear()
