@@ -2,7 +2,7 @@
 """Drive the PyTorch port's streaming step on one CUDA card and check it.
 
     python3 chip_smoke.py            # every phase; needs one card
-    python3 chip_smoke.py --profile  # also a torch.profiler trace of a few steps
+    python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level
 
 Phases, each printing its own lines:
 
@@ -29,8 +29,10 @@ Phases, each printing its own lines:
            must raise the counters by 1/4/2, and /metrics must count no error
 6. timing  step p50/p95; each kernel's device time (CUDA events around a
            CUDA graph of its calls) beside its bound, its plain version, one
-           PyTorch composite of the same function and its eager call; peak
-           device memory
+           PyTorch composite of the same function and its eager call; the
+           U-Net chain level by level beside cuDNN, its bound at the 3xTF32
+           rate its float32 path runs at (165 TFLOP/s) with float32's 67
+           TFLOP/s beside it; peak device memory
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel. The last line is
@@ -54,6 +56,9 @@ import urllib.request
 import numpy as np
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 without tensor cores
+#: H100 SXM, float32 products as three TF32 tensor-core products (3xTF32: 495 / 3 TFLOP/s),
+#: the rate the chain kernel's float32 path can reach
+TF32X3_PEAK_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SEED = 0
 #: chunks streamed through the step on the card (the first 4 are warm-up)
@@ -148,9 +153,9 @@ BANK_EXTRA_SHAPES = [("c16", 1, 28000, 16)]
 BANK_KS, BANK_DILS = (3, 7, 11), (1, 3, 5)
 N_BLOCKS = 4
 # (label, L, signal): the log-mel frontend's inputs. "main" is the RMVPE
-# window of the default chunk (T=64 frames); T=63 is off the kernel's
-# 4-frame blocks; 3 s is an offline length (T=301, past the Pallas kernel's
-# 256-frame tile)
+# window of the default chunk (T=64 frames); T=63 is one frame short of
+# it; 3 s is an offline length (T=301, past the Pallas kernel's 256-frame
+# tile)
 MEL_SHAPES = [("main", 10080, "voiced"), ("main-normal", 10080, "normal"), ("T63", 9920, "voiced"),
               ("offline", 48000, "voiced"), ("silence", 10080, "silence")]
 MEL_MAIN = "main"
@@ -217,23 +222,25 @@ def mel_inputs(L, kind, device, rng):
     return torch.from_numpy(x).to(device)
 
 
-def mel_flops_bytes(L, basis, n_fft=1024, hop=160):
+def mel_flops_bytes(L, basis, packed, n_fft=1024, hop=160):
     """What the function needs per frame: the window product, one real FFT
     of 1024 points (2.5 N log2 N, the usual count for a real transform), the
     513 bins' magnitudes, the mel product over the basis's nonzero entries
     (the triangles) and the 128 logs; bytes: the signal, the window, the
-    basis and the output, each once. The kernel's own 1024-term DFT sums do
-    about 60x these operations; they are its cost, not the function's."""
+    basis as the kernel reads it (``packed``: the weights of each row's run
+    and the rows' int32 starts, offsets and pieces) and the output, each
+    once."""
     T = 1 + L // hop
     n_bins = n_fft // 2 + 1
     nnz = int((basis != 0).sum())
     n_mels = basis.shape[0]
     per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 4 * n_bins + 2 * nnz + n_mels
-    return T * per_frame, 4 * (L + n_fft + n_mels * n_bins + n_mels * T)
+    basis_bytes = sum(t.numel() * t.element_size() for t in packed[:4])
+    return T * per_frame, 4 * (L + n_fft + n_mels * T) + basis_bytes
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_mem = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound_ms(flops, nbytes, peak=F32_PEAK_FLOPS):
+    t_ops, t_mem = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -251,11 +258,11 @@ def phase_parity(report):
     bounds = {"chain": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 2e-2)},
               "bank": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 2e-2)}}
     out = {"conv_block_res_chain": {}, "resblock_bank": {}, "log_mel": {}}
-    mel = MelSpectrogram(device=dev)  # the step's basis and window
+    mel = MelSpectrogram(device=dev)  # the step's basis and window, and the basis packed for the kernel
     win, basis = mel.window, mel.mel_basis
     for label, L, kind in MEL_SHAPES:
         x = mel_inputs(L, kind, dev, rng)
-        got = stft_mel.log_mel(x, basis, win)
+        got = stft_mel.log_mel(x, mel.log_mel_basis, win)
         want = stft_mel.log_mel_plain(x, basis, win)
         torch.cuda.synchronize()
         err = check_close(f"log_mel {label}", got, want, *MEL_BOUND)
@@ -268,7 +275,7 @@ def phase_parity(report):
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
-            got = unet_block.conv_block_res_chain(xd, blocks)
+            got = unet_block.conv_block_res_chain(xd, unet_block.pack_chain(blocks, dt))
             want = unet_block.conv_block_res_chain_plain(xd, blocks)
             torch.cuda.synchronize()
             atol, rtol = bounds["chain"][dt]
@@ -694,7 +701,32 @@ def phase_serve(report, main_pipe):
 # ---------------------------------------------------------------------------
 
 
-def phase_timing(report):
+def kernel_trace(fn, per: int, calls: int = 3):
+    """torch.profiler's device events of ``calls`` eager calls of ``fn``
+    that launch ``per`` kernels each, one list per call: ``(kernel name,
+    device us, us since the call's first kernel started)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()  # the tracer can miss a call's first kernels right after it starts: not counted
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)[-per * calls :]
+    out = []
+    for c in range(calls):
+        chunk = ev[c * per : (c + 1) * per]
+        t0 = chunk[0].time_range.start if chunk else 0.0
+        out.append([(e.name, e.time_range.end - e.time_range.start, e.time_range.start - t0) for e in chunk])
+    return out
+
+
+def phase_timing(report, trace=False):
     import torch
     import torch.nn.functional as F
 
@@ -750,7 +782,7 @@ def phase_timing(report):
             return total / len(BANK_KS)
         return run
 
-    def measure(name, shape_label, kernel, plain, library, flops, nbytes):
+    def measure(name, shape_label, kernel, plain, library, flops, nbytes, peak=F32_PEAK_FLOPS):
         """Kernel, plain version, library and kernel again, each as device
         time in a CUDA graph; the kernel's wrapper also eagerly, as the step
         calls it, where the host's launch cost shows."""
@@ -762,21 +794,44 @@ def phase_timing(report):
         torch.backends.cudnn.benchmark = False
         ms2 = graph_ms(kernel)
         eager_ms = cuda_ms(kernel)
-        b, by = bound_ms(flops, nbytes)
+        b, by = bound_ms(flops, nbytes, peak)
         r = {"ms": min(ms, ms2), "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-             "bound_ms": b, "bound_by": by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+             "bound_ms": b, "bound_by": by, "peak_tflops": peak / 1e12, "gflop": flops / 1e9,
+             "mbytes": nbytes / 1e6}
         rows.setdefault(name, {})[shape_label] = r
         log("timing", f"{name} {shape_label}: kernel {r['ms']:.4f} ms on the device (runs {ms:.4f}, "
                       f"{ms2:.4f}), {eager_ms:.4f} ms called eagerly; plain {plain_ms:.4f} ms, "
                       f"library {library_ms:.4f} ms, bound {b:.4f} ms "
-                      f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+                      f"({by} at {peak / 1e12:.0f} TFLOP/s; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
                       f"{flops / (r['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, {b / r['ms']:.1%} of the bound")
 
     for label, B, H, W, cin, C in CHAIN_SHAPES:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
-        measure("conv_block_res_chain", label, lambda: unet_block.conv_block_res_chain(x, blocks),
+        packed = unet_block.pack_chain(blocks, x.dtype)  # as _Chain caches it per weight version
+        flops, nbytes = chain_flops_bytes(B, H, W, cin, C)
+        measure("conv_block_res_chain", label, lambda: unet_block.conv_block_res_chain(x, packed),
                 lambda: unet_block.conv_block_res_chain_plain(x, blocks), chain_library(x, blocks),
-                *chain_flops_bytes(B, H, W, cin, C))
+                flops, nbytes, peak=TF32X3_PEAK_FLOPS)
+        rows["conv_block_res_chain"][label]["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
+        if trace:
+            calls = kernel_trace(lambda: unet_block.conv_block_res_chain(x, packed), 2 * N_BLOCKS)
+            last = calls[-1]
+            rows["conv_block_res_chain"][label]["trace_us"] = last
+            log("profile", f"chain {label}: {len(last)} kernels per call, span "
+                           f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel "
+                           + ", ".join(f"{d:.1f} us at +{t:.1f}" for _, d, t in last))
+    chain_rows = rows["conv_block_res_chain"]
+    for label, r in chain_rows.items():
+        log("timing", f"chain level {label}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
+                      f"({r['ms'] / r['library_ms']:.2f}x cuDNN's time), eager one-call wrapper "
+                      f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at 3xTF32's 165 TFLOP/s, "
+                      f"{r['bound_ms_f32_cuda_cores']:.4f} ms at float32's 67 TFLOP/s")
+    log("timing", "chain per step (4 levels): kernel "
+                  f"{sum(r['ms'] for r in chain_rows.values()):.4f} ms, eager "
+                  f"{sum(r['eager_ms'] for r in chain_rows.values()):.4f} ms, cuDNN "
+                  f"{sum(r['library_ms'] for r in chain_rows.values()):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in chain_rows.values()):.4f} ms (3xTF32) / "
+                  f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows.values()):.4f} ms (float32 CUDA cores)")
     for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES:
         x, params = bank_inputs(label, B, L, C, dev, rng)
         measure("resblock_bank", label, lambda: resblock.resblock_bank(x, params, BANK_KS, BANK_DILS),
@@ -793,8 +848,9 @@ def phase_timing(report):
                           *MEL_BOUND)
         log("timing", f"log_mel {label}: the torch.stft composite agrees with the plain version "
                       f"(max abs err {err:.3e})")
-        measure("log_mel", label, lambda: stft_mel.log_mel(x, basis, win), lambda: stft_mel.log_mel_plain(x, basis, win),
-                library, *mel_flops_bytes(L, basis))
+        measure("log_mel", label, lambda: stft_mel.log_mel(x, mel.log_mel_basis, win),
+                lambda: stft_mel.log_mel_plain(x, basis, win),
+                library, *mel_flops_bytes(L, basis, mel.log_mel_basis))
     report["timing"] = rows
 
 
@@ -868,7 +924,7 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(report, *main_run)
     phase_serve(report, main_run[0])
-    phase_timing(report)
+    phase_timing(report, trace=args.profile)
     m = report["main"]
     log("timing", f"step p50 {m['step_p50_ms']:.2f} ms, p95 {m['step_p95_ms']:.2f} ms over "
                   f"{m['chunks'] - 4} steady chunks; real-time factor {m['rtf']:.4f} of the 300 ms chunk; "

@@ -1,6 +1,7 @@
 // The RMVPE log-mel frontend, fused: centred reflect-padded framing (1024
-// samples, any hop), periodic Hann window, one-sided DFT (513 bins),
-// magnitude, mel product and ln(max(., clamp)), in one launch:
+// samples, any hop), periodic Hann window, one-sided spectrum (513 bins) by
+// a real FFT in shared memory, magnitude, mel product and ln(max(., clamp)),
+// in one launch:
 //
 //     out[m, t] = ln(max(sum_k basis[m, k] * |sum_n x_t[n] w[n] e^{-2 pi i n k / 1024}|, clamp))
 //
@@ -10,52 +11,53 @@
 // (5.2 MB) on the MXU.
 //
 // What bounds it: at the main path's shape (L = 10080 samples, T = 64
-// frames) the function needs about 2 MFLOP (a 1024-point real FFT per
-// frame and the mel product over the triangles' nonzero entries) and must
-// move 0.34 MB of signal, window, basis and output, so it is bound by
-// bytes: 0.1 us at 3.35 TB/s. This kernel sums 1024-term DFTs instead,
-// 0.134 GFLOP, about 60x the function's operations and 2.0 us at float32's
-// 67 TFLOP/s without tensor cores: that is its design's floor, not the
-// function's, and an FFT in shared memory is what would close the gap.
-// Reading the DFT bases as the Pallas kernel does would add 5.2 MB (1.6 us
-// at 3.35 TB/s). Inside the SM, the twiddle reads from shared memory are
-// the narrow part: thread
-// k reads entry (n k) mod 1024, a stride of n entries across the warp, which
-// conflicts on the banks (about 3-way on average over n), and an SM moves
-// one 128-byte wavefront of shared memory per clock.
+// frames) the function needs about 2 MFLOP (a 1024-point real FFT per frame
+// and the mel product over the triangles' nonzero entries), 0.03 us at
+// float32's 67 TFLOP/s, and must move 82 KB of signal, window, packed basis
+// and output, 0.025 us at 3.35 TB/s: bound by operations. At that size a launch and a handful of dependent shared-memory
+// round trips per frame are what the kernel pays; the design keeps both few.
 //
-// Design: one block per frame. It builds its frame straight from the raw
-// signal (doing the reflection itself), so no padded copy or [T, 1024]
-// frame matrix is written to device memory, and keeps it windowed in shared
-// memory. The DFT bases are never read: a 1024-entry cos table, computed in
-// float64 on the host and cast, is staged as (cos, -sin) pairs, -sin at j
-// being cos at j + 256, so each twiddle is the same float32 value as the
-// basis entry up to the float64 rounding of the angle. Each twiddle read
-// serves four bins: with w = e^{-2 pi i n k / 1024},
+// Design: a block of 128 threads owns one frame, so the grid has T blocks.
+// Two or four frames a block were measured on an H100 and were slower at
+// both T=64 and T=301 (PERF.md): with 64 blocks the SMs are already idle.
 //
-//     bin k: w;  bin 512 - k: (-1)^n conj(w);  bin 256 + k: (-i)^n w;  bin 256 - k: (-i)^n conj(w),
+// 1. The block builds its frame straight from the raw signal (with
+//    np.pad's repeated reflection, so T = 1 and signals shorter than the
+//    pad work), windows it and packs it as the 512-point complex sequence
+//    z[m] = x[2m] + i x[2m+1]. No padded copy or frame matrix reaches device
+//    memory.
+// 2. A 512-point complex FFT of z, Stockham-ordered (four radix-4 passes and
+//    one radix-2 pass, ping-ponging between two shared-memory rows, natural
+//    order out, no bit-reversal pass). Rows are padded by one complex every
+//    16 against bank conflicts on the strided writes.
+// 3. The split step turns Z into the 513 bins of the real frame's spectrum,
+//    X[k] = (Z[k] + conj Z[512-k]) / 2 - i e^{-2 pi i k / 1024} (Z[k] - conj Z[512-k]) / 2,
+//    and keeps |X[k]| in shared memory.
+// 4. The mel product reads the basis in a packed form made once on the host
+//    (ops/stft_mel.py:pack_mel_basis): for each row its first bin, and the
+//    weights from there to its last nonzero bin. The default basis packs to
+//    about 4 KB; it is staged into shared memory once per block. Any basis
+//    works: rows are staged in pieces of at most PIECE weights (the host
+//    cuts the pieces), so a dense [n_mels, 513] one takes several pieces.
+//    One thread per row sums its row's weights against the magnitudes and
+//    writes ln(max(., clamp)).
 //
-// and (-1)^n, (-i)^n are sign flips and re/im swaps fixed by n mod 4. So
-// thread k < 128 owns bins {k, 256 - k, 256 + k, 512 - k} (bin 256 once for
-// k = 0), two threads per k split the 1024 samples in halves, and one warp
-// sums bins 128 and 384 lane by lane. That cuts the twiddle reads to a
-// quarter of one per bin. The magnitudes stay in shared memory; one warp
-// per mel row then sums the row's nonzero basis entries (the filters are
-// triangles) against them, reduces across lanes and writes
-// ln(max(., clamp)) into [n_mels, T]. Each lane loads all its entries of
-// the row before it uses any: the warp then waits on the memory system once
-// per row instead of once per 32 entries, which took the kernel from 39 to
-// 24 us at T = 64.
+// Every twiddle is an entry of a 1024-entry cos table computed in float64 on
+// the host and cast (cos at j; -sin at j is cos at j + 256), so each is the
+// float32 value of its float64 angle, as the DFT bases' entries are.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int NFFT = 1024;
+constexpr int NC = NFFT / 2;          // complex points
 constexpr int NBINS = NFFT / 2 + 1;
-constexpr int NK = 128;                   // bin groups {k, 256-k, 256+k, 512-k}, k < 128
-constexpr int NTHREADS = 2 * NK + 32;     // two halves of the samples per group, and a warp for k = 128
-constexpr int NWARPS = NTHREADS / 32;
+constexpr int GROUP = 128;            // threads per frame
+constexpr int ROW = NC + NC / 16;     // a padded row of complex points
+constexpr int PIECE = 2048;           // basis weights staged at a time
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
 
 __device__ __forceinline__ int reflect(int p, int L) {
   if (L == 1) return 0;
@@ -65,141 +67,126 @@ __device__ __forceinline__ int reflect(int p, int L) {
   return q < L ? q : period - q;
 }
 
-// The four bins' (re, im) sums for one sample x at n = 4m + R with the
-// twiddle (c, s) = (cos, -sin) of (n k) mod 1024.
-template <int R>
-__device__ __forceinline__ void accumulate(float (&a)[8], float x, float2 w) {
-  const float xc = x * w.x, xs = x * w.y;
-  a[0] += xc;  // bin k
-  a[1] += xs;
-  if (R == 0) {
-    a[2] += xc; a[3] += xs;  // bin 256 + k
-    a[4] += xc; a[5] -= xs;  // bin 256 - k
-  } else if (R == 1) {
-    a[2] += xs; a[3] -= xc;
-    a[4] -= xs; a[5] -= xc;
-  } else if (R == 2) {
-    a[2] -= xc; a[3] -= xs;
-    a[4] -= xc; a[5] += xs;
-  } else {
-    a[2] -= xs; a[3] += xc;
-    a[4] += xs; a[5] += xc;
+// e^{-2 pi i j / 1024}
+__device__ __forceinline__ float2 twiddle(const float* c, int j) {
+  return make_float2(c[j & (NFFT - 1)], c[(j + NFFT / 4) & (NFFT - 1)]);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 add(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 sub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+// One radix-4 Stockham pass over 512 points: thread j < 128 of the frame
+// takes points j + 128 r, twiddles them by the pass's angle, and writes its
+// 4-point DFT at (j / NS) * 4 NS + j % NS + r NS.
+template <int NS>
+__device__ __forceinline__ void radix4(const float2* src, float2* dst, const float* c, int j) {
+  constexpr int STEP = NFFT / (4 * NS);
+  const int k = j % NS;
+  float2 v0 = src[pad(j)], v1 = src[pad(j + 128)], v2 = src[pad(j + 256)], v3 = src[pad(j + 384)];
+  if (NS > 1) {
+    v1 = cmul(v1, twiddle(c, k * STEP));
+    v2 = cmul(v2, twiddle(c, 2 * k * STEP));
+    v3 = cmul(v3, twiddle(c, 3 * k * STEP));
   }
-  if (R % 2 == 0) {  // bin 512 - k
-    a[6] += xc; a[7] -= xs;
-  } else {
-    a[6] -= xc; a[7] += xs;
-  }
+  const float2 a0 = add(v0, v2), a1 = sub(v0, v2), a2 = add(v1, v3);
+  const float2 d = sub(v1, v3);
+  const float2 a3 = make_float2(d.y, -d.x);  // -i (v1 - v3)
+  const int o = (j / NS) * 4 * NS + k;
+  dst[pad(o)] = add(a0, a2);
+  dst[pad(o + NS)] = add(a1, a3);
+  dst[pad(o + 2 * NS)] = sub(a0, a2);
+  dst[pad(o + 3 * NS)] = sub(a1, a3);
 }
 
-__device__ __forceinline__ float modulus(float re, float im) { return sqrtf(re * re + im * im); }
+// The last pass, radix 2 with NS = 256: points j and j + 256.
+__device__ __forceinline__ void radix2(const float2* src, float2* dst, const float* c, int j) {
+  const float2 v0 = src[pad(j)], v1 = cmul(src[pad(j + 256)], twiddle(c, 2 * j));
+  dst[pad(j)] = add(v0, v1);
+  dst[pad(j + 256)] = sub(v0, v1);
+}
 
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(GROUP)
 log_mel_kernel(const float* __restrict__ signal, const float* __restrict__ window,
-               const float* __restrict__ cos_table, const float* __restrict__ basis,
-               float* __restrict__ out, int L, int T, int hop, int n_mels, float clamp) {
-  __shared__ float2 tw[NFFT];                   // (cos, -sin) of 2 pi j / 1024
-  __shared__ __align__(16) float xs[NFFT];      // the windowed frame
-  __shared__ float part[NK][8];                 // the second half's sums
-  __shared__ float mag[NBINS];                  // |X| per bin
+               const float* __restrict__ cos_table, const int* __restrict__ row_start,
+               const int* __restrict__ row_off, const float* __restrict__ weights,
+               const int* __restrict__ pieces, int n_pieces, float* __restrict__ out, int L, int T,
+               int hop, float clamp) {
+  __shared__ float ctab[NFFT];
+  __shared__ float2 b0[ROW], b1[ROW];
+  __shared__ float wsm[PIECE];
 
-  const int t = blockIdx.x;
-  for (int j = threadIdx.x; j < NFFT; j += NTHREADS) {
-    tw[j] = make_float2(cos_table[j], cos_table[(j + NFFT / 4) & (NFFT - 1)]);
-    xs[j] = signal[reflect(t * hop + j - NFFT / 2, L)] * window[j];
+  const int j = threadIdx.x, t = blockIdx.x;
+
+  for (int i = j; i < NFFT; i += GROUP) ctab[i] = cos_table[i];
+  for (int m = j; m < NC; m += GROUP) {
+    const int p = t * hop + 2 * m - NFFT / 2;
+    b0[pad(m)] = make_float2(__ldg(signal + reflect(p, L)) * __ldg(window + 2 * m),
+                             __ldg(signal + reflect(p + 1, L)) * __ldg(window + 2 * m + 1));
+  }
+  int w0 = __ldg(row_off + __ldg(pieces));
+  for (int i = j, n = __ldg(row_off + __ldg(pieces + 1)) - w0; i < n; i += GROUP) wsm[i] = __ldg(weights + w0 + i);
+  __syncthreads();
+
+  radix4<1>(b0, b1, ctab, j);
+  __syncthreads();
+  radix4<4>(b1, b0, ctab, j);
+  __syncthreads();
+  radix4<16>(b0, b1, ctab, j);
+  __syncthreads();
+  radix4<64>(b1, b0, ctab, j);
+  __syncthreads();
+  radix2(b0, b1, ctab, j);
+  radix2(b0, b1, ctab, j + GROUP);
+  __syncthreads();
+
+  // the split step: Z (in b1) -> |X| (in b0, as floats)
+  float* mag = reinterpret_cast<float*>(b0);
+  for (int k = j; k < NBINS; k += GROUP) {
+    const float2 zk = b1[pad(k & (NC - 1))], zc = b1[pad((NC - k) & (NC - 1))];
+    const float2 e = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y - zc.y));  // (Z[k] + conj Z[512-k]) / 2
+    const float2 o = make_float2(0.5f * (zk.y + zc.y), -0.5f * (zk.x - zc.x));  // (Z[k] - conj Z[512-k]) / 2i
+    const float2 x = add(e, cmul(twiddle(ctab, k), o));
+    mag[k] = sqrtf(x.x * x.x + x.y * x.y);
   }
   __syncthreads();
 
-  const int tid = threadIdx.x;
-  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (tid < 2 * NK) {
-    const int k = tid % NK, n0 = (tid / NK) * (NFFT / 2);
-    unsigned idx = (unsigned)(n0 * k) & (NFFT - 1);
-#pragma unroll 2
-    for (int n = n0; n < n0 + NFFT / 2; n += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(xs + n);
-      const float2 w0 = tw[idx];
-      const float2 w1 = tw[(idx + k) & (NFFT - 1)];
-      const float2 w2 = tw[(idx + 2 * k) & (NFFT - 1)];
-      const float2 w3 = tw[(idx + 3 * k) & (NFFT - 1)];
-      idx = (idx + 4 * k) & (NFFT - 1);
-      accumulate<0>(a, x.x, w0);
-      accumulate<1>(a, x.y, w1);
-      accumulate<2>(a, x.z, w2);
-      accumulate<3>(a, x.w, w3);
+  for (int p = 0; p < n_pieces; ++p) {
+    const int r0 = __ldg(pieces + p), r1 = __ldg(pieces + p + 1);
+    if (p > 0) {
+      __syncthreads();
+      w0 = __ldg(row_off + r0);
+      for (int i = j, n = __ldg(row_off + r1) - w0; i < n; i += GROUP) wsm[i] = __ldg(weights + w0 + i);
+      __syncthreads();
     }
-    if (tid >= NK) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) part[k][i] = a[i];
+    for (int m = r0 + j; m < r1; m += GROUP) {
+      const float* fm = mag + __ldg(row_start + m);
+      const int o0 = __ldg(row_off + m), n = __ldg(row_off + m + 1) - o0;
+      const float* wr = wsm + (o0 - w0);
+      float acc = 0.f;
+      for (int i = 0; i < n; ++i) acc = fmaf(wr[i], fm[i], acc);
+      out[(size_t)m * T + t] = logf(fmaxf(acc, clamp));
     }
-  } else {
-    // bins 128 and 384: lane l sums the samples n = l (mod 32)
-    const int lane = tid - 2 * NK;
-    float r0 = 0.f, i0 = 0.f, r1 = 0.f, i1 = 0.f;
-    for (int n = lane; n < NFFT; n += 32) {
-      const float2 w = tw[(n * NK) & (NFFT - 1)];
-      const float xc = xs[n] * w.x, xsn = xs[n] * w.y;
-      r0 += xc;
-      i0 += xsn;
-      switch (n & 3) {  // bin 384 = 256 + 128: (-i)^n w
-        case 0: r1 += xc; i1 += xsn; break;
-        case 1: r1 += xsn; i1 -= xc; break;
-        case 2: r1 -= xc; i1 -= xsn; break;
-        default: r1 -= xsn; i1 += xc; break;
-      }
-    }
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) {
-      r0 += __shfl_xor_sync(0xffffffffu, r0, s);
-      i0 += __shfl_xor_sync(0xffffffffu, i0, s);
-      r1 += __shfl_xor_sync(0xffffffffu, r1, s);
-      i1 += __shfl_xor_sync(0xffffffffu, i1, s);
-    }
-    if (lane == 0) {
-      mag[NK] = modulus(r0, i0);
-      mag[2 * NK + NK] = modulus(r1, i1);
-    }
-  }
-  __syncthreads();
-  if (tid < NK) {
-    const int k = tid;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] += part[k][i];
-    mag[k] = modulus(a[0], a[1]);
-    mag[2 * NK + k] = modulus(a[2], a[3]);
-    if (k > 0) mag[2 * NK - k] = modulus(a[4], a[5]);
-    mag[4 * NK - k] = modulus(a[6], a[7]);
-  }
-  __syncthreads();
-
-  constexpr int PER_LANE = (NBINS + 31) / 32;
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int m = warp; m < n_mels; m += NWARPS) {
-    const float* row = basis + (size_t)m * NBINS;
-    float c[PER_LANE];
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) c[i] = lane + 32 * i < NBINS ? __ldg(row + lane + 32 * i) : 0.f;
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      if (c[i] != 0.f) acc = fmaf(c[i], mag[lane + 32 * i], acc);
-    }
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (lane == 0) out[(size_t)m * T + t] = logf(fmaxf(acc, clamp));
   }
 }
 
 }  // namespace
 
 // signal: [L] float32; window: [1024] float32; cos_table: [1024] float32,
-// cos(2 pi j / 1024); basis: [n_mels, 513] float32; out: [n_mels, T] float32
-// with T = 1 + L / hop. Returns a CUDA error code (0 on success).
+// cos(2 pi j / 1024); the packed basis (ops/stft_mel.py:pack_mel_basis):
+// row_start [n_mels] int32, the first bin of each row's weights; row_off
+// [n_mels + 1] int32, where each row's weights start in `weights`; weights
+// float32; pieces [n_pieces + 1] int32, the rows that start each piece of at
+// most 2048 weights, then n_mels. out: [n_mels, T] float32 with
+// T = 1 + L / hop. Returns a CUDA error code (0 on success).
 extern "C" int rvc_log_mel(const float* signal, const float* window, const float* cos_table,
-                           const float* basis, float* out, int L, int T, int hop, int n_mels,
-                           float clamp, void* stream) {
-  if (L < 1 || T < 1 || hop < 1 || n_mels < 1 || T != 1 + L / hop) return (int)cudaErrorInvalidValue;
-  log_mel_kernel<<<T, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      signal, window, cos_table, basis, out, L, T, hop, n_mels, clamp);
+                           const int* row_start, const int* row_off, const float* weights, const int* pieces,
+                           int n_pieces, float* out, int L, int T, int hop, int n_mels, float clamp,
+                           void* stream) {
+  if (L < 1 || T < 1 || hop < 1 || n_mels < 1 || n_pieces < 1 || T != 1 + L / hop)
+    return (int)cudaErrorInvalidValue;
+  log_mel_kernel<<<T, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
+      signal, window, cos_table, row_start, row_off, weights, pieces, n_pieces, out, L, T, hop, clamp);
   return (int)cudaGetLastError();
 }

@@ -1,253 +1,371 @@
-// One ConvBlockRes block of an RMVPE U-Net level, fused:
+// One RMVPE U-Net level's chain of ConvBlockRes blocks on the tensor cores:
 //
 //     y   = relu(conv3x3(relu(conv3x3(x) + b1)) + b2)
 //     out = y + (Wsc^T x + bsc   if the block changes channels, else x)
 //
-// NHWC activations, BatchNorm already folded into the conv weights and
-// biases by the caller, zero SAME padding, f32 accumulation. A U-Net level
-// is n_blocks launches.
+// for each block of the level in turn. NHWC activations, BatchNorm already
+// folded into the conv weights and biases, zero SAME padding.
 //
 // Replaces: obs_rvc_tpu/ops/unet_block.py:conv_block_res_chain (Pallas,
 // TPU), which keeps a stream's whole [C, H*W + 2*pad] level activation in
-// VMEM (0.5 MB at C=16, 64x128) and runs the level's blocks back to back.
-// That does not fit a Hopper block's 227 KB of shared memory, so this kernel
-// tiles the spatial grid across blocks, one launch per block of the chain.
+// VMEM and runs the level's blocks back to back in one call. Here one C call
+// runs the level too: it issues two launches per block (conv1; conv2 with
+// the shortcut and the residual add), each conv's output going through L2
+// (at most 0.5 MB a level).
 //
 // What bounds it: the four C<=32 levels of the main path (enc0 1->16 and
 // dec4 32->16 at 64x128, enc1 16->32 and dec3 64->32 at 32x64) do 1.25 GFLOP
-// together against ~10 MB of activation traffic per step: bound by float32
-// arithmetic, 0.019 ms at 67 TFLOP/s without tensor cores.
+// together against ~4 MB of activations and weights per step: bound by
+// arithmetic. In float32 the kernel runs each product as three TF32 tensor
+// core products (3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, with hi the
+// value rounded to TF32 and lo the rest, float32 accumulation), which keeps
+// float32's accuracy; its bound is 495 / 3 = 165 TFLOP/s, 0.0076 ms a step.
+// In bfloat16 one bf16 product, with float32 accumulation.
 //
-// Design: a block owns an output tile (14x14 pixels at C=16, 6x14 at C=32)
-// and all C output channels. It loads the input tile with a 2-pixel halo
-// (channels zero-padded to a multiple of 4) into shared memory, computes the
-// first conv over the tile plus a 1-pixel halo into a second shared tile
-// (zeroed outside the image, the second conv's SAME padding), then the
-// second conv, the shortcut from the resident input tile and the residual
-// add. The intermediate never leaves the SM. Each thread computes 4
-// neighbouring pixels of one row x 4 output channels in registers; weights
-// are staged one 3x3 tap ([Cin][C], at most 8 KB) at a time.
+// Design: each conv is an implicit GEMM, M = output pixels, N = C, K = 9
+// Cin, on mma.sync.m16n8k8. A block owns a tile of 32/C rows x 16 columns
+// of output pixels and all C channels: four warps, each one row of 16
+// pixels and 8 channels (one n8 tile), so the grid has 256 blocks at the
+// 64x128 levels and 128 at the 32x64 ones. At that size a warp's chain of
+// dependent K steps sets the time, not the tensor cores' rate, so each
+// conv's K is split three ways by the taps' row over three such groups of
+// four warps (384 threads), and the sums meet in shared memory. The block
+// stages its input tile with a 1-pixel halo into shared memory once (zeros
+// outside the image), already split into TF32 hi and lo; a table of K
+// offsets turns each k into a tap and a channel, so any Cin (1, 3, 16, 32,
+// 64) runs the same loop, each slab's K padded to a multiple of 8 with zero
+// weights. Pixel rows are padded to Cin + 4 floats, so a fragment's 8
+// pixels x 4 channels hit 32 distinct banks. Weights are packed once per
+// weight version on the host (ops/unet_block.py:pack_chain) in the exact
+// order of the mma's B fragments, hi and lo side by side; each warp reads
+// its fragments straight from L2 with one 16-byte load per lane, eight K
+// steps ahead of their use (a ring in registers). No weight passes through
+// shared memory: each fragment is used by one warp of the block (two at
+// C=16), so staging it would buy little reuse and would cost barriers; the
+// ring hides the same latency a cp.async ring in shared memory would.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int CC = 4;   // output channels per thread
-constexpr int PP = 4;   // pixels per thread, along W
-constexpr int RW = 16;  // region width: output tile width + 2
+constexpr int WARPS = 4;                 // warps of one tap-row group
+constexpr int NTHREADS = 3 * WARPS * 32;  // three tap-row groups
+constexpr int TW = 16;        // tile width, pixels
+constexpr int XW = TW + 2;    // tile width with the halo
 constexpr int MAX_CIN = 64;
 
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) { return __bfloat162float(p[i]); }
-__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, size_t i, float v) { p[i] = __float2bfloat16(v); }
+__device__ __forceinline__ float load(const float* p, size_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) { return __bfloat162float(__ldg(p + i)); }
+__device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
+  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, size_t i, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
+}
 
-template <int C>
-struct Geo {
-  static constexpr int CG = C / CC;          // channel groups
-  static constexpr int PG = NTHREADS / CG;   // pixel groups
-  static constexpr int RH = PG / (RW / PP);  // region height: output tile height + 2
-  static constexpr int TH = RH - 2;
-  static constexpr int TW = RW - 2;
-  static constexpr int XP = (RH + 2) * (RW + 2);  // input tile pixels (2-pixel halo)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// shared-memory row stride of a pixel with cin channels, in floats
+__host__ __device__ constexpr int pixel_stride(int cin) { return cin % 8 == 0 ? cin + 4 : cin; }
+__host__ __device__ constexpr int pad8(int k) { return (k + 7) / 8 * 8; }
+
+template <typename T>
+struct Prec;
+template <>
+struct Prec<float> {  // 3xTF32: hi and lo planes, B fragments (hi0, hi1, lo0, lo1) per lane
+  static constexpr int PLANES = 2;
+  using Frag = float4;
+};
+template <>
+struct Prec<__nv_bfloat16> {  // one plane of bf16 values kept as floats, B fragment bf16x2 per lane
+  static constexpr int PLANES = 1;
+  using Frag = uint32_t;
 };
 
+// output rows a block's tile spans: each warp of a tap-row group owns one
+// row of 16 pixels and one n8 tile
 template <int C>
-constexpr size_t smem_floats(int cinp) {
-  return (size_t)(cinp > C ? cinp : C) * C + (size_t)Geo<C>::XP * cinp + (size_t)Geo<C>::XP * C;
+__host__ __device__ constexpr int tile_rows() { return WARPS / (C / 8); }
+
+// shared memory of one launch, in 4-byte words
+template <typename T, int C>
+constexpr size_t smem_words(int cin, int sc_cin) {
+  constexpr int TH = tile_rows<C>();
+  return (size_t)pad8(3 * cin) + pad8(sc_cin) + 3 * WARPS * 32 * 4 +
+         (size_t)Prec<T>::PLANES * ((TH + 2) * XW * pixel_stride(cin) + TH * TW * pixel_stride(sc_cin));
 }
 
-// Stage a [cin][C] weight slab into [cinp][C] shared memory, zero rows >= cin.
-template <int C>
-__device__ __forceinline__ void stage(float* ws, const float* __restrict__ w, int cin, int cinp) {
-  for (int i = threadIdx.x; i < cinp * C; i += NTHREADS) {
-    const int ci = i / C;
-    ws[i] = ci < cin ? __ldg(w + i) : 0.f;
-  }
-}
-
-// acc[p][c] += sum_ci src[p * stride + ci] * ws[ci * C + co + c]
-template <int C>
-__device__ __forceinline__ void tap_fma(float (&acc)[PP][CC], const float* src, int stride,
-                                        const float* ws, int co, int cinp) {
-#pragma unroll 4
-  for (int ci = 0; ci < cinp; ci += 4) {
-    float4 wv[4];
+// Stage rows x COLS pixels of src (cin channels) whose top-left is image
+// pixel (h0, w0) into hi (and lo) planes, zeros outside the image. Each
+// thread has BATCH loads in flight before it writes any, so the block waits
+// on device memory a few times, not once per element it stages; its
+// (pixel, channel) pairs advance by additions, since a division by a
+// runtime cin costs a few dozen instructions an element.
+template <typename T, int COLS>
+__device__ __forceinline__ void stage(float* hi, float* lo, const T* src, int cin, int rows, int h0, int w0,
+                                      int H, int W) {
+  constexpr int BATCH = 8;
+  const int stride = pixel_stride(cin), npix = rows * COLS;
+  const int dp = NTHREADS / cin, dc = NTHREADS - dp * cin;
+  int p = threadIdx.x / cin, c = threadIdx.x - p * cin;
+  while (p < npix) {
+    int pu[BATCH], cu[BATCH];
+    float v[BATCH];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wv[j] = *reinterpret_cast<const float4*>(ws + (ci + j) * C + co);
+    for (int u = 0; u < BATCH; ++u) {
+      pu[u] = p;
+      cu[u] = c;
+      const int gh = h0 + p / COLS, gw = w0 + p % COLS;
+      v[u] = (p < npix && gh >= 0 && gh < H && gw >= 0 && gw < W) ? load(src, ((size_t)gh * W + gw) * cin + c)
+                                                                   : 0.f;
+      p += dp;
+      c += dc;
+      if (c >= cin) {
+        c -= cin;
+        ++p;
+      }
+    }
 #pragma unroll
-    for (int p = 0; p < PP; ++p) {
-      const float4 xv = *reinterpret_cast<const float4*>(src + p * stride + ci);
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[p][0] = fmaf(xa[j], wv[j].x, acc[p][0]);
-        acc[p][1] = fmaf(xa[j], wv[j].y, acc[p][1]);
-        acc[p][2] = fmaf(xa[j], wv[j].z, acc[p][2]);
-        acc[p][3] = fmaf(xa[j], wv[j].w, acc[p][3]);
+    for (int u = 0; u < BATCH; ++u) {
+      if (pu[u] >= npix) break;
+      const int o = pu[u] * stride + cu[u];
+      if (Prec<T>::PLANES == 2) {
+        const float h = __uint_as_float(tf32(v[u]));
+        hi[o] = h;
+        lo[o] = __uint_as_float(tf32(v[u] - h));
+      } else {
+        hi[o] = v[u];
       }
     }
   }
 }
 
-template <typename T, int C>
-__global__ void __launch_bounds__(NTHREADS)
-conv_block_res_kernel(const T* __restrict__ x, T* __restrict__ out,
-                      const float* __restrict__ w1, const float* __restrict__ b1,
-                      const float* __restrict__ w2, const float* __restrict__ b2,
-                      const float* __restrict__ wsc, const float* __restrict__ bsc,
-                      int H, int W, int cin, int cinp) {
-  using G = Geo<C>;
-  constexpr int XW = RW + 2;  // row stride, in pixels, of both shared tiles
-
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [max(cinp, C)][C], one tap
-  float* xs = ws + (cinp > C ? cinp : C) * C;   // [RH+2][RW+2][cinp], input tile
-  float* ys = xs + G::XP * cinp;                // [RH+2][RW+2][C], conv1 output
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.z;
-  const int h0 = blockIdx.y * G::TH;
-  const int w0 = blockIdx.x * G::TW;
-  const T* xb = x + (size_t)b * H * W * cin;
-
-  // input tile pixel (a, e) is image pixel (h0 - 2 + a, w0 - 2 + e)
-  for (int i = tid; i < G::XP * cinp; i += NTHREADS) {
-    const int pix = i / cinp, c = i % cinp;
-    const int gh = h0 - 2 + pix / XW, gw = w0 - 2 + pix % XW;
-    xs[i] = (c < cin && gh >= 0 && gh < H && gw >= 0 && gw < W)
-                ? load(xb, ((size_t)gh * W + gw) * cin + c) : 0.f;
-  }
-  for (int i = tid; i < G::XP * C; i += NTHREADS) ys[i] = 0.f;
-
-  const int co = (tid % G::CG) * CC;
-  const int pg = tid / G::CG;
-  const int ri = pg / (RW / PP);        // region row
-  const int rj = (pg % (RW / PP)) * PP;  // region column of the first pixel
-  // region pixel (ri, rj + p) is image pixel (h0 - 1 + ri, w0 - 1 + rj + p)
-
-  float a[PP][CC];
+// acc += A B over kp/8 K steps: A's rows g and g + 8 start at a0 and a1 in
+// the planes, column k at koff[k]; B's fragments for this warp's n8 tile at
+// wf, one K step every nt8 * 32 entries. The fragments come from L2 through
+// a ring of RING registers, loaded RING K steps before their use, so a K
+// step does not wait on an L2 round trip. In float32 the two small 3xTF32
+// products go to their own accumulator, so each K step adds one product to
+// each chain, not three to one.
+template <typename T>
+__device__ __forceinline__ void gemm(float (&acc)[4], const float* hi, const float* lo, int a0, int a1,
+                                     const int* koff, int kp, const typename Prec<T>::Frag* __restrict__ wf,
+                                     int nt8) {
+  using Frag = typename Prec<T>::Frag;
+  constexpr int RING = 8;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int step = nt8 * 32, nk = kp / 8;
+  Frag ring[RING];
 #pragma unroll
-  for (int p = 0; p < PP; ++p)
+  for (int d = 0; d < RING; ++d) ring[d] = d < nk ? __ldg(wf + d * step + lane) : Frag{};
+  float small[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < nk; k0 += RING) {
 #pragma unroll
-    for (int c = 0; c < CC; ++c) a[p][c] = 0.f;
-
-  for (int t = 0; t < 9; ++t) {
-    const int dh = t / 3, dw = t % 3;
-    __syncthreads();
-    stage<C>(ws, w1 + (size_t)t * cin * C, cin, cinp);
-    __syncthreads();
-    tap_fma<C>(a, xs + ((ri + dh) * XW + rj + dw) * cinp, cinp, ws, co, cinp);
-  }
-  const int gh = h0 - 1 + ri;
-#pragma unroll
-  for (int p = 0; p < PP; ++p) {
-    const int gw = w0 - 1 + rj + p;
-    const bool inside = gh >= 0 && gh < H && gw >= 0 && gw < W;
-    float4 v;
-    v.x = inside ? fmaxf(a[p][0] + __ldg(b1 + co + 0), 0.f) : 0.f;
-    v.y = inside ? fmaxf(a[p][1] + __ldg(b1 + co + 1), 0.f) : 0.f;
-    v.z = inside ? fmaxf(a[p][2] + __ldg(b1 + co + 2), 0.f) : 0.f;
-    v.w = inside ? fmaxf(a[p][3] + __ldg(b1 + co + 3), 0.f) : 0.f;
-    *reinterpret_cast<float4*>(ys + ((ri + 1) * XW + rj + p + 1) * C + co) = v;
-#pragma unroll
-    for (int c = 0; c < CC; ++c) a[p][c] = 0.f;
-  }
-
-  for (int t = 0; t < 9; ++t) {
-    const int dh = t / 3, dw = t % 3;
-    __syncthreads();
-    stage<C>(ws, w2 + (size_t)t * C * C, C, C);
-    __syncthreads();
-    tap_fma<C>(a, ys + ((ri + dh) * XW + rj + dw) * C, C, ws, co, C);
-  }
-
-  float sc[PP][CC];
-#pragma unroll
-  for (int p = 0; p < PP; ++p)
-#pragma unroll
-    for (int c = 0; c < CC; ++c) sc[p][c] = 0.f;
-  const float* xc = xs + ((ri + 1) * XW + rj + 1) * cinp;  // the region pixels' own input
-  if (wsc != nullptr) {
-    __syncthreads();
-    stage<C>(ws, wsc, cin, cinp);
-    __syncthreads();
-    tap_fma<C>(sc, xc, cinp, ws, co, cinp);
-#pragma unroll
-    for (int p = 0; p < PP; ++p)
-#pragma unroll
-      for (int c = 0; c < CC; ++c) sc[p][c] += __ldg(bsc + co + c);
-  } else {
-#pragma unroll
-    for (int p = 0; p < PP; ++p)
-#pragma unroll
-      for (int c = 0; c < CC; ++c) sc[p][c] = xc[p * cinp + co + c];
-  }
-
-  if (ri < 1 || ri > G::TH || gh >= H) return;
-#pragma unroll
-  for (int p = 0; p < PP; ++p) {
-    const int rc = rj + p;
-    const int gw = w0 - 1 + rc;
-    if (rc < 1 || rc > G::TW || gw >= W) continue;
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      const float y = fmaxf(a[p][c] + __ldg(b2 + co + c), 0.f);
-      store(out, (((size_t)b * H + gh) * W + gw) * C + co + c, y + sc[p][c]);
+    for (int d = 0; d < RING; ++d) {
+      const int kb = k0 + d;
+      if (kb >= nk) break;
+      const Frag b = ring[d];
+      if (kb + RING < nk) ring[d] = __ldg(wf + (kb + RING) * step + lane);
+      if constexpr (Prec<T>::PLANES == 2) {
+        const int o0 = koff[kb * 8 + t], o1 = koff[kb * 8 + t + 4];
+        const uint32_t ah[4] = {__float_as_uint(hi[a0 + o0]), __float_as_uint(hi[a1 + o0]),
+                                __float_as_uint(hi[a0 + o1]), __float_as_uint(hi[a1 + o1])};
+        const uint32_t al[4] = {__float_as_uint(lo[a0 + o0]), __float_as_uint(lo[a1 + o0]),
+                                __float_as_uint(lo[a0 + o1]), __float_as_uint(lo[a1 + o1])};
+        const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+        mma_tf32(small, al, bh0, bh1);
+        mma_tf32(small, ah, tf32(b.z), tf32(b.w));
+        mma_tf32(acc, ah, bh0, bh1);
+      } else {
+        const int o0 = koff[kb * 8 + 2 * t], o1 = koff[kb * 8 + 2 * t + 1];
+        mma_bf16(acc, pack_bf16(hi[a0 + o0], hi[a0 + o1]), pack_bf16(hi[a1 + o0], hi[a1 + o1]), b);
+      }
     }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] += small[i];
+}
+
+// One 3x3 conv of the chain, bias and ReLU fused:
+//   sc_in == null:               out = relu(conv(in) + bias)
+//   sc_in != null, wsc == null:  out = relu(conv(in) + bias) + sc_in          (cin == C)
+//   wsc != null:                 out = relu(conv(in) + bias) + Wsc^T sc_in + bsc
+// The conv's K is split three ways by the taps' row: warp group s (4 warps)
+// sums the taps (s, 0..2), K = 3 cin padded to a multiple of 8, so each
+// warp's chain of dependent K steps is a third as long; group 2 also runs
+// the 1x1 shortcut. Groups 1 and 2 leave their sums in shared memory and
+// group 0 adds them, in that order, and writes the output.
+// At C = 16 the 64x128 levels have 256 blocks: registers are capped so that
+// two fit on an SM and the grid runs in one wave (80 a thread; the C = 32
+// grids have 128 blocks and keep what the compiler chooses).
+template <typename T, int C>
+__global__ void __launch_bounds__(NTHREADS, C == 16 ? 2 : 1)
+conv3x3_kernel(const T* __restrict__ in, int cin, const typename Prec<T>::Frag* __restrict__ wf,
+               const float* __restrict__ bias, T* __restrict__ out, const T* __restrict__ sc_in, int sc_cin,
+               const typename Prec<T>::Frag* __restrict__ wsc, const float* __restrict__ bsc, int H, int W) {
+  constexpr int TH = tile_rows<C>();
+  constexpr int NT8 = C / 8;
+  extern __shared__ float4 smem4[];
+  const int kp = pad8(3 * cin), kps = wsc != nullptr ? pad8(sc_cin) : 0;
+  const int stride = pixel_stride(cin), sstride = pixel_stride(sc_cin);
+  float4* red = smem4;  // [3][WARPS][32]: groups 1 and 2's conv sums, group 2's shortcut
+  int* koff = reinterpret_cast<int*>(red + 3 * WARPS * 32);
+  int* koffs = koff + kp;
+  float* hi = reinterpret_cast<float*>(koffs + kps);
+  float* lo = hi + (TH + 2) * XW * stride;
+  float* xhi = hi + Prec<T>::PLANES * (TH + 2) * XW * stride;
+  float* xlo = xhi + TH * TW * sstride;
+
+  const int b = blockIdx.z, h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
+  for (int k = threadIdx.x; k < kp; k += NTHREADS) {  // tap (s, k / cin) of group s, channel k % cin
+    const int dw = k / cin, ci = k - dw * cin;
+    koff[k] = k < 3 * cin ? dw * stride + ci : 0;
+  }
+  for (int k = threadIdx.x; k < kps; k += NTHREADS) koffs[k] = k < sc_cin ? k : 0;
+  stage<T, XW>(hi, lo, in + (size_t)b * H * W * cin, cin, TH + 2, h0 - 1, w0 - 1, H, W);
+  if (wsc != nullptr) stage<T, TW>(xhi, xlo, sc_in + (size_t)b * H * W * sc_cin, sc_cin, TH, h0, w0, H, W);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int s = warp / WARPS, w = warp % WARPS, wm = w / NT8, wn = w % NT8;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  gemm<T>(acc, hi, lo, ((wm + s) * XW + g) * stride, ((wm + s) * XW + g + 8) * stride, koff, kp,
+          wf + (size_t)s * (kp / 8) * NT8 * 32 + wn * 32, NT8);
+  if (s > 0) red[((s - 1) * WARPS + w) * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  if (s == 2 && wsc != nullptr) {
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    gemm<T>(sc, xhi, xlo, (wm * TW + g) * sstride, (wm * TW + g + 8) * sstride, koffs, kps, wsc + wn * 32, NT8);
+    red[(2 * WARPS + w) * 32 + lane] = make_float4(sc[0], sc[1], sc[2], sc[3]);
+  }
+  __syncthreads();
+
+  const int oh = h0 + wm, n = wn * 8 + 2 * t;
+  if (s != 0 || oh >= H) return;
+  const float4 r1 = red[w * 32 + lane], r2 = red[(WARPS + w) * 32 + lane];
+  acc[0] += r1.x + r2.x;
+  acc[1] += r1.y + r2.y;
+  acc[2] += r1.z + r2.z;
+  acc[3] += r1.w + r2.w;
+  const float4 rs = red[(2 * WARPS + w) * 32 + lane];
+  const float sc[4] = {rs.x, rs.y, rs.z, rs.w};
+  const float bb0 = __ldg(bias + n), bb1 = __ldg(bias + n + 1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int ow = w0 + g + 8 * half;
+    if (ow >= W) continue;
+    const size_t o = (((size_t)b * H + oh) * W + ow) * C + n;
+    float v0 = fmaxf(acc[2 * half] + bb0, 0.f), v1 = fmaxf(acc[2 * half + 1] + bb1, 0.f);
+    if (wsc != nullptr) {
+      v0 += sc[2 * half] + __ldg(bsc + n);
+      v1 += sc[2 * half + 1] + __ldg(bsc + n + 1);
+    } else if (sc_in != nullptr) {
+      v0 += load(sc_in, o);
+      v1 += load(sc_in, o + 1);
+    }
+    store2(out, o, v0, v1);
   }
 }
 
 template <typename T, int C>
-cudaError_t launch(const void* x, void* out, const float* w1, const float* b1, const float* w2,
-                   const float* b2, const float* wsc, const float* bsc, int B, int H, int W, int cin,
-                   cudaStream_t stream) {
-  using G = Geo<C>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(conv_block_res_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(smem_floats<C>(MAX_CIN) * sizeof(float)));
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const int cinp = (cin + 3) / 4 * 4;
-  dim3 grid((W + G::TW - 1) / G::TW, (H + G::TH - 1) / G::TH, B);
-  conv_block_res_kernel<T, C><<<grid, NTHREADS, smem_floats<C>(cinp) * sizeof(float), stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), w1, b1, w2, b2, wsc, bsc, H, W, cin, cinp);
+cudaError_t conv(const T* in, int cin, const void* wf, const float* bias, T* out, const T* sc_in, int sc_cin,
+                 const void* wsc, const float* bsc, int B, int H, int W, cudaStream_t stream) {
+  using Frag = typename Prec<T>::Frag;
+  constexpr int TH = tile_rows<C>();
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  const size_t smem = smem_words<T, C>(cin, wsc != nullptr ? sc_cin : 0) * 4;
+  conv3x3_kernel<T, C><<<grid, NTHREADS, smem, stream>>>(in, cin, static_cast<const Frag*>(wf), bias, out, sc_in,
+                                                          sc_cin, static_cast<const Frag*>(wsc), bsc, H, W);
   return cudaGetLastError();
 }
 
+template <typename T, int C>
+cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int n_blocks, int B, int H, int W,
+                  int cin, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(smem_words<T, C>(MAX_CIN, MAX_CIN) * 4));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const size_t act = (size_t)B * H * W * C;
+  T* y1 = scratch;
+  T* ping[2] = {scratch + act, scratch + 2 * act};
+  const T* src = x;
+  for (int i = 0; i < n_blocks; ++i) {
+    const void* const* p = params + 6 * i;
+    T* dst = i + 1 == n_blocks ? out : ping[i % 2];
+    cudaError_t e = conv<T, C>(src, cin, p[0], static_cast<const float*>(p[1]), y1, nullptr, 0, nullptr,
+                               nullptr, B, H, W, stream);
+    if (e != cudaSuccess) return e;
+    e = conv<T, C>(y1, C, p[2], static_cast<const float*>(p[3]), dst, src, cin, p[4],
+                   static_cast<const float*>(p[5]), B, H, W, stream);
+    if (e != cudaSuccess) return e;
+    src = dst;
+    cin = C;
+  }
+  return cudaSuccess;
+}
+
 template <typename T>
-cudaError_t launch_c(int C, const void* x, void* out, const float* w1, const float* b1,
-                     const float* w2, const float* b2, const float* wsc, const float* bsc, int B,
-                     int H, int W, int cin, cudaStream_t stream) {
+cudaError_t chain_c(int C, const void* x, void* out, void* scratch, const void* const* params, int n_blocks, int B,
+                    int H, int W, int cin, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  T* st = static_cast<T*>(scratch);
   switch (C) {
-    case 16: return launch<T, 16>(x, out, w1, b1, w2, b2, wsc, bsc, B, H, W, cin, stream);
-    case 32: return launch<T, 32>(x, out, w1, b1, w2, b2, wsc, bsc, B, H, W, cin, stream);
+    case 16: return chain<T, 16>(xt, ot, st, params, n_blocks, B, H, W, cin, s);
+    case 32: return chain<T, 32>(xt, ot, st, params, n_blocks, B, H, W, cin, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x: [B, H, W, cin], out: [B, H, W, C] in the activation type (dtype 0
-// float32, 1 bfloat16); w1: [3][3][cin][C], w2: [3][3][C][C], wsc: [cin][C]
-// or null for the identity shortcut (cin == C); b1, b2, bsc: [C]; all
-// weights float32.
-extern "C" int rvc_conv_block_res(const void* x, void* out, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, const float* wsc,
-                                  const float* bsc, int B, int H, int W, int cin, int C, int dtype,
-                                  void* stream) {
-  if (cin < 1 || cin > MAX_CIN || (wsc == nullptr && cin != C)) return (int)cudaErrorInvalidValue;
+// A whole level: x [B, H, W, cin] -> out [B, H, W, C] in the activation type
+// (dtype 0 float32, 1 bfloat16); scratch: 3 B H W C elements of it. params:
+// 6 pointers per block, (W1, b1, W2, b2, Wsc, bsc), the weights packed by
+// ops/unet_block.py:pack_chain into mma fragments (float32 hi/lo for dtype
+// 0, bf16 for dtype 1), the biases float32, Wsc and bsc null for an
+// identity shortcut. Launches two kernels per block on `stream`. Returns a
+// CUDA error code (0 on success).
+extern "C" int rvc_conv_block_res_chain(const void* x, void* out, void* scratch, const void* const* params,
+                                        int n_blocks, int B, int H, int W, int cin, int C, int dtype,
+                                        void* stream) {
+  if (n_blocks < 1 || B < 1 || H < 1 || W < 1 || cin < 1 || cin > MAX_CIN) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_blocks; ++i)
+    if (params[6 * i + 4] == nullptr && (i == 0 ? cin : C) != C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0   ? launch_c<float>(C, x, out, w1, b1, w2, b2, wsc, bsc, B, H, W, cin, s)
-                  : dtype == 1 ? launch_c<__nv_bfloat16>(C, x, out, w1, b1, w2, b2, wsc, bsc, B, H, W,
-                                                         cin, s)
+  cudaError_t e = dtype == 0   ? chain_c<float>(C, x, out, scratch, params, n_blocks, B, H, W, cin, s)
+                  : dtype == 1 ? chain_c<__nv_bfloat16>(C, x, out, scratch, params, n_blocks, B, H, W, cin, s)
                                : cudaErrorInvalidValue;
   return (int)e;
 }

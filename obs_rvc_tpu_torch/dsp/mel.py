@@ -102,6 +102,10 @@ class MelSpectrogram:
         self.mel_basis = torch.from_numpy(
             mel_filterbank(sample_rate, fft_size, n_mels, f_min, f_max, htk=htk, norm=norm)
         ).to(self.device)
+        #: the basis the fused frontend takes on this device: the dense one on
+        #: the CPU, packed once for the kernel on a card
+        self.log_mel_basis = (stft_mel.pack_mel_basis(self.mel_basis) if self.device.type == "cuda"
+                              else self.mel_basis)
         #: the analysis window at keyshift 0
         self.window = hann_window_periodic(win_length, device=self.device)
         self._windows: dict[int, torch.Tensor] = {win_length: self.window}
@@ -121,7 +125,7 @@ class MelSpectrogram:
         like the JAX package's Pallas kernel, never computes the keyshift
         resize."""
         if keyshift == 0 and self.fft_size == self.win_length == stft_mel.CUDA_FFT_SIZE:
-            return stft_mel.log_mel(signal, self.mel_basis, self.window,
+            return stft_mel.log_mel(signal, self.log_mel_basis, self.window,
                                     hop_length=self.hop_length, clamp=self.clamp)
         factor = 2.0 ** (keyshift / 12.0)
         fft_size_new = int(round(self.fft_size * factor))

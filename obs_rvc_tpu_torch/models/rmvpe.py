@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from obs_rvc_tpu_torch.ops.unet_block import conv_block_res_chain, fold_bn
+from obs_rvc_tpu_torch.ops.unet_block import PackedChain, conv_block_res_chain, fold_bn, pack_chain
 
 N_MELS = 128
 N_CLASS = 360
@@ -79,22 +79,39 @@ class _Chain(nn.ModuleList):
         super().__init__([ConvBlockRes(in_ch, out_ch)]
                          + [ConvBlockRes(out_ch, out_ch) for _ in range(n_blocks - 1)])
         self.fused = fused
-        self._folded = None
-        self._folded_key = None
+        #: (weights' key, folded blocks, their packs by dtype), replaced as one
+        #: object on a refold, so threads sharing the module never pair a
+        #: pack with blocks of another weight version
+        self._fold = None
 
-    def _blocks(self) -> list[tuple]:
+    def _folded(self) -> tuple:
         key = tuple((p.data_ptr(), p._version) for p in self.parameters()) + tuple(
             (b.data_ptr(), b._version) for b in self.buffers()
         )
-        if self._folded_key != key:
+        fold = self._fold
+        if fold is None or fold[0] != key:
             with torch.no_grad():
-                self._folded = [blk.folded() for blk in self]
-            self._folded_key = key
-        return self._folded
+                fold = self._fold = (key, [blk.folded() for blk in self], {})
+        return fold
+
+    def _blocks(self) -> list[tuple]:
+        """The folded blocks, refolded when a parameter or buffer changed
+        since the last fold."""
+        return self._folded()[1]
+
+    def _packed(self, dtype: torch.dtype) -> PackedChain:
+        """The folded blocks packed for the chain kernel in ``dtype``, once
+        per weight version."""
+        _, blocks, packs = self._folded()
+        if dtype not in packs:
+            with torch.no_grad():
+                packs[dtype] = pack_chain(blocks, dtype)
+        return packs[dtype]
 
     def forward(self, x):  # NCHW
         if self.fused:
-            y = conv_block_res_chain(x.permute(0, 2, 3, 1).contiguous(), self._blocks())
+            blocks = self._packed(x.dtype) if x.device.type == "cuda" else self._blocks()
+            y = conv_block_res_chain(x.permute(0, 2, 3, 1).contiguous(), blocks)
             return y.permute(0, 3, 1, 2)
         for blk in self:
             x = blk(x)

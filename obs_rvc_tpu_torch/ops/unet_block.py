@@ -10,13 +10,19 @@ per block ``(W1 [3, 3, Cin_b, C], b1 [C], W2 [3, 3, C, C], b2 [C], Wsc
 :func:`fold_bn`.
 
 :func:`conv_block_res_chain` takes the plain PyTorch version for a tensor on
-the CPU and launches the CUDA kernel (``csrc/unet_block.cu``, one launch per
-block) for a tensor on a card; it never falls back from one to the other.
+the CPU and runs the CUDA kernel (``csrc/unet_block.cu``: implicit GEMMs on
+the tensor cores, 3xTF32 in float32 and bf16 in bfloat16; one C call per
+level, two launches per block) for a tensor on a card; it never falls back
+from one to the other. The plain version takes the folded blocks; the kernel
+takes only their :func:`pack_chain` (the weights in its mma fragments'
+order, float32 ones split into TF32 hi and lo on the host), which
+``models/rmvpe.py:_Chain`` makes once per weight version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +59,85 @@ def conv_block_res_chain_plain(x, blocks) -> torch.Tensor:
     return h.permute(0, 2, 3, 1)
 
 
-def conv_block_res_chain(x, blocks) -> torch.Tensor:
-    """Fused ConvBlockRes chain, ``[B, H, W, Cin] → [B, H, W, C]``."""
+class PackedChain(NamedTuple):
+    """A level's folded weights as the CUDA kernel reads them (see
+    :func:`pack_chain`), for one activation dtype."""
+
+    dtype: torch.dtype
+    device: torch.device
+    C: int
+    cin: int
+    #: per block ``(W1, b1, W2, b2, Wsc | None, bsc | None)``, weights as mma fragments
+    blocks: list
+    #: the blocks' pointers, six per block, as the C entry point takes them
+    params: ctypes.Array
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` with ``hi`` the float32 ``w`` rounded to TF32 (10-bit
+    mantissa, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and
+    ``lo = w - hi`` exactly, so ``hi + lo == w``."""
+    bits = w.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, w.float() - hi
+
+
+def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight ``[K, C]``, or ``[G, K, C]`` for G slabs of K one after the
+    other (the kernel's warp groups split a 3x3 conv's K by the taps' row:
+    ``[3, 3 * Cin, C]``, ``k = dw * Cin + ci``), in the order of the
+    ``mma.m16n8k8`` B fragments, each slab's K padded to a multiple of 8
+    with zeros: ``[G * Kp/8, C/8, 32 lanes, ...]``, lane ``4 g + t`` holding
+    column ``g`` of the n8 tile at rows ``t, t + 4`` of the k8 step as
+    ``(hi, hi, lo, lo)`` float32 (``dtype`` float32, 3xTF32), or at rows
+    ``2t, 2t + 1`` as two bfloat16 (``dtype`` bfloat16)."""
+    w = w.float().reshape(-1, *w.shape[-2:])
+    G, K, C = w.shape
+    kp = -(-K // 8) * 8
+    w = torch.cat([w, w.new_zeros((G, kp - K, C))], dim=1).reshape(G * kp, C)
+    nk = G * kp // 8
+    if dtype == torch.float32:
+        hi, lo = (a.reshape(nk, 2, 4, C // 8, 8).permute(0, 3, 4, 2, 1).reshape(nk, C // 8, 32, 2)
+                  for a in tf32_split(w))
+        return torch.cat([hi, lo], dim=-1).contiguous()
+    return w.to(dtype).reshape(nk, 4, 2, C // 8, 8).permute(0, 3, 4, 1, 2).reshape(nk, C // 8, 32, 2).contiguous()
+
+
+def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
+    """Check a level's folded blocks and pack them for the kernel in the
+    activation ``dtype``; the biases are rounded to ``dtype`` as the plain
+    version rounds them, and kept in float32."""
+    C = blocks[0][0].shape[-1]
+    cin = cin0 = blocks[0][0].shape[2]
+    out, ptrs = [], []
+    for i, (w1, b1, w2, b2, wsc, bsc) in enumerate(blocks):
+        if w1.shape != (3, 3, cin, C) or w2.shape != (3, 3, C, C):
+            raise ValueError(f"conv_block_res_chain: block {i} weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}")
+        if b1.shape != (C,) or b2.shape != (C,):
+            raise ValueError(f"conv_block_res_chain: block {i} bias shapes")
+        if wsc is None and cin != C:
+            raise ValueError(f"conv_block_res_chain: block {i} changes channels without a shortcut")
+        if wsc is not None and (bsc is None or bsc.shape != (C,)):
+            raise ValueError(f"conv_block_res_chain: block {i} shortcut bias shape")
+        if any(t is not None and t.device != blocks[0][0].device for t in (w1, b1, w2, b2, wsc, bsc)):
+            raise ValueError(f"conv_block_res_chain: block {i} weights on more than one device")
+        packed = (pack_weight(w1.reshape(3, 3 * cin, C), dtype), _kernel_weight(b1, dtype),
+                  pack_weight(w2.reshape(3, 3 * C, C), dtype), _kernel_weight(b2, dtype),
+                  None if wsc is None else pack_weight(wsc.reshape(cin, C), dtype),
+                  None if wsc is None else _kernel_weight(bsc, dtype))
+        out.append(packed)
+        ptrs += [0 if t is None else t.data_ptr() for t in packed]
+        cin = C
+    return PackedChain(dtype, blocks[0][0].device, C, cin0, out, (ctypes.c_void_p * len(ptrs))(*ptrs))
+
+
+def conv_block_res_chain(x, blocks: Union[list, PackedChain]) -> torch.Tensor:
+    """Fused ConvBlockRes chain, ``[B, H, W, Cin] → [B, H, W, C]``.
+    ``blocks`` is the folded blocks for ``x`` on the CPU, and their
+    :func:`pack_chain` in ``x.dtype`` for ``x`` on a card."""
     if x.device.type == "cpu":
+        if isinstance(blocks, PackedChain):
+            raise ValueError("conv_block_res_chain: on the CPU blocks are the folded blocks, not their pack")
         return conv_block_res_chain_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block_res_chain: unsupported device {x.device}")
@@ -66,45 +148,31 @@ def _kernel_weight(w, dt):
     return None if w is None else w.to(dt).float().contiguous()
 
 
-def _chain_cuda(x, blocks) -> torch.Tensor:
+def _chain_cuda(x, packed: PackedChain) -> torch.Tensor:
     global LAUNCHES
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("conv_block_res_chain: x must be a contiguous NHWC tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv_block_res_chain: unsupported dtype {x.dtype}")
+    if not isinstance(packed, PackedChain):
+        raise ValueError("conv_block_res_chain: on a card the blocks must be packed by pack_chain")
     B, H, W, cin = x.shape
-    C = blocks[0][0].shape[-1]
+    C = packed.C
     if C not in CUDA_CHANNELS:
         raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes C in {CUDA_CHANNELS}, got {C}")
     if cin > CUDA_MAX_CIN:
         raise NotImplementedError(f"conv_block_res_chain: Cin {cin} > {CUDA_MAX_CIN}")
-    fn = _cuda.function("unet_block", "rvc_conv_block_res",
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    dt_code = 0 if x.dtype == torch.float32 else 1
-    stream = _cuda.stream_of(x)
+    if packed.dtype != x.dtype or packed.cin != cin:
+        raise ValueError("conv_block_res_chain: the packed weights do not match x's dtype or channels")
+    if packed.device != x.device:
+        raise ValueError("conv_block_res_chain: weights must be on the activation's device")
+    fn = _cuda.function("unet_block", "rvc_conv_block_res_chain",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
-    tmp = [torch.empty_like(out), torch.empty_like(out)]
-    src = x
-    for i, (w1, b1, w2, b2, wsc, bsc) in enumerate(blocks):
-        if w1.shape != (3, 3, cin, C) or w2.shape != (3, 3, C, C):
-            raise ValueError(f"conv_block_res_chain: block {i} weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}")
-        if b1.shape != (C,) or b2.shape != (C,):
-            raise ValueError(f"conv_block_res_chain: block {i} bias shapes")
-        if wsc is None and cin != C:
-            raise ValueError(f"conv_block_res_chain: block {i} changes channels without a shortcut")
-        if wsc is not None:
-            wsc = wsc.reshape(cin, C)
-            if bsc is None or bsc.shape != (C,):
-                raise ValueError(f"conv_block_res_chain: block {i} shortcut bias shape")
-        for t in (w1, b1, w2, b2, wsc, bsc):
-            if t is not None and t.device != x.device:
-                raise ValueError("conv_block_res_chain: weights must be on the activation's device")
-        dst = out if i + 1 == len(blocks) else tmp[i % 2]
-        w1f, b1f, w2f, b2f, wscf, bscf = (_kernel_weight(t, x.dtype) for t in (w1, b1, w2, b2, wsc, bsc))
-        rc = fn(_cuda.ptr(src), _cuda.ptr(dst), _cuda.ptr(w1f), _cuda.ptr(b1f), _cuda.ptr(w2f),
-                _cuda.ptr(b2f), _cuda.ptr(wscf), _cuda.ptr(bscf), B, H, W, cin, C, dt_code, stream)
-        _cuda.check(rc, f"conv_block_res_chain (block {i}, {cin}->{C})")
-        src, cin = dst, C
+    scratch = torch.empty((3, B, H, W, C), dtype=x.dtype, device=x.device)
+    rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
+            len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, _cuda.stream_of(x))
+    _cuda.check(rc, f"conv_block_res_chain ({cin}->{C}, {len(packed.blocks)} blocks)")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1
     return out

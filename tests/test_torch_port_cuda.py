@@ -17,9 +17,11 @@ cuDNN in another order, over up to 11 * 64 * 2 terms per output. bfloat16
 bounds are the JAX package's own for these kernels (bank 3e-2/2e-2, chain
 5e-2/2e-2). TF32 is off for the plain versions. The log-mel kernel is held
 to the JAX package's own bound for its Pallas kernel (2e-4 abs / 1e-4 rel):
-the DFT sums 1024 products per bin in another order than the plain
-version's matmul, and the log turns that relative error into an absolute
-one.
+its FFT sums each bin in another order than the plain version's DFT
+matmul, and the log turns that relative error into an absolute one. The
+chain's float32 products run as 3xTF32 on the tensor cores, which keeps
+float32's accuracy; its bf16 ones as one bf16 product with float32
+accumulation.
 """
 
 import numpy as np
@@ -112,7 +114,33 @@ def _chain(rng, B, H, W, cin, C, n_blocks, device):
 def test_unet_chain_kernel_matches_plain(cuda, cin, C, H, W, B, dtype):
     x, blocks = _chain(np.random.default_rng(cin * 100 + C), B, H, W, cin, C, 3, cuda)
     x = x.to(dtype)
-    got = unet_block.conv_block_res_chain(x, blocks)
+    got = unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, dtype))
+    want = unet_block.conv_block_res_chain_plain(x, blocks)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype
+    _close(got, want, *BOUNDS["chain"][dtype])
+
+
+# the four main-path levels of the full RMVPE (64 frames x 128 mels), four blocks each
+MAIN_LEVELS = [(1, 16, 64, 128), (32, 16, 64, 128), (16, 32, 32, 64), (64, 32, 32, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,C,H,W,B,n", [
+    (1, 16, 13, 37, 3, 2),    # Cin 1, off the 2x16 tile grid, a batch of 3
+    (3, 32, 5, 19, 3, 2),     # Cin 3: K = 27, padded to 32
+    (16, 32, 9, 33, 1, 2),
+    (32, 32, 3, 17, 2, 3),    # identity shortcut from the first block
+    (64, 16, 6, 40, 2, 2),    # the widest input at C = 16
+    *[(cin, C, H, W, 1, 4) for cin, C, H, W in MAIN_LEVELS],
+])
+def test_unet_chain_kernel_at_edges_and_main_levels(cuda, cin, C, H, W, B, n, dtype):
+    x, blocks = _chain(np.random.default_rng(cin * 1000 + H * W), B, H, W, cin, C, n, cuda)
+    x = x.to(dtype)
+    packed = unet_block.pack_chain(blocks, dtype)
+    before = unet_block.LAUNCHES
+    got = unet_block.conv_block_res_chain(x, packed)
+    assert unet_block.LAUNCHES == before + 1  # one C call runs the whole level
     want = unet_block.conv_block_res_chain_plain(x, blocks)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype
@@ -127,7 +155,7 @@ def test_wrappers_count_one_launch_per_call(cuda):
     assert resblock.LAUNCHES == before + 1
     x, blocks = _chain(rng, 1, 8, 16, 1, 16, 4, cuda)
     before = unet_block.LAUNCHES
-    unet_block.conv_block_res_chain(x, blocks)
+    unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, x.dtype))
     assert unet_block.LAUNCHES == before + 1
 
 
@@ -138,6 +166,8 @@ def test_wrappers_refuse_what_no_kernel_is_built_for(cuda):
         resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
     x, blocks = _chain(rng, 1, 8, 16, 8, 64, 1, cuda)
     with pytest.raises(NotImplementedError):
+        unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, x.dtype))
+    with pytest.raises(ValueError, match="pack_chain"):  # on a card the kernel takes only the pack
         unet_block.conv_block_res_chain(x, blocks)
 
 
@@ -151,9 +181,11 @@ def _voiced_16k(n, seed=0):
 
 @pytest.mark.parametrize("L,kind", [
     (100, "normal"),     # shorter than one hop: T=1, the padding reflects more than once
-    (9920, "voiced"),    # T=63, off the 4-frame block grid
+    (320, "voiced"),     # T=3
+    (9920, "voiced"),    # T=63
     (10080, "voiced"),   # T=64, the main path's shape
     (10080, "normal"),
+    (10400, "voiced"),   # T=66
     (48000, "voiced"),   # T=301, an offline length
     (10080, "silence"),
     (10080, "loud"),     # x1e3 amplitude
@@ -166,7 +198,7 @@ def test_log_mel_kernel_matches_plain(cuda, L, kind):
     mel = MelSpectrogram(device=cuda)
     basis, win = mel.mel_basis, mel.window
     before = stft_mel.LAUNCHES
-    got = stft_mel.log_mel(sig, basis, win)
+    got = stft_mel.log_mel(sig, mel.log_mel_basis, win)
     assert stft_mel.LAUNCHES == before + 1
     want = stft_mel.log_mel_plain(sig, basis, win)
     torch.cuda.synchronize()
@@ -176,9 +208,34 @@ def test_log_mel_kernel_matches_plain(cuda, L, kind):
     _close(got, want, *BOUNDS["mel"])
 
 
+@pytest.mark.parametrize("basis_kind", ["dense", "mels80", "slaney"])
+@pytest.mark.parametrize("kind", ["voiced", "silence", "loud"])
+def test_log_mel_kernel_takes_any_basis(cuda, basis_kind, kind):
+    """A dense random basis (many shared-memory pieces), 80 rows, the
+    Slaney-scale filters: the same kernel, from the basis's packed form."""
+    from obs_rvc_tpu_torch.dsp.mel import mel_filterbank
+
+    rng = np.random.default_rng(7)
+    basis = {"dense": np.abs(rng.standard_normal((128, 513))).astype(np.float32) / 64,
+             "mels80": mel_filterbank(16000, 1024, 80, 40.0, 7600.0),
+             "slaney": mel_filterbank(16000, 1024, 128, 30.0, 8000.0, htk=False)}[basis_kind]
+    basis = torch.from_numpy(basis).to(cuda)
+    L = 10080
+    x = {"voiced": _voiced_16k(L), "silence": np.zeros(L, np.float32), "loud": 1e3 * _voiced_16k(L)}[kind]
+    sig = torch.from_numpy(x).to(cuda)
+    win = MelSpectrogram(device=cuda).window
+    got = stft_mel.log_mel(sig, stft_mel.pack_mel_basis(basis), win)
+    want = stft_mel.log_mel_plain(sig, basis, win)
+    torch.cuda.synchronize()
+    assert got.shape == (basis.shape[0], 64)
+    if kind == "silence":
+        torch.testing.assert_close(got, torch.full_like(got, float(np.log(1e-5))), atol=1e-5, rtol=0)
+    _close(got, want, *BOUNDS["mel"])
+
+
 def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     mel = MelSpectrogram(device=cuda)
-    basis, win = mel.mel_basis, mel.window
+    basis, win = mel.log_mel_basis, mel.window
     x = torch.zeros(2 * 10080, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         stft_mel.log_mel(x[::2], basis, win)
@@ -186,6 +243,8 @@ def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         stft_mel.log_mel(torch.zeros(10080, dtype=torch.float64, device=cuda), basis, win)
     with pytest.raises(NotImplementedError, match="1024"):
         stft_mel.log_mel(x, torch.zeros(128, 257, device=cuda), torch.ones(512, device=cuda))
+    with pytest.raises(ValueError, match="pack_mel_basis"):  # on a card the kernel takes only the packed basis
+        stft_mel.log_mel(x[:10080], mel.mel_basis, win)
     # the CPU takes the plain version, whatever the layout or type
     cpu = MelSpectrogram(device="cpu")
     assert stft_mel.log_mel(torch.zeros(20160, dtype=torch.float64)[::2], cpu.mel_basis,

@@ -136,4 +136,5 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         t_resblock._resblock_bank_cuda(torch.zeros((1, 64, 32), dtype=torch.float16), [], (3,), (1,))
     w = torch.zeros((3, 3, 8, 8))
     with pytest.raises(NotImplementedError, match="C in"):
-        t_unet._chain_cuda(torch.zeros((1, 4, 8, 8)), [(w, torch.zeros(8), w, torch.zeros(8), None, None)])
+        t_unet._chain_cuda(torch.zeros((1, 4, 8, 8)),
+                           t_unet.pack_chain([(w, torch.zeros(8), w, torch.zeros(8), None, None)], torch.float32))

@@ -1,0 +1,223 @@
+"""The host-side packing the CUDA kernels read, checked on the CPU.
+
+- ``ops/stft_mel.py:pack_mel_basis``: the log-mel kernel's sparse basis
+  (each row's run of weights from its first to its last nonzero bin, cut
+  into pieces of at most ``PIECE`` weights) rebuilds the dense basis
+  exactly, for the step's HTK basis, a Slaney-scale one, a random dense one
+  and one of 80 rows.
+- ``ops/unet_block.py:tf32_split`` / ``pack_weight`` / ``pack_chain``: the
+  chain kernel's weights in the order of the ``mma.m16n8k8`` B fragments,
+  a 3x3 conv's K in three slabs (one per tap row);
+  float32 split into a TF32 ``hi`` (10-bit mantissa) and ``lo = w - hi``,
+  exactly; bfloat16 rounded. They unpack to the folded weights.
+- ``models/rmvpe.py:_Chain`` repacks when a parameter changes.
+
+The kernels themselves run only on a card (``test_torch_port_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram, mel_filterbank
+from obs_rvc_tpu_torch.models.rmvpe import _Chain
+from obs_rvc_tpu_torch.ops import stft_mel
+from obs_rvc_tpu_torch.ops import unet_block as U
+
+from test_torch_port_models import few_torch_threads  # noqa: F401 (autouse fixture)
+
+
+def unpack_mel_basis(packed: stft_mel.PackedMelBasis) -> torch.Tensor:
+    """The dense ``[n_mels, n_bins]`` basis a packed one stands for."""
+    starts, offs = packed.row_start.tolist(), packed.row_off.tolist()
+    w = packed.weights.cpu()
+    out = torch.zeros((len(starts), packed.n_bins), dtype=torch.float32)
+    for m, lo in enumerate(starts):
+        out[m, lo : lo + offs[m + 1] - offs[m]] = w[offs[m] : offs[m + 1]]
+    return out
+
+
+def unpack_weight(frag: torch.Tensor, K: int, groups: int = 1) -> torch.Tensor:
+    """The float32 weight ``U.pack_weight`` packed (``hi + lo`` for float32
+    fragments), ``[groups * K, C]``: ``groups`` slabs of ``K`` rows."""
+    nk, nt = frag.shape[:2]
+    if frag.dtype == torch.float32:
+        w = (frag[..., :2] + frag[..., 2:]).reshape(nk, nt, 8, 4, 2).permute(0, 4, 3, 1, 2)
+    else:
+        w = frag.float().reshape(nk, nt, 8, 4, 2).permute(0, 3, 4, 1, 2)
+    return w.reshape(groups, nk * 8 // groups, nt * 8)[:, :K].reshape(groups * K, nt * 8)
+
+
+def _bases():
+    rng = np.random.default_rng(0)
+    dense = rng.standard_normal((128, 513)).astype(np.float32)
+    dense[:, 0] = 0.0  # a leading zero column, so rows start past bin 0
+    holes = mel_filterbank(16000, 1024, 128, 30.0, 8000.0).copy()
+    holes[5] = 0.0  # an empty row
+    holes[7, 40:45] = 0.0  # zeros inside a row's run
+    return {
+        "htk": mel_filterbank(16000, 1024, 128, 30.0, 8000.0, htk=True),
+        "slaney": mel_filterbank(16000, 1024, 128, 30.0, 8000.0, htk=False),
+        "dense": dense,
+        "mels80": mel_filterbank(16000, 1024, 80, 40.0, 7600.0),
+        "holes": holes,
+    }
+
+
+@pytest.mark.parametrize("name", ["htk", "slaney", "dense", "mels80", "holes"])
+def test_packed_mel_basis_rebuilds_the_dense_basis(name):
+    basis = torch.from_numpy(_bases()[name])
+    packed = stft_mel.pack_mel_basis(basis)
+    assert packed.row_start.dtype == packed.row_off.dtype == packed.pieces.dtype == torch.int32
+    torch.testing.assert_close(unpack_mel_basis(packed), basis, rtol=0, atol=0)
+    # every piece of rows fits the kernel's shared-memory stage, and they cover the rows in order
+    cuts, offs = packed.pieces.tolist(), packed.row_off.tolist()
+    assert cuts[0] == 0 and cuts[-1] == basis.shape[0] and cuts == sorted(set(cuts))
+    assert all(offs[b] - offs[a] <= stft_mel.PIECE for a, b in zip(cuts, cuts[1:]))
+    starts = packed.row_start.tolist()
+    assert all(0 <= s and s + offs[m + 1] - offs[m] <= basis.shape[1] for m, s in enumerate(starts))
+
+
+def test_the_step_basis_packs_small_and_in_one_piece():
+    """The default basis is triangles: ~1000 weights, one shared-memory stage."""
+    mel = MelSpectrogram(device="cpu")
+    assert mel.log_mel_basis is mel.mel_basis  # the CPU's plain version takes the dense basis
+    packed = stft_mel.pack_mel_basis(mel.mel_basis)  # what a MelSpectrogram on a card holds
+    nnz = int((mel.mel_basis != 0).sum())
+    assert packed.weights.numel() >= nnz and 4 * packed.weights.numel() < 5 * 1024
+    assert packed.pieces.tolist() == [0, 128]
+    dense = stft_mel.pack_mel_basis(torch.from_numpy(_bases()["dense"]))
+    assert dense.pieces.numel() - 1 == -(-128 * 512 // stft_mel.PIECE)
+
+
+def test_log_mel_cuda_wrapper_checks_the_packed_basis():
+    """The checks a CUDA launch runs first, exercised without a card."""
+    mel = MelSpectrogram(device="cpu")
+    x = torch.zeros(10080)
+    packed = stft_mel.pack_mel_basis(mel.mel_basis)
+    with pytest.raises(ValueError, match="pack_mel_basis"):  # the kernel takes only the packed form
+        stft_mel._log_mel_cuda(x, mel.mel_basis, mel.window, 160, 1e-5)
+    with pytest.raises(ValueError, match="513 bins"):
+        stft_mel._log_mel_cuda(x, stft_mel.pack_mel_basis(torch.ones(128, 257)), mel.window, 160, 1e-5)
+    on_meta = stft_mel.PackedMelBasis(*(t.to("meta") for t in packed[:4]), packed.n_bins)
+    with pytest.raises(ValueError, match="device"):
+        stft_mel._log_mel_cuda(x, on_meta, mel.window, 160, 1e-5)
+    with pytest.raises(ValueError, match="dense"):  # and the plain version only the dense one
+        stft_mel.log_mel(x, packed, mel.window)
+
+
+def test_tf32_split_rounds_to_ten_mantissa_bits_and_keeps_the_rest():
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 4, 4096),
+        [0.0, -0.0, 1.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-11 - 2.0**-23, 3.0e-39],
+    ]).astype(np.float32))
+    hi, lo = U.tf32_split(w)
+    assert not bool((hi.view(torch.int32) & 0x1FFF).any())  # 10-bit mantissa
+    torch.testing.assert_close(hi + lo, w, rtol=0, atol=0)
+    normal = w.abs() >= 2.0**-126  # half a TF32 ulp, relative, where the exponent is not the least
+    assert bool((lo.abs() <= w.abs() * 2.0**-11)[normal].all())
+    # to nearest, ties away from zero, as cvt.rna.tf32.f32
+    assert hi[-5:-1].tolist() == [1.0, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,C", [(1, 16), (3, 32), (16, 16), (64, 32)])
+def test_packed_weight_unpacks_and_follows_the_fragment_order(cin, C, dtype):
+    """A 3x3 weight packs as three slabs, one per tap row (the kernel's warp
+    groups), each of K = 3 Cin padded to a multiple of 8."""
+    rng = np.random.default_rng(cin * 100 + C)
+    w = torch.from_numpy(rng.standard_normal((3, 3, cin, C)).astype(np.float32))
+    frag = U.pack_weight(w.reshape(3, 3 * cin, C), dtype)
+    kp = -(-3 * cin // 8) * 8
+    assert frag.shape == (3 * kp // 8, C // 8, 32, 4 if dtype == torch.float32 else 2) and frag.dtype == dtype
+    want = w.reshape(9 * cin, C)
+    want = want if dtype == torch.float32 else want.to(dtype).float()
+    torch.testing.assert_close(unpack_weight(frag, 3 * cin, groups=3), want, rtol=0, atol=0)
+    # lane 4g + t of the n8 tile nt at K step kb holds column nt*8 + g at rows
+    # (t, t+4) for TF32 (hi, hi, lo, lo), (2t, 2t+1) for bf16; K padding is zero
+    wp = torch.cat([w.reshape(3, 3 * cin, C), torch.zeros(3, kp - 3 * cin, C)], dim=1).reshape(3 * kp, C)
+    hi, lo = U.tf32_split(wp)
+    for kb, nt, lane in [(0, 0, 0), (kp // 8, C // 8 - 1, 31), (3 * kp // 8 - 1, 1, 13)]:
+        g, t, n = lane // 4, lane % 4, nt * 8 + lane // 4
+        if dtype == torch.float32:
+            rows = [kb * 8 + t, kb * 8 + t + 4]
+            assert frag[kb, nt, lane].tolist() == [hi[rows[0], n], hi[rows[1], n], lo[rows[0], n], lo[rows[1], n]]
+        else:
+            rows = [kb * 8 + 2 * t, kb * 8 + 2 * t + 1]
+            assert frag[kb, nt, lane].float().tolist() == wp[rows, n].to(dtype).float().tolist()
+
+
+def _chain(in_ch, out_ch, seed=0):
+    torch.manual_seed(seed)
+    chain = _Chain(in_ch, out_ch, 3, fused=True).eval()
+    with torch.no_grad():
+        for blk in chain:  # BatchNorm statistics away from the identity, so folding shows
+            for bn in (blk.conv[1], blk.conv[4]):
+                bn.weight.uniform_(0.5, 1.5)
+                bn.bias.normal_(0, 0.1)
+                bn.running_mean.normal_(0, 0.1)
+                bn.running_var.uniform_(0.5, 1.5)
+    return chain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_chain_unpacks_to_the_folded_weights(dtype):
+    chain = _chain(32, 16)
+    blocks = chain._blocks()
+    packed = chain._packed(dtype)
+    assert packed.dtype == dtype and packed.C == 16 and packed.cin == 32 and len(packed.params) == 6 * 3
+    for (w1, b1, w2, b2, wsc, bsc), (f1, c1, f2, c2, fsc, csc) in zip(blocks, packed.blocks):
+        cin = w1.shape[2]
+        for w, f, groups in ((w1, f1, 3), (w2, f2, 3), (wsc, fsc, 1)):
+            if w is None:
+                assert f is None
+                continue
+            w = w.reshape(-1, 16)
+            want = w if dtype == torch.float32 else w.to(dtype).float()
+            torch.testing.assert_close(unpack_weight(f, w.shape[0] // groups, groups), want, rtol=0, atol=0)
+        for b, c in ((b1, c1), (b2, c2), (bsc, csc)):
+            if b is not None:
+                assert c.dtype == torch.float32
+                torch.testing.assert_close(c, b.to(dtype).float(), rtol=0, atol=0)
+        assert (wsc is None) == (cin == 16)
+    # the pointer table the C entry point walks: six per block, null for an identity shortcut
+    assert [p or 0 for p in packed.params[6:12]][4:] == [0, 0]
+    assert packed.params[0] == packed.blocks[0][0].data_ptr()
+
+
+def test_chain_repacks_when_a_parameter_changes():
+    chain = _chain(16, 32, seed=1)
+    first = chain._packed(torch.float32)
+    assert chain._packed(torch.float32) is first  # cached per weight version
+    bf = chain._packed(torch.bfloat16)
+    assert bf is not first and chain._packed(torch.bfloat16) is bf
+    with torch.no_grad():
+        chain[1].conv[3].weight.mul_(2.0)  # an in-place update bumps _version
+    again = chain._packed(torch.float32)
+    assert again is not first and chain._packed(torch.bfloat16) is not bf
+    w2 = chain._blocks()[1][2].reshape(-1, 32)
+    torch.testing.assert_close(unpack_weight(again.blocks[1][2], 96, groups=3), w2, rtol=0, atol=0)
+    assert not torch.equal(unpack_weight(first.blocks[1][2], 96, groups=3), w2)
+    with torch.no_grad():
+        chain[0].conv[1].running_var.add_(0.5)  # a buffer too
+    assert chain._packed(torch.float32) is not again
+
+
+def test_chain_cuda_wrapper_checks_the_packed_weights():
+    """The checks a CUDA launch runs first, exercised without a card."""
+    chain = _chain(16, 16, seed=2)
+    blocks = chain._blocks()
+    x = torch.zeros((1, 4, 16, 16))
+    with pytest.raises(ValueError, match="pack_chain"):  # the kernel takes only the packed form
+        U._chain_cuda(x, blocks)
+    with pytest.raises(ValueError, match="packed"):
+        U._chain_cuda(x, chain._packed(torch.bfloat16))
+    with pytest.raises(ValueError, match="packed"):
+        U._chain_cuda(torch.zeros((1, 4, 16, 32)), chain._packed(torch.float32))
+    with pytest.raises(ValueError, match="folded"):  # and the plain version only the folded blocks
+        U.conv_block_res_chain(x, chain._packed(torch.float32))
+    bad = [list(b) for b in blocks]
+    bad[1][1] = torch.zeros(8)
+    with pytest.raises(ValueError, match="bias"):
+        U.pack_chain([tuple(b) for b in bad], torch.float32)
