@@ -2,7 +2,7 @@
 """Drive the PyTorch port's streaming step on one CUDA card and check it.
 
     python3 chip_smoke.py            # every phase; needs one card
-    python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level
+    python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level and bank
 
 Phases, each printing its own lines:
 
@@ -30,9 +30,11 @@ Phases, each printing its own lines:
 6. timing  step p50/p95; each kernel's device time (CUDA events around a
            CUDA graph of its calls) beside its bound, its plain version, one
            PyTorch composite of the same function and its eager call; the
-           U-Net chain level by level beside cuDNN, its bound at the 3xTF32
-           rate its float32 path runs at (165 TFLOP/s) with float32's 67
-           TFLOP/s beside it; peak device memory
+           U-Net chain and the resblock bank level by level beside cuDNN,
+           their bounds at the 3xTF32 rate their float32 paths run at (165
+           TFLOP/s) with float32's 67 TFLOP/s beside them, the bank's grid
+           (blocks, blocks an SM holds, the share of conv1's rows recomputed
+           as halo); peak device memory
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel. The last line is
@@ -57,9 +59,10 @@ import numpy as np
 
 F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 without tensor cores
 #: H100 SXM, float32 products as three TF32 tensor-core products (3xTF32: 495 / 3 TFLOP/s),
-#: the rate the chain kernel's float32 path can reach
+#: the rate the chain's and the bank's float32 paths can reach
 TF32X3_PEAK_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+N_SMS = 132  # H100 SXM
 SEED = 0
 #: chunks streamed through the step on the card (the first 4 are warm-up)
 N_CHUNKS = 24
@@ -214,6 +217,23 @@ def bank_flops_bytes(B, L, C, elem=4):
     return flops, 2 * B * L * C * elem + wbytes
 
 
+def bank_grid(B, L, C, dtype):
+    """The bank kernel's launches at one level: the grid, what an SM holds
+    (at the largest dilation, whose halo takes the most shared memory), the
+    waves over the card's SMs and the share of the first conv's rows a
+    block computes as its neighbours' halo, per kernel size."""
+    from obs_rvc_tpu_torch.ops import resblock
+
+    out = {}
+    for k in BANK_KS:
+        info = resblock.launch_info(C, k, max(BANK_DILS), dtype)
+        blocks = B * -(-L // info["tile"])
+        rows = blocks * (info["conv1_rows"] + info["tile"])  # conv1's and conv2's m16 rows, all blocks
+        out[k] = dict(info, blocks=blocks, waves=blocks / (N_SMS * info["blocks_per_sm"]),
+                      recomputed=1.0 - 2 * B * L / rows)
+    return out
+
+
 def mel_inputs(L, kind, device, rng):
     import torch
 
@@ -287,7 +307,7 @@ def phase_parity(report):
         x, params = bank_inputs(label, B, L, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
-            got = resblock.resblock_bank(xd, params, BANK_KS, BANK_DILS)
+            got = resblock.resblock_bank(xd, resblock.pack_bank(params, BANK_KS, BANK_DILS, dt), BANK_KS, BANK_DILS)
             want = resblock.resblock_bank_plain(xd, params, BANK_KS, BANK_DILS)
             torch.cuda.synchronize()
             atol, rtol = bounds["bank"][dt]
@@ -834,9 +854,41 @@ def phase_timing(report, trace=False):
                   f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows.values()):.4f} ms (float32 CUDA cores)")
     for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES:
         x, params = bank_inputs(label, B, L, C, dev, rng)
-        measure("resblock_bank", label, lambda: resblock.resblock_bank(x, params, BANK_KS, BANK_DILS),
+        packed = resblock.pack_bank(params, BANK_KS, BANK_DILS, x.dtype)  # as GeneratorNSF caches it
+        flops, nbytes = bank_flops_bytes(B, L, C)
+        measure("resblock_bank", label, lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS),
                 lambda: resblock.resblock_bank_plain(x, params, BANK_KS, BANK_DILS),
-                bank_library(x, params), *bank_flops_bytes(B, L, C))
+                bank_library(x, params), flops, nbytes, peak=TF32X3_PEAK_FLOPS)
+        r = rows["resblock_bank"][label]
+        r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
+        r["grid"] = bank_grid(B, L, C, x.dtype)
+        for k, gr in r["grid"].items():
+            log("timing", f"bank {label} k={k}: {gr['blocks']} blocks of {gr['threads']} threads, "
+                          f"{gr['tile']} positions each, {gr['smem_bytes']} B shared memory at d={max(BANK_DILS)}, "
+                          f"{gr['registers']} registers; {gr['blocks_per_sm']} blocks an SM, "
+                          f"{gr['waves']:.2f} waves over {N_SMS} SMs; conv1 {gr['conv1_rows']} rows a block, "
+                          f"{gr['recomputed']:.1%} of the conv rows recomputed as halo or past L")
+        if trace:
+            n = len(BANK_KS) * len(BANK_DILS)
+            calls = kernel_trace(lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS), n)
+            last = calls[-1]
+            r["trace_us"] = last
+            log("profile", f"bank {label}: {len(last)} kernels per call, span "
+                           f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel (k, d) "
+                           + ", ".join(f"({k},{d}) {dur:.1f} us at +{t:.1f}" for (k, d), (_, dur, t)
+                                       in zip([(k, d) for k in BANK_KS for d in BANK_DILS], last)))
+    bank_rows = rows["resblock_bank"]
+    for label, r in bank_rows.items():
+        log("timing", f"bank level {label}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
+                      f"({r['ms'] / r['library_ms']:.2f}x cuDNN's time), eager one-call wrapper "
+                      f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at 3xTF32's 165 TFLOP/s, "
+                      f"{r['bound_ms_f32_cuda_cores']:.4f} ms at float32's 67 TFLOP/s")
+    main_banks = [bank_rows[s[0]] for s in BANK_SHAPES]
+    log("timing", f"bank per step ({len(main_banks)} levels): kernel {sum(r['ms'] for r in main_banks):.4f} ms, "
+                  f"eager {sum(r['eager_ms'] for r in main_banks):.4f} ms, cuDNN "
+                  f"{sum(r['library_ms'] for r in main_banks):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in main_banks):.4f} ms (3xTF32) / "
+                  f"{sum(r['bound_ms_f32_cuda_cores'] for r in main_banks):.4f} ms (float32 CUDA cores)")
     mel = MelSpectrogram(device=dev)
     win, basis = mel.window, mel.mel_basis
     for label, L, kind in MEL_SHAPES:

@@ -44,11 +44,7 @@
 // C=16), so staging it would buy little reuse and would cost barriers; the
 // ring hides the same latency a cp.async ring in shared memory would.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "mma.cuh"
 
 namespace {
 
@@ -58,57 +54,9 @@ constexpr int TW = 16;        // tile width, pixels
 constexpr int XW = TW + 2;    // tile width with the halo
 constexpr int MAX_CIN = 64;
 
-__device__ __forceinline__ float load(const float* p, size_t i) { return __ldg(p + i); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) { return __bfloat162float(__ldg(p + i)); }
-__device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
-  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, size_t i, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // shared-memory row stride of a pixel with cin channels, in floats
 __host__ __device__ constexpr int pixel_stride(int cin) { return cin % 8 == 0 ? cin + 4 : cin; }
 __host__ __device__ constexpr int pad8(int k) { return (k + 7) / 8 * 8; }
-
-template <typename T>
-struct Prec;
-template <>
-struct Prec<float> {  // 3xTF32: hi and lo planes, B fragments (hi0, hi1, lo0, lo1) per lane
-  static constexpr int PLANES = 2;
-  using Frag = float4;
-};
-template <>
-struct Prec<__nv_bfloat16> {  // one plane of bf16 values kept as floats, B fragment bf16x2 per lane
-  static constexpr int PLANES = 1;
-  using Frag = uint32_t;
-};
 
 // output rows a block's tile spans: each warp of a tap-row group owns one
 // row of 16 pixels and one n8 tile
@@ -121,6 +69,19 @@ constexpr size_t smem_words(int cin, int sc_cin) {
   constexpr int TH = tile_rows<C>();
   return (size_t)pad8(3 * cin) + pad8(sc_cin) + 3 * WARPS * 32 * 4 +
          (size_t)Prec<T>::PLANES * ((TH + 2) * XW * pixel_stride(cin) + TH * TW * pixel_stride(sc_cin));
+}
+
+// Stage one activation v at offset o of the planes: TF32 hi and lo in
+// float32, the value in bfloat16.
+template <typename T>
+__device__ __forceinline__ void put(float* hi, float* lo, int o, float v) {
+  if constexpr (Prec<T>::PLANES == 2) {
+    const float h = __uint_as_float(tf32(v));
+    hi[o] = h;
+    lo[o] = __uint_as_float(tf32(v - h));
+  } else {
+    hi[o] = v;
+  }
 }
 
 // Stage rows x COLS pixels of src (cin channels) whose top-left is image
@@ -156,14 +117,7 @@ __device__ __forceinline__ void stage(float* hi, float* lo, const T* src, int ci
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       if (pu[u] >= npix) break;
-      const int o = pu[u] * stride + cu[u];
-      if (Prec<T>::PLANES == 2) {
-        const float h = __uint_as_float(tf32(v[u]));
-        hi[o] = h;
-        lo[o] = __uint_as_float(tf32(v[u] - h));
-      } else {
-        hi[o] = v[u];
-      }
+      put<T>(hi, lo, pu[u] * stride + cu[u], v[u]);
     }
   }
 }
@@ -172,9 +126,7 @@ __device__ __forceinline__ void stage(float* hi, float* lo, const T* src, int ci
 // the planes, column k at koff[k]; B's fragments for this warp's n8 tile at
 // wf, one K step every nt8 * 32 entries. The fragments come from L2 through
 // a ring of RING registers, loaded RING K steps before their use, so a K
-// step does not wait on an L2 round trip. In float32 the two small 3xTF32
-// products go to their own accumulator, so each K step adds one product to
-// each chain, not three to one.
+// step does not wait on an L2 round trip.
 template <typename T>
 __device__ __forceinline__ void gemm(float (&acc)[4], const float* hi, const float* lo, int a0, int a1,
                                      const int* koff, int kp, const typename Prec<T>::Frag* __restrict__ wf,
@@ -194,20 +146,7 @@ __device__ __forceinline__ void gemm(float (&acc)[4], const float* hi, const flo
       if (kb >= nk) break;
       const Frag b = ring[d];
       if (kb + RING < nk) ring[d] = __ldg(wf + (kb + RING) * step + lane);
-      if constexpr (Prec<T>::PLANES == 2) {
-        const int o0 = koff[kb * 8 + t], o1 = koff[kb * 8 + t + 4];
-        const uint32_t ah[4] = {__float_as_uint(hi[a0 + o0]), __float_as_uint(hi[a1 + o0]),
-                                __float_as_uint(hi[a0 + o1]), __float_as_uint(hi[a1 + o1])};
-        const uint32_t al[4] = {__float_as_uint(lo[a0 + o0]), __float_as_uint(lo[a1 + o0]),
-                                __float_as_uint(lo[a0 + o1]), __float_as_uint(lo[a1 + o1])};
-        const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-        mma_tf32(small, al, bh0, bh1);
-        mma_tf32(small, ah, tf32(b.z), tf32(b.w));
-        mma_tf32(acc, ah, bh0, bh1);
-      } else {
-        const int o0 = koff[kb * 8 + 2 * t], o1 = koff[kb * 8 + 2 * t + 1];
-        mma_bf16(acc, pack_bf16(hi[a0 + o0], hi[a0 + o1]), pack_bf16(hi[a1 + o0], hi[a1 + o1]), b);
-      }
+      mma_step<T>(acc, small, hi, lo, a0, a1, koff[kb * 8 + a_col<T>(t, 0)], koff[kb * 8 + a_col<T>(t, 1)], b);
     }
   }
 #pragma unroll

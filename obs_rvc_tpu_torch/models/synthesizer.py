@@ -16,8 +16,9 @@
 Module names follow upstream RVC so its state dicts load as is. The levels
 with C <= 64 channels and shared dilations run their resblock bank through
 :func:`~obs_rvc_tpu_torch.ops.resblock.resblock_bank`, as the JAX package
-sends C<=64 levels to its Pallas kernels; the other levels are plain
-``conv1d`` layers.
+sends C<=64 levels to its Pallas kernels, with their weights stacked (and,
+on a card, packed for the kernel) once per weight version; the other levels
+are plain ``conv1d`` layers.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.models.layers import LRELU_SLOPE, VitsLayerNorm
-from obs_rvc_tpu_torch.ops.resblock import resblock_bank
+from obs_rvc_tpu_torch.ops.resblock import PackedBank, pack_bank, resblock_bank
 
 #: the levels up to this width with shared dilations run their bank through
 #: the bank kernel, as the JAX package sends them to its Pallas kernels
@@ -371,9 +372,38 @@ class GeneratorNSF(nn.Module):
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock1(ch, rk, rd))
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=False)
+        #: per upsample level, (its banks' weights key, their stacked params,
+        #: their packs by dtype), replaced as one object when a weight changed,
+        #: so threads sharing the module never pair a pack with other weights
+        self._bank_cache = [None] * len(cfg.upsample_rates)
 
     def uses_bank_kernel(self, ch: int) -> bool:
         return self.shared_dilations and ch <= BANK_MAX_CH
+
+    def _bank_level(self, i: int) -> tuple:
+        banks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]
+        key = tuple((p.data_ptr(), p._version) for p in banks.parameters())
+        level = self._bank_cache[i]
+        if level is None or level[0] != key:
+            with torch.no_grad():
+                level = (key, [b.bank_params() for b in banks], {})
+            self._bank_cache[i] = level
+        return level
+
+    def bank_params(self, i: int) -> list:
+        """Level ``i``'s stacked bank params (the plain version's form),
+        restacked when a parameter changed since the last call."""
+        return self._bank_level(i)[1]
+
+    def packed_bank(self, i: int, dtype: torch.dtype) -> PackedBank:
+        """Level ``i``'s bank params packed for the kernel in ``dtype``, once
+        per weight version."""
+        _, params, packs = self._bank_level(i)
+        if dtype not in packs:
+            with torch.no_grad():
+                packs[dtype] = pack_bank(params, self.cfg.resblock_kernel_sizes,
+                                         self.cfg.resblock_dilation_sizes[0], dtype)
+        return packs[dtype]
 
     def forward(self, x, f0, g, generator=None):  # [B, C, T], [B, T], [B, gin, 1] → [B, L]
         cfg = self.cfg
@@ -382,14 +412,14 @@ class GeneratorNSF(nn.Module):
         nk = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE)) + self.noise_convs[i](har)
-            banks = self.resblocks[i * nk : (i + 1) * nk]
             if self.uses_bank_kernel(x.shape[1]):
-                y = resblock_bank(x.transpose(1, 2).contiguous(), [b.bank_params() for b in banks],
+                params = self.packed_bank(i, x.dtype) if x.device.type == "cuda" else self.bank_params(i)
+                y = resblock_bank(x.transpose(1, 2).contiguous(), params,
                                   cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes[0])
                 x = y.transpose(1, 2)
             else:
                 xs = None
-                for b in banks:
+                for b in self.resblocks[i * nk : (i + 1) * nk]:
                     y = b(x)
                     xs = y if xs is None else xs + y
                 x = xs / nk

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``.
 Builds happen at first use (one ``nvcc`` per source, all started together)
-into ``obs_rvc_tpu_torch/_build/``, named by a hash of the source and flags
-so a changed source is rebuilt. Nothing here runs at import time: the module
-imports on a machine without a CUDA toolchain.
+into ``obs_rvc_tpu_torch/_build/``, named by a hash of the source, the
+headers (``csrc/*.cuh``) and the flags, so a changed source or header is
+rebuilt. Nothing here runs at import time: the module imports on a machine
+without a CUDA toolchain.
 """
 
 from __future__ import annotations
@@ -52,9 +53,13 @@ def sources() -> list[str]:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(
-        (SRC_DIR / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """The library's path, named by a hash of its source, every header under
+    ``csrc/`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -68,18 +68,35 @@ def _bank(rng, B, L, C, ks, device):
     return t(rng.standard_normal((B, L, C)) * 0.5), params
 
 
+def _length(L, C, dtype):
+    """``L``, or for "TL-1" / "TL" / "TL+1" the kernel's tile length plus the offset."""
+    if isinstance(L, int):
+        return L
+    return resblock.launch_info(C, 3, 1, dtype)["tile"] + int(L[2:] or 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,L,B,dil", [
-    (16, 37, 2, (1, 3, 5)),
-    (32, 300, 2, (1, 3, 5)),
-    (64, 1, 1, (1, 3, 5)),
+    # one tile less one, one tile, one tile and one position, at each channel count
+    *[(C, L, B, dil) for C, B, dil in ((16, 1, (1, 3, 5)), (32, 2, (1, 2, 4)), (64, 1, (1, 3, 5)))
+      for L in ("TL-1", "TL", "TL+1")],
+    (64, 1, 1, (1, 3, 5)),     # one position: every tap but the centre reads padding
+    (16, 1, 3, (1, 2, 4)),
+    (16, 37, 3, (1, 3, 5)),    # a batch of 3
+    (32, 300, 3, (1, 2, 4)),
     (64, 1000, 3, (1, 2, 4)),
+    (64, 7000, 1, (1, 3, 5)),  # the main path's two levels
+    (32, 14000, 1, (1, 3, 5)),
 ])
 def test_resblock_bank_kernel_matches_plain(cuda, C, L, B, dil, dtype):
     ks = (3, 7, 11)
+    L = _length(L, C, dtype)
     x, params = _bank(np.random.default_rng(C + L), B, L, C, ks, cuda)
     x = x.to(dtype)
-    got = resblock.resblock_bank(x, params, ks, dil)
+    packed = resblock.pack_bank(params, ks, dil, dtype)  # as GeneratorNSF caches it per weight version
+    before = resblock.LAUNCHES
+    got = resblock.resblock_bank(x, packed, ks, dil)
+    assert resblock.LAUNCHES == before + 1  # one C call runs the whole bank
     want = resblock.resblock_bank_plain(x, params, ks, dil)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, L, C) and got.dtype == dtype
@@ -151,7 +168,7 @@ def test_wrappers_count_one_launch_per_call(cuda):
     rng = np.random.default_rng(0)
     x, params = _bank(rng, 1, 64, 32, (3, 7, 11), cuda)
     before = resblock.LAUNCHES
-    resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
+    resblock.resblock_bank(x, resblock.pack_bank(params, (3, 7, 11), (1, 3, 5), x.dtype), (3, 7, 11), (1, 3, 5))
     assert resblock.LAUNCHES == before + 1
     x, blocks = _chain(rng, 1, 8, 16, 1, 16, 4, cuda)
     before = unet_block.LAUNCHES
@@ -163,6 +180,9 @@ def test_wrappers_refuse_what_no_kernel_is_built_for(cuda):
     rng = np.random.default_rng(1)
     x, params = _bank(rng, 1, 64, 8, (3, 7, 11), cuda)
     with pytest.raises(NotImplementedError):
+        resblock.pack_bank(params, (3, 7, 11), (1, 3, 5), x.dtype)
+    x, params = _bank(rng, 1, 64, 16, (3, 7, 11), cuda)
+    with pytest.raises(ValueError, match="pack_bank"):  # on a card the kernel takes only the pack
         resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
     x, blocks = _chain(rng, 1, 8, 16, 8, 64, 1, cuda)
     with pytest.raises(NotImplementedError):

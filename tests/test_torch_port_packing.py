@@ -5,12 +5,17 @@
   into pieces of at most ``PIECE`` weights) rebuilds the dense basis
   exactly, for the step's HTK basis, a Slaney-scale one, a random dense one
   and one of 80 rows.
-- ``ops/unet_block.py:tf32_split`` / ``pack_weight`` / ``pack_chain``: the
-  chain kernel's weights in the order of the ``mma.m16n8k8`` B fragments,
+- ``ops/_mma.py:tf32_split`` / ``pack_weight`` and ``ops/unet_block.py:pack_chain``:
+  the chain kernel's weights in the order of the ``mma.m16n8k8`` B fragments,
   a 3x3 conv's K in three slabs (one per tap row);
   float32 split into a TF32 ``hi`` (10-bit mantissa) and ``lo = w - hi``,
   exactly; bfloat16 rounded. They unpack to the folded weights.
 - ``models/rmvpe.py:_Chain`` repacks when a parameter changes.
+- ``ops/resblock.py:pack_bank``: the bank kernel's weights, a ``[k, C, C]``
+  conv as ``k`` slabs of one tap's ``C``, unpack to the bank params;
+  ``models/synthesizer.py:GeneratorNSF`` stacks and packs each level's banks
+  once per weight version, and gives the same audio as before and as the
+  JAX package's generator.
 
 The kernels themselves run only on a card (``test_torch_port_cuda.py``).
 """
@@ -21,9 +26,12 @@ import torch
 
 from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram, mel_filterbank
 from obs_rvc_tpu_torch.models.rmvpe import _Chain
+from obs_rvc_tpu_torch.ops import _mma as M
+from obs_rvc_tpu_torch.ops import resblock as R
 from obs_rvc_tpu_torch.ops import stft_mel
 from obs_rvc_tpu_torch.ops import unet_block as U
 
+from test_torch_port_models import SYNTH_SMALL, _synth_case
 from test_torch_port_models import few_torch_threads  # noqa: F401 (autouse fixture)
 
 
@@ -38,7 +46,7 @@ def unpack_mel_basis(packed: stft_mel.PackedMelBasis) -> torch.Tensor:
 
 
 def unpack_weight(frag: torch.Tensor, K: int, groups: int = 1) -> torch.Tensor:
-    """The float32 weight ``U.pack_weight`` packed (``hi + lo`` for float32
+    """The float32 weight ``M.pack_weight`` packed (``hi + lo`` for float32
     fragments), ``[groups * K, C]``: ``groups`` slabs of ``K`` rows."""
     nk, nt = frag.shape[:2]
     if frag.dtype == torch.float32:
@@ -112,7 +120,7 @@ def test_tf32_split_rounds_to_ten_mantissa_bits_and_keeps_the_rest():
         rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 4, 4096),
         [0.0, -0.0, 1.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-11 - 2.0**-23, 3.0e-39],
     ]).astype(np.float32))
-    hi, lo = U.tf32_split(w)
+    hi, lo = M.tf32_split(w)
     assert not bool((hi.view(torch.int32) & 0x1FFF).any())  # 10-bit mantissa
     torch.testing.assert_close(hi + lo, w, rtol=0, atol=0)
     normal = w.abs() >= 2.0**-126  # half a TF32 ulp, relative, where the exponent is not the least
@@ -128,7 +136,7 @@ def test_packed_weight_unpacks_and_follows_the_fragment_order(cin, C, dtype):
     groups), each of K = 3 Cin padded to a multiple of 8."""
     rng = np.random.default_rng(cin * 100 + C)
     w = torch.from_numpy(rng.standard_normal((3, 3, cin, C)).astype(np.float32))
-    frag = U.pack_weight(w.reshape(3, 3 * cin, C), dtype)
+    frag = M.pack_weight(w.reshape(3, 3 * cin, C), dtype)
     kp = -(-3 * cin // 8) * 8
     assert frag.shape == (3 * kp // 8, C // 8, 32, 4 if dtype == torch.float32 else 2) and frag.dtype == dtype
     want = w.reshape(9 * cin, C)
@@ -137,7 +145,7 @@ def test_packed_weight_unpacks_and_follows_the_fragment_order(cin, C, dtype):
     # lane 4g + t of the n8 tile nt at K step kb holds column nt*8 + g at rows
     # (t, t+4) for TF32 (hi, hi, lo, lo), (2t, 2t+1) for bf16; K padding is zero
     wp = torch.cat([w.reshape(3, 3 * cin, C), torch.zeros(3, kp - 3 * cin, C)], dim=1).reshape(3 * kp, C)
-    hi, lo = U.tf32_split(wp)
+    hi, lo = M.tf32_split(wp)
     for kb, nt, lane in [(0, 0, 0), (kp // 8, C // 8 - 1, 31), (3 * kp // 8 - 1, 1, 13)]:
         g, t, n = lane // 4, lane % 4, nt * 8 + lane // 4
         if dtype == torch.float32:
@@ -221,3 +229,142 @@ def test_chain_cuda_wrapper_checks_the_packed_weights():
     bad[1][1] = torch.zeros(8)
     with pytest.raises(ValueError, match="bias"):
         U.pack_chain([tuple(b) for b in bad], torch.float32)
+
+
+def _bank_params(rng, C, ks, S=3):
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    return [tuple(t(a) for a in (rng.standard_normal((S, k, C, C)) / np.sqrt(k * C), rng.standard_normal((S, C)) * 0.05,
+                                 rng.standard_normal((S, k, C, C)) / np.sqrt(k * C), rng.standard_normal((S, C)) * 0.05))
+            for k in ks]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_pack_bank_unpacks_to_the_bank_params(C, k, dtype):
+    """Each step's [k, C, C] conv weights pack as k slabs of one tap's C (the
+    kernel walks K one tap at a time); the biases are rounded to the
+    activation type and kept in float32."""
+    ks, dils = (k, 3), (1, 3, 5)
+    params = _bank_params(np.random.default_rng(C * 100 + k), C, ks)
+    packed = R.pack_bank(params, ks, dils, dtype)
+    assert packed.dtype == dtype and packed.C == C and packed.kernel_sizes == ks and packed.dilations == dils
+    assert list(packed.ks) == list(ks) and list(packed.dils) == list(dils)
+    assert len(packed.steps) == 2 * 3 and len(packed.params) == 4 * 2 * 3
+    steps = iter(packed.steps)
+    for (w1, b1, w2, b2), kk in zip(params, ks):
+        for s in range(3):
+            f1, c1, f2, c2 = next(steps)
+            for w, f in ((w1[s], f1), (w2[s], f2)):
+                assert f.shape == (kk * C // 8, C // 8, 32, 4 if dtype == torch.float32 else 2) and f.dtype == dtype
+                want = w.reshape(kk * C, C)
+                want = want if dtype == torch.float32 else want.to(dtype).float()
+                torch.testing.assert_close(unpack_weight(f, C, groups=kk), want, rtol=0, atol=0)
+            for b, c in ((b1[s], c1), (b2[s], c2)):
+                assert c.dtype == torch.float32
+                torch.testing.assert_close(c, b.to(dtype).float(), rtol=0, atol=0)
+    # the pointer table the C entry point walks: four per step, bank-major
+    assert [packed.params[4 * i + j] for i in (0, 5) for j in range(4)] == [
+        t.data_ptr() for i in (0, 5) for t in packed.steps[i]]
+
+
+def _generator(seed=0):
+    from obs_rvc_tpu_torch.models.synthesizer import GeneratorNSF, SynthesizerConfig
+
+    torch.manual_seed(seed)
+    return GeneratorNSF(SynthesizerConfig(**SYNTH_SMALL)).eval()
+
+
+def test_generator_repacks_after_a_weight_update_and_not_otherwise():
+    gen = _generator()
+    levels = [i for i in range(len(gen.ups)) if gen.uses_bank_kernel(gen.ups[i].out_channels)]
+    assert levels == [0, 1]
+    dense = gen.bank_params(1)
+    first = gen.packed_bank(1, torch.float32)
+    assert gen.bank_params(1) is dense and gen.packed_bank(1, torch.float32) is first  # cached
+    bf = gen.packed_bank(1, torch.bfloat16)
+    assert bf is not first and gen.packed_bank(1, torch.bfloat16) is bf and gen.bank_params(1) is dense
+    other = gen.packed_bank(0, torch.float32)
+    assert other.C == 64 and first.C == 32
+    with torch.no_grad():
+        gen.resblocks[4].convs2[1].weight.mul_(2.0)  # level 1's second bank; an in-place update bumps _version
+    again = gen.packed_bank(1, torch.float32)
+    assert again is not first and gen.packed_bank(1, torch.bfloat16) is not bf and gen.bank_params(1) is not dense
+    assert gen.packed_bank(0, torch.float32) is other  # level 0's weights did not change
+    w2 = gen.resblocks[4].convs2[1].weight.permute(2, 1, 0).reshape(-1, 32)
+    torch.testing.assert_close(unpack_weight(again.steps[3 + 1][2], 32, groups=7), w2, rtol=0, atol=0)
+    torch.testing.assert_close(gen.bank_params(1)[1][2][1], gen.resblocks[4].convs2[1].weight.permute(2, 1, 0))
+    assert not torch.equal(unpack_weight(first.steps[3 + 1][2], 32, groups=7), w2)
+    with torch.no_grad():
+        gen.resblocks[3].convs1[0].bias.add_(0.5)  # a bias too
+    assert gen.packed_bank(1, torch.float32) is not again
+
+
+@pytest.mark.parametrize("with_rnd", [True, False])
+def test_generator_with_cached_banks_matches_the_uncached_and_jax(with_rnd):
+    """The cache changes no output: a forward from the cache equals one that
+    stacks the banks anew, and both stay within the synthesizer's bound of
+    the JAX package's generator."""
+    from obs_rvc_tpu.models import SynthesizerConfig as JSynthesizerConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+
+    tm, got, want = _synth_case(JSynthesizerConfig(**SYNTH_SMALL), SynthesizerConfig(**SYNTH_SMALL),
+                                with_rnd=with_rnd, seed=7)
+    gen = tm.dec
+    cached = [gen._bank_cache[i] for i in (0, 1)]
+    assert all(c is not None for c in cached)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 12)).astype(np.float32))
+    f0 = torch.from_numpy(rng.uniform(80.0, 400.0, (1, 12)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((1, 16, 1)).astype(np.float32))
+    with torch.no_grad():
+        y = gen(x, f0, g)
+        assert [gen._bank_cache[i] for i in (0, 1)] == cached and gen._bank_cache[0] is cached[0]  # no restack
+        gen._bank_cache = [None] * len(gen._bank_cache)
+        fresh = gen(x, f0, g)
+    torch.testing.assert_close(y, fresh, rtol=0, atol=0)
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3)
+
+
+def test_bank_cuda_wrapper_checks_the_packed_params():
+    """The checks a CUDA launch runs first, exercised without a card."""
+    ks, dils = (3, 7, 11), (1, 3, 5)
+    rng = np.random.default_rng(3)
+    params = _bank_params(rng, 32, ks)
+    packed = R.pack_bank(params, ks, dils, torch.float32)
+    x = torch.zeros((1, 40, 32))
+    with pytest.raises(ValueError, match="pack_bank"):  # the kernel takes only the packed form
+        R._resblock_bank_cuda(x, params, ks, dils)
+    with pytest.raises(ValueError, match="packed"):
+        R._resblock_bank_cuda(x, R.pack_bank(params, ks, dils, torch.bfloat16), ks, dils)
+    with pytest.raises(ValueError, match="packed"):
+        R._resblock_bank_cuda(torch.zeros((1, 40, 64)), packed, ks, dils)
+    with pytest.raises(ValueError, match="packed"):
+        R._resblock_bank_cuda(torch.zeros((1, 40, 16)), packed, ks, dils)
+    with pytest.raises(ValueError, match="device"):
+        R._resblock_bank_cuda(x, packed._replace(device=torch.device("meta")), ks, dils)
+    with pytest.raises(ValueError, match="kernel sizes or dilations"):
+        R._resblock_bank_cuda(x, packed, ks, (1, 2, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        R._resblock_bank_cuda(torch.zeros((40, 32)), packed, ks, dils)
+    with pytest.raises(ValueError, match="empty"):
+        R._resblock_bank_cuda(torch.zeros((1, 0, 32)), packed, ks, dils)
+    with pytest.raises(ValueError, match="dense"):  # and the plain version only the dense params
+        R.resblock_bank(x, packed, ks, dils)
+    # pack_bank checks the shapes and refuses what no kernel is built for
+    bad = [list(p) for p in params]
+    bad[1][3] = torch.zeros((3, 16))
+    with pytest.raises(ValueError, match="biases"):
+        R.pack_bank([tuple(p) for p in bad], ks, dils, torch.float32)
+    with pytest.raises(ValueError, match="weights"):
+        R.pack_bank(params, (3, 3, 11), dils, torch.float32)
+    with pytest.raises(ValueError, match="one parameter tuple"):
+        R.pack_bank(params[:2], ks, dils, torch.float32)
+    with pytest.raises(NotImplementedError, match="C in"):
+        R.pack_bank(_bank_params(rng, 8, ks), ks, dils, torch.float32)
+    with pytest.raises(NotImplementedError, match="kernel size"):
+        R.pack_bank(_bank_params(rng, 16, (5,)), (5,), dils, torch.float32)
+    with pytest.raises(NotImplementedError, match="dilation"):
+        R.pack_bank(_bank_params(rng, 16, (3,), S=1), (3,), (6,), torch.float32)
