@@ -12,8 +12,8 @@ a wrong shape raises.
 
 Checkpoints are unpickled with ``torch.load(weights_only=False)``, as the
 upstream files need (fairseq stores its config objects): load only files you
-trust. ``.onnx`` weight containers, msgpack parameter files and
-``cast_params_for_serving`` are not ported (ROADMAP.md queue 1 item 7).
+trust. ``.onnx`` weight containers and msgpack parameter files are not
+ported (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -173,3 +173,28 @@ def load_pipeline_params(
         load_rmvpe(pipeline.rmvpe, rmvpe_path)
     if synthesizer_path:
         load_synthesizer(pipeline.synthesizer, synthesizer_path)
+
+
+def cast_params_for_serving(pipeline, dtype: torch.dtype = torch.bfloat16):
+    """Cast every floating parameter and buffer of the pipeline's networks
+    to ``dtype`` (default bfloat16), in place; integer buffers (BatchNorm's
+    ``num_batches_tracked``) keep theirs. Returns the pipeline.
+
+    The port's copy of the JAX package's ``cast_params_for_serving``. There,
+    flax casts each weight to the compute dtype at use and the pre-cast
+    spares the per-op converts; here a network computes in the dtype of its
+    weights, and ``RvcPipeline`` builds its networks in ``compute_dtype`` so
+    that loading already rounds every weight to it. The cast therefore makes
+    sure of it (a module swapped in after construction included) and raises
+    ``ValueError`` when ``dtype`` is not the pipeline's compute dtype, since
+    it would change what the networks compute in. The packs of the chain and
+    bank kernels are keyed on each weight's storage and version, so they
+    are rebuilt after a cast that moved a weight. Retrieval is not ported, so
+    there is no index to leave alone yet.
+    """
+    if dtype != pipeline.compute_dtype:
+        raise ValueError(f"cast_params_for_serving: the pipeline computes in {pipeline.compute_dtype}; "
+                         f"casting its weights to {dtype} would change that (build it with compute_dtype={dtype})")
+    for module in pipeline.modules().values():
+        module.to(dtype)
+    return pipeline

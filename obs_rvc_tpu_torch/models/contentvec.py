@@ -8,6 +8,12 @@ transformer stack tapped at ``tap_layer``, and for v1 a final projection.
 Module names follow fairseq's ``HubertModel`` so its state dict loads as is.
 Attention is a plain matmul and softmax in the JAX module's order (q scaled
 by ``1/sqrt(D)`` after its bias).
+
+The network computes in its weights' dtype, as the JAX module does in its
+``dtype``: the waveform is cast to it on entry, the convolutions, products,
+GELUs, norms and softmax run in it (the norms as
+:mod:`~obs_rvc_tpu_torch.models.layers` says), and the features come out in
+float32.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from obs_rvc_tpu_torch.models.layers import GroupNorm
+from obs_rvc_tpu_torch.ops import conv_rounded
 
 #: wav2vec2-base conv frontend: (channels, kernel, stride), 320x total stride.
 CONV_LAYERS: tuple[tuple[int, int, int], ...] = (
@@ -71,7 +80,7 @@ class _ConvLayer(nn.Sequential):
     def __init__(self, in_ch, out_ch, k, s, group_norm: bool, gelu: str, eps: float):
         mods = [nn.Conv1d(in_ch, out_ch, k, stride=s, bias=False), nn.Identity()]
         if group_norm:
-            mods.append(nn.GroupNorm(out_ch, out_ch, eps=eps, affine=True))
+            mods.append(GroupNorm(out_ch, out_ch, eps=eps, affine=True))
         mods.append(nn.GELU(approximate=gelu))
         super().__init__(*mods)
 
@@ -148,11 +157,16 @@ class ContentVec(nn.Module):
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = wav[:, None, :]
+        x = wav[:, None, :].to(self.post_extract_proj.weight.dtype)
         for layer in self.feature_extractor.conv_layers:
             x = layer(x)
         x = self.post_extract_proj(self.layer_norm(x.transpose(1, 2)))  # [B, T, dim]
-        pos = self.encoder.pos_conv(x.transpose(1, 2))
+        # PyTorch's bfloat16 grouped convolution on the CPU (oneDNN) returns wrong
+        # sums at a few channels a group; float32 sums of the rounded values,
+        # rounded once and the bias added after, are what flax's Conv computes
+        conv = self.encoder.pos_conv[0]
+        pos = conv_rounded(F.conv1d, x.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding,
+                           groups=conv.groups)
         if cfg.conv_pos_kernel % 2 == 0:
             pos = pos[:, :, :-1]
         x = self.encoder.layer_norm(x + F.gelu(pos, approximate=self._gelu).transpose(1, 2))

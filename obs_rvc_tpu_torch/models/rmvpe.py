@@ -12,6 +12,16 @@ at the largest feature maps) run their ConvBlockRes chain through
 :func:`~obs_rvc_tpu_torch.ops.unet_block.conv_block_res_chain` with the
 BatchNorms folded, as the JAX package sends them to its Pallas kernel; the
 wider levels are plain ``conv2d`` layers.
+
+The network computes in its weights' dtype, as the JAX module does in its
+``dtype``: the float32 mel enters the first BatchNorm, which normalises it
+in float32 and returns the compute dtype
+(:class:`~obs_rvc_tpu_torch.models.layers.BatchNorm2d`); the chain levels
+fold theirs from the stored (bfloat16, once cast) values, as the JAX
+package folds them before its Pallas kernel; the BiGRU and the output layer
+run in the compute dtype, and the salience comes out in float32. (PyTorch
+flattens a GRU's weights for cuDNN in float16, float32 and float64 only, so
+in bfloat16 cuDNN copies them into one buffer on each call.)
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.models.layers import BatchNorm2d
 from obs_rvc_tpu_torch.ops.unet_block import PackedChain, conv_block_res_chain, fold_bn, pack_chain
 
 N_MELS = 128
@@ -162,7 +173,7 @@ class RMVPE(nn.Module):
         self.cfg = cfg
         unet = nn.Module()
         encoder = nn.Module()
-        encoder.bn = nn.BatchNorm2d(1)
+        encoder.bn = BatchNorm2d(1)
         encoder.layers = nn.ModuleList()
         in_ch, out_ch = 1, cfg.en_out_channels
         for _ in range(cfg.en_de_layers):

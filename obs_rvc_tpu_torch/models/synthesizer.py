@@ -19,6 +19,13 @@ with C <= 64 channels and shared dilations run their resblock bank through
 sends C<=64 levels to its Pallas kernels, with their weights stacked (and,
 on a card, packed for the kernel) once per weight version; the other levels
 are plain ``conv1d`` layers.
+
+The network computes in its weights' dtype, where the JAX module computes
+in its ``dtype``, casting where it casts: the features at the phone
+projection, the prior sample at the flow's input projections, the sine
+source (float32, from the float32 f0) at the source projection and the
+flow's output at ``conv_pre``; the resblock banks run in the compute dtype
+and the waveform comes out in float32.
 """
 
 from __future__ import annotations
@@ -174,6 +181,7 @@ class TextEncoder(nn.Module):
         self.inter_channels = cfg.inter_channels
 
     def forward(self, phone, pitch):  # [B, T, C], [B, T]
+        phone = phone.to(self.emb_phone.weight.dtype)
         x = (self.emb_phone(phone) + self.emb_pitch(pitch)) * math.sqrt(self.hidden)
         x = F.leaky_relu(x, LRELU_SLOPE).transpose(1, 2)  # [B, C, T]
         enc = self.encoder
@@ -236,7 +244,7 @@ class ResidualCouplingLayer(nn.Module):
 
     def forward(self, x, g, reverse: bool):
         x0, x1 = torch.split(x, [self.half, self.half], dim=1)
-        m = self.post(self.enc(self.pre(x0), g))
+        m = self.post(self.enc(self.pre(x0.to(self.pre.weight.dtype)), g))
         return torch.cat([x0, x1 - m if reverse else x1 + m], dim=1)
 
 
@@ -342,7 +350,7 @@ class _SourceModule(nn.Module):
 
     def forward(self, f0, upp, generator=None):  # → [B, 1, L]
         har = sine_source(f0, upp, self.sample_rate, generator)[..., None]
-        return torch.tanh(self.l_linear(har)).transpose(1, 2)
+        return torch.tanh(self.l_linear(har.to(self.l_linear.weight.dtype))).transpose(1, 2)
 
 
 class GeneratorNSF(nn.Module):
@@ -408,7 +416,7 @@ class GeneratorNSF(nn.Module):
     def forward(self, x, f0, g, generator=None):  # [B, C, T], [B, T], [B, gin, 1] → [B, L]
         cfg = self.cfg
         har = self.m_source(f0, self.upp, generator)
-        x = self.conv_pre(x) + self.cond(g)
+        x = self.conv_pre(x.to(self.conv_pre.weight.dtype)) + self.cond(g)
         nk = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE)) + self.noise_convs[i](har)

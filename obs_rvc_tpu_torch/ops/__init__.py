@@ -10,8 +10,11 @@ PyTorch version (counterpart of ``obs_rvc_tpu.ops``).
 
 A wrapper runs the plain version on a CPU tensor and the kernel on a CUDA
 tensor; its module's ``LAUNCHES`` counts the calls that launched the kernel.
+:func:`conv_rounded` is a convolution rounded as the Pallas kernels (and
+flax's ``Conv``) round it in bfloat16.
 """
 
+from obs_rvc_tpu_torch.ops._mma import conv_rounded
 from obs_rvc_tpu_torch.ops.resblock import resblock_bank, resblock_bank_plain
 from obs_rvc_tpu_torch.ops.stft_mel import log_mel, log_mel_plain
 from obs_rvc_tpu_torch.ops.unet_block import conv_block_res_chain, conv_block_res_chain_plain, fold_bn
@@ -19,6 +22,7 @@ from obs_rvc_tpu_torch.ops.unet_block import conv_block_res_chain, conv_block_re
 __all__ = [
     "conv_block_res_chain",
     "conv_block_res_chain_plain",
+    "conv_rounded",
     "fold_bn",
     "log_mel",
     "log_mel_plain",

@@ -2,7 +2,8 @@
 a weight in the order of the ``mma.sync.m16n8k8`` B fragments, float32 split
 into TF32 ``hi`` and ``lo`` for 3xTF32, bfloat16 rounded. Both
 ``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank`` use it,
-once per weight version.
+once per weight version. Also the products of their plain versions, which
+round where the kernels round (:func:`conv_rounded`).
 """
 
 from __future__ import annotations
@@ -39,3 +40,16 @@ def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                   for a in tf32_split(w))
         return torch.cat([hi, lo], dim=-1).contiguous()
     return w.to(dtype).reshape(nk, 4, 2, C // 8, 8).permute(0, 3, 4, 1, 2).reshape(nk, C // 8, 32, 2).contiguous()
+
+
+def conv_rounded(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """``conv(x, w) + b`` in ``x``'s dtype as the Pallas kernels compute it:
+    the weights rounded to that dtype, products and sums in float32, the sum
+    rounded to the dtype, then the bias (also rounded) added in the dtype.
+    In float32 that is ``conv(x, w, b)``."""
+    dt = x.dtype
+    w, b = w.to(dt), b.to(dt)
+    if dt == torch.float32:
+        return conv(x, w, b, **kw)
+    y = conv(x.float(), w.float(), **kw).to(dt)
+    return y + b.reshape(-1, *(1,) * (y.dim() - 2))

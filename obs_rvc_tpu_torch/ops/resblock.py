@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import pack_weight
+from obs_rvc_tpu_torch.ops._mma import conv_rounded, pack_weight
 
 LRELU_SLOPE = 0.1
 #: channel counts the CUDA kernel is built for
@@ -39,18 +39,18 @@ LAUNCHES = 0
 
 
 def resblock_bank_plain(x, bank_params, kernel_sizes, dilations) -> torch.Tensor:
-    """The bank as ``F.conv1d`` loops, in the order the JAX flax path computes it."""
-    dt = x.dtype
+    """The bank as ``F.conv1d`` loops, in the order the JAX flax path computes
+    it, in ``x``'s dtype, each conv rounded where the Pallas kernel rounds it
+    (:func:`~obs_rvc_tpu_torch.ops._mma.conv_rounded`)."""
     xt = x.transpose(1, 2)  # [B, C, L]
     total = None
     for (w1, b1, w2, b2), k in zip(bank_params, kernel_sizes):
         a = xt
         for s, d in enumerate(dilations):
             t = F.leaky_relu(a, LRELU_SLOPE)
-            t = F.conv1d(t, w1[s].permute(2, 1, 0).to(dt), b1[s].to(dt),
-                         padding=d * (k - 1) // 2, dilation=d)
+            t = conv_rounded(F.conv1d, t, w1[s].permute(2, 1, 0), b1[s], padding=d * (k - 1) // 2, dilation=d)
             t = F.leaky_relu(t, LRELU_SLOPE)
-            t = F.conv1d(t, w2[s].permute(2, 1, 0).to(dt), b2[s].to(dt), padding=(k - 1) // 2)
+            t = conv_rounded(F.conv1d, t, w2[s].permute(2, 1, 0), b2[s], padding=(k - 1) // 2)
             a = a + t
         total = a if total is None else total + a
     return (total / len(kernel_sizes)).transpose(1, 2)

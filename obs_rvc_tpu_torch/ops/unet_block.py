@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import pack_weight
+from obs_rvc_tpu_torch.ops._mma import conv_rounded, pack_weight
 
 #: output channel counts the CUDA kernel is built for
 CUDA_CHANNELS = (16, 32)
@@ -47,15 +47,16 @@ def fold_bn(kernel, scale, bias, mean, var, eps: float = 1e-5):
 
 
 def conv_block_res_chain_plain(x, blocks) -> torch.Tensor:
-    """The chain as ``F.conv2d`` calls on the folded weights."""
-    dt = x.dtype
+    """The chain as ``F.conv2d`` calls on the folded weights, in ``x``'s
+    dtype, each conv rounded where the Pallas kernel rounds it
+    (:func:`~obs_rvc_tpu_torch.ops._mma.conv_rounded`)."""
     h = x.permute(0, 3, 1, 2)  # NCHW
     for w1, b1, w2, b2, wsc, bsc in blocks:
-        y = F.relu(F.conv2d(h, w1.permute(3, 2, 0, 1).to(dt), b1.to(dt), padding=1))
-        y = F.relu(F.conv2d(y, w2.permute(3, 2, 0, 1).to(dt), b2.to(dt), padding=1))
+        y = F.relu(conv_rounded(F.conv2d, h, w1.permute(3, 2, 0, 1), b1, padding=1))
+        y = F.relu(conv_rounded(F.conv2d, y, w2.permute(3, 2, 0, 1), b2, padding=1))
         if wsc is not None:
             cin, c = wsc.shape[-2:]
-            h = F.conv2d(h, wsc.reshape(cin, c).T[:, :, None, None].to(dt), bsc.to(dt))
+            h = conv_rounded(F.conv2d, h, wsc.reshape(cin, c).T[:, :, None, None], bsc)
         h = h + y
     return h.permute(0, 2, 3, 1)
 

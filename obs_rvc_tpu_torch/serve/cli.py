@@ -22,14 +22,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="RVC voice conversion on the PyTorch port")
     p.add_argument("input", help="input WAV")
     p.add_argument("output", help="output WAV")
-    add_model_flags(p, loudness_default=0.5)
+    add_model_flags(p, loudness_default=0.5, dtype_default="float32")
     p.add_argument("--metrics-json", action="store_true", help="print metrics JSON to stderr")
     p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
     return p
 
 
-def add_model_flags(p: argparse.ArgumentParser, loudness_default: float) -> None:
-    """The model artifacts and the plugin's settings, shared with ``serve.server``."""
+def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_default: str) -> None:
+    """The model artifacts and the plugin's settings, shared with
+    ``serve.server``; the defaults that differ are the JAX entry points':
+    ``--loudness-factor`` and ``--dtype`` (float32 for the CLI, bfloat16 for
+    the server)."""
     p.add_argument("--model", help="RVC synthesizer .pth (random weights if omitted)")
     p.add_argument("--contentvec", help="ContentVec/HuBERT .pt checkpoint")
     p.add_argument("--rmvpe", help="RMVPE .pt checkpoint")
@@ -55,8 +58,8 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float) -> None
     p.add_argument("--f0-median-radius", type=int, default=0)
     p.add_argument("--phase-vocoder", action="store_true",
                    help="phase-corrected SOLA crossfade")
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16 is not ported (ROADMAP.md queue 1 item 6)")
+    p.add_argument("--dtype", default=dtype_default, choices=["float32", "bfloat16"],
+                   help=f"the networks' compute dtype (default {dtype_default})")
     p.add_argument("--no-pallas-resblocks", action="store_true",
                    help="refused: on the card it would put the plain versions on the main path")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
@@ -75,8 +78,6 @@ def check_ported(args) -> None:
     if (args.index or args.index_dtype != "float32" or args.index_mode != "exact"
             or args.index_probes != 0 or args.index_lcap != 64):
         refuse("retrieval (--index*)", 12)
-    if args.dtype != "float32":
-        refuse("--dtype bfloat16", 6)
     if getattr(args, "mesh", ""):
         refuse("--mesh", 13)
     if getattr(args, "exec_cache", False):
@@ -107,10 +108,14 @@ def settings_from_args(args):
 
 
 def pipeline_from_args(args, sample_rate: int):
-    """``(pipeline, controls)``: the pipeline at the flags' geometry with its
-    weights loaded (random from seed 0 where no checkpoint is given; none
-    at all for ``--skip-inference``, which runs no network)."""
-    from obs_rvc_tpu_torch.models.checkpoints import load_pipeline_params
+    """``(pipeline, controls)``: the pipeline at the flags' geometry and
+    ``--dtype`` with its weights loaded (random from seed 0 where no
+    checkpoint is given; none at all for ``--skip-inference``, which runs no
+    network) and, in bfloat16, cast for serving as the JAX entry points cast
+    them."""
+    import torch
+
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving, load_pipeline_params
     from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
 
     check_ported(args)
@@ -122,10 +127,13 @@ def pipeline_from_args(args, sample_rate: int):
         f0_median_radius=args.f0_median_radius,
         phase_vocoder=args.phase_vocoder,
         device=args.device,
+        compute_dtype=getattr(torch, args.dtype),
     )
     if not pipe.cfg.skip_inference:
         load_pipeline_params(pipe, contentvec_path=args.contentvec, rmvpe_path=args.rmvpe,
                              synthesizer_path=args.model)
+        if args.dtype == "bfloat16":
+            cast_params_for_serving(pipe)
     controls = StepControls.default(pitch_shift=args.pitch_shift, rms_mix_rate=args.loudness_factor,
                                     index_rate=args.index_rate, sid=args.speaker_id)
     return pipe, controls

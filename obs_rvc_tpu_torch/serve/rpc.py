@@ -12,6 +12,9 @@ it as an I/O error and respawns its child.
 
     python -m obs_rvc_tpu_torch.serve.rpc --port 17895          # the card
     python -m obs_rvc_tpu_torch.serve.rpc --stdio --device cpu
+
+This standalone server computes in float32, as the JAX package's does;
+``serve.server``'s RPC door computes in the server's ``--dtype``.
 """
 
 from __future__ import annotations

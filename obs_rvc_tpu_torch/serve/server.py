@@ -13,11 +13,11 @@
         --rpc-port 17895 --health-port 8080 --model model.pth
 
 The flags are the JAX server's, so a command line carries over, plus
-``--device`` (default: the card). A port of 0 turns its front door off. The
-port's ``--dtype`` defaults to ``float32`` where the JAX server's defaults to
-``bfloat16``: bf16 compute is not ported (ROADMAP.md queue 1 item 6). Flags
-of modules not ported yet (the pool, the mesh, retrieval, CREPE/FCPE, the
-executable cache) exit with an error that names their ROADMAP.md item.
+``--device`` (default: the card). A port of 0 turns its front door off.
+``--dtype`` defaults to ``bfloat16``, as the JAX server's does (the CLI's to
+``float32``). Flags of modules not ported yet (the pool, the mesh,
+retrieval, CREPE/FCPE, the executable cache) exit with an error that names
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pool", type=int, default=0, help="not ported (ROADMAP.md queue 1 item 10)")
     p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
     p.add_argument("--device-sample-rate", type=int, default=48000)
-    add_model_flags(p, loudness_default=1.0)
+    add_model_flags(p, loudness_default=1.0, dtype_default="bfloat16")
     p.add_argument("--step-mode", default="staged", choices=["staged", "fused"],
                    help="accepted for the JAX server's command lines; both run the one eager step")
     p.add_argument("--pool-io-dtype", default="float32", choices=["float32", "int16"],

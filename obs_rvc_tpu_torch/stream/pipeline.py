@@ -16,6 +16,11 @@ audio. Each stage is a method of its own (``stage_*``), so callers can run
 and compare the stages one by one; ``step`` runs them in order and can
 time each. ``with_config`` gives the same pipeline at another geometry
 over the same networks (the engine's per-request geometries).
+
+``compute_dtype`` is the networks' dtype (float32, or bfloat16 as the JAX
+server serves): they are built in it and compute in it, and return float32.
+The rings, the 16 kHz buffer, the log-mel, the pitch track and cache,
+resampling, envelope mixing and SOLA stay float32, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -133,8 +138,12 @@ class RvcPipeline:
         rmvpe_cfg: Optional[RMVPEConfig] = None,
         synth_cfg: Optional[SynthesizerConfig] = None,
         device=None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
         self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
         self.version = version
         self.f0_median_radius = f0_median_radius
         self.keyshift = keyshift
@@ -155,9 +164,9 @@ class RvcPipeline:
         # the passthrough geometry (skip_inference) runs no network, so it builds none
         self.contentvec = self.rmvpe = self.synthesizer = None
         if not cfg.skip_inference:
-            self.contentvec = ContentVec(self.contentvec_cfg).to(self.device).eval()
-            self.rmvpe = RMVPE(self.rmvpe_cfg).to(self.device).eval()
-            self.synthesizer = Synthesizer(self.synth_cfg).to(self.device).eval()
+            self.contentvec = ContentVec(self.contentvec_cfg).to(self.device, compute_dtype).eval()
+            self.rmvpe = RMVPE(self.rmvpe_cfg).to(self.device, compute_dtype).eval()
+            self.synthesizer = Synthesizer(self.synth_cfg).to(self.device, compute_dtype).eval()
         self.mel = MelSpectrogram(device=self.device)
         self._set_geometry(cfg)
 
@@ -177,9 +186,9 @@ class RvcPipeline:
         self._sid: dict[int, torch.Tensor] = {}
 
     def with_config(self, cfg: ChunkConfig) -> "RvcPipeline":
-        """This pipeline at another geometry: the same options and the same
-        ``nn.Module`` objects (no networks are built or re-initialised), a
-        geometry of its own."""
+        """This pipeline at another geometry: the same options, compute dtype
+        and ``nn.Module`` objects (no networks are built or re-initialised),
+        a geometry of its own."""
         other = copy.copy(self)
         other._set_geometry(cfg)
         return other
@@ -193,7 +202,9 @@ class RvcPipeline:
     def init_params(self, seed: int = 0, std: Optional[float] = 0.02) -> None:
         """Random weights from a numpy seed, drawn by the rule of the JAX
         package's ``init_params_fast`` (weights ``0.02 * N(0, 1)``); with
-        ``std=None`` the weights are fan-in scaled. For tests and benchmarks."""
+        ``std=None`` the weights are fan-in scaled. A bfloat16 pipeline gets the
+        float32 draws rounded, so both dtypes share a seed's weights. For tests
+        and benchmarks."""
         host = np.random.default_rng(seed)
         for module in self.modules().values():
             load_state_dict(module, _random_state_dict(module, host, std))

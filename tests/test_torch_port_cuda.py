@@ -24,11 +24,15 @@ float32's accuracy; its bf16 ones as one bf16 product with float32
 accumulation.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
+import torch.nn as nn
 
 from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
+from obs_rvc_tpu_torch.models.layers import GroupNorm, VitsLayerNorm
 from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
 
 pytestmark = pytest.mark.cuda
@@ -55,6 +59,55 @@ def _close(got, want, atol, rtol):
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     assert not bad.any(), f"{int(bad.sum())} elements off, max abs err {float(err.max()):.3e}"
+
+
+def norm_rule_mismatch(device) -> dict:
+    """For each kind of norm the networks use (PyTorch's LayerNorm and
+    BatchNorm2d, the port's GroupNorm and VitsLayerNorm), in bfloat16 on
+    ``device``: ``(share of outputs that differ, largest difference in bf16
+    steps)`` between it and flax's rule (statistics and affine map in
+    float32 over the bf16 input and parameters, the result rounded once).
+    A step is one bf16 step at the output's magnitude, floored at 2^-8 of
+    the largest output: near zero a float32 sum in another order moves the
+    result by more than a step of its own tiny magnitude, while bf16
+    intermediates would move it by steps of the operands' size."""
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen) * scale + shift
+
+    cases = {
+        "LayerNorm": (nn.LayerNorm(64), rnd(2, 40, 64, scale=3.0, shift=1.0)),
+        "GroupNorm": (GroupNorm(16, 16), rnd(1, 16, 700, scale=3.0, shift=1.0)),
+        "BatchNorm2d": (nn.BatchNorm2d(16).eval(), rnd(1, 16, 8, 32, scale=3.0, shift=1.0)),
+        "VitsLayerNorm": (VitsLayerNorm(32), rnd(1, 32, 40, scale=3.0, shift=1.0)),
+    }
+    out = {}
+    for name, (m, x) in cases.items():
+        with torch.no_grad():
+            for pname, t in list(m.named_parameters()) + list(m.named_buffers()):
+                if t.is_floating_point():
+                    t.copy_(rnd(*t.shape).abs() + 0.5 if "var" in pname else rnd(*t.shape, scale=0.5,
+                                                                                  shift=1.0 if pname in ("weight", "gamma") else 0.0))
+            m = m.to(device, torch.bfloat16)
+            x = x.to(device, torch.bfloat16)
+            got = m(x).float()
+            want = copy.deepcopy(m).float()(x.float()).to(torch.bfloat16).float()
+        mag = want.abs().clamp_min(float(want.abs().max()) * 2**-8)
+        step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        steps = ((got - want).abs() / step).max()
+        out[name] = (float((got != want).float().mean()), float(steps))
+    return out
+
+
+def test_bf16_norms_follow_flax_rule(cuda):
+    """The networks' norms on the card, with a bfloat16 input and bfloat16
+    parameters, compute as flax's norms with ``dtype`` do: float32 inside,
+    one rounding at the output (a sum in another order may round the other
+    way by one bf16 step). PyTorch's own GroupNorm does not on the card,
+    which is why the port has its own."""
+    for name, (share, steps) in norm_rule_mismatch(cuda).items():
+        assert share <= 1e-2 and steps <= 1.0, (name, share, steps)
 
 
 def _bank(rng, B, L, C, ks, device):

@@ -65,6 +65,28 @@ def test_resblock_bank_plain_matches_pallas_im2col_at_c16():
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-3)
 
 
+def _bf16_params(params):
+    return ([tuple(jnp.asarray(a, jnp.bfloat16) for a in p) for p in params],
+            [tuple(torch.from_numpy(a).to(torch.bfloat16) for a in p) for p in params])
+
+
+@pytest.mark.parametrize("C,L,atol,rtol", [
+    (32, 250, 3e-2, 2e-2),  # tapdot: the JAX package's own tapdot bf16 bounds
+    (64, 250, 3e-2, 2e-2),
+    (16, 200, 3e-2, 1e-3),  # im2col: its im2col bf16 bounds
+])
+def test_resblock_bank_plain_matches_pallas_in_bf16(C, L, atol, rtol):
+    """In bfloat16 the plain version rounds where the Pallas kernels round
+    (float32 sums, rounded to bf16, then the bias added in bf16)."""
+    x, params, ks, dil = _bank_fixture(C, L, seed=C)
+    jparams, tparams = _bf16_params(params)
+    bank = j_resblock_bank if C >= 32 else j_resblock_bank_im2col
+    want = np.asarray(bank(jnp.asarray(x, jnp.bfloat16), jparams, ks, dil, interpret=True).astype(jnp.float32))
+    got = t_resblock.resblock_bank(torch.from_numpy(x).to(torch.bfloat16), tparams, ks, dil)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
+
+
 def _chain_fixture(rng, B, H, W, cin0, C, n_blocks):
     def conv(ci, co, k=3):
         return (rng.standard_normal((k, k, ci, co)) * 0.15).astype(np.float32)
@@ -98,6 +120,23 @@ def test_unet_chain_plain_matches_pallas(cin0, C, H, W):
     assert got.shape == want.shape
     # the f32 bounds of the JAX package's own chain gate (tests/test_pallas_ops.py)
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cin0,C,H,W", [
+    (8, 16, 8, 16),    # the JAX package's own bf16 chain case
+    (1, 16, 8, 32),    # encoder level 0 geometry
+    (16, 32, 4, 16),   # channel doubling
+])
+def test_unet_chain_plain_matches_pallas_in_bf16(cin0, C, H, W):
+    rng = np.random.default_rng(cin0 * 10 + C)
+    x, blocks = _chain_fixture(rng, B=1, H=H, W=W, cin0=cin0, C=C, n_blocks=2)
+    jblocks = [tuple(None if a is None else jnp.asarray(a, jnp.bfloat16) for a in b) for b in blocks]
+    tblocks = [tuple(None if a is None else torch.from_numpy(a).to(torch.bfloat16) for a in b) for b in blocks]
+    want = np.asarray(j_chain(jnp.asarray(x, jnp.bfloat16), jblocks, interpret=True).astype(jnp.float32))
+    got = t_unet.conv_block_res_chain(torch.from_numpy(x).to(torch.bfloat16), tblocks)
+    assert got.dtype == torch.bfloat16
+    # the bf16 bounds of the JAX package's own chain gate (tests/test_pallas_ops.py)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=5e-2, rtol=2e-2)
 
 
 def test_fold_bn_matches():

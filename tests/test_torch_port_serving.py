@@ -240,7 +240,7 @@ def test_server_builds_the_pipeline_from_flags():
     assert pipe.cfg.skip_inference and pipe.device.type == "cpu"
     assert pipe.cfg.sample_frame_size == 4800 and pipe.modules() == {}
     assert controls == StepControls.default(pitch_shift=4.0, rms_mix_rate=0.7, sid=2)
-    assert args.dtype == "float32"  # the port's default (bf16 compute is not ported)
+    assert args.dtype == "bfloat16" and pipe.compute_dtype == torch.bfloat16  # the JAX server's default
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -252,13 +252,64 @@ def test_server_builds_the_pipeline_from_flags():
     (["--index-mode", "ivf"], "item 12"),
     (["--pitch-algorithm", "crepe"], "item 11"),
     (["--pitch-algorithm", "fcpe"], "item 11"),
-    (["--dtype", "bfloat16"], "item 6"),
     (["--exec-cache"], "item 14"),
     (["--no-pallas-resblocks"], "refused"),
 ])
 def test_unported_server_flags_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         server.main(["--device", "cpu", "--skip-inference", *flags])
+
+
+def test_server_defaults_to_bf16_and_the_cli_to_float32():
+    """The JAX entry points' defaults: ``serve.server --dtype bfloat16``,
+    ``serve.cli --dtype float32``."""
+    assert server.build_parser().parse_args([]).dtype == "bfloat16"
+    assert cli.build_parser().parse_args(["in.wav", "out.wav"]).dtype == "float32"
+    pipe, _ = cli.pipeline_from_args(cli.build_parser().parse_args(
+        ["in.wav", "out.wav", "--skip-inference", "--device", "cpu", *SMALL]), 48000)
+    assert pipe.compute_dtype == torch.float32
+
+
+@pytest.mark.parametrize("entry", ["server", "cli"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_entry_points_accept_either_dtype(entry, dtype):
+    argv = ["--skip-inference", "--device", "cpu", "--dtype", dtype, *SMALL]
+    if entry == "server":
+        pipe, _ = server.build_pipeline(server.build_parser().parse_args(argv))
+    else:
+        pipe, _ = cli.pipeline_from_args(cli.build_parser().parse_args(["in.wav", "out.wav", *argv]), 48000)
+    assert pipe.compute_dtype == getattr(torch, dtype)
+
+
+def test_cli_converts_with_v1_in_bf16_at_reduced_widths(tmp_path, monkeypatch):
+    """``serve.cli --model-version v1 --dtype bfloat16`` end to end, with the
+    networks' default configs swapped for reduced ones (v1: ContentVec's final
+    projection to 32 features, the synthesizer taking 32)."""
+    from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+    from obs_rvc_tpu_torch.stream import pipeline as pipeline_mod
+
+    from test_torch_port_pipeline import CV, RM, SY
+
+    monkeypatch.setattr(ContentVecConfig, "v1", staticmethod(lambda: ContentVecConfig(**dict(CV, out_dim=32,
+                                                                                            final_proj=True))))
+    monkeypatch.setattr(pipeline_mod, "RMVPEConfig", lambda: RMVPEConfig(**RM))
+    monkeypatch.setattr(SynthesizerConfig, "for_sample_rate",
+                        staticmethod(lambda sr, feature_dim=768: SynthesizerConfig(**dict(SY, feature_dim=feature_dim))))
+    made = []
+    real = cli.pipeline_from_args
+    monkeypatch.setattr(cli, "pipeline_from_args", lambda *a: made.append(real(*a)) or made[-1])
+    sr = 48000
+    t = np.arange(int(0.45 * sr)) / sr
+    write_wav(tmp_path / "in.wav", (0.3 * np.sin(2 * np.pi * 180 * t))[None].astype(np.float32), sr)
+    cli.main([str(tmp_path / "in.wav"), str(tmp_path / "out.wav"), "--model-version", "v1", "--dtype", "bfloat16",
+              "--device", "cpu", *SMALL])
+    pipe = made[0][0]
+    assert pipe.compute_dtype == torch.bfloat16 and pipe.contentvec.final_proj.out_features == 32
+    assert all(p.dtype == torch.bfloat16 for m in pipe.modules().values() for p in m.parameters())
+    got, got_sr = read_wav(tmp_path / "out.wav")
+    assert got_sr == sr and got.shape == (1, 4 * 4800) and np.isfinite(got).all() and np.abs(got).max() > 0
 
 
 def _free_port():
