@@ -23,16 +23,35 @@ Phases, each printing its own lines:
            dtype with the same inputs and held to per-dtype bounds, and each
            stage's time is taken apart; the bfloat16 stream's deviation from
            the float32 one is printed; then a v1 step (ContentVec's final
-           projection, a 256-feature synthesizer) in bfloat16 for a few chunks
-5. serve   the port's server (serve.server.main, at its default bfloat16) on
-           a thread at the same geometry and width, listening on the duplex,
-           WebSocket, RPC and health ports: a StreamClient and a
-           WsStreamClient stream the voiced signal (12 and 4 chunks at
-           least), RpcClient requests come at two geometries (the launch one
-           checked against an in-process bfloat16 RvcEngine), and serve.cli
-           (float32, its default) converts a WAV file; every chunk and
-           request served must raise the counters by 1/4/2, and /metrics
-           must count no error; the session chunk times are read one by one
+           projection, a 256-feature synthesizer) in bfloat16 for a few chunks.
+           After each, the graphed steps on the same pipeline and chunks:
+           jit_step (one CUDA graph of the step) and staged_step (a graph per
+           stage) against the eager step, bit-identical or within the float32
+           bound of the emitted audio (the eager float32 step is itself not
+           bitwise repeatable: cuDNN's float32 algorithms in RMVPE); capture
+           times, step p50/p95, peak device memory and what the graphs hold;
+           a torch.profiler trace of 5 replayed steps that must show 1
+           log-mel, 32 chain and 18 bank kernel launches a step, and the
+           device's busy share; MFU (utils/flops.py over step p50, against
+           989 TFLOP/s in bfloat16 and 67 in float32); the controls changed
+           mid-stream (pitch 0 -> 12 -> -5, rms_mix_rate 1 -> 0.5) with no
+           capture; on v1, new weights after the capture reach both graphs
+5. serve   the port's server (serve.server.main, at its defaults: bfloat16,
+           staged graphs captured before it listens) on a thread at the same
+           geometry and width, listening on the duplex, WebSocket, RPC and
+           health ports: a StreamClient and a WsStreamClient stream the
+           voiced signal (12 and 4 chunks at least), two duplex sessions at
+           once must each equal its run alone, RpcClient requests come at two
+           geometries (the launch one checked against an in-process bfloat16
+           RvcEngine; the other captured at its first request), and serve.cli
+           (float32, its default) converts a WAV file. Replays call no kernel
+           wrapper, so the counters rise by 1/4/2 per call only in the
+           warm-up and capture of the two graphs captured while serving; a
+           device trace of replayed RPC requests and a duplex session must
+           show 1/32/18 kernel launches each; /metrics must count no error;
+           the session chunk times are read one by one. Then a second server
+           with --step-mode fused --exec-cache, and an in-process engine's
+           memory at one and two geometries
 6. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
@@ -55,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import pathlib
 import platform
 import socket
@@ -465,6 +485,221 @@ def check_launches(phase, launches, steps):
         raise AssertionError(f"{phase}: expected {want} launches for {steps} steps, got {launches}")
 
 
+#: each hand kernel's device function and its launches per step (and per engine request): the C
+#: calls of LAUNCHES_PER_STEP launch 1 log-mel, 8 chain (per level) and 9 bank (per level) kernels
+KERNELS_PER_STEP = {"log_mel_kernel": 1, "conv3x3_kernel": 32, "resblock_step_kernel": 18}
+#: the schedule of live controls the graphs are streamed with: (first chunk, pitch shift, rms_mix_rate)
+CONTROL_SCHEDULE = [(0, 0.0, 1.0), (4, 12.0, 1.0), (6, 12.0, 0.5), (8, -5.0, 0.5)]
+
+
+def controls_at(i):
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    _, ps, mix = [c for c in CONTROL_SCHEDULE if c[0] <= i][-1]
+    return StepControls.default(pitch_shift=ps, rms_mix_rate=mix)
+
+
+def stream(step, pipe, chunks, controls, timed=False):
+    """Stream ``chunks`` from a zeroed state through ``step`` (the eager
+    step, ``jit_step`` or ``staged_step``); ``controls`` is one StepControls
+    or a function of the chunk's index. Returns the emitted audio on the
+    CPU and, with ``timed``, each step's ms (host clock, synchronized)."""
+    import torch
+
+    state, outs, times = pipe.new_state(), [], []
+    for i, chunk in enumerate(chunks):
+        t0 = time.perf_counter()
+        state, out = step(state, chunk, controls(i) if callable(controls) else controls)
+        if timed:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return torch.cat(outs).cpu(), times
+
+
+def kernel_counts(events):
+    """Launches of each hand kernel among torch.profiler's device events."""
+    return {k: sum(1 for e in events if k in e.name) for k in KERNELS_PER_STEP}
+
+
+def trace_steps(step, pipe, chunks, controls):
+    """torch.profiler (device activity) over ``len(chunks)`` steps: the hand
+    kernels' launches, and per step the device's busy ms (the union of the
+    device events' intervals), their summed durations and the wall ms with
+    the tracer on."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state = pipe.new_state()
+    state, _ = step(state, chunks[0], controls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the first kernels after it starts: a step not counted, then a marker kernel
+        state, _ = step(state, chunks[0], controls)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            state, _ = step(state, chunk, controls)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("the trace holds no marker kernel: torch.profiler recorded no device activity")
+    events = events[marks[-1] + 1 :]
+    summed = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    n = len(chunks)
+    return kernel_counts(events), device_busy_ms(events) / n, summed / n, wall / n
+
+
+def device_busy_ms(events):
+    """The time some device activity of ``events`` runs: the union of their
+    intervals (in a replayed graph, kernels' intervals can overlap, so their
+    sum can exceed the wall time)."""
+    busy, end = 0.0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        if end is None or start >= end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
+
+
+def check_same(name, got, want, tol):
+    """Bit-identical, or within ``tol`` of max|want|; returns (bit-identical, relative max error)."""
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or values not finite")
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+    if rel > tol:
+        raise AssertionError(f"{name}: relative max error {rel:.3e} (bound {tol})")
+    return bool((got == want).all()), rel
+
+
+def phase_graphs(report, key, run, reload_weights=False):
+    """The graphed steps (``jit_step``, one CUDA graph of the step;
+    ``staged_step``, a graph per stage) against the eager step on the same
+    pipeline, chunks and controls: each stream bit-identical to the eager
+    one or within the float32 bound of the emitted audio; capture times,
+    step p50/p95, the graphs' memory, a trace of replays counting the hand
+    kernels' launches and the device's busy share, MFU; the live controls
+    changed mid-stream with no recapture; with ``reload_weights``, new
+    weights after the capture reach the graphs."""
+    import torch
+
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.stream import graphs
+    from obs_rvc_tpu_torch.utils import pipeline_gflops_per_chunk
+
+    pipe, chunks, controls = run["pipe"], run["chunks"], run["controls"]
+    dtype = str(pipe.compute_dtype).removeprefix("torch.")
+    n = len(chunks)
+    eager, _ = stream(pipe.step, pipe, chunks, controls)
+    same, rel = check_same(f"{key} eager vs eager", eager, run["audio"], CPU_TOL["emitted"])
+    out = {"eager_repeat_bit_identical": same, "eager_repeat_rel": rel}
+    log(key, f"eager step run twice: {'bit-identical' if same else f'relative max difference {rel:.3e}'}")
+    gflop = pipeline_gflops_per_chunk(pipe.cfg, pipe.contentvec_cfg.out_dim)
+    peak, peak_name = (BF16_PEAK_FLOPS, "bf16 989") if dtype == "bfloat16" else (F32_PEAK_FLOPS, "float32 67")
+    eager_p50 = report[key]["step_p50_ms"]
+    out["mfu_eager"] = gflop * 1e9 / (eager_p50 * 1e-3) / peak
+    counts, busy, summed, wall = trace_steps(pipe.step, pipe, chunks[:5], controls)
+    out["eager_trace"] = {"kernels_in_trace": counts, "device_busy_ms_per_step": busy,
+                          "device_summed_ms_per_step": summed, "traced_step_ms": wall}
+    log(key, f"eager trace of 5 steps: hand kernels {counts}; device busy {busy:.2f} ms a step (kernel times "
+             f"summed {summed:.2f} ms) of {wall:.2f} ms with the tracer on ({busy / wall:.1%})")
+    for mode, holder, step in (("fused", pipe.jit_step, pipe.jit_step), ("staged", pipe.staged_graphs,
+                                                                          pipe.staged_step)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        holder.capture()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        per_graph = ({"jit_step": holder.graph.capture_seconds} if mode == "fused"
+                     else {name: g.capture_seconds for name, g in holder.graphs.items()})
+        captures0 = graphs.CAPTURES
+        audio, times = stream(step, pipe, chunks, controls, timed=True)
+        peak_mem = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved() - reserved0
+        bit, rel = check_same(f"{key} {mode} vs eager", audio, eager, CPU_TOL["emitted"])
+        steady = np.asarray(times[4:])
+        p50 = float(np.percentile(steady, 50))
+        counts, busy, summed, wall = trace_steps(step, pipe, chunks[:5], controls)
+        want = {k: v * 5 for k, v in KERNELS_PER_STEP.items()}
+        # the live controls changed mid-stream: the same as eager, and nothing captured again
+        sched_eager, _ = stream(pipe.step, pipe, chunks[:12], controls_at)
+        sched, _ = stream(step, pipe, chunks[:12], controls_at)
+        sched_bit, sched_rel = check_same(f"{key} {mode} with controls changed", sched, sched_eager,
+                                          CPU_TOL["emitted"])
+        recaptures = graphs.CAPTURES - captures0
+        r = out[mode] = {
+            "capture_s": capture_s, "capture_s_per_graph": per_graph, "bit_identical": bit, "rel_max_err": rel,
+            "step_ms": times, "step_p50_ms": p50, "step_p95_ms": float(np.percentile(steady, 95)),
+            "peak_mem_bytes": int(peak_mem), "graph_pool_bytes": int(pool), "kernels_in_trace": counts,
+            "device_busy_ms_per_step": busy, "device_summed_ms_per_step": summed, "traced_step_ms": wall,
+            "mfu": gflop * 1e9 / (p50 * 1e-3) / peak, "controls_bit_identical": sched_bit,
+            "controls_rel_max_err": sched_rel, "recaptures_after_controls": recaptures}
+        log(key, f"{mode} graphs ({dtype}): captured in {capture_s:.2f} s ("
+                 + ", ".join(f"{k} {v:.2f}" for k, v in per_graph.items()) + " s); "
+                 + (f"{n} chunks bit-identical to the eager step" if bit else
+                    f"{n} chunks within {rel:.3e} of max|eager| (bound {CPU_TOL['emitted']})")
+                 + f"; step p50 {p50:.2f} ms, p95 {r['step_p95_ms']:.2f} ms (eager p50 {eager_p50:.2f}); "
+                 f"peak device memory {peak_mem / 2**20:.1f} MiB, the graphs hold {pool / 2**20:.1f} MiB")
+        log(key, f"{mode} trace of 5 replayed steps: hand kernels {counts} (want {want}); device busy "
+                 f"{busy:.2f} ms a step (kernel times summed {summed:.2f} ms) of {wall:.2f} ms with the tracer on "
+                 f"({busy / wall:.1%}); MFU "
+                 f"{r['mfu']:.2%} ({gflop:.1f} GFLOP a chunk at step p50, against the {peak_name} TFLOP/s peak)")
+        log(key, f"{mode} with pitch 0 -> 12 -> -5 and rms_mix_rate 1 -> 0.5 mid-stream: "
+                 + ("bit-identical to eager" if sched_bit else f"within {sched_rel:.3e} of eager")
+                 + f"; {recaptures} captures meanwhile")
+        if counts != want:
+            raise AssertionError(f"{key} {mode}: the trace of 5 steps shows {counts} hand kernel launches, want {want}")
+        if recaptures:
+            raise AssertionError(f"{key} {mode}: {recaptures} captures after the first; controls must not recapture")
+    # the host's per-call check that the graphs' weights are the module's current ones
+    version = pipe.jit_step.graph._version
+    t0 = time.perf_counter()
+    for _ in range(100):
+        version.key()
+    out["weights_check_ms"] = (time.perf_counter() - t0) * 10
+    log(key, f"the per-call weights check ({len(version._tensors)} parameters and buffers): "
+             f"{out['weights_check_ms']:.3f} ms on the host")
+    log(key, f"MFU against the {peak_name} TFLOP/s peak: eager {out['mfu_eager']:.2%}, fused "
+             f"{out['fused']['mfu']:.2%}, staged {out['staged']['mfu']:.2%}")
+    if reload_weights:
+        before = {"fused": pipe.jit_step.captures, "staged": pipe.staged_graphs.captures}
+        old = stream(pipe.step, pipe, chunks[:3], controls)[0]
+        pipe.init_params(SEED + 1, std=None)
+        if dtype == "bfloat16":
+            cast_params_for_serving(pipe)
+        new = stream(pipe.step, pipe, chunks[:3], controls)[0]
+        moved = float((new - old).abs().max()) / float(old.abs().max())
+        reload = {"eager_moved_rel": moved}
+        for mode, step, holder in (("fused", pipe.jit_step, pipe.jit_step),
+                                   ("staged", pipe.staged_step, pipe.staged_graphs)):
+            got = stream(step, pipe, chunks[:3], controls)[0]
+            bit, rel = check_same(f"{key} {mode} after a weight reload", got, new, CPU_TOL["emitted"])
+            reload[mode] = {"bit_identical": bit, "rel_max_err": rel,
+                            "recaptures": holder.captures - before[mode]}
+        out["weight_reload"] = reload
+        log(key, f"after loading new weights (seed {SEED + 1}): the eager output moved {moved:.3e} of max|audio|; "
+                 + "; ".join(f"{m} " + ("bit-identical to eager" if reload[m]["bit_identical"] else
+                                          f"within {reload[m]['rel_max_err']:.3e} of eager")
+                             + f", {reload[m]['recaptures']} graphs captured again" for m in ("fused", "staged")))
+        if moved < 1e-3 or any(reload[m]["recaptures"] == 0 for m in ("fused", "staged")):
+            raise AssertionError(f"{key}: the weight reload did not reach the graphs: {reload}")
+    report[key]["graphs"] = out
+
+
 def stage_breakdown(report, key, pipe, state, chunks, controls):
     """Host-clock time of each stage of the step, each ended by a
     synchronize, p50 over the chunks: where the step's time goes."""
@@ -694,40 +929,81 @@ def session_p95(times_ms):
     return ts[max(0, int(len(ts) * 0.95) - 1)]
 
 
+class Server:
+    """The port's server (``serve.server.main``) on a thread, for a ``with``
+    block; ``bound`` maps each front door to its port."""
+
+    def __init__(self, argv):
+        self.argv, self.bound, self.failed = argv, {}, []
+        self.stop, self.listening = threading.Event(), threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True, name="chip-smoke-server")
+
+    def _run(self):
+        from obs_rvc_tpu_torch.serve import server
+
+        def on_ready(b):
+            self.bound.update(b)
+            self.listening.set()
+
+        try:
+            server.main(self.argv, ready=on_ready, stop_event=self.stop)
+        except BaseException as e:  # reported on the main thread
+            self.failed.append(e)
+            self.listening.set()
+
+    def __enter__(self):
+        log("serve", "python -m obs_rvc_tpu_torch.serve.server " + " ".join(self.argv))
+        t0 = time.perf_counter()
+        self.thread.start()
+        if not self.listening.wait(600) or self.failed:
+            self.__exit__()
+            raise AssertionError(f"the server did not come up: {self.failed}")
+        self.startup_s = time.perf_counter() - t0
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(30)
+        if self.thread.is_alive() or self.failed:
+            raise AssertionError(f"the server did not stop cleanly: {self.failed}")
+
+
+def server_argv(host, extra=()):
+    ports = {name: free_port() for name in ("duplex", "ws", "rpc", "health")}
+    return ["--host", host, "--port", str(ports["duplex"]), "--ws-port", str(ports["ws"]),
+            "--rpc-port", str(ports["rpc"]), "--health-port", str(ports["health"]), *extra]
+
+
+def duplex_session(host, port, wav, n, chunk, sample_rate):
+    from obs_rvc_tpu_torch.serve.stream_server import StreamClient
+
+    client = StreamClient.connect_tcp(host, port, timeout=120)
+    try:
+        return stream_door("duplex", client.send_audio, wav, 2400, chunk, n, sample_rate)
+    finally:
+        client.close()
+
+
 def phase_serve(report, main_pipe):
     """The port's server on a thread, driven through its front doors;
     ``main_pipe`` is the main phase's pipeline in the server's default
-    dtype, on the same seed's weights."""
+    dtype, on the same seed's weights. Every door replays CUDA graphs, which
+    the server captured before it listened (a new RPC geometry is captured
+    at its first request, and the CLI's pipeline at its first chunk)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from obs_rvc_tpu_torch.config import ChunkConfig
-    from obs_rvc_tpu_torch.serve import cli, server
+    from obs_rvc_tpu_torch.serve import cli
     from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
     from obs_rvc_tpu_torch.serve.rpc import RpcClient
-    from obs_rvc_tpu_torch.serve.stream_server import StreamClient
     from obs_rvc_tpu_torch.serve.ws import WsStreamClient
-    from obs_rvc_tpu_torch.stream import RvcEngine
+    from obs_rvc_tpu_torch.stream import RvcEngine, graphs
     from obs_rvc_tpu_torch.utils import read_wav, write_wav
 
     host = "127.0.0.1"
     cfg = main_pipe.cfg
-    ports = {name: free_port() for name in ("duplex", "ws", "rpc", "health")}
-    # the defaults: the card, bfloat16, v2 at 40 kHz, 0.3 s chunks; random weights from seed 0, fan-in
-    # scaled, as the main phase's pipeline
-    argv = ["--host", host, "--port", str(ports["duplex"]), "--ws-port", str(ports["ws"]),
-            "--rpc-port", str(ports["rpc"]), "--health-port", str(ports["health"])]
-    log("serve", "python -m obs_rvc_tpu_torch.serve.server " + " ".join(argv))
-    stop, listening, bound, failed = threading.Event(), threading.Event(), {}, []
-
-    def on_ready(b):
-        bound.update(b)
-        listening.set()
-
-    def run():
-        try:
-            server.main(argv, ready=on_ready, stop_event=stop)
-        except BaseException as e:  # reported on the main thread
-            failed.append(e)
-            listening.set()
-
+    chunk = cfg.sample_frame_size
     # every session chunk's time, in the order the sessions record them (/metrics gives only p50/p95),
     # and where each session's first is: a session steps on a worker thread of its own (the set holds
     # the thread objects, since a finished thread's ident can come back)
@@ -740,107 +1016,229 @@ def phase_serve(report, main_pipe):
         chunk_ms.append(ms)
         record(self, ms)
 
-    t0 = time.perf_counter()
-    thread = threading.Thread(target=run, daemon=True, name="chip-smoke-server")
+    # the defaults: the card, bfloat16, staged graphs, v2 at 40 kHz, 0.3 s chunks; random weights from
+    # seed 0, fan-in scaled, as the main phase's pipeline
+    captures0 = graphs.CAPTURES
     ChunkMetrics.record = record_each
-    thread.start()
     try:
-        if not listening.wait(600) or failed:
-            raise AssertionError(f"the server did not come up: {failed}")
-        log("serve", f"server listening in {time.perf_counter() - t0:.1f} s: {bound}")
-        metrics_url = f"http://{host}:{bound['health']}/metrics"
-        reset_launches()
+        with Server(server_argv(host)) as srv:
+            bound = srv.bound
+            captured_at_start = graphs.CAPTURES - captures0
+            log("serve", f"server listening in {srv.startup_s:.1f} s with {captured_at_start} graphs captured "
+                         f"(the staged step's 7, the engine's 1): {bound}")
+            metrics_url = f"http://{host}:{bound['health']}/metrics"
+            reset_launches()
+            captures1 = graphs.CAPTURES
 
-        # 1. the duplex stream and 2. its WebSocket form, each converting whole chunks
-        chunk, frame = cfg.sample_frame_size, 2400
-        for door, connect, n in (
-                ("duplex", lambda: StreamClient.connect_tcp(host, bound["duplex"], timeout=120), SERVE_CHUNKS),
-                ("websocket", lambda: WsStreamClient.connect(host, bound["ws"], timeout=120), WS_CHUNKS)):
-            wav = voiced_signal((n + 2) * chunk, cfg.sample_rate, seed=SEED + 2)
-            client, t_stream = connect(), time.perf_counter()
-            streamed = stream_door(door, client.send_audio, wav, frame, chunk, n, cfg.sample_rate)
-            client.close()
-            log("serve", f"{door}: {streamed.size} samples back ({streamed.size / chunk:.2f} chunks) in "
-                         f"{time.perf_counter() - t_stream:.1f} s, all finite, tail max |y| "
-                         f"{float(np.abs(streamed[2 * chunk :]).max()):.4f}")
+            # 1. the duplex stream and 2. its WebSocket form, each converting whole chunks
+            door_out = {}
+            for door, n in (("duplex", SERVE_CHUNKS), ("websocket", WS_CHUNKS)):
+                wav = voiced_signal((n + 2) * chunk, cfg.sample_rate, seed=SEED + 2)
+                t_stream = time.perf_counter()
+                if door == "duplex":
+                    streamed = duplex_session(host, bound["duplex"], wav, n, chunk, cfg.sample_rate)
+                else:
+                    client = WsStreamClient.connect(host, bound["ws"], timeout=120)
+                    streamed = stream_door(door, client.send_audio, wav, 2400, chunk, n, cfg.sample_rate)
+                    client.close()
+                door_out[door] = streamed
+                log("serve", f"{door}: {streamed.size} samples back ({streamed.size / chunk:.2f} chunks) in "
+                             f"{time.perf_counter() - t_stream:.1f} s, all finite, tail max |y| "
+                             f"{float(np.abs(streamed[2 * chunk :]).max()):.4f}")
 
-        # 3. the reference RPC door at the launch geometry and at the 0.5 s chunk's
-        cfg2 = ChunkConfig.build(sample_length=0.50)
-        requests = []
-        for i, c in enumerate([cfg, cfg, cfg, cfg2, cfg2]):
-            x = voiced_signal(c.input_buffer_16k_size, 16000, seed=SEED + 10 + i)
-            requests.append((c is cfg, (x, c.sample_frame_16k_size, 0, c.skip_head, c.return_length)))
-        rpc = RpcClient.connect_tcp(host, bound["rpc"], timeout=300)
-        replies, rtt = [], []
-        for _, req in requests:
+            # two duplex sessions at once, each against its own run alone
+            pair = [voiced_signal(8 * chunk, cfg.sample_rate, seed=SEED + 20 + i) for i in range(2)]
+            alone = [duplex_session(host, bound["duplex"], w, 6, chunk, cfg.sample_rate) for w in pair]
+            together = [None, None]
+
+            def concurrent(i):
+                together[i] = duplex_session(host, bound["duplex"], pair[i], 6, chunk, cfg.sample_rate)
+
+            workers = [threading.Thread(target=concurrent, args=(i,)) for i in range(2)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(180)
+            if any(w.is_alive() for w in workers) or any(t is None for t in together):
+                raise AssertionError("the two concurrent duplex sessions did not finish")
+            pair_rel = []
+            for a, b in zip(alone, together):
+                m = min(a.size, b.size)
+                pair_rel.append(check_same("concurrent vs sequential session", torch.from_numpy(b[:m]),
+                                           torch.from_numpy(a[:m]), CPU_TOL["emitted"]))
+            log("serve", "two concurrent duplex sessions against each one's sequential run: "
+                         + ", ".join("bit-identical" if bit else f"relative max difference {rel:.3e}"
+                                     for bit, rel in pair_rel))
+
+            # 3. the reference RPC door at the launch geometry and at the 0.5 s chunk's (captured at its first)
+            cfg2 = ChunkConfig.build(sample_length=0.50)
+            requests = []
+            for i, c in enumerate([cfg, cfg, cfg, cfg2, cfg2]):
+                x = voiced_signal(c.input_buffer_16k_size, 16000, seed=SEED + 10 + i)
+                requests.append((c is cfg, (x, c.sample_frame_16k_size, 0, c.skip_head, c.return_length)))
+            rpc = RpcClient.connect_tcp(host, bound["rpc"], timeout=300)
+            replies, rtt = [], []
+            for _, req in requests:
+                t1 = time.perf_counter()
+                y = rpc.infer(*req)
+                rtt.append((time.perf_counter() - t1) * 1e3)
+                if y.shape != (req[4] * 400,) or not np.isfinite(y).all():
+                    raise AssertionError(f"RPC reply of shape {y.shape} (want {(req[4] * 400,)}) or not finite")
+                replies.append(y)
+            log("serve", "rpc: replies " + ", ".join(f"{y.size}" for y in replies) + " samples, all finite; "
+                         "round trips " + ", ".join(f"{v:.1f}" for v in rtt) + " ms (the fourth: the first at "
+                         "the 0.5 s geometry, its graph captured then)")
+
+            # 4. the offline CLI on a WAV file (its own float32 pipeline, through jit_step)
+            OUT_DIR.mkdir(exist_ok=True)
+            src, dst = OUT_DIR / "serve_in.wav", OUT_DIR / "serve_out.wav"
+            cli_chunks = 5
+            write_wav(src, voiced_signal(cli_chunks * chunk, cfg.sample_rate, seed=SEED + 3), cfg.sample_rate)
             t1 = time.perf_counter()
-            y = rpc.infer(*req)
-            rtt.append((time.perf_counter() - t1) * 1e3)
-            if y.shape != (req[4] * 400,) or not np.isfinite(y).all():
-                raise AssertionError(f"RPC reply of shape {y.shape} (want {(req[4] * 400,)}) or not finite")
-            replies.append(y)
-        rpc.close()
-        log("serve", "rpc: replies " + ", ".join(f"{y.size}" for y in replies) + " samples, all finite; "
-                     "round trips " + ", ".join(f"{v:.1f}" for v in rtt) + " ms")
+            cli.main([str(src), str(dst), "--metrics-json"])
+            converted, sr = read_wav(dst)
+            if sr != cfg.sample_rate or converted.shape != (1, cli_chunks * chunk) or \
+                    not np.isfinite(converted).all() or float(np.abs(converted).max()) < 1e-3:
+                raise AssertionError(f"serve.cli wrote {converted.shape} at {sr} Hz, or silence")
+            log("serve", f"cli: {src.name} -> {dst.name}, {converted.shape[1]} samples in "
+                         f"{time.perf_counter() - t1:.1f} s (pipeline set-up and capture included)")
 
-        # 4. the offline CLI on a WAV file
-        OUT_DIR.mkdir(exist_ok=True)
-        src, dst = OUT_DIR / "serve_in.wav", OUT_DIR / "serve_out.wav"
-        cli_chunks = 5
-        write_wav(src, voiced_signal(cli_chunks * chunk, cfg.sample_rate, seed=SEED + 3), cfg.sample_rate)
-        t1 = time.perf_counter()
-        cli.main([str(src), str(dst), "--metrics-json"])
-        converted, sr = read_wav(dst)
-        if sr != cfg.sample_rate or converted.shape != (1, cli_chunks * chunk) or \
-                not np.isfinite(converted).all() or float(np.abs(converted).max()) < 1e-3:
-            raise AssertionError(f"serve.cli wrote {converted.shape} at {sr} Hz, or silence")
-        log("serve", f"cli: {src.name} -> {dst.name}, {converted.shape[1]} samples in "
-                     f"{time.perf_counter() - t1:.1f} s (pipeline set-up included)")
+            metrics = wait_metrics_settled(metrics_url)
+            launches = read_launches()
+            captured = graphs.CAPTURES - captures1
+            served = metrics["chunks"] + len(requests) + cli_chunks
+            log("serve", f"/metrics {metrics}")
+            # replays call no wrapper: only the graphs captured meanwhile (the new RPC geometry's and the
+            # CLI's, each a whole step) called them, in their warm-up calls and their capture
+            log("serve", f"wrapper calls {launches} for {metrics['chunks']} session chunks + {len(requests)} RPC "
+                         f"requests + {cli_chunks} CLI chunks, {captured} graphs captured meanwhile")
+            check_launches("serve", launches, (graphs.WARMUP_CALLS + 1) * captured)
+            if captured != 2:
+                raise AssertionError(f"serve: {captured} graphs captured while serving, want 2 (a new RPC geometry, "
+                                     "the CLI)")
+            if metrics["chunks"] < SERVE_CHUNKS or metrics["errors"] != 0:
+                raise AssertionError(f"/metrics counts {metrics['chunks']} chunks and {metrics['errors']} errors")
 
-        metrics = wait_metrics_settled(metrics_url)
-        launches = read_launches()
-        served = metrics["chunks"] + len(requests) + cli_chunks
-        log("serve", f"/metrics {metrics}")
-        log("serve", f"launches {launches} for {metrics['chunks']} session chunks + {len(requests)} RPC "
-                     f"requests + {cli_chunks} CLI chunks")
-        check_launches("serve", launches, served)
-        if metrics["chunks"] < SERVE_CHUNKS or metrics["errors"] != 0:
-            raise AssertionError(f"/metrics counts {metrics['chunks']} chunks and {metrics['errors']} errors")
+            # replays launch the hand kernels: a device trace of 3 RPC requests and a duplex session
+            chunks_before = metrics["chunks"]
+            captures2 = graphs.CAPTURES
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # the tracer can miss the first kernels after it starts: a request not counted, then a marker
+                rpc.infer(*requests[0][1])
+                torch.cuda.synchronize()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                for at_launch, req in requests[:3]:
+                    rpc.infer(*req)
+                duplex_session(host, bound["duplex"], pair[0], 4, chunk, cfg.sample_rate)
+                traced_chunks = wait_metrics_settled(metrics_url)["chunks"] - chunks_before
+                torch.cuda.synchronize()
+            rpc.close()
+            events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+            if not marks:
+                raise AssertionError(f"serve: the trace holds no marker kernel among {len(events)} device events")
+            counts = kernel_counts(events[marks[-1] + 1 :])
+            want = {k: v * (3 + traced_chunks) for k, v in KERNELS_PER_STEP.items()}
+            log("serve", f"device trace of 3 RPC requests and a {traced_chunks}-chunk duplex session, all replays: "
+                         f"hand kernels {counts} (want {want}) among {len(events) - marks[-1] - 1} device events")
+            if counts != want or graphs.CAPTURES != captures2:
+                raise AssertionError(f"serve: the traced replays launched {counts}, want {want}; "
+                                     f"{graphs.CAPTURES - captures2} captures")
+
+        # the fused step shared through the exec cache: a second server
+        with Server(server_argv(host, ["--step-mode", "fused", "--exec-cache"])) as srv2:
+            wav = voiced_signal((WS_CHUNKS + 2) * chunk, cfg.sample_rate, seed=SEED + 2)
+            fused = duplex_session(host, srv2.bound["duplex"], wav, WS_CHUNKS, chunk, cfg.sample_rate)
+            m = min(fused.size, door_out["websocket"].size)
+            fused_vs_staged = check_same("fused server vs staged server", torch.from_numpy(fused[:m]),
+                                         torch.from_numpy(door_out["websocket"][:m]), CPU_TOL["emitted"])
+            rpc2 = RpcClient.connect_tcp(host, srv2.bound["rpc"], timeout=300)
+            fused_rtt = []
+            for _, req in requests:
+                t1 = time.perf_counter()
+                y = rpc2.infer(*req)
+                fused_rtt.append((time.perf_counter() - t1) * 1e3)
+                if y.shape != (req[4] * 400,) or not np.isfinite(y).all():
+                    raise AssertionError("--exec-cache RPC reply of the wrong shape or not finite")
+            rpc2.close()
+            with urllib.request.urlopen(f"http://{host}:{srv2.bound['health']}/metrics", timeout=30) as r:
+                metrics2 = json.loads(r.read())
+            log("serve", f"--step-mode fused --exec-cache: listening in {srv2.startup_s:.1f} s; duplex "
+                         f"{fused.size} samples back, all finite, "
+                         + ("bit-identical to" if fused_vs_staged[0] else f"within {fused_vs_staged[1]:.3e} of")
+                         + " the staged server's WebSocket session on the same signal; RPC round trips "
+                         + ", ".join(f"{v:.1f}" for v in fused_rtt) + f" ms; /metrics {metrics2}")
+            if metrics2["errors"] != 0 or not np.isfinite(fused).all():
+                raise AssertionError(f"--step-mode fused --exec-cache: /metrics counts {metrics2['errors']} errors")
     finally:
-        stop.set()
-        thread.join(30)
         ChunkMetrics.record = record
-    if thread.is_alive() or failed:
-        raise AssertionError(f"the server did not stop cleanly: {failed}")
 
     # the launch-geometry replies against an in-process engine on the same
     # weights, inputs and f0 history (the server's engine saw them first)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
     engine = RvcEngine(main_pipe)
     rel = []
     for (at_launch, req), y in zip(requests, replies):
         if at_launch:
             want = engine.infer(*req)
             rel.append(float(np.abs(y - want).max()) / max(float(np.abs(want).max()), 1e-12))
+    engine_mem = []  # (peak allocated, what the graphs hold) with one geometry, then two
+    for geometries, req in ((1, requests[0][1]), (2, requests[3][1])):
+        engine.infer(*req)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        engine_mem.append((torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved() - reserved0))
+    log("serve", "in-process engine: " + "; ".join(
+        f"{g} geometr{'y' if g == 1 else 'ies'} captured: peak device memory {a / 2**20:.1f} MiB, the graphs hold "
+        f"{h / 2**20:.1f} MiB" for g, (a, h) in zip((1, 2), engine_mem)))
+    # the first request at a geometry no pipeline of this process has run: where its time goes
+    cfg3 = ChunkConfig.build(sample_length=0.40)
+    x3 = voiced_signal(cfg3.input_buffer_16k_size, 16000, seed=SEED + 30)
+    t1 = time.perf_counter()
+    engine.infer(x3, cfg3.sample_frame_16k_size, 0, cfg3.skip_head, cfg3.return_length)
+    first_ms = (time.perf_counter() - t1) * 1e3
+    graph3 = next(p for k, p in engine._pipelines.items() if k[0] == cfg3.input_buffer_16k_size).jit_infer
+    new_geometry = {"first_request_ms": first_ms, "warmup_ms": graph3.warmup_seconds * 1e3,
+                    "capture_ms": graph3.capture_seconds * 1e3}
+    log("serve", f"in-process engine, first request at a new geometry (0.4 s chunks): {first_ms:.1f} ms, of which the "
+                 f"eager warm-up call {new_geometry['warmup_ms']:.1f} ms and the recording and instantiation "
+                 f"{new_geometry['capture_ms'] - new_geometry['warmup_ms']:.1f} ms")
     dtype = str(main_pipe.compute_dtype).removeprefix("torch.")
     log("serve", f"rpc vs in-process engine in {dtype}, max|diff| / max|audio|: " + ", ".join(f"{r:.2e}" for r in rel)
                  + " (bound 1e-3: the card's sums are not bitwise repeatable)")
     if max(rel) > 1e-3:
         raise AssertionError(f"RPC replies disagree with the in-process engine: {rel}")
     rtt_launch = [v for (at_launch, _), v in zip(requests, rtt) if at_launch]
+    warm = [v for i, v in enumerate(chunk_ms) if i not in firsts]
     report["serve"] = {
         "ports": bound, "metrics": metrics, "launches": launches, "served_steps": served,
-        "rpc_round_trip_ms": rtt, "rpc_round_trip_p50_ms": float(np.percentile(rtt_launch, 50)),
-        "rpc_vs_engine_rel": rel, "session_chunk_p50_ms": metrics["p50_ms"], "dtype": dtype,
-        "session_chunk_ms": chunk_ms, "session_firsts": firsts, "session_chunk_p95_ms": session_p95(chunk_ms),
+        "graphs_captured_at_start": captured_at_start, "graphs_captured_serving": captured,
+        "kernels_in_trace": counts, "rpc_round_trip_ms": rtt, "rpc_round_trip_p50_ms": float(np.percentile(rtt_launch, 50)),
+        "rpc_first_at_new_geometry_ms": rtt[3], "rpc_vs_engine_rel": rel, "session_chunk_p50_ms": metrics["p50_ms"],
+        "dtype": dtype, "session_chunk_ms": chunk_ms, "session_firsts": firsts,
+        "session_first_chunk_ms": [chunk_ms[i] for i in firsts],
+        "session_chunk_p95_ms": session_p95(chunk_ms), "session_chunk_p50_warm_ms": float(np.percentile(warm, 50)),
         "session_chunk_p95_after_two_ms": session_p95(chunk_ms[2:]),
-        "session_chunk_p95_warm_ms": session_p95([v for i, v in enumerate(chunk_ms) if i not in firsts]),
+        "session_chunk_p95_warm_ms": session_p95(warm),
+        "concurrent_vs_sequential": [{"bit_identical": b, "rel": r} for b, r in pair_rel],
+        "engine_memory_bytes": engine_mem, "engine_new_geometry": new_geometry,
+        "fused_exec_cache": {"metrics": metrics2, "rpc_round_trip_ms": fused_rtt, "startup_s": srv2.startup_s,
+                             "vs_staged": {"bit_identical": fused_vs_staged[0], "rel": fused_vs_staged[1]}},
     }
-    log("serve", f"RPC round trip p50 {report['serve']['rpc_round_trip_p50_ms']:.2f} ms at the launch geometry; "
-                 f"session chunk p50 {metrics['p50_ms']:.2f} ms, p95 {metrics['p95_ms']:.2f} ms (/metrics)")
+    log("serve", f"RPC round trip p50 {report['serve']['rpc_round_trip_p50_ms']:.2f} ms at the launch geometry, "
+                 f"{rtt[3]:.1f} ms for the first at a new geometry; session chunk p50 {metrics['p50_ms']:.2f} ms, "
+                 f"p95 {metrics['p95_ms']:.2f} ms (/metrics)")
     srv = report["serve"]
     log("serve", f"session chunks one by one ({len(chunk_ms)}): p95 {srv['session_chunk_p95_ms']:.2f} ms over all, "
                  f"{srv['session_chunk_p95_after_two_ms']:.2f} ms after the first two, "
-                 f"{srv['session_chunk_p95_warm_ms']:.2f} ms without each session's first; each session's first "
+                 f"p50 {srv['session_chunk_p50_warm_ms']:.2f} and p95 {srv['session_chunk_p95_warm_ms']:.2f} ms "
+                 "without each session's first; each session's first "
                  + ", ".join(f"{chunk_ms[i]:.1f}" for i in firsts) + " ms, the largest "
                  + ", ".join(f"{v:.1f}" for v in sorted(chunk_ms)[-3:]) + " ms")
 
@@ -1094,6 +1492,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the obs_rvc_tpu_torch package is not importable here: {e}", file=sys.stderr)
         return 2
 
+    # each graph's capture, as the port logs it (name, ms, the warm-up call's ms)
+    logging.basicConfig(stream=sys.stdout, format="[graphs] %(message)s")
+    logging.getLogger("obs_rvc_tpu_torch.stream.graphs").setLevel(logging.INFO)
     report = {}
     smi = nvidia_smi_line()
     log("device", smi)
@@ -1124,22 +1525,31 @@ def main(argv=None) -> int:
     f32 = phase_main(report, "main", N_CHUNKS, "float32", cpu_chunks=CPU_CHUNKS["float32"], breakdown=True)
     if args.profile:
         phase_profile(report, "main", f32)
-    del f32["pipe"], f32["state"]  # the bfloat16 run's peak memory is its own
+    phase_graphs(report, "main", f32)
+    del f32["pipe"], f32["state"]  # the bfloat16 run's peak memory is its own (its graphs go with it)
     torch.cuda.empty_cache()
     bf16 = phase_main(report, "main_bf16", N_CHUNKS, "bfloat16", cpu_chunks=CPU_CHUNKS["bfloat16"],
                       breakdown=True, reference=f32["cpu"])
     compare_dtypes(report, f32, bf16)
     if args.profile:
         phase_profile(report, "main_bf16", bf16)
-    phase_main(report, "v1", V1_CHUNKS, "bfloat16", version="v1")
+    phase_graphs(report, "main_bf16", bf16)
+    v1 = phase_main(report, "v1", V1_CHUNKS, "bfloat16", version="v1")
+    phase_graphs(report, "v1", v1, reload_weights=True)
+    del v1
     torch.cuda.empty_cache()
     phase_serve(report, bf16["pipe"])
     phase_timing(report, trace=args.profile)
     for key in ("main", "main_bf16", "v1"):
         m = report[key]
-        log("timing", f"{key} ({m['version']}, {m['dtype']}): step p50 {m['step_p50_ms']:.2f} ms, p95 "
-                      f"{m['step_p95_ms']:.2f} ms over {m['chunks'] - 4} steady chunks; real-time factor "
-                      f"{m['rtf']:.4f} of the 300 ms chunk; peak device memory {m['peak_mem_bytes'] / 2**20:.1f} MiB")
+        g = m["graphs"]
+        log("timing", f"{key} ({m['version']}, {m['dtype']}): step p50 / p95 over {m['chunks'] - 4} steady chunks: "
+                      f"eager {m['step_p50_ms']:.2f} / {m['step_p95_ms']:.2f} ms, fused graph "
+                      f"{g['fused']['step_p50_ms']:.2f} / {g['fused']['step_p95_ms']:.2f} ms, staged graphs "
+                      f"{g['staged']['step_p50_ms']:.2f} / {g['staged']['step_p95_ms']:.2f} ms; real-time factor "
+                      f"{m['rtf']:.4f} eager, {m['rtf'] * g['fused']['step_p50_ms'] / m['step_p50_ms']:.4f} fused; peak device memory "
+                      f"{m['peak_mem_bytes'] / 2**20:.1f} MiB eager, {g['fused']['peak_mem_bytes'] / 2**20:.1f} fused, "
+                      f"{g['staged']['peak_mem_bytes'] / 2**20:.1f} staged")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps(kernel_line(report)))

@@ -6,6 +6,7 @@ envelopes, ``out *= (rms_in / max(rms_out, 1e-3)) ** (1 - mix_rate)``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,8 +31,9 @@ def linear_interpolate_align_corners(x: torch.Tensor, size: int) -> torch.Tensor
         ramp = torch.arange(r, dtype=torch.float32, device=x.device) / float(r)
         segs = x[:-1, None] + (x[1:] - x[:-1])[:, None] * ramp[None, :]
         return torch.cat([segs.reshape(-1), x[-1:]])
-    step = torch.tensor((n - 1) / (size - 1), dtype=torch.float32)
-    pos = torch.arange(size, dtype=torch.float32, device=x.device) * step.to(x.device)
+    # the step rounded to float32 on the host, as the JAX function's constant (no host-to-device copy)
+    step = float(np.float32((n - 1) / (size - 1)))
+    pos = torch.arange(size, dtype=torch.float32, device=x.device) * step
     lo = torch.clamp(torch.floor(pos).long(), 0, n - 1)
     hi = torch.clamp(torch.ceil(pos).long(), 0, n - 1)
     frac = pos - lo.float()
@@ -42,15 +44,18 @@ def envelope_mixing(
     input_wav: torch.Tensor,
     output_wav: torch.Tensor,
     sample_rate: int,
-    mix_rate: float,
+    mix_rate,
 ) -> torch.Tensor:
     """Match ``output_wav``'s loudness envelope to ``input_wav``'s; ``mix_rate=1``
-    leaves the output untouched (the exponent is 0 and the gain exactly 1)."""
+    leaves the output untouched (the exponent is 0 and the gain exactly 1).
+    ``mix_rate`` is a number or a 0-d tensor; the exponent ``1 - mix_rate`` is
+    taken in float32, as the JAX function takes it."""
     zc = sample_rate // 100
     out_len = output_wav.shape[0]
     rms1 = rms_envelope(input_wav[:out_len], 4 * zc, zc)
     rms2 = rms_envelope(output_wav, 4 * zc, zc)
     rms1 = linear_interpolate_align_corners(rms1, out_len + 1)
     rms2 = torch.clamp(linear_interpolate_align_corners(rms2, out_len + 1), min=1e-3)
-    gain = (rms1[:out_len] / rms2[:out_len]) ** (1.0 - float(mix_rate))
+    mix_power = 1.0 - torch.as_tensor(mix_rate, dtype=torch.float32, device=output_wav.device)
+    gain = (rms1[:out_len] / rms2[:out_len]) ** mix_power
     return output_wav * gain

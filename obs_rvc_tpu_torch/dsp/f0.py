@@ -5,7 +5,8 @@
   argmax of the 4-bin-padded salience, gated by a confidence threshold,
   ``f0 = 10 * 2^(cents/1200)``, unvoiced → 0;
 - ``get_f0_post``: mel-scale quantisation of f0 to coarse codes 1..=255;
-- pitch shift as the float power ``2**(semitones/12)``.
+- pitch shift as the float power ``2**(semitones/12)``, in float32 (the
+  shift may be a 0-d tensor: a graph input).
 """
 
 from __future__ import annotations
@@ -64,9 +65,11 @@ def get_f0_post(f0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return coarse, f0
 
 
-def apply_pitch_shift(f0: torch.Tensor, semitones: float) -> torch.Tensor:
-    """Scale f0 by ``2**(semitones/12)``, the exponent taken in float32."""
-    return f0 * float(np.exp2(np.float32(semitones) / np.float32(12.0)))
+def apply_pitch_shift(f0: torch.Tensor, semitones) -> torch.Tensor:
+    """Scale f0 by ``exp2(float32(semitones) / 12)``, all in float32 as the
+    JAX function computes it; ``semitones`` a number or a 0-d tensor."""
+    st = torch.as_tensor(semitones, dtype=torch.float32, device=f0.device)
+    return f0 * torch.exp2(st / 12.0)
 
 
 def median_filter_f0(f0: torch.Tensor, radius: int = 3) -> torch.Tensor:

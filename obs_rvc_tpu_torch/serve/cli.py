@@ -80,8 +80,6 @@ def check_ported(args) -> None:
         refuse("retrieval (--index*)", 12)
     if getattr(args, "mesh", ""):
         refuse("--mesh", 13)
-    if getattr(args, "exec_cache", False):
-        refuse("--exec-cache", 14)
     if getattr(args, "pool", 0) or getattr(args, "pool_pipelined", False) \
             or getattr(args, "pool_io_dtype", "float32") != "float32":
         refuse("the batched pool (--pool, --pool-io-dtype, --pool-pipelined)", 10)

@@ -121,15 +121,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample-rate", type=int, default=48000)
     p.add_argument("--dest-sample-rate", type=int, default=40000)
     p.add_argument("--checkpoint", help="RVC .pth checkpoint (random weights from seed 0 if omitted)")
-    p.add_argument("--exec-cache", action="store_true", help="not ported (ROADMAP.md queue 1 item 14)")
+    p.add_argument("--exec-cache", action="store_true",
+                   help="share the engine's captured graphs by key within this process")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.exec_cache:
-        raise SystemExit("--exec-cache is not ported (ROADMAP.md queue 1 item 14)")
 
     from obs_rvc_tpu_torch.config import RvcModelVersion, StreamSettings
     from obs_rvc_tpu_torch.models.checkpoints import load_pipeline_params
@@ -139,7 +138,8 @@ def main(argv=None) -> None:
                               dest_sample_rate=args.dest_sample_rate)
     pipe = RvcPipeline(settings.chunk_config(args.sample_rate), settings.model_version, device=args.device)
     load_pipeline_params(pipe, synthesizer_path=args.checkpoint)
-    engine = RvcEngine(pipe)
+    engine = RvcEngine(pipe, exec_cache=args.exec_cache)
+    engine.prepare()
     if args.stdio:
         serve_stream(engine, sys.stdin.buffer, sys.stdout.buffer)
     else:

@@ -15,9 +15,15 @@
 The flags are the JAX server's, so a command line carries over, plus
 ``--device`` (default: the card). A port of 0 turns its front door off.
 ``--dtype`` defaults to ``bfloat16``, as the JAX server's does (the CLI's to
-``float32``). Flags of modules not ported yet (the pool, the mesh,
-retrieval, CREPE/FCPE, the executable cache) exit with an error that names
-their ROADMAP.md item.
+``float32``). Every session and the RPC engine replay CUDA graphs: before
+the server listens it captures the launch geometry's graphs for
+``--step-mode`` (a graph per stage for ``staged``, the default; one graph of
+the whole step for ``fused``) and the RPC engine's. ``--exec-cache`` shares
+the fused step's and the engine's graphs by key within the process
+(``utils/exec_cache.py``); the kernels' builds persist across processes
+under ``obs_rvc_tpu_torch/_build/`` either way. Flags of modules not ported
+yet (the pool, the mesh, retrieval, CREPE/FCPE) exit with an error that
+names their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,11 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-sample-rate", type=int, default=48000)
     add_model_flags(p, loudness_default=1.0, dtype_default="bfloat16")
     p.add_argument("--step-mode", default="staged", choices=["staged", "fused"],
-                   help="accepted for the JAX server's command lines; both run the one eager step")
+                   help="staged: a CUDA graph per stage, replayed in turn; fused: one CUDA graph of the whole "
+                        "step (both captured in this process before the server listens)")
     p.add_argument("--pool-io-dtype", default="float32", choices=["float32", "int16"],
                    help="not ported (ROADMAP.md queue 1 item 10)")
     p.add_argument("--pool-pipelined", action="store_true", help="not ported (ROADMAP.md queue 1 item 10)")
-    p.add_argument("--exec-cache", action="store_true", help="not ported (ROADMAP.md queue 1 item 14)")
+    p.add_argument("--exec-cache", action="store_true",
+                   help="share the fused step's and the RPC engine's captured graphs by key within this process "
+                        "(a CUDA graph cannot be saved; the kernels' builds persist under _build/ regardless)")
     p.add_argument("--stage-timing", action="store_true",
                    help="collect per-stage p50s into /metrics (each stage then ends in a synchronize)")
     return p
@@ -86,7 +95,15 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
 
     def make_session():
         return StreamSession(pipe, controls, mode=args.step_mode, stage_timing=args.stage_timing,
-                             metrics=metrics)
+                             metrics=metrics, exec_cache=args.exec_cache)
+
+    # the launch geometry's graphs, captured before any door listens
+    if args.port or args.ws_port:
+        make_session().prepare()
+    engine = None
+    if args.rpc_port:
+        engine = RvcEngine(pipe, exec_cache=args.exec_cache)
+        engine.prepare()
 
     bound: dict[str, int] = {}
     failed: dict[str, BaseException] = {}
@@ -120,7 +137,7 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
     if args.ws_port:
         door("ws", serve_ws_tcp, make_session, args.host, args.ws_port)
     if args.rpc_port:
-        door("rpc", rpc_serve_tcp, RvcEngine(pipe), args.host, args.rpc_port)
+        door("rpc", rpc_serve_tcp, engine, args.host, args.rpc_port)
     health = None
     if args.health_port:
         health, bound["health"] = start_health_server(metrics, args.host, args.health_port)

@@ -5,9 +5,15 @@ as ``infer(input16k, n16k, pitch_shift, skip_head, return_length)``.
 Each request carries its own geometry. A request at the launch geometry runs
 on the launch pipeline; any other geometry gets a pipeline of its own from
 :meth:`RvcPipeline.with_config`, which shares the launch pipeline's networks,
-kept in a small bounded cache. The ``cache_pitchf`` f0 history is engine
-state shared by every request, whatever its geometry, as the plugin keeps
-one on its ``RvcInfer``.
+kept in a small bounded cache. Each geometry's request runs as one CUDA
+graph (``RvcPipeline.jit_infer``, the counterpart of the JAX engine's
+``jax.jit(run)``), captured at its first request; an evicted geometry's
+pipeline goes with its graph and the graph's memory pool. With
+``exec_cache=True`` the graphs go through
+:func:`~obs_rvc_tpu_torch.utils.exec_cache.cached_capture`, keyed by the
+pipeline's fingerprint and ``"|engine_infer"``. The ``cache_pitchf`` f0
+history is engine state shared by every request, whatever its geometry, as
+the plugin keeps one on its ``RvcInfer``.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from obs_rvc_tpu_torch.config import ChunkConfig
 from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
-from obs_rvc_tpu_torch.stream.state import StreamState
+from obs_rvc_tpu_torch.utils.exec_cache import cached_capture
 
 
 class EngineError(RuntimeError):
@@ -28,15 +34,26 @@ class EngineError(RuntimeError):
 
 class RvcEngine:
     def __init__(self, pipeline: RvcPipeline, max_geometries: int = 8, exec_cache: bool = False):
-        if exec_cache:
-            raise NotImplementedError("exec_cache: persisted executables are not ported "
-                                      "(ROADMAP.md queue 1 item 14)")
         self.pipeline = pipeline
         self.cache_pitchf = np.zeros(pipeline.cfg.pitch_cache_len, dtype=np.float32)
         self.max_geometries = max_geometries
+        self.exec_cache = exec_cache
         self.loaded = True
         self._pipelines: dict[tuple, RvcPipeline] = {}
+        #: exec_cache: each geometry's graph from cached_capture, evicted with its pipeline
+        self._cached: dict[tuple, object] = {}
         self._lock = threading.Lock()
+
+    def _launch_key(self) -> tuple:
+        lc = self.pipeline.cfg
+        return lc.input_buffer_16k_size, lc.sample_frame_16k_size, lc.skip_head, lc.return_length
+
+    def prepare(self) -> None:
+        """Capture the launch geometry's graph now, before the first request
+        (a server calls this before it listens). Nothing to do without networks."""
+        if self.pipeline.modules():
+            with self._lock:
+                self._infer_fn(self._launch_key()).capture()
 
     # --- model management ---
 
@@ -50,7 +67,7 @@ class RvcEngine:
         input_len, n16k, skip_head, return_length = key
         launch = self.pipeline
         lc = launch.cfg
-        if key == (lc.input_buffer_16k_size, lc.sample_frame_16k_size, lc.skip_head, lc.return_length):
+        if key == self._launch_key():
             return launch
         pipe = self._pipelines.get(key)
         if pipe is None:
@@ -62,10 +79,24 @@ class RvcEngine:
             except ValueError as e:
                 raise EngineError(f"invalid request geometry {key}: {e}") from e
             if len(self._pipelines) >= self.max_geometries:
-                # bounded: drop the oldest geometry (dicts keep insertion order)
-                self._pipelines.pop(next(iter(self._pipelines)))
+                # bounded: drop the oldest geometry (dicts keep insertion order), and its graph with it
+                oldest = next(iter(self._pipelines))
+                self._pipelines.pop(oldest)
+                self._cached.pop(oldest, None)
             self._pipelines[key] = pipe
         return pipe
+
+    def _infer_fn(self, key: tuple):
+        """The graphed ``_infer`` of the geometry ``key``."""
+        pipe = self._pipeline_for(key)
+        if not self.exec_cache:
+            return pipe.jit_infer
+        fn = self._cached.get(key)
+        if fn is None:
+            fn, _ = cached_capture(pipe.jit_infer, pipe.jit_infer.static_args,
+                                   semantic_key=pipe.fingerprint() + "|engine_infer")
+            self._cached[key] = fn
+        return fn
 
     # --- the RPC-visible call ---
 
@@ -90,16 +121,10 @@ class RvcEngine:
                               f"available feature frames ({input_len // 160})")
         key = (input_len, int(sample_frame_16k_size), int(skip_head), int(return_length))
         controls = StepControls.default(pitch_shift=float(pitch_shift))
+        buf16 = torch.from_numpy(np.ascontiguousarray(input_16k, dtype=np.float32))
         with self._lock, torch.no_grad():
-            pipe = self._pipeline_for(key)
-            dev = pipe.device
-            buf16 = torch.from_numpy(np.ascontiguousarray(input_16k, dtype=np.float32)).to(dev)
-            state = StreamState(
-                input_buffer=torch.zeros(pipe.cfg.input_buffer_size, device=dev),
-                input_buffer_16k=buf16,
-                sola_buffer=torch.zeros(pipe.cfg.sola_buffer_frame_size, device=dev),
-                cache_pitchf=torch.from_numpy(self.cache_pitchf).to(dev),
-            )
-            audio, new_cache = pipe._infer(state.cache_pitchf, buf16, controls)
-            self.cache_pitchf = new_cache.cpu().numpy()
-            return audio.cpu().numpy()
+            fn = self._infer_fn(key)
+            with fn.lock:  # the graph's outputs are read before anyone replays it again
+                audio, new_cache = fn.run(torch.from_numpy(self.cache_pitchf), buf16, controls)
+                self.cache_pitchf = new_cache.cpu().numpy()
+                return audio.cpu().numpy()

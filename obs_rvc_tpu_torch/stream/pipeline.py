@@ -13,9 +13,22 @@
 The networks live in :class:`RvcPipeline`'s modules; the step takes the
 stream's state and one chunk and returns the new state and the emitted
 audio. Each stage is a method of its own (``stage_*``), so callers can run
-and compare the stages one by one; ``step`` runs them in order and can
-time each. ``with_config`` gives the same pipeline at another geometry
-over the same networks (the engine's per-request geometries).
+and compare the stages one by one. ``with_config`` gives the same pipeline
+at another geometry over the same networks (the engine's per-request
+geometries).
+
+Three ways to run the step, the JAX package's names:
+
+- ``step``: eagerly, each operator sent from Python; the CPU path, the
+  stage-by-stage diagnostic and what the graphs are held against.
+- ``jit_step``: one CUDA graph of the whole step (``stream/graphs.py``),
+  the state donated: the new state is written into the caller's tensors.
+- ``staged_step``: a CUDA graph per stage, replayed in turn.
+
+The live controls reach every path as 0-d float32 tensors (the speaker id
+int64), so they are graph inputs: a new pitch shift or mix rate is written
+before a replay and never recaptures. ``fingerprint()`` names what shapes a
+graph, for ``utils/exec_cache.cached_capture``.
 
 ``compute_dtype`` is the networks' dtype (float32, or bfloat16 as the JAX
 server serves): they are built in it and compute in it, and return float32.
@@ -27,7 +40,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -59,6 +74,7 @@ from obs_rvc_tpu_torch.models import (
 from obs_rvc_tpu_torch.models.contentvec import extract_feature, feature_frames
 from obs_rvc_tpu_torch.models.layers import VitsLayerNorm
 from obs_rvc_tpu_torch.models.weights import load_state_dict
+from obs_rvc_tpu_torch.stream.graphs import GraphedFunction, WeightsVersion, graph_pool, stage_runner
 from obs_rvc_tpu_torch.stream.state import StreamState
 
 
@@ -86,6 +102,16 @@ class StepControls:
     def default(pitch_shift: float = 0.0, rms_mix_rate: float = 1.0, index_rate: float = 0.0,
                 sid: int = 0) -> "StepControls":
         return StepControls(float(pitch_shift), float(rms_mix_rate), float(index_rate), int(sid))
+
+    def on(self, device) -> "StepControls":
+        """The controls as 0-d tensors on ``device``, float32 and the speaker
+        id int64, as the graphs hold them: every path then does the same
+        float32 arithmetic on them. Filled on the device, no host copy."""
+        def full(v, dtype):
+            return v if isinstance(v, torch.Tensor) else torch.full((), v, dtype=dtype, device=device)
+
+        return StepControls(full(self.pitch_shift, torch.float32), full(self.rms_mix_rate, torch.float32),
+                            full(self.index_rate, torch.float32), full(self.sid, torch.long))
 
 
 def _untimed(name: str, fn, *args):
@@ -183,15 +209,38 @@ class RvcPipeline:
         self.feature_frames_100hz = feature_frames_100hz
         self.hubert_length = min(cfg.input_buffer_16k_size // ZC_16K, feature_frames_100hz)
         self._fade_in, self._fade_out = fade_windows(cfg.sola_buffer_frame_size, device=self.device)
-        self._sid: dict[int, torch.Tensor] = {}
+        #: this geometry's graphs by name, made at first use
+        self._graphs: dict[str, object] = {}
+        self._graphs_lock = threading.Lock()
 
     def with_config(self, cfg: ChunkConfig) -> "RvcPipeline":
         """This pipeline at another geometry: the same options, compute dtype
         and ``nn.Module`` objects (no networks are built or re-initialised),
-        a geometry of its own."""
+        a geometry and graphs of its own."""
         other = copy.copy(self)
         other._set_geometry(cfg)
         return other
+
+    def fingerprint(self) -> str:
+        """Every constructor input that shapes the step's graphs: the
+        ``semantic_key`` base for :func:`obs_rvc_tpu_torch.utils.exec_cache.cached_capture`
+        (a copy of the JAX ``RvcPipeline.fingerprint`` with the port's options,
+        plus the compute dtype and the device). Callers append a call-site
+        label (``"|jit_step"``, ``"|engine_infer"``)."""
+        return "|".join([
+            repr(self.cfg),
+            str(self.version),
+            f"median={self.f0_median_radius}",
+            "retrieval=none",
+            f"keyshift={self.keyshift}",
+            f"pvoc={self.phase_vocoder}",
+            "pitch=rmvpe",
+            repr(self.contentvec_cfg),
+            repr(self.rmvpe_cfg),
+            repr(self.synth_cfg),
+            f"dtype={self.compute_dtype}",
+            f"device={self.device}",
+        ])
 
     def modules(self) -> dict[str, nn.Module]:
         """The networks by name (none for the passthrough geometry)."""
@@ -253,15 +302,15 @@ class RvcPipeline:
         pitch, pitchf = get_f0_post(cache[start : start + cfg.return_length])
         return cache, pitch, pitchf
 
-    def stage_synth(self, phone, pitch, pitchf, sid: int, rnd=None) -> torch.Tensor:
-        """Synthesizer audio at the model rate, ``[model_return_size]``."""
-        if sid not in self._sid:
-            self._sid[sid] = torch.tensor([sid], dtype=torch.long, device=self.device)
-        audio = self.synthesizer(phone, pitch[None, :], pitchf[None, :], self._sid[sid],
+    def stage_synth(self, phone, pitch, pitchf, sid, rnd=None) -> torch.Tensor:
+        """Synthesizer audio at the model rate, ``[model_return_size]``; ``sid``
+        an int or a 0-d int64 tensor."""
+        sid = torch.as_tensor(sid, dtype=torch.long, device=self.device).reshape(1)
+        audio = self.synthesizer(phone, pitch[None, :], pitchf[None, :], sid,
                                  rnd[None] if rnd is not None else None)
         return audio[0]
 
-    def stage_post(self, buf, model_out, sola_buffer, rms_mix_rate: float):
+    def stage_post(self, buf, model_out, sola_buffer, rms_mix_rate):
         """Resample to the device rate, mix the envelope, align and crossfade:
         returns ``(emitted, next sola_buffer)``."""
         cfg = self.cfg
@@ -284,13 +333,17 @@ class RvcPipeline:
         rnd: Optional[torch.Tensor] = None,
         stage_times: Optional[dict] = None,
     ) -> tuple[StreamState, torch.Tensor]:
-        """One chunk ``[sample_frame_size]`` → ``(new state, emitted audio)``.
-        ``rnd`` is the ``[T, 192]`` prior noise (zeros when None). With
-        ``stage_times`` (a dict), each stage ends in a device synchronize and
-        its wall ms is written under its name: diagnostics, not throughput."""
-        run = self._stage_runner(stage_times)
+        """One chunk ``[sample_frame_size]`` → ``(new state, emitted audio)``,
+        eagerly. ``rnd`` is the ``[T, 192]`` prior noise (zeros when None).
+        With ``stage_times`` (a dict), each stage ends in a device synchronize
+        and its wall ms is written under its name: diagnostics, not
+        throughput."""
+        return self._run_step(state, chunk.to(self.device, torch.float32), controls.on(self.device), rnd,
+                              self._stage_runner(stage_times))
+
+    def _run_step(self, state, chunk, controls, rnd, run):
         cfg = self.cfg
-        buf, buf16 = run("pre", self.stage_pre, state, chunk.to(self.device, torch.float32))
+        buf, buf16 = run("pre", self.stage_pre, state, chunk)
         if cfg.skip_inference:
             model_out, new_cache = buf16[-cfg.model_return_size :], state.cache_pitchf
         else:
@@ -298,10 +351,6 @@ class RvcPipeline:
         emitted, new_sola = run("post", self.stage_post, buf, model_out, state.sola_buffer,
                                 controls.rms_mix_rate)
         return StreamState(buf, buf16, new_sola, new_cache), emitted
-
-    #: the JAX package's name for the stage-by-stage step; here the step is
-    #: always run stage by stage, so both names are one method
-    staged_step = step
 
     def _stage_runner(self, stage_times: Optional[dict]):
         """``run(name, fn, *args)``: calls ``fn``; with ``stage_times``, also
@@ -319,6 +368,49 @@ class RvcPipeline:
 
         return run
 
+    def _graph(self, name: str, make):
+        with self._graphs_lock:
+            graph = self._graphs.get(name)
+            if graph is None:
+                graph = self._graphs[name] = make()
+            return graph
+
+    @property
+    def jit_step(self) -> "GraphedStep":
+        """``(state, chunk, controls) → (state, emitted)`` by one CUDA graph of
+        the whole step, captured at its first call (or :meth:`GraphedStep.capture`)."""
+        return self._graph("jit_step", lambda: GraphedStep(self))
+
+    @property
+    def staged_graphs(self) -> "StagedGraphs":
+        """The graphs of :meth:`staged_step`, one per stage."""
+        return self._graph("staged", lambda: StagedGraphs(self))
+
+    @torch.no_grad()
+    def staged_step(self, state: StreamState, chunk: torch.Tensor, controls: StepControls,
+                    stage_times: Optional[dict] = None) -> tuple[StreamState, torch.Tensor]:
+        """The step as one CUDA graph per stage (``pre`` … ``post``), each
+        captured at its first call and replayed in turn, the counterpart of
+        the JAX ``staged_step``. The state is donated, as in ``jit_step``.
+        With ``stage_times``, each replay ends in a synchronize and its wall
+        ms is written under the stage's name."""
+        return self.staged_graphs(state, chunk, controls, stage_times)
+
+    @property
+    def jit_infer(self) -> GraphedFunction:
+        """``(cache, buf16, controls) → (model-rate audio, new f0 cache)`` by one
+        CUDA graph of :meth:`_infer` at this geometry: the engine's step."""
+        def make():
+            cfg = self.cfg
+            example = (torch.zeros(cfg.pitch_cache_len), torch.zeros(cfg.input_buffer_16k_size),
+                       StepControls.default())
+            return GraphedFunction(self._infer, example, device=self.device, name="engine_infer",
+                                   weights=self._weight_modules)
+        return self._graph("jit_infer", make)
+
+    def _weight_modules(self):
+        return self.modules().values()
+
     def _infer(self, cache, buf16, controls, rnd=None, run=None):
         """The networks' part of the step: ``(model-rate audio, new f0 cache)``."""
         run = run or _untimed
@@ -333,15 +425,112 @@ class RvcPipeline:
 
     @torch.no_grad()
     def convert_offline(self, wav: torch.Tensor, controls: Optional[StepControls] = None) -> torch.Tensor:
-        """Convert a whole utterance chunk by chunk; returns device-rate audio
-        of the same length, rounded down to whole chunks."""
+        """Convert a whole utterance chunk by chunk through :attr:`jit_step`;
+        returns device-rate audio of the same length, rounded down to whole
+        chunks."""
         cfg = self.cfg
         controls = controls if controls is not None else StepControls.default()
         wav = wav.to(self.device, torch.float32)
         state = self.new_state()
         outs = []
         for i in range(wav.shape[0] // cfg.sample_frame_size):
-            state, out = self.step(state, wav[i * cfg.sample_frame_size : (i + 1) * cfg.sample_frame_size],
-                                   controls)
+            state, out = self.jit_step(state, wav[i * cfg.sample_frame_size : (i + 1) * cfg.sample_frame_size],
+                                       controls)
             outs.append(out)
         return torch.cat(outs) if outs else torch.zeros(0, device=self.device)
+
+
+def _write_state(dst: StreamState, src: StreamState) -> None:
+    for f in dataclasses.fields(StreamState):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+class GraphedStep:
+    """:attr:`RvcPipeline.jit_step`: the whole step as one CUDA graph. Its
+    static state is written in place inside the graph, and after the replay
+    copied into the caller's state tensors, which the call returns (the
+    counterpart of ``donate_argnums=(1,)``: the caller's old state is
+    consumed). Host work per call: copy in, replay, copy out, under a lock,
+    so sessions on several threads may share it."""
+
+    def __init__(self, pipe: RvcPipeline):
+        self._pipe = weakref.ref(pipe)  # the pipeline owns this graph: no cycle back to it
+        cfg = pipe.cfg
+        example = (StreamState.init(cfg, device=pipe.device), torch.zeros(cfg.sample_frame_size),
+                   StepControls.default())
+        self.graph = GraphedFunction(self._step, example, device=pipe.device, name="jit_step",
+                                     weights=pipe._weight_modules)
+        self.weights = self.graph.weights
+
+    def _step(self, state, chunk, controls):
+        new, emitted = self._pipe()._run_step(state, chunk, controls, None, _untimed)
+        _write_state(state, new)
+        return emitted
+
+    def capture(self) -> bool:
+        return self.graph.capture()
+
+    @property
+    def captures(self) -> int:
+        return self.graph.captures
+
+    def __call__(self, state: StreamState, chunk: torch.Tensor,
+                 controls: StepControls) -> tuple[StreamState, torch.Tensor]:
+        with self.graph.lock:
+            emitted = self.graph.run(state, chunk, controls)
+            _write_state(state, self.graph.static_args[0])
+            return state, emitted.clone()
+
+
+class StagedGraphs:
+    """:meth:`RvcPipeline.staged_step`'s graphs, one per stage, in one memory
+    pool (they replay in the order they were captured, under one lock).
+    When the weights changed, every stage is captured again."""
+
+    def __init__(self, pipe: RvcPipeline):
+        self._pipe = weakref.ref(pipe)  # the pipeline owns these graphs: no cycle back to it
+        self.graphs: dict[str, GraphedFunction] = {}
+        self.lock = threading.RLock()
+        self._pool = None  # made with the first graphs
+        self._version = WeightsVersion(pipe._weight_modules)
+        self._weights_key = None
+        self._dropped_captures = 0
+
+    @property
+    def captures(self) -> int:
+        """Captures of every stage so far, dropped graphs included."""
+        return self._dropped_captures + sum(g.captures for g in self.graphs.values())
+
+    def capture(self) -> bool:
+        """Capture every stage now, by a step of silence on a scratch state,
+        unless graphs of the current weights are held (or this runs on the
+        CPU). Returns whether it captured."""
+        pipe = self._pipe()
+        with self.lock:
+            if pipe.device.type != "cuda":
+                return False
+            self._drop_if_weights_changed()
+            if self.graphs:
+                return False
+            self(StreamState.init(pipe.cfg, device=pipe.device), torch.zeros(pipe.cfg.sample_frame_size),
+                 StepControls.default())
+            return True
+
+    def _drop_if_weights_changed(self) -> None:
+        key = self._version.key()
+        if key != self._weights_key:
+            self._dropped_captures += sum(g.captures for g in self.graphs.values())
+            self.graphs.clear()
+            # a pool whose graphs are all gone is released by the allocator: new graphs take a new one
+            self._pool = graph_pool(self._pipe().device)
+            self._weights_key = key
+
+    def __call__(self, state, chunk, controls, stage_times=None):
+        pipe = self._pipe()
+        with self.lock:
+            if pipe.device.type == "cuda":
+                self._drop_if_weights_changed()
+            run = stage_runner(self.graphs, pipe.device, self._pool, stage_times)
+            new, emitted = pipe._run_step(state, chunk, controls, None, run)
+            _write_state(state, new)
+            return state, emitted.clone()

@@ -2,13 +2,21 @@
 (counterpart of ``obs_rvc_tpu/stream/scheduler.py``).
 
 The audio side pushes mono device-rate frames of any size and pulls
-converted ones; the worker drains whole chunks through the pipeline's
-eager ``step``. The modes "staged" and "fused" of the JAX session are both
-accepted and both run that one step: the port has no fused executable.
+converted ones; the worker drains whole chunks through the step, as the
+JAX session's modes do: "staged" (the default) replays a CUDA graph per
+stage (``RvcPipeline.staged_step``), "fused" one graph of the whole step
+(``RvcPipeline.jit_step``, through ``utils/exec_cache.cached_capture`` with
+``exec_cache=True``). Sessions over one pipeline share its graphs. They are
+captured at :meth:`StreamSession.start` (or the first chunk), so a chunk on
+the worker thread only copies in, replays and copies out. On the CPU the
+same calls run the step eagerly.
 
 - A step that raises emits one chunk of silence, resets the stream state,
   logs the error and counts it in ``metrics.errors``, so audio keeps flowing
   and a persistent fault shows in ``/metrics``.
+- The state's tensors stay the same objects for the session's life: each
+  step writes the new state into them (the graphed steps donate the
+  state), and a reset or restore writes into them too.
 - Live controls are swapped whole (one assignment of a frozen
   :class:`StepControls`), never mutated in place.
 - The state's tensors live on the pipeline's device; the rings are host
@@ -29,6 +37,7 @@ from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
 from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
 from obs_rvc_tpu_torch.stream.ringbuf import make_ring_buffer
 from obs_rvc_tpu_torch.stream.state import StreamState
+from obs_rvc_tpu_torch.utils.exec_cache import cached_capture
 
 logger = logging.getLogger(__name__)
 
@@ -45,14 +54,18 @@ class StreamSession:
         mode: str = "staged",
         stage_timing: bool = False,
         metrics: Optional[ChunkMetrics] = None,
+        exec_cache: bool = False,
     ):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         self.pipeline = pipeline
         self.controls = controls if controls is not None else StepControls.default()
         self.mode = mode
-        #: per-stage wall times into the metrics (each stage then ends in a
-        #: device synchronize)
+        #: fused mode: take the step's graph from cached_capture, shared by key
+        self.exec_cache = exec_cache
+        self._fused_step = None
+        #: per-stage wall times into the metrics (staged mode; each stage then
+        #: ends in a device synchronize)
         self.stage_timing = stage_timing
         cfg = pipeline.cfg
         self._chunk = cfg.sample_frame_size
@@ -86,13 +99,39 @@ class StreamSession:
 
     # --- worker side ---
 
+    def prepare(self) -> None:
+        """Capture this mode's graphs now, if nobody has yet (the server calls
+        it once before it listens, and :meth:`start` for each session)."""
+        if self.mode == "fused":
+            self._fused()
+        else:
+            self.pipeline.staged_graphs.capture()
+
+    def _fused(self):
+        if self._fused_step is None:
+            step = self.pipeline.jit_step
+            if self.exec_cache:
+                step, _ = cached_capture(step, step.graph.static_args,
+                                         semantic_key=self.pipeline.fingerprint() + "|jit_step")
+            else:
+                step.capture()
+            self._fused_step = step
+        return self._fused_step
+
     def _step(self, chunk: np.ndarray) -> np.ndarray:
-        stage_times = {} if self.stage_timing else None
-        self.state, out = self.pipeline.step(self.state, torch.from_numpy(chunk), self.controls,
-                                             stage_times=stage_times)
-        if stage_times:
-            self.metrics.record_stages(stage_times)
+        chunk = torch.from_numpy(chunk)
+        if self.mode == "fused":
+            _, out = self._fused()(self.state, chunk, self.controls)
+        else:
+            stage_times = {} if self.stage_timing else None
+            _, out = self.pipeline.staged_step(self.state, chunk, self.controls, stage_times=stage_times)
+            if stage_times:
+                self.metrics.record_stages(stage_times)
         return out.cpu().numpy()
+
+    def _reset_state(self) -> None:
+        for t in vars(self.state).values():
+            t.zero_()
 
     def process_pending(self, max_chunks: int = 4) -> int:
         """Run up to ``max_chunks`` chunk steps; returns the chunks produced."""
@@ -108,7 +147,7 @@ class StreamSession:
                     logger.exception("chunk step failed; emitting silence and resetting state")
                     self.metrics.record_error()
                     out = np.zeros(self._chunk, np.float32)
-                    self.state = self.pipeline.new_state()
+                    self._reset_state()
             self._out.push(out)
             done += 1
         return done
@@ -126,6 +165,7 @@ class StreamSession:
     def start(self) -> None:
         if self._thread is None:
             self.clear()
+            self.prepare()
             self._running = True
             self._thread = threading.Thread(target=self._loop, daemon=True, name="rvc-worker")
             self._thread.start()
@@ -140,7 +180,7 @@ class StreamSession:
 
     def clear(self) -> None:
         """Zero the stream state and empty both rings."""
-        self.state = self.pipeline.new_state()
+        self._reset_state()
         while self._in.pop(self._chunk).size:
             pass
         while self._out.pop(self._chunk).size:
@@ -171,7 +211,8 @@ class StreamSession:
             if got != (n,):
                 raise ValueError(f"snapshot geometry mismatch: {name} is {got}, this session's "
                                  f"ChunkConfig needs ({n},)")
-        self.state = state
+        for name in want:
+            getattr(self.state, name).copy_(getattr(state, name))
 
     # --- live settings ---
 

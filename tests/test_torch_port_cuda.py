@@ -5,7 +5,9 @@ the reason (the kernels have no CPU mode, and their plain versions are held
 against the JAX package's Pallas kernels in ``test_torch_port_kernels.py``).
 They cover what ``chip_smoke.py``'s main-path shapes do not: batches, ragged
 tile edges, every channel count the kernels are built for, and the launch
-counters. On a machine with a card, run them as::
+counters; and, at reduced widths, the step's CUDA graphs against the eager
+step, replayed from two threads, captured again after a weight reload, and
+a capture that fails. On a machine with a card, run them as::
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -322,3 +324,149 @@ def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cpu = MelSpectrogram(device="cpu")
     assert stft_mel.log_mel(torch.zeros(20160, dtype=torch.float64)[::2], cpu.mel_basis,
                             cpu.window).shape == (128, 64)
+
+
+# --- the compiled step: CUDA graphs of the whole step and of each stage ---
+
+#: reduced widths that keep every hand kernel on the path: RMVPE levels of 16 and 32 channels (the
+#: chain), generator levels of 64, 32 and 16 (the bank; its C=8 is not built)
+GRAPH_WIDTHS = dict(
+    contentvec=dict(dim=64, num_layers=2, tap_layer=2, num_heads=4, ffn_dim=128, out_dim=64),
+    rmvpe=dict(en_de_layers=3, inter_layers=1, n_blocks=2, en_out_channels=16, gru_hidden=32),
+    synth=dict(feature_dim=64, inter_channels=16, hidden_channels=16, filter_channels=32, n_layers=2,
+               upsample_initial_channel=256, gin_channels=16, spk_embed_dim=4))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN picks float32 convolution algorithms whose sums are not bitwise
+    repeatable run to run (the eager float32 step run twice differs by ~6e-5
+    of max|audio| at full width); held to its deterministic ones, the graphs
+    must equal the eager step bit for bit."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+def _graph_pipe(device, dtype=torch.float32, seed=0):
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+    from obs_rvc_tpu_torch.stream import RvcPipeline
+
+    pipe = RvcPipeline(ChunkConfig.build(sample_length=0.10, extra_inference_time=0.50),
+                       contentvec_cfg=ContentVecConfig(**GRAPH_WIDTHS["contentvec"]),
+                       rmvpe_cfg=RMVPEConfig(**GRAPH_WIDTHS["rmvpe"]),
+                       synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype)
+    pipe.init_params(seed, std=None)
+    if dtype == torch.bfloat16:
+        cast_params_for_serving(pipe)
+    return pipe
+
+
+def _chunks(pipe, n, seed=0):
+    cfg = pipe.cfg
+    t = np.arange(n * cfg.sample_frame_size) / cfg.sample_rate
+    x = 0.3 * np.sin(2 * np.pi * 180.0 * t) + 0.01 * np.random.default_rng(seed).standard_normal(t.size)
+    wav = torch.from_numpy(x.astype(np.float32))
+    return [wav[i * cfg.sample_frame_size : (i + 1) * cfg.sample_frame_size] for i in range(n)]
+
+
+def _stream(step, pipe, chunks, controls):
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    state, outs = pipe.new_state(), []
+    for i, chunk in enumerate(chunks):
+        st, mix = controls[min(i, len(controls) - 1)]
+        state, out = step(state, chunk.to(pipe.device), StepControls.default(pitch_shift=st, rms_mix_rate=mix))
+        outs.append(out)
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, dtype):
+    """The graphs run the eager step's kernels in its order: bit for bit,
+    with the controls changed mid-stream and no capture after the first."""
+    pipe = _graph_pipe(cuda, dtype)
+    chunks = _chunks(pipe, 6)
+    controls = [(0.0, 1.0), (0.0, 1.0), (12.0, 1.0), (12.0, 0.5), (-5.0, 0.5)]
+    want = _stream(pipe.step, pipe, chunks, controls)
+    for step, holder in ((pipe.jit_step, pipe.jit_step), (pipe.staged_step, pipe.staged_graphs)):
+        got = _stream(step, pipe, chunks, controls)
+        assert torch.equal(got, want)
+        captures = holder.captures
+        assert torch.equal(_stream(step, pipe, chunks, controls[::-1]), _stream(pipe.step, pipe, chunks, controls[::-1]))
+        assert holder.captures == captures
+
+
+def test_graphed_sessions_replay_from_two_threads(cuda, deterministic_cudnn):
+    """Two sessions per mode over one pipeline, stepping at once on two
+    threads, each equal to its run alone."""
+    import threading
+
+    from obs_rvc_tpu_torch.stream import StepControls, StreamSession
+
+    pipe = _graph_pipe(cuda)
+    chunk = pipe.cfg.sample_frame_size
+    signals = [torch.cat(_chunks(pipe, 5, seed=s)).numpy() for s in (1, 2)]
+
+    def run(session, wav, out):
+        with torch.no_grad():
+            for i in range(0, wav.size, chunk):
+                session.push_audio(wav[i : i + chunk])
+                session.process_pending()
+                out.append(session.pull_audio(chunk))
+
+    for mode in ("staged", "fused"):
+        alone = []
+        for wav in signals:
+            out = []
+            run(StreamSession(pipe, StepControls.default(pitch_shift=2.0), mode=mode), wav, out)
+            alone.append(np.concatenate(out))
+        outs = [[], []]
+        sessions = [StreamSession(pipe, StepControls.default(pitch_shift=2.0), mode=mode) for _ in signals]
+        for s in sessions:
+            s.prepare()
+        threads = [threading.Thread(target=run, args=(s, w, o)) for s, w, o in zip(sessions, signals, outs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        for a, o in zip(alone, outs):
+            np.testing.assert_array_equal(np.concatenate(o), a)
+
+
+def test_graphs_are_captured_again_after_a_weight_reload(cuda, deterministic_cudnn):
+    pipe = _graph_pipe(cuda)
+    chunks = _chunks(pipe, 2)
+    controls = [(3.0, 0.5)]
+    before = _stream(pipe.jit_step, pipe, chunks, controls)
+    _stream(pipe.staged_step, pipe, chunks, controls)
+    captures = pipe.jit_step.captures, pipe.staged_graphs.captures
+    pipe.init_params(seed=1, std=None)  # load_state_dict: in place, the versions bumped
+    want = _stream(pipe.step, pipe, chunks, controls)
+    assert not torch.equal(want, before)
+    assert torch.equal(_stream(pipe.jit_step, pipe, chunks, controls), want)
+    assert torch.equal(_stream(pipe.staged_step, pipe, chunks, controls), want)
+    assert (pipe.jit_step.captures, pipe.staged_graphs.captures) == (captures[0] + 1, captures[1] + 7)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A function the card cannot capture (it reads a value on the host)
+    raises; nothing runs it eagerly instead."""
+    from obs_rvc_tpu_torch.stream.graphs import GraphedFunction
+
+    graphed = GraphedFunction(lambda x: x * float(x.sum()), (torch.ones(3, device=cuda),), device=cuda,
+                              name="host_read")
+    with pytest.raises(RuntimeError, match="capture of host_read failed"):
+        graphed(torch.ones(3, device=cuda))
+    assert graphed.captures == 0
+    torch.cuda.synchronize()
+    # the card goes on working, and a capturable function captures
+    ok = GraphedFunction(lambda x: x * 2.0, (torch.ones(3, device=cuda),), device=cuda, name="double")
+    torch.testing.assert_close(ok(torch.arange(3.0, device=cuda)), torch.tensor([0.0, 2.0, 4.0], device=cuda))
+    assert ok.captures == 1

@@ -252,7 +252,6 @@ def test_server_builds_the_pipeline_from_flags():
     (["--index-mode", "ivf"], "item 12"),
     (["--pitch-algorithm", "crepe"], "item 11"),
     (["--pitch-algorithm", "fcpe"], "item 11"),
-    (["--exec-cache"], "item 14"),
     (["--no-pallas-resblocks"], "refused"),
 ])
 def test_unported_server_flags_exit_naming_their_item(flags, item):
@@ -318,7 +317,8 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_server_main_serves_every_front_door(passthrough):
+@pytest.mark.parametrize("mode", [[], ["--step-mode", "fused", "--exec-cache"]])
+def test_server_main_serves_every_front_door(passthrough, mode):
     ports = {name: _free_port() for name in ("duplex", "ws", "rpc", "health")}
     stop, got = threading.Event(), {}
     listening = threading.Event()
@@ -329,7 +329,7 @@ def test_server_main_serves_every_front_door(passthrough):
 
     argv = ["--skip-inference", "--device", "cpu", *SMALL, "--port", str(ports["duplex"]),
             "--ws-port", str(ports["ws"]), "--rpc-port", str(ports["rpc"]),
-            "--health-port", str(ports["health"])]
+            "--health-port", str(ports["health"]), *mode]
     t = threading.Thread(target=server.main, args=(argv,), kwargs=dict(ready=ready, stop_event=stop),
                          daemon=True)
     t.start()
@@ -443,5 +443,9 @@ def test_rpc_main_serves_stdio_at_reduced_widths(monkeypatch):
     for _ in range(2):
         y = client.infer(x, cfg.sample_frame_16k_size, 2, cfg.skip_head, cfg.return_length)
         assert y.shape == (cfg.return_length * 400,) and np.isfinite(y).all()
-    with pytest.raises(SystemExit, match="item 14"):
-        rpc.main(["--exec-cache", "--device", "cpu"])
+    # --exec-cache: the engine's graphs through cached_capture; the same replies
+    stdout2 = io.BytesIO()
+    monkeypatch.setattr(sys, "stdin", types.SimpleNamespace(buffer=io.BytesIO(req + req)))
+    monkeypatch.setattr(sys, "stdout", types.SimpleNamespace(buffer=stdout2))
+    rpc.main(["--stdio", "--device", "cpu", "--exec-cache"])
+    assert stdout2.getvalue() == stdout.getvalue()

@@ -116,7 +116,7 @@ def test_failing_step_emits_silence_and_counts_an_error(pipes, monkeypatch):
     def boom(*args, **kwargs):
         raise RuntimeError("injected failure")
 
-    monkeypatch.setattr(tpipe, "step", boom)
+    monkeypatch.setattr(tpipe, "staged_step", boom)  # the session's default mode
     sess.push_audio(np.ones(cfg.sample_frame_size, np.float32))
     assert sess.process_pending() == 1
     sess.pull_audio(cfg.sample_frame_size)
