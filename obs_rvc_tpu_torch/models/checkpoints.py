@@ -2,8 +2,9 @@
 ``obs_rvc_tpu/models/checkpoints.py``).
 
 The port's modules carry the upstream key layout (fairseq HuBERT/ContentVec,
-RMVPE ``E2E``, RVC ``SynthesizerTrnMs*NSFsid``), so a checkpoint's state
-dict needs no layout transform: prefixes are stripped, weight-normed pairs
+RMVPE ``E2E``, torchcrepe ``Crepe``, torchfcpe ``CFNaiveMelPE``, RVC
+``SynthesizerTrnMs*NSFsid``), so a checkpoint's state dict needs no layout
+transform: prefixes are stripped, weight-normed pairs
 (``weight_g``/``weight_v``, or ``parametrizations.weight.original0/1``) are
 folded into plain weights, keys the module does not have (training-only
 heads such as ``enc_q`` or fairseq's ``label_embs_concat``) are dropped, and
@@ -100,6 +101,21 @@ def load_rmvpe(module: torch.nn.Module, path) -> torch.nn.Module:
     return load_module(module, sd)
 
 
+def load_crepe(module: torch.nn.Module, path) -> torch.nn.Module:
+    """torchcrepe ``.pth`` (a plain state dict: ``conv{i}.weight [out, in, k,
+    1]``, ``conv{i}_BN.*``, ``classifier.*``) into a
+    :class:`~obs_rvc_tpu_torch.models.crepe.Crepe`."""
+    return load_module(module, _state_dict(_torch_load(path)))
+
+
+def load_fcpe(module: torch.nn.Module, path) -> torch.nn.Module:
+    """torchfcpe ``.pt`` (the ``model`` payload, its config beside it) into a
+    :class:`~obs_rvc_tpu_torch.models.fcpe.Fcpe`; the weight-normed
+    ``output_proj`` (``weight_v [out, in]``, ``weight_g [out, 1]``) is folded
+    over the input axis."""
+    return load_module(module, _state_dict(_torch_load(path)))
+
+
 def load_synthesizer_state(path) -> tuple[dict, dict]:
     """RVC ``.pth`` → (state dict, metadata). The release format
     ``{"weight", "config", "f0", "version", "sr"}`` gives its metadata; a bare
@@ -162,15 +178,24 @@ def load_pipeline_params(
     rmvpe_path: Optional[str | pathlib.Path] = None,
     synthesizer_path: Optional[str | pathlib.Path] = None,
     seed: int = 0,
+    crepe_path: Optional[str | pathlib.Path] = None,
+    fcpe_path: Optional[str | pathlib.Path] = None,
 ) -> None:
     """Fill a pipeline's networks: random fan-in-scaled weights from ``seed``
     (``RvcPipeline.init_params(seed, std=None)``), then each checkpoint that
-    is given; a network whose path is left out keeps its random weights."""
+    is given; a network whose path is left out keeps its random weights. A
+    path for a pitch network the pipeline does not run raises ``ValueError``
+    (the JAX loader fails on it too: the pipeline has no parameters for it)."""
     pipeline.init_params(seed, std=None)
     if contentvec_path:
         load_contentvec(pipeline.contentvec, contentvec_path)
-    if rmvpe_path:
-        load_rmvpe(pipeline.rmvpe, rmvpe_path)
+    for path, name, load in ((rmvpe_path, "rmvpe", load_rmvpe), (crepe_path, "crepe", load_crepe),
+                             (fcpe_path, "fcpe", load_fcpe)):
+        if path:
+            if pipeline.pitch_algorithm != name:
+                raise ValueError(f"a {name} checkpoint was given, but the pipeline's pitch algorithm is "
+                                 f"{pipeline.pitch_algorithm}")
+            load(pipeline.modules()[name], path)
     if synthesizer_path:
         load_synthesizer(pipeline.synthesizer, synthesizer_path)
 
@@ -189,8 +214,10 @@ def cast_params_for_serving(pipeline, dtype: torch.dtype = torch.bfloat16):
     ``ValueError`` when ``dtype`` is not the pipeline's compute dtype, since
     it would change what the networks compute in. The packs of the chain and
     bank kernels are keyed on each weight's storage and version, so they
-    are rebuilt after a cast that moved a weight. Retrieval is not ported, so
-    there is no index to leave alone yet.
+    are rebuilt after a cast that moved a weight. The pitch network is cast
+    whichever it is, BatchNorm statistics included, as the JAX cast maps over
+    the whole tree. Retrieval is not ported, so there is no index to leave
+    alone yet.
     """
     if dtype != pipeline.compute_dtype:
         raise ValueError(f"cast_params_for_serving: the pipeline computes in {pipeline.compute_dtype}; "

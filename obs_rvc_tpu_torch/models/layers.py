@@ -20,7 +20,9 @@ computes in float32 itself. A BatchNorm in inference mode has no statistics
 to compute: flax normalises with the stored running values (rounded to
 bfloat16 by ``cast_params_for_serving``) in the promoted type of input and
 values, float32 for RMVPE's first norm, which takes the float32 mel; so
-does :class:`BatchNorm2d`.
+does :class:`BatchNorm2d`. CREPE's BatchNorms take inputs in their own
+dtype, so they are ``nn.BatchNorm1d`` (eps 1e-3); FCPE's last-axis
+LayerNorms are ``nn.LayerNorm`` and its GroupNorm is :class:`GroupNorm`.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ upstream PyTorch state dicts → ``load_state_dict(strict=True)``.
 The port's own copy of the ``export_*`` transforms of
 ``obs_rvc_tpu/models/weights.py``. Its input is any nested mapping of arrays
 in that layout (for example the JAX pipeline's parameter dict fetched with
-``jax.device_get``); its output uses the upstream RVC / fairseq / RMVPE key
-names, the layout the port's modules carry, so upstream checkpoints can be
+``jax.device_get``); its output uses the upstream RVC / fairseq / RMVPE /
+torchcrepe / torchfcpe key names, the layout the port's modules carry, so upstream checkpoints can be
 loaded the same way.
 
 Layout transforms (JAX layout → PyTorch):
@@ -200,6 +200,42 @@ def synthesizer_state_dict(variables: Mapping[str, Any], cfg) -> dict[str, np.nd
     return sd
 
 
+def crepe_state_dict(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Crepe variables (``params`` and ``batch_stats``) → torchcrepe ``Crepe``
+    state dict (conv kernels ``[k, in, out]`` → ``[out, in, k, 1]``)."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd: dict[str, np.ndarray] = {}
+    for i in range(1, 7):
+        _conv1d(sd, f"conv{i}", p[f"conv{i}"])
+        sd[f"conv{i}.weight"] = sd[f"conv{i}.weight"][..., None]
+        _bn(sd, f"conv{i}_BN", p[f"bn{i}"], st[f"bn{i}"])
+    _linear(sd, "classifier", p["classifier"])
+    return sd
+
+
+def fcpe_state_dict(variables: Mapping[str, Any], n_layers: int) -> dict[str, np.ndarray]:
+    """Fcpe variables → torchfcpe ``CFNaiveMelPE`` state dict, with the
+    weight-normed ``output_proj`` folded: ``v · (g / ‖v‖)``, the norm over the
+    input axis per output unit, as the JAX module computes its kernel."""
+    p = variables["params"]
+    sd: dict[str, np.ndarray] = {}
+    _conv1d(sd, "input_stack.0", p["in_conv1"])
+    _norm(sd, "input_stack.1", p["in_gn"])
+    _conv1d(sd, "input_stack.3", p["in_conv2"])
+    for i in range(n_layers):
+        lp, pre = p[f"layer_{i}"], f"net.encoder_layers.{i}.conformer.net"
+        _norm(sd, f"{pre}.0", lp["ln"])
+        _conv1d(sd, f"{pre}.2", lp["pw1"])
+        _conv1d(sd, f"{pre}.4.conv", lp["dw"])
+        _conv1d(sd, f"{pre}.6", lp["pw2"])
+    _norm(sd, "norm", p["final_norm"])
+    op = p["output_proj"]
+    v, g = _a(op["v"]), _a(op["g"])  # [in, out], [out]
+    sd["output_proj.weight"] = (v * (g / np.sqrt(np.sum(np.square(v), axis=0)))).T
+    sd["output_proj.bias"] = _a(op["bias"])
+    return sd
+
+
 def load_state_dict(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:
     """``load_state_dict(strict=True)`` from numpy arrays onto the module's
     device; BatchNorm's ``num_batches_tracked`` counters (bookkeeping with no
@@ -214,12 +250,21 @@ def load_state_dict(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> to
 
 
 def load_jax_params(pipe, params: Mapping[str, Any]) -> None:
-    """Load the JAX pipeline's parameter dict ``{"contentvec", "rmvpe",
-    "synthesizer"}`` into a port :class:`~obs_rvc_tpu_torch.stream.pipeline.RvcPipeline`."""
+    """Load the JAX pipeline's parameter dict into a port
+    :class:`~obs_rvc_tpu_torch.stream.pipeline.RvcPipeline`: ``"contentvec"``,
+    ``"synthesizer"`` and the pitch network the pipeline was built with,
+    ``"rmvpe"``, ``"crepe"`` or ``"fcpe"`` (the JAX ``init_params`` gives
+    only that one)."""
     cv = pipe.contentvec_cfg
-    rm = pipe.rmvpe_cfg
     load_state_dict(pipe.contentvec,
                     contentvec_state_dict(params["contentvec"], cv.num_layers, cv.final_proj))
-    load_state_dict(pipe.rmvpe,
-                    rmvpe_state_dict(params["rmvpe"], rm.n_blocks, rm.en_de_layers, rm.inter_layers))
+    algo = pipe.pitch_algorithm
+    if algo == "crepe":
+        sd = crepe_state_dict(params["crepe"])
+    elif algo == "fcpe":
+        sd = fcpe_state_dict(params["fcpe"], pipe.fcpe_cfg.n_layers)
+    else:
+        rm = pipe.rmvpe_cfg
+        sd = rmvpe_state_dict(params["rmvpe"], rm.n_blocks, rm.en_de_layers, rm.inter_layers)
+    load_state_dict(pipe.modules()[algo], sd)
     load_state_dict(pipe.synthesizer, synthesizer_state_dict(params["synthesizer"], pipe.synth_cfg))

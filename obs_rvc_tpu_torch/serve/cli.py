@@ -4,6 +4,7 @@ Every setting of the plugin maps to a flag; the flags are the JAX CLI's, so
 a command line carries over, plus ``--device``.
 
     python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --model model.pth --pitch-shift 12
+    python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --pitch-algorithm fcpe --fcpe fcpe.pt
     python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --skip-inference --device cpu
 
 A flag whose module is not ported yet exits with an error that names its
@@ -36,8 +37,8 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_d
     p.add_argument("--model", help="RVC synthesizer .pth (random weights if omitted)")
     p.add_argument("--contentvec", help="ContentVec/HuBERT .pt checkpoint")
     p.add_argument("--rmvpe", help="RMVPE .pt checkpoint")
-    p.add_argument("--crepe", help="not ported (ROADMAP.md queue 1 item 11)")
-    p.add_argument("--fcpe", help="not ported (ROADMAP.md queue 1 item 11)")
+    p.add_argument("--crepe", help="torchcrepe .pth checkpoint (pitch-algorithm crepe)")
+    p.add_argument("--fcpe", help="torchfcpe .pt checkpoint (pitch-algorithm fcpe)")
     p.add_argument("--index", help="not ported (ROADMAP.md queue 1 item 12)")
     p.add_argument("--index-dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--index-mode", default="exact", choices=["exact", "ivf"])
@@ -73,8 +74,6 @@ def check_ported(args) -> None:
     if getattr(args, "no_pallas_resblocks", False):
         raise SystemExit("--no-pallas-resblocks is refused: on the card it would run the kernels' "
                          "plain versions on the main path")
-    if args.pitch_algorithm != "rmvpe" or args.crepe or args.fcpe:
-        refuse("--pitch-algorithm crepe/fcpe (--crepe, --fcpe)", 11)
     if (args.index or args.index_dtype != "float32" or args.index_mode != "exact"
             or args.index_probes != 0 or args.index_lcap != 64):
         refuse("retrieval (--index*)", 12)
@@ -106,8 +105,8 @@ def settings_from_args(args):
 
 
 def pipeline_from_args(args, sample_rate: int):
-    """``(pipeline, controls)``: the pipeline at the flags' geometry and
-    ``--dtype`` with its weights loaded (random from seed 0 where no
+    """``(pipeline, controls)``: the pipeline at the flags' geometry,
+    ``--dtype`` and ``--pitch-algorithm`` with its weights loaded (random from seed 0 where no
     checkpoint is given; none at all for ``--skip-inference``, which runs no
     network) and, in bfloat16, cast for serving as the JAX entry points cast
     them."""
@@ -126,10 +125,11 @@ def pipeline_from_args(args, sample_rate: int):
         phase_vocoder=args.phase_vocoder,
         device=args.device,
         compute_dtype=getattr(torch, args.dtype),
+        pitch_algorithm=str(settings.pitch_algorithm),
     )
     if not pipe.cfg.skip_inference:
         load_pipeline_params(pipe, contentvec_path=args.contentvec, rmvpe_path=args.rmvpe,
-                             synthesizer_path=args.model)
+                             crepe_path=args.crepe, fcpe_path=args.fcpe, synthesizer_path=args.model)
         if args.dtype == "bfloat16":
             cast_params_for_serving(pipe)
     controls = StepControls.default(pitch_shift=args.pitch_shift, rms_mix_rate=args.loudness_factor,

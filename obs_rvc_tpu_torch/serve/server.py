@@ -21,9 +21,11 @@ the server listens it captures the launch geometry's graphs for
 the whole step for ``fused``) and the RPC engine's. ``--exec-cache`` shares
 the fused step's and the engine's graphs by key within the process
 (``utils/exec_cache.py``); the kernels' builds persist across processes
-under ``obs_rvc_tpu_torch/_build/`` either way. Flags of modules not ported
-yet (the pool, the mesh, retrieval, CREPE/FCPE) exit with an error that
-names their ROADMAP.md item.
+under ``obs_rvc_tpu_torch/_build/`` either way. ``--pitch-algorithm crepe``
+or ``fcpe`` (with ``--crepe``/``--fcpe`` checkpoints, random weights without)
+serves every door with that pitch network. Flags of modules not ported yet
+(the pool, the mesh, retrieval) exit with an error that names their
+ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@
     device-rate ring slide
     → 48k→16k resample into the 16 kHz ring
     → ContentVec features, 2x upsampled, skip_head/return_length slice
-    → log-mel → RMVPE salience → f0 → pitch shift → 1024-frame cache slide
+    → pitch frontend → salience → f0 → pitch shift → 1024-frame cache slide
+      (RMVPE: HTK log-mel; CREPE: normalised 1024-sample frames; FCPE:
+      Slaney log-mel; each on the same hop-160 frame grid)
     → synthesizer (TextEncoder → flow⁻¹ → NSF generator)
     → model rate → device rate resample
     → RMS envelope mix
@@ -34,6 +36,12 @@ graph, for ``utils/exec_cache.cached_capture``.
 server serves): they are built in it and compute in it, and return float32.
 The rings, the 16 kHz buffer, the log-mel, the pitch track and cache,
 resampling, envelope mixing and SOLA stay float32, as in the JAX step.
+
+``pitch_algorithm`` picks the pitch network, as the JAX pipeline's does:
+``"rmvpe"``, or upstream RVC's ``"crepe"`` (torchcrepe) or ``"fcpe"``
+(torchfcpe). Only that network is built; ``modules()`` names it, so the
+graphs' weights check, ``init_params`` and ``cast_params_for_serving``
+follow it.
 """
 
 from __future__ import annotations
@@ -66,10 +74,16 @@ from obs_rvc_tpu_torch.dsp import (
 from obs_rvc_tpu_torch.models import (
     ContentVec,
     ContentVecConfig,
+    Crepe,
+    CrepeConfig,
+    Fcpe,
+    FcpeConfig,
     RMVPE,
     RMVPEConfig,
     Synthesizer,
     SynthesizerConfig,
+    decode_f0_fcpe,
+    extract_crepe_frames,
 )
 from obs_rvc_tpu_torch.models.contentvec import extract_feature, feature_frames
 from obs_rvc_tpu_torch.models.layers import VitsLayerNorm
@@ -118,7 +132,7 @@ def _untimed(name: str, fn, *args):
     return fn(*args)
 
 
-_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d, VitsLayerNorm)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, VitsLayerNorm)
 
 
 def _fan_in(owner: nn.Module, shape: tuple) -> int:
@@ -151,7 +165,8 @@ def _random_state_dict(module: nn.Module, host: np.random.Generator,
 
 
 class RvcPipeline:
-    """Chunk geometry + the three networks + the per-chunk step, all on one device."""
+    """Chunk geometry + the three networks (ContentVec, the pitch network,
+    the synthesizer) + the per-chunk step, all on one device."""
 
     def __init__(
         self,
@@ -165,9 +180,17 @@ class RvcPipeline:
         synth_cfg: Optional[SynthesizerConfig] = None,
         device=None,
         compute_dtype: torch.dtype = torch.float32,
+        pitch_algorithm: str = "rmvpe",
+        crepe_cfg: Optional[CrepeConfig] = None,
+        fcpe_cfg: Optional[FcpeConfig] = None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
+        if pitch_algorithm not in ("rmvpe", "crepe", "fcpe"):
+            raise ValueError(f"unknown pitch_algorithm {pitch_algorithm!r}")
+        if pitch_algorithm != "rmvpe" and keyshift:
+            raise ValueError("resonance shift (mel keyshift) requires pitch_algorithm='rmvpe'")
+        self.pitch_algorithm = pitch_algorithm
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.version = version
@@ -180,6 +203,8 @@ class RvcPipeline:
             )
         self.contentvec_cfg = contentvec_cfg
         self.rmvpe_cfg = rmvpe_cfg if rmvpe_cfg is not None else RMVPEConfig()
+        self.crepe_cfg = crepe_cfg if crepe_cfg is not None else CrepeConfig()
+        self.fcpe_cfg = fcpe_cfg if fcpe_cfg is not None else FcpeConfig()
         if synth_cfg is None:
             synth_cfg = SynthesizerConfig.for_sample_rate(
                 cfg.model_sample_rate if not cfg.skip_inference else 40000,
@@ -187,13 +212,19 @@ class RvcPipeline:
             )
         self.synth_cfg = synth_cfg
 
-        # the passthrough geometry (skip_inference) runs no network, so it builds none
-        self.contentvec = self.rmvpe = self.synthesizer = None
+        # the passthrough geometry (skip_inference) runs no network, so it builds none;
+        # of the pitch networks, only the chosen one is built
+        self.contentvec = self.rmvpe = self.crepe = self.fcpe = self.synthesizer = None
         if not cfg.skip_inference:
             self.contentvec = ContentVec(self.contentvec_cfg).to(self.device, compute_dtype).eval()
-            self.rmvpe = RMVPE(self.rmvpe_cfg).to(self.device, compute_dtype).eval()
+            pitch = {"rmvpe": RMVPE, "crepe": Crepe, "fcpe": Fcpe}[pitch_algorithm]
+            setattr(self, pitch_algorithm,
+                    pitch(getattr(self, f"{pitch_algorithm}_cfg")).to(self.device, compute_dtype).eval())
             self.synthesizer = Synthesizer(self.synth_cfg).to(self.device, compute_dtype).eval()
         self.mel = MelSpectrogram(device=self.device)
+        if pitch_algorithm == "fcpe":
+            # torchfcpe's mel: the Slaney scale (librosa's default), fmin 0
+            self.fcpe_mel = MelSpectrogram(f_min=0.0, htk=False, device=self.device)
         self._set_geometry(cfg)
 
     def _set_geometry(self, cfg: ChunkConfig) -> None:
@@ -234,19 +265,23 @@ class RvcPipeline:
             "retrieval=none",
             f"keyshift={self.keyshift}",
             f"pvoc={self.phase_vocoder}",
-            "pitch=rmvpe",
+            f"pitch={self.pitch_algorithm}",
             repr(self.contentvec_cfg),
             repr(self.rmvpe_cfg),
             repr(self.synth_cfg),
+            repr(self.crepe_cfg),
+            repr(self.fcpe_cfg),
             f"dtype={self.compute_dtype}",
             f"device={self.device}",
         ])
 
     def modules(self) -> dict[str, nn.Module]:
-        """The networks by name (none for the passthrough geometry)."""
+        """The networks by name: ``"contentvec"``, the pitch network under its
+        algorithm's name, ``"synthesizer"`` (none for the passthrough geometry)."""
         if self.contentvec is None:
             return {}
-        return {"contentvec": self.contentvec, "rmvpe": self.rmvpe, "synthesizer": self.synthesizer}
+        return {"contentvec": self.contentvec, self.pitch_algorithm: getattr(self, self.pitch_algorithm),
+                "synthesizer": self.synthesizer}
 
     def init_params(self, seed: int = 0, std: Optional[float] = 0.02) -> None:
         """Random weights from a numpy seed, drawn by the rule of the JAX
@@ -283,18 +318,32 @@ class RvcPipeline:
         return feats[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
 
     def stage_mel(self, buf16: torch.Tensor) -> torch.Tensor:
-        """Log-mel of the pitch window, ``[128, T]``."""
-        return self.mel(buf16[-self.cfg.rmvpe_frame_16k :], keyshift=self.keyshift)
+        """The pitch frontend of the pitch window (the stage keeps the JAX
+        staged step's name, "mel"): RMVPE's log-mel ``[128, T]``, CREPE's
+        normalised frames ``[T, 1024]`` or FCPE's Slaney log-mel ``[T, 128]``."""
+        window = buf16[-self.cfg.rmvpe_frame_16k :]
+        if self.pitch_algorithm == "crepe":
+            return extract_crepe_frames(window, self.cfg.rmvpe_n_frames)
+        if self.pitch_algorithm == "fcpe":
+            return self.fcpe_mel(window).T
+        return self.mel(window, keyshift=self.keyshift)
 
-    def stage_salience(self, mel: torch.Tensor) -> torch.Tensor:
-        """RMVPE salience ``[T, 360]``."""
-        return self.rmvpe(mel[None])[0]
+    def stage_salience(self, feat: torch.Tensor) -> torch.Tensor:
+        """The pitch network's salience ``[T, 360]``."""
+        if self.pitch_algorithm == "rmvpe":
+            return self.rmvpe(feat[None])[0]
+        return getattr(self, self.pitch_algorithm)(feat)
 
     def stage_pitch_post(self, cache: torch.Tensor, salience: torch.Tensor, controls: StepControls):
-        """Decode, shift, filter, slide the cache and slice the chunk's track:
-        returns ``(cache, pitch codes [T], pitchf [T])``."""
+        """Decode (FCPE by its own grid, RMVPE and CREPE by theirs), shift,
+        filter, slide the cache and slice the chunk's track: returns
+        ``(cache, pitch codes [T], pitchf [T])``."""
         cfg = self.cfg
-        f0 = apply_pitch_shift(decode_f0(salience, threshold=0.03), controls.pitch_shift)
+        if self.pitch_algorithm == "fcpe":
+            f0 = decode_f0_fcpe(salience, threshold=0.05)
+        else:
+            f0 = decode_f0(salience, threshold=0.03)
+        f0 = apply_pitch_shift(f0, controls.pitch_shift)
         if self.f0_median_radius >= 3:
             f0 = median_filter_f0(f0, self.f0_median_radius)
         cache = slide_pitch_cache(cache, f0, cfg.sample_frame_16k_size // RMVPE_HOP)

@@ -5,9 +5,10 @@ the reason (the kernels have no CPU mode, and their plain versions are held
 against the JAX package's Pallas kernels in ``test_torch_port_kernels.py``).
 They cover what ``chip_smoke.py``'s main-path shapes do not: batches, ragged
 tile edges, every channel count the kernels are built for, and the launch
-counters; and, at reduced widths, the step's CUDA graphs against the eager
-step, replayed from two threads, captured again after a weight reload, and
-a capture that fails. On a machine with a card, run them as::
+counters; the log-mel kernel on FCPE's Slaney basis; and, at reduced
+widths, the step's CUDA graphs against the eager step (with each pitch
+algorithm), replayed from two threads, captured again after a weight
+reload, and a capture that fails. On a machine with a card, run them as::
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -64,8 +65,8 @@ def _close(got, want, atol, rtol):
 
 
 def norm_rule_mismatch(device) -> dict:
-    """For each kind of norm the networks use (PyTorch's LayerNorm and
-    BatchNorm2d, the port's GroupNorm and VitsLayerNorm), in bfloat16 on
+    """For each kind of norm the networks use (PyTorch's LayerNorm,
+    BatchNorm2d and BatchNorm1d, the port's GroupNorm and VitsLayerNorm), in bfloat16 on
     ``device``: ``(share of outputs that differ, largest difference in bf16
     steps)`` between it and flax's rule (statistics and affine map in
     float32 over the bf16 input and parameters, the result rounded once).
@@ -82,6 +83,7 @@ def norm_rule_mismatch(device) -> dict:
         "LayerNorm": (nn.LayerNorm(64), rnd(2, 40, 64, scale=3.0, shift=1.0)),
         "GroupNorm": (GroupNorm(16, 16), rnd(1, 16, 700, scale=3.0, shift=1.0)),
         "BatchNorm2d": (nn.BatchNorm2d(16).eval(), rnd(1, 16, 8, 32, scale=3.0, shift=1.0)),
+        "BatchNorm1d": (nn.BatchNorm1d(16, eps=1e-3).eval(), rnd(4, 16, 64, scale=3.0, shift=1.0)),
         "VitsLayerNorm": (VitsLayerNorm(32), rnd(1, 32, 40, scale=3.0, shift=1.0)),
     }
     out = {}
@@ -308,6 +310,35 @@ def test_log_mel_kernel_takes_any_basis(cuda, basis_kind, kind):
     _close(got, want, *BOUNDS["mel"])
 
 
+@pytest.mark.parametrize("L,kind", [
+    (10080, "voiced"),   # T=64, the FCPE path's shape
+    (10080, "silence"),
+    (10080, "loud"),
+    (9920, "voiced"),    # T=63, ragged
+    (10400, "normal"),   # T=66
+    (100, "normal"),     # T=1
+])
+def test_log_mel_kernel_on_the_fcpe_basis(cuda, L, kind):
+    """FCPE's frontend: the Slaney scale with fmin 0, whose first triangle
+    starts at bin 0 (RMVPE's HTK basis starts at 30 Hz), through the same
+    kernel from ``MelSpectrogram``'s packed basis."""
+    rng = np.random.default_rng(L + 1)
+    x = {"normal": rng.standard_normal(L).astype(np.float32), "voiced": _voiced_16k(L),
+         "silence": np.zeros(L, np.float32), "loud": 1e3 * _voiced_16k(L)}[kind]
+    sig = torch.from_numpy(x).to(cuda)
+    mel = MelSpectrogram(f_min=0.0, htk=False, device=cuda)
+    assert float(mel.mel_basis[0, 0]) == 0.0 and float(mel.mel_basis[0, 1]) > 0.0
+    before = stft_mel.LAUNCHES
+    got = mel(sig)
+    assert stft_mel.LAUNCHES == before + 1
+    want = stft_mel.log_mel_plain(sig, mel.mel_basis, mel.window)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (128, 1 + L // 160)
+    if kind == "silence":
+        torch.testing.assert_close(got, torch.full_like(got, float(np.log(1e-5))), atol=1e-5, rtol=0)
+    _close(got, want, *BOUNDS["mel"])
+
+
 def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     mel = MelSpectrogram(device=cuda)
     basis, win = mel.log_mel_basis, mel.window
@@ -349,10 +380,12 @@ def deterministic_cudnn():
     torch.backends.cudnn.deterministic = saved
 
 
-def _graph_pipe(device, dtype=torch.float32, seed=0):
+def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe"):
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
     from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.crepe import CrepeConfig
+    from obs_rvc_tpu_torch.models.fcpe import FcpeConfig
     from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
     from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
     from obs_rvc_tpu_torch.stream import RvcPipeline
@@ -360,7 +393,9 @@ def _graph_pipe(device, dtype=torch.float32, seed=0):
     pipe = RvcPipeline(ChunkConfig.build(sample_length=0.10, extra_inference_time=0.50),
                        contentvec_cfg=ContentVecConfig(**GRAPH_WIDTHS["contentvec"]),
                        rmvpe_cfg=RMVPEConfig(**GRAPH_WIDTHS["rmvpe"]),
-                       synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype)
+                       synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype,
+                       pitch_algorithm=pitch_algorithm, crepe_cfg=CrepeConfig("tiny"),
+                       fcpe_cfg=FcpeConfig(hidden=64, n_layers=2))
     pipe.init_params(seed, std=None)
     if dtype == torch.bfloat16:
         cast_params_for_serving(pipe)
@@ -400,6 +435,52 @@ def test_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, dtype):
         captures = holder.captures
         assert torch.equal(_stream(step, pipe, chunks, controls[::-1]), _stream(pipe.step, pipe, chunks, controls[::-1]))
         assert holder.captures == captures
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("algo", ["crepe", "fcpe"])
+def test_pitch_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, algo, dtype):
+    """The CREPE and FCPE steps: both graphs bit for bit against the eager
+    step, the controls changed mid-stream; FCPE's step launches the log-mel
+    kernel (on its Slaney basis), neither launches the U-Net chain."""
+    pipe = _graph_pipe(cuda, dtype, pitch_algorithm=algo)
+    chunks = _chunks(pipe, 5)
+    controls = [(0.0, 1.0), (0.0, 1.0), (12.0, 0.5), (-5.0, 0.5)]
+    before = (stft_mel.LAUNCHES, unet_block.LAUNCHES, resblock.LAUNCHES)
+    want = _stream(pipe.step, pipe, chunks, controls)
+    launched = (stft_mel.LAUNCHES - before[0], unet_block.LAUNCHES - before[1], resblock.LAUNCHES - before[2])
+    assert launched[:2] == ((5, 0) if algo == "fcpe" else (0, 0)) and launched[2] > 0
+    assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
+    for step, holder in ((pipe.jit_step, pipe.jit_step), (pipe.staged_step, pipe.staged_graphs)):
+        assert torch.equal(_stream(step, pipe, chunks, controls), want)
+        captures = holder.captures
+        assert torch.equal(_stream(step, pipe, chunks, controls[::-1]), _stream(pipe.step, pipe, chunks, controls[::-1]))
+        assert holder.captures == captures
+
+
+def test_fcpe_depthwise_conv_in_bf16_on_cudnn_is_within_the_rounding_budget(cuda):
+    """FCPE's depthwise conv (k31, a channel a group) runs through
+    ``conv_rounded`` on every device; cuDNN's own bf16 depthwise conv on the
+    card is held here to the bf16 budget against float32 (its error at most
+    twice ``conv_rounded``'s plus 1e-4 of max|float32|), the evidence for a
+    card-only route."""
+    import torch.nn.functional as F
+
+    from obs_rvc_tpu_torch.ops import conv_rounded
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 1024, 64, generator=gen).to(cuda)
+    w = (torch.randn(1024, 1, 31, generator=gen) / np.sqrt(31)).to(cuda)
+    b = (0.1 * torch.randn(1024, generator=gen)).to(cuda)
+    bf = torch.bfloat16
+    want = F.conv1d(x.to(bf).float(), w.to(bf).float(), b.to(bf).float(), padding=15, groups=1024)
+    rounded = conv_rounded(F.conv1d, x.to(bf), w, b, padding=15, groups=1024)
+    cudnn = F.conv1d(x.to(bf), w.to(bf), b.to(bf), padding=15, groups=1024)
+    scale = float(want.abs().max())
+    e_rounded = float((rounded.float() - want).abs().max()) / scale
+    e_cudnn = float((cudnn.float() - want).abs().max()) / scale
+    assert rounded.dtype == cudnn.dtype == bf and e_rounded > 0
+    assert e_cudnn <= 2 * e_rounded + 1e-4, (e_cudnn, e_rounded)
 
 
 def test_graphed_sessions_replay_from_two_threads(cuda, deterministic_cudnn):

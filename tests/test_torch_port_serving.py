@@ -250,8 +250,6 @@ def test_server_builds_the_pipeline_from_flags():
     (["--mesh", "data=4"], "item 13"),
     (["--index", "v.index"], "item 12"),
     (["--index-mode", "ivf"], "item 12"),
-    (["--pitch-algorithm", "crepe"], "item 11"),
-    (["--pitch-algorithm", "fcpe"], "item 11"),
     (["--no-pallas-resblocks"], "refused"),
 ])
 def test_unported_server_flags_exit_naming_their_item(flags, item):
@@ -449,3 +447,78 @@ def test_rpc_main_serves_stdio_at_reduced_widths(monkeypatch):
     monkeypatch.setattr(sys, "stdout", types.SimpleNamespace(buffer=stdout2))
     rpc.main(["--stdio", "--device", "cpu", "--exec-cache"])
     assert stdout2.getvalue() == stdout.getvalue()
+
+
+def test_server_serves_fcpe_from_a_checkpoint_at_reduced_widths(tmp_path, monkeypatch):
+    """``serve.server --pitch-algorithm fcpe --fcpe <file>`` at its default
+    bfloat16 and staged graphs: the pipeline runs FCPE with the file's
+    weights, rounded to bfloat16, and a duplex session converts whole chunks
+    with no error counted."""
+    from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.fcpe import Fcpe, FcpeConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+    from obs_rvc_tpu_torch.stream import pipeline as pipeline_mod
+
+    from test_torch_port_pipeline import CV, SY, voiced_signal
+
+    small = FcpeConfig(hidden=64, n_layers=2)
+    monkeypatch.setattr(ContentVecConfig, "v2", staticmethod(lambda: ContentVecConfig(**CV)))
+    monkeypatch.setattr(SynthesizerConfig, "for_sample_rate",
+                        staticmethod(lambda sr, feature_dim=768: SynthesizerConfig(**SY)))
+    monkeypatch.setattr(pipeline_mod, "FcpeConfig", lambda: small)
+    # a torchfcpe-layout file: the model payload, output_proj weight-normed
+    rng = np.random.default_rng(12)
+    sd = {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * 0.1).astype(np.float32))
+          for k, v in Fcpe(small).state_dict().items()}
+    w = sd.pop("output_proj.weight")
+    sd["output_proj.weight_g"] = w.norm(dim=1, keepdim=True)
+    sd["output_proj.weight_v"] = 2.0 * w
+    torch.save({"model": sd}, tmp_path / "fcpe.pt")
+    made = []
+    real = server.build_pipeline
+    monkeypatch.setattr(server, "build_pipeline", lambda a: made.append(real(a)) or made[-1])
+
+    ports = {name: _free_port() for name in ("duplex", "health")}
+    stop, listening = threading.Event(), threading.Event()
+    argv = ["--device", "cpu", *SMALL, "--pitch-algorithm", "fcpe", "--fcpe", str(tmp_path / "fcpe.pt"),
+            "--port", str(ports["duplex"]), "--health-port", str(ports["health"])]
+    t = threading.Thread(target=server.main, args=(argv,),
+                         kwargs=dict(ready=lambda b: listening.set(), stop_event=stop), daemon=True)
+    t.start()
+    try:
+        assert listening.wait(120)
+        pipe = made[0][0]
+        assert pipe.pitch_algorithm == "fcpe" and pipe.compute_dtype == torch.bfloat16
+        assert set(pipe.modules()) == {"contentvec", "fcpe", "synthesizer"}
+        loaded = pipe.fcpe.state_dict()
+        for k, v in sd.items():
+            if k.startswith("output_proj.weight_"):
+                continue
+            torch.testing.assert_close(loaded[k], v.to(torch.bfloat16), rtol=0, atol=0)
+        torch.testing.assert_close(loaded["output_proj.weight"].float(), w, rtol=1e-2, atol=1e-3)
+        cfg = pipe.cfg
+        wav = voiced_signal(8, cfg, seed=6)
+        client = StreamClient.connect_tcp("127.0.0.1", ports["duplex"], timeout=TIMEOUT)
+        out, total = [], 0
+        for i in range(0, wav.size, 2400):
+            got = client.send_audio(wav[i : i + 2400])
+            out.append(got)
+            total += got.size
+            time.sleep(0.01)
+        deadline = time.monotonic() + 120
+        while total < 6 * cfg.sample_frame_size and time.monotonic() < deadline:
+            got = client.send_audio(np.zeros(2400, np.float32))
+            out.append(got)
+            total += got.size
+            time.sleep(0.02)
+        client.close()
+        got = np.concatenate(out)
+        assert got.size >= 6 * cfg.sample_frame_size and np.isfinite(got).all()
+        assert np.abs(got[2 * cfg.sample_frame_size :]).max() > 1e-3
+        with urllib.request.urlopen(f"http://127.0.0.1:{ports['health']}/metrics", timeout=TIMEOUT) as r:
+            metrics = json.loads(r.read())
+        assert metrics["chunks"] >= 6 and metrics["errors"] == 0
+    finally:
+        stop.set()
+        t.join(TIMEOUT)
+    assert not t.is_alive()
