@@ -13,7 +13,10 @@ Phases, each printing its own lines:
            at the main path's shapes (float32 and bfloat16 for the U-Net
            chain and the resblock bank; float32 for the log-mel frontend,
            also at a ragged and an offline length and on silence, on RMVPE's
-           HTK basis and on FCPE's Slaney basis with fmin 0), TF32 off
+           HTK basis and on FCPE's Slaney basis with fmin 0), TF32 off; and
+           at the batched step's: the chain and the bank at 8 streams, the
+           log-mel on a stream axis (8 and 64 windows in one launch, a
+           ragged length, silence), each row bit-identical to its own launch
 4. main    RvcPipeline.step at the default geometry and full width (v2
            ContentVec, full RMVPE, 40 kHz synthesizer) on random weights,
            streaming a voiced test signal, in float32 and then in bfloat16
@@ -65,7 +68,29 @@ Phases, each printing its own lines:
            --pitch-algorithm fcpe at its defaults serves a duplex session
            (a device trace of a second one, /metrics with no error) and
            serve.cli --pitch-algorithm crepe converts a WAV file
-7. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
+7. pool    the batched step and StreamPool at the same geometry and width
+           in bfloat16 with RMVPE: the eager batched step of 8 streams (the
+           wrappers launched 1/4/2 times a step, as for one stream);
+           jit_step_batch of 8 voices with their own controls against 8
+           one-stream jit_step runs (float32 within 1e-3 of max|audio|;
+           bfloat16 streams finite, not silent, each nearer its own float32
+           one-stream step than any other's, and each one's error beside
+           the bfloat16 one-stream step's); a float32 StreamPool of 8 with
+           two slots starved against the same one-stream steps (1e-3); the
+           batched graph at 1, 8 and 64 streams: p50/p95, ms a stream,
+           audio-seconds a second, capture, peak and graph memory, a trace
+           of 5 replays (1/32/18 hand kernels a step at every size, the busy
+           share, the largest kernels), pos_conv alone at its shape and an
+           eager step traced with each kernel's operator; a
+           batched step with CREPE and with FCPE at 4 streams; a bfloat16
+           StreamPool of 8, fused and staged, on the float32 and int16 wires
+           and with pipelined ticks, two slots starved for 3 ticks, each
+           slot within 1e-5 of its row of the bfloat16 batched step (tick
+           p50/p95, last_tick_phases); then a server with --pool 8
+           at its defaults: 4 duplex and 2 WebSocket sessions at once, each
+           against its run alone, a ninth connection closed, /metrics with
+           the pool's occupancy and no error
+8. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
            function and its eager call; the U-Net chain and the resblock
@@ -74,11 +99,13 @@ Phases, each printing its own lines:
            TFLOP/s beside them) and in bfloat16 (bounds at the bf16 tensor
            cores' 989 TFLOP/s, cuDNN in bfloat16 beside), the bank's grid
            (blocks, blocks an SM holds, the share of conv1's rows recomputed
-           as halo); the log-mel also on FCPE's basis
+           as halo); the log-mel also on FCPE's basis; the chain, the bank
+           and the log-mel also at the batched step's 8 streams
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
-and the log-mel on FCPE's basis, as entries of their own). The last line is
+the log-mel on FCPE's basis, and the three at the batched step's 8 streams,
+as entries of their own). The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. Details go to chiprun_out/chip_smoke.json.
 """
@@ -222,6 +249,16 @@ FCPE_MEL_SHAPES = [("fcpe-slaney", 10080, "voiced"), ("fcpe-slaney-T63", 9920, "
                    ("fcpe-slaney-silence", 10080, "silence")]
 FCPE_MEL_MAIN = "fcpe-slaney"
 MEL_BOUND = (2e-4, 1e-4)  # the JAX package's own bound for its Pallas kernel
+#: streams of the pool phase's batched step and its pool's capacity; the batched step launches each kernel
+#: once for all of them, at these shapes
+POOL_B = 8
+CHAIN_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, H, W, cin, C) for label, _, H, W, cin, C in CHAIN_SHAPES]
+BANK_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, L, C) for label, _, L, C in BANK_SHAPES]
+# (label, B, L, signal): the log-mel on a stream axis, one launch for B windows ("mixed": voiced, normal and
+# silent rows in turn); B=64 is the pool phase's largest batch
+MEL_BATCH_SHAPES = [(f"batch-main-b{POOL_B}", POOL_B, 10080, "mixed"), ("batch-main-b64", 64, 10080, "mixed"),
+                    ("batch-T63-b3", 3, 9920, "mixed"), (f"batch-silence-b{POOL_B}", POOL_B, 10080, "silence")]
+MEL_BATCH_MAIN = f"batch-main-b{POOL_B}"
 
 
 def chain_inputs(label, B, H, W, cin, C, device, rng):
@@ -296,21 +333,29 @@ def bank_grid(B, L, C, dtype):
     return out
 
 
-def mel_inputs(L, kind, device, rng):
+def mel_inputs(L, kind, device, rng, B=None):
+    """One window ``[L]``, or ``B`` of them ``[B, L]`` (``"mixed"``: voiced,
+    normal and silent rows in turn)."""
     import torch
 
-    x = {"voiced": voiced_signal(L, 16000), "normal": rng.standard_normal(L).astype(np.float32),
-         "silence": np.zeros(L, np.float32)}[kind]
-    return torch.from_numpy(x).to(device)
+    def row(kind, b=0):
+        return {"voiced": voiced_signal(L, 16000, seed=SEED + b), "normal": rng.standard_normal(L).astype(np.float32),
+                "silence": np.zeros(L, np.float32)}[kind]
+
+    if B is None:
+        return torch.from_numpy(row(kind)).to(device)
+    kinds = ["voiced", "normal", "silence"] if kind == "mixed" else [kind]
+    return torch.from_numpy(np.stack([row(kinds[b % len(kinds)], b) for b in range(B)])).to(device)
 
 
-def mel_flops_bytes(L, basis, packed, n_fft=1024, hop=160):
+def mel_flops_bytes(L, basis, packed, n_fft=1024, hop=160, B=1):
     """What the function needs per frame: the window product, one real FFT
     of 1024 points (2.5 N log2 N, the usual count for a real transform), the
     513 bins' magnitudes, the mel product over the basis's nonzero entries
     (the triangles) and the 128 logs; bytes: the signal, the window, the
     basis as the kernel reads it (``packed``: the weights of each row's run
     and the rows' int32 starts, offsets and pieces) and the output, each
+    once; for ``B`` streams, B windows and outputs, the window and basis
     once."""
     T = 1 + L // hop
     n_bins = n_fft // 2 + 1
@@ -318,7 +363,7 @@ def mel_flops_bytes(L, basis, packed, n_fft=1024, hop=160):
     n_mels = basis.shape[0]
     per_frame = n_fft + 2.5 * n_fft * np.log2(n_fft) + 4 * n_bins + 2 * nnz + n_mels
     basis_bytes = sum(t.numel() * t.element_size() for t in packed[:4])
-    return T * per_frame, 4 * (L + n_fft + n_mels * T) + basis_bytes
+    return B * T * per_frame, 4 * (B * (L + n_mels * T) + n_fft) + basis_bytes
 
 
 def bound_ms(flops, nbytes, peak=F32_PEAK_FLOPS):
@@ -354,7 +399,25 @@ def phase_parity(report):
         out["log_mel"][f"{label} float32"] = err
         log("parity", f"log_mel {label} L={L} -> [128, {got.shape[1]}] {kind} float32: max abs err {err:.3e} "
                       f"(bound {MEL_BOUND[0]}/{MEL_BOUND[1]}), |ref| max {float(want.abs().max()):.3g}")
-    for label, B, H, W, cin, C in CHAIN_SHAPES:
+    # the stream axis: one launch for B windows, each row the one-window launch's result bit for bit
+    for label, B, L, kind in MEL_BATCH_SHAPES:
+        x = mel_inputs(L, kind, dev, rng, B=B)
+        before = stft_mel.LAUNCHES
+        got = stft_mel.log_mel(x, htk.log_mel_basis, htk.window)
+        if stft_mel.LAUNCHES != before + 1:
+            raise AssertionError(f"log_mel {label}: {stft_mel.LAUNCHES - before} launches for one batched call")
+        want = stft_mel.log_mel_plain(x, htk.mel_basis, htk.window)
+        rows_equal = all(torch.equal(got[b], stft_mel.log_mel(x[b], htk.log_mel_basis, htk.window)) for b in range(B))
+        torch.cuda.synchronize()
+        err = check_close(f"log_mel {label}", got, want, *MEL_BOUND)
+        if not rows_equal:
+            raise AssertionError(f"log_mel {label}: a row differs from the kernel's one-window result")
+        if kind == "silence":
+            check_close("log_mel silence = ln(1e-5)", got, torch.full_like(got, float(np.log(1e-5))), 1e-5, 0.0)
+        out["log_mel"][f"{label} float32"] = err
+        log("parity", f"log_mel {label} [{B}, {L}] -> {list(got.shape)} {kind} float32, one launch: max abs err "
+                      f"{err:.3e} (bound {MEL_BOUND[0]}/{MEL_BOUND[1]}); every row bit-identical to its own launch")
+    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -366,7 +429,7 @@ def phase_parity(report):
             out["conv_block_res_chain"][f"{label} {str(dt)[6:]}"] = err
             log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} {str(dt)[6:]}: "
                           f"max abs err {err:.3e} (bound {atol}/{rtol}), |ref| max {float(want.float().abs().max()):.3g}")
-    for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES:
+    for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH:
         x, params = bank_inputs(label, B, L, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -386,10 +449,10 @@ def phase_parity(report):
 # ---------------------------------------------------------------------------
 
 
-def voiced_signal(n, sr, seed=SEED):
-    """A harmonic tone at 180 Hz with 5 Hz vibrato and a little noise."""
+def voiced_signal(n, sr, seed=SEED, f0=180.0):
+    """A harmonic tone at ``f0`` (180 Hz) with 5 Hz vibrato and a little noise."""
     t = np.arange(n) / sr
-    f = 180.0 * 2 ** (0.5 * np.sin(2 * np.pi * 5.0 * t) / 12)
+    f = f0 * 2 ** (0.5 * np.sin(2 * np.pi * 5.0 * t) / 12)
     phase = 2 * np.pi * np.cumsum(f) / sr
     x = sum(0.3 / h * np.sin(h * phase) for h in range(1, 5))
     return (x + 0.01 * np.random.default_rng(seed).standard_normal(n)).astype(np.float32)
@@ -602,15 +665,15 @@ def kernel_counts(events):
     return {k: sum(1 for e in events if k in e.name) for k in KERNELS_PER_STEP["rmvpe"]}
 
 
-def trace_steps(step, pipe, chunks, controls):
-    """torch.profiler (device activity) over ``len(chunks)`` steps: the hand
-    kernels' launches, and per step the device's busy ms (the union of the
-    device events' intervals), their summed durations and the wall ms with
-    the tracer on."""
+def trace_steps(step, pipe, chunks, controls, state=None):
+    """torch.profiler (device activity) over ``len(chunks)`` steps from
+    ``state`` (a new one by default): the hand kernels' launches, per step
+    the device's busy ms (the union of the device events' intervals), their
+    summed durations and the wall ms with the tracer on, and the events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state = pipe.new_state()
+    state = state if state is not None else pipe.new_state()
     state, _ = step(state, chunks[0], controls)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -631,7 +694,24 @@ def trace_steps(step, pipe, chunks, controls):
     events = events[marks[-1] + 1 :]
     summed = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     n = len(chunks)
-    return kernel_counts(events), device_busy_ms(events) / n, summed / n, wall / n
+    return kernel_counts(events), device_busy_ms(events) / n, summed / n, wall / n, events
+
+
+def trace_replays(key, step, pipe, chunks, controls, want, make_state=None):
+    """:func:`trace_steps` of a replayed graph, whose hand-kernel counts the
+    caller holds to ``want``. A graph launches the same kernels at every
+    replay, so a trace that shows fewer lost device records (one such trace
+    in the runs of PR 9: 80 bank kernels of 90, the same graph 90 in every
+    other): it is taken once more, both logged. Returns trace_steps' tuple
+    and whether it traced again."""
+    traced = trace_steps(step, pipe, chunks, controls, state=make_state and make_state())
+    counts = traced[0]
+    short = counts != want and all(counts[k] <= v for k, v in want.items())
+    if short:
+        log(key, f"the trace shows {counts} hand kernels, fewer than the replayed graph launches ({want}): "
+                 "the tracer lost device records; traced again")
+        traced = trace_steps(step, pipe, chunks, controls, state=make_state and make_state())
+    return traced, short
 
 
 def device_busy_ms(events):
@@ -687,7 +767,7 @@ def phase_graphs(report, key, run, reload_weights=False):
     peak, peak_name = (BF16_PEAK_FLOPS, "bf16 989") if dtype == "bfloat16" else (F32_PEAK_FLOPS, "float32 67")
     eager_p50 = report[key]["step_p50_ms"]
     out["mfu_eager"] = gflop * 1e9 / (eager_p50 * 1e-3) / peak
-    counts, busy, summed, wall = trace_steps(pipe.step, pipe, chunks[:5], controls)
+    counts, busy, summed, wall, _ = trace_steps(pipe.step, pipe, chunks[:5], controls)
     out["eager_trace"] = {"kernels_in_trace": counts, "device_busy_ms_per_step": busy,
                           "device_summed_ms_per_step": summed, "traced_step_ms": wall}
     log(key, f"eager trace of 5 steps: hand kernels {counts}; device busy {busy:.2f} ms a step (kernel times "
@@ -712,8 +792,8 @@ def phase_graphs(report, key, run, reload_weights=False):
         bit, rel = check_same(f"{key} {mode} vs eager", audio, eager, CPU_TOL["emitted"])
         steady = np.asarray(times[4:])
         p50 = float(np.percentile(steady, 50))
-        counts, busy, summed, wall = trace_steps(step, pipe, chunks[:5], controls)
         want = {k: v * 5 for k, v in KERNELS_PER_STEP[pipe.pitch_algorithm].items()}
+        (counts, busy, summed, wall, _), retraced = trace_replays(key, step, pipe, chunks[:5], controls, want)
         # the live controls changed mid-stream: the same as eager, and nothing captured again
         sched_eager, _ = stream(pipe.step, pipe, chunks[:12], controls_at)
         sched, _ = stream(step, pipe, chunks[:12], controls_at)
@@ -725,7 +805,7 @@ def phase_graphs(report, key, run, reload_weights=False):
             "step_ms": times, "step_p50_ms": p50, "step_p95_ms": float(np.percentile(steady, 95)),
             "peak_mem_bytes": int(peak_mem), "graph_pool_bytes": int(pool), "kernels_in_trace": counts,
             "device_busy_ms_per_step": busy, "device_summed_ms_per_step": summed, "traced_step_ms": wall,
-            "mfu": gflop * 1e9 / (p50 * 1e-3) / peak, "controls_bit_identical": sched_bit,
+            "traced_again": retraced, "mfu": gflop * 1e9 / (p50 * 1e-3) / peak, "controls_bit_identical": sched_bit,
             "controls_rel_max_err": sched_rel, "recaptures_after_controls": recaptures}
         log(key, f"{mode} graphs ({dtype}): captured in {capture_s:.2f} s ("
                  + ", ".join(f"{k} {v:.2f}" for k, v in per_graph.items()) + " s); "
@@ -781,30 +861,14 @@ def phase_graphs(report, key, run, reload_weights=False):
 
 def stage_breakdown(report, key, pipe, state, chunks, controls):
     """Host-clock time of each stage of the step, each ended by a
-    synchronize, p50 over the chunks: where the step's time goes."""
-    import torch
-
-    from obs_rvc_tpu_torch.stream import StreamState
-
+    synchronize (the step's ``stage_times``), p50 over the chunks: where the
+    step's time goes."""
     times = {n: [] for n in ("pre", "features", "mel", "salience", "pitch_post", "synth", "post")}
-
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    with torch.no_grad():
-        for chunk in chunks:
-            buf, buf16 = timed("pre", pipe.stage_pre, state, chunk)
-            phone = timed("features", pipe.stage_features, buf16)
-            mel = timed("mel", pipe.stage_mel, buf16)
-            sal = timed("salience", pipe.stage_salience, mel)
-            cache, pitch, pitchf = timed("pitch_post", pipe.stage_pitch_post, state.cache_pitchf, sal, controls)
-            audio = timed("synth", pipe.stage_synth, phone, pitch, pitchf, controls.sid)
-            _, sola = timed("post", pipe.stage_post, buf, audio, state.sola_buffer, controls.rms_mix_rate)
-            state = StreamState(buf, buf16, sola, cache)
+    for chunk in chunks:
+        stage_times = {}
+        state, _ = pipe.step(state, chunk, controls, stage_times=stage_times)
+        for n, ms in stage_times.items():
+            times[n].append(ms)
     p50 = {n: float(np.percentile(v[2:], 50)) for n, v in times.items()}
     report[key]["stages_p50_ms"] = p50
     log(key, f"stage p50 over {len(chunks) - 2} chunks, each ended by a synchronize: "
@@ -885,7 +949,7 @@ def compare_with_cpu(report, key, pipe, saved, chunks, controls, reference=None)
     on either device, not the same ones). Returns the CPU pipeline."""
     import torch
 
-    from obs_rvc_tpu_torch.stream import RvcPipeline
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
 
     dtype = str(pipe.compute_dtype).removeprefix("torch.")
     cpu = RvcPipeline(pipe.cfg, pipe.version, device="cpu", compute_dtype=pipe.compute_dtype,
@@ -903,30 +967,33 @@ def compare_with_cpu(report, key, pipe, saved, chunks, controls, reference=None)
         return float((a.float().cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-12)
 
     t0 = time.perf_counter()
+    # the stages take a stream axis: one stream here
+    card_controls, cpu_controls = (StepControls.stack([controls], d) for d in (pipe.device, "cpu"))
     with torch.no_grad():
         for i, state in sorted(saved.items()):
             c = lambda t: t.cpu()  # noqa: E731
-            buf, buf16 = pipe.stage_pre(state, chunks[i])
+            state, chunk = state.map(lambda t: t[None]), chunks[i][None]
+            buf, buf16 = pipe.stage_pre(state, chunk)
             phone = pipe.stage_features(buf16)
             mel = pipe.stage_mel(buf16)
             sal = pipe.stage_salience(mel)
-            cache, pitch, pitchf = pipe.stage_pitch_post(state.cache_pitchf, sal, controls)
-            audio = pipe.stage_synth(phone, pitch, pitchf, controls.sid)
-            emitted, _ = pipe.stage_post(buf, audio, state.sola_buffer, controls.rms_mix_rate)
+            cache, pitch, pitchf = pipe.stage_pitch_post(state.cache_pitchf, sal, card_controls)
+            audio = pipe.stage_synth(phone, pitch, pitchf, card_controls.sid)
+            emitted, _ = pipe.stage_post(buf, audio, state.sola_buffer, card_controls.rms_mix_rate)
             card = {"buf16": buf16, "features": phone, "mel": mel, "salience": sal, "pitchf": pitchf,
                     "synth_audio": audio, "emitted": emitted}
 
             def on_cpu(p):
                 """Each stage of ``p`` on the card's inputs to it; and the pitch codes."""
-                _, cpitch, cpitchf = p.stage_pitch_post(c(state.cache_pitchf), c(sal), controls)
+                _, cpitch, cpitchf = p.stage_pitch_post(c(state.cache_pitchf), c(sal), cpu_controls)
                 return {
-                    "buf16": p.stage_pre(state.to("cpu"), c(chunks[i]))[1],
+                    "buf16": p.stage_pre(state.to("cpu"), c(chunk))[1],
                     "features": p.stage_features(c(buf16)),
                     "mel": p.stage_mel(c(buf16)),
                     "salience": p.stage_salience(c(mel)),
                     "pitchf": cpitchf,
-                    "synth_audio": p.stage_synth(c(phone), c(pitch), c(pitchf), controls.sid),
-                    "emitted": p.stage_post(c(buf), c(audio), c(state.sola_buffer), controls.rms_mix_rate)[0],
+                    "synth_audio": p.stage_synth(c(phone), c(pitch), c(pitchf), cpu_controls.sid),
+                    "emitted": p.stage_post(c(buf), c(audio), c(state.sola_buffer), cpu_controls.rms_mix_rate)[0],
                 }, cpitch
 
             got, cpitch = on_cpu(cpu)
@@ -1419,6 +1486,525 @@ def phase_pitch_serve(report):
 
 
 # ---------------------------------------------------------------------------
+# the batched step and the pool
+# ---------------------------------------------------------------------------
+
+#: the pool phase: the batch sizes the batched step is timed at, chunks per stream of its comparison with
+#: one-stream steps (the first is not timed), the slots starved for 3 ticks in the pool runs, and the chunks
+#: each pooled server session streams
+POOL_BATCHES = (1, POOL_B, 64)
+POOL_CHUNKS = 6
+POOL_STARVED = (2, 5)
+POOL_SERVE_CHUNKS = 4
+#: the pool's streams: a tone each, and (pitch shift, rms mix rate) with the speaker id the stream's index
+POOL_F0 = (110.0, 130.0, 150.0, 170.0, 190.0, 210.0, 235.0, 260.0)
+POOL_CONTROLS = ((0.0, 1.0), (12.0, 0.5), (-5.0, 0.8), (3.0, 0.25), (7.0, 1.0), (-2.0, 0.6), (5.0, 0.3),
+                 (-7.0, 0.9))
+#: the slack of the bfloat16 comparison of the batched step with one-stream steps: a stream of the batched
+#: step no farther from the float32 one-stream step than the bfloat16 one-stream step is, plus this share of
+#: max|audio|. Reported, not a gate: bfloat16 rounds in other library kernels at 8 streams than at one, and a
+#: random RMVPE's frames near the voicing threshold then flip on either side, not the same ones (stream 1,
+#: 0.4039 against 0.3877, chip runs 2 and 9 of PR 9). The gates are in pool_parity.
+POOL_BF16_SLACK = 1e-3
+#: a pooled slot against the batched step of the same voices and controls (a starved slot resumes exactly)
+POOL_SLOT_TOL = 1e-5
+
+
+def pool_streams(cfg, B, n_chunks, device):
+    """``B`` voiced streams as ``n_chunks`` tensors ``[B, chunk]`` on the
+    card, and their controls (one StepControls each)."""
+    import torch
+
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    n = cfg.sample_frame_size
+    wavs = np.stack([voiced_signal(n_chunks * n, cfg.sample_rate, seed=SEED + 40 + k, f0=POOL_F0[k % len(POOL_F0)])
+                     for k in range(B)])
+    chunks = [torch.from_numpy(np.ascontiguousarray(wavs[:, i * n : (i + 1) * n])).to(device)
+              for i in range(n_chunks)]
+    controls = [StepControls.default(pitch_shift=POOL_CONTROLS[k % 8][0], rms_mix_rate=POOL_CONTROLS[k % 8][1],
+                                     sid=k % 8) for k in range(B)]
+    return wavs, chunks, controls
+
+
+def stream_batch(step, pipe, chunks, controls, timed=False):
+    """Stream ``[B, chunk]`` chunks from a zeroed batched state through
+    ``step`` (the eager batched step, ``jit_step_batch`` or the batched stage
+    graphs); returns the emitted audio ``[B, n]`` on the CPU and, with
+    ``timed``, each step's ms (host clock, synchronized)."""
+    import torch
+
+    from obs_rvc_tpu_torch.stream import StreamState
+
+    state, outs, times = StreamState.init_batch(pipe.cfg, chunks[0].shape[0], device=pipe.device), [], []
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        state, out = step(state, chunk, controls)
+        if timed:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return torch.cat(outs, dim=1).cpu(), times
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+def rel_l2(got, want):
+    return float((got - want).norm()) / max(float(want.norm()), 1e-12)
+
+
+def pool_parity(name, got, bf16_single, f32_single):
+    """The bfloat16 batched streams against the one-stream steps on the same
+    voices and controls. Gates: every stream finite and not silent, and each
+    nearer (relative L2) its own float32 one-stream step than any other
+    stream's, so none was silenced or handed another's audio. Reported: each
+    stream's max error off its float32 one-stream step beside the bfloat16
+    one-stream step's, and whether it is within that plus
+    :data:`POOL_BF16_SLACK`."""
+    n = len(got)
+    m = min(got.shape[-1], f32_single[0].numel())
+    dist = [[rel_l2(got[k, :m], f32_single[j][:m]) for j in range(n)] for k in range(n)]
+    out = {"rel": [], "single_rel": [], "within_single_plus_slack": [], "l2_own": [], "l2_nearest_other": []}
+    for k in range(n):
+        e, e_single = rel_err(got[k, :m], f32_single[k][:m]), rel_err(bf16_single[k][:m], f32_single[k][:m])
+        other = min(dist[k][j] for j in range(n) if j != k)
+        if not bool(got[k].isfinite().all()) or float(got[k, m // 6 :].abs().max()) < 1e-3:
+            raise AssertionError(f"{name} stream {k}: not finite, or silent")
+        if not dist[k][k] < other:
+            raise AssertionError(f"{name} stream {k}: relative L2 {dist[k][k]:.3f} off its own float32 one-stream "
+                                 f"step, {other:.3f} off another stream's")
+        for key, v in (("rel", e), ("single_rel", e_single), ("within_single_plus_slack", e <= e_single + POOL_BF16_SLACK),
+                       ("l2_own", dist[k][k]), ("l2_nearest_other", other)):
+            out[key].append(v)
+    return out
+
+
+def same_slots(name, got, want):
+    """Each pooled slot against its row of the batched step, within :data:`POOL_SLOT_TOL`."""
+    return [check_same(f"{name} slot {k}", g, want[k, : g.numel()], POOL_SLOT_TOL) for k, g in enumerate(got)]
+
+
+def pool_run(pipe, wavs, controls, starved=(), **pool_kw):
+    """A StreamPool of ``len(wavs)`` slots over ``pipe``, each slot fed its
+    stream chunk by chunk, the ``starved`` slots given nothing for 3 ticks
+    after their second chunk; returns each slot's audio (CPU tensors) and
+    the tick times and phases."""
+    import torch
+
+    from obs_rvc_tpu_torch.stream import StreamPool
+
+    cfg = pipe.cfg
+    n, n_chunks = cfg.sample_frame_size, wavs.shape[1] // cfg.sample_frame_size
+    t0 = time.perf_counter()
+    pool = StreamPool(pipe, capacity=len(wavs), output_capacity_chunks=n_chunks + 2, **pool_kw)
+    pool.prepare()
+    capture_s = time.perf_counter() - t0
+    slots = [pool.attach(c) for c in controls]
+    fed, ticks, tick_ms, phases, starved_ticks = [0] * len(slots), 0, [], [], 0
+    with torch.no_grad():
+        while min(fed) < n_chunks:
+            starving = False
+            for k, s in enumerate(slots):
+                if k in starved and fed[k] == 2 and starved_ticks < 3:
+                    starving = True
+                    continue
+                if fed[k] < n_chunks:
+                    pool.push_audio(s, wavs[k, fed[k] * n : (fed[k] + 1) * n])
+                    fed[k] += 1
+            starved_ticks += starving
+            t1 = time.perf_counter()
+            pool.process_pending()
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+            phases.append(dict(pool.last_tick_phases))
+            ticks += 1
+        pool.stop()
+    errors = pool.metrics.snapshot().errors
+    if errors:
+        raise AssertionError(f"pool {pool_kw}: {errors} errors")
+    audio = [torch.from_numpy(pool.pull_audio(s, n_chunks * n)) for s in slots]
+    if any(a.numel() != n_chunks * n for a in audio):
+        raise AssertionError(f"pool {pool_kw}: slots returned {[a.numel() for a in audio]} samples, want {n_chunks * n}")
+    steady = np.asarray(tick_ms[1:])
+    stats = {"capture_s": capture_s, "ticks": ticks, "tick_ms": tick_ms,
+             "tick_p50_ms": float(np.percentile(steady, 50)), "tick_p95_ms": float(np.percentile(steady, 95)),
+             "phases_p50_ms": {k: float(np.median([p[k] for p in phases[1:]])) for k in phases[0]}}
+    return audio, stats
+
+
+def phase_pool(report):
+    """The batched step and the StreamPool at full width in bfloat16 (the
+    server's dtype) with RMVPE: the eager batched step's wrapper launches at
+    ``POOL_B`` streams; ``jit_step_batch`` at ``POOL_B`` streams with their own
+    voices and controls against one-stream graphed steps (float32 within
+    1e-3 of max|audio|, bfloat16 by :func:`pool_parity`) and a float32 pool
+    against the same steps (1e-3); timing at every batch size of
+    :data:`POOL_BATCHES` (p50/p95, ms a stream, audio-seconds a second,
+    capture, memory) with a trace of 5 replays (1/32/18 hand kernels a step
+    at every size, the busy share, the largest kernels), ContentVec's
+    ``pos_conv`` alone, and an eager step traced with each kernel's
+    operator; a batched step with CREPE and with FCPE; a bfloat16
+    pool of ``POOL_B`` slots, fused and staged, on the float32 and int16
+    wires and with pipelined ticks, two slots starved for 3 ticks, each slot
+    against its row of the bfloat16 batched step (:data:`POOL_SLOT_TOL`)."""
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamState
+
+    cfg = ChunkConfig.build()
+    n = cfg.sample_frame_size
+    chunk_s = n / cfg.sample_rate
+    dev = torch.device("cuda")
+
+    def make(dtype, pitch="rmvpe"):
+        p = RvcPipeline(cfg, compute_dtype=getattr(torch, dtype), pitch_algorithm=pitch)
+        p.init_params(SEED, std=None)
+        if dtype == "bfloat16":
+            cast_params_for_serving(p)
+        return p
+
+    pipes = {"float32": make("float32"), "bfloat16": make("bfloat16")}
+    bf = pipes["bfloat16"]
+    out = report["pool"] = {"dtype": "bfloat16", "streams": POOL_B, "chunks": POOL_CHUNKS}
+    wavs, chunks, controls = pool_streams(cfg, POOL_B, POOL_CHUNKS, dev)
+    stacked = StepControls.stack(controls, dev)
+
+    # 1. the batched step eagerly: each wrapper launched once a step for every stream
+    torch.cuda.synchronize()
+    reset_launches()
+    eager, _ = stream_batch(lambda s, c, k: bf.step(s, c, k, batched=True), bf, chunks, stacked)
+    launches = read_launches()
+    out["launches"] = launches
+    log("pool", f"eager batched step of {POOL_B} streams, {POOL_CHUNKS} chunks: kernel launches {launches}")
+    check_launches("pool", launches, POOL_CHUNKS)
+
+    # 2. jit_step_batch against one-stream graphed steps on the same voices and controls; a float32 pool of
+    # POOL_B slots, two starved, against the same one-stream steps
+    singles = {d: [stream(p.jit_step, p, [c[k] for c in chunks], controls[k])[0] for k in range(POOL_B)]
+               for d, p in pipes.items()}
+    batched = {d: stream_batch(p.jit_step_batch, p, chunks, stacked)[0] for d, p in pipes.items()}
+    f32 = [check_same(f"pool float32 batch stream {k}", batched["float32"][k], singles["float32"][k],
+                      CPU_TOL["emitted"]) for k in range(POOL_B)]
+    bf16 = pool_parity("pool bfloat16 batch", batched["bfloat16"], singles["bfloat16"], singles["float32"])
+    graphed_vs_eager = check_same("pool bfloat16 jit_step_batch vs eager", batched["bfloat16"], eager,
+                                  CPU_TOL["emitted"])
+    out["parity"] = {"float32_rel": [r for _, r in f32], "float32_bit_identical": [b for b, _ in f32],
+                     "bfloat16": bf16, "graphed_vs_eager_bit_identical": graphed_vs_eager[0]}
+    log("pool", f"jit_step_batch of {POOL_B} voices (tones {POOL_F0[0]:.0f}-{POOL_F0[-1]:.0f} Hz, pitch shifts, mix "
+                f"rates, speaker ids 0-7) against {POOL_B} one-stream jit_step runs: float32 max|diff| / max|audio| "
+                + ", ".join(f"{r:.2e}" for _, r in f32) + " (bound " + f"{CPU_TOL['emitted']}); bfloat16 off the "
+                "float32 one-stream step " + ", ".join(f"{e:.4f}" for e in bf16["rel"])
+                + " (the bfloat16 one-stream step: " + ", ".join(f"{e:.4f}" for e in bf16["single_rel"])
+                + f"; within it plus {POOL_BF16_SLACK}: {sum(bf16['within_single_plus_slack'])} of {POOL_B}); "
+                "relative L2 off its own float32 one-stream step " + ", ".join(f"{e:.3f}" for e in bf16["l2_own"])
+                + ", off the nearest other stream's " + ", ".join(f"{e:.3f}" for e in bf16["l2_nearest_other"])
+                + "; the bfloat16 graph "
+                + ("bit-identical to" if graphed_vs_eager[0] else f"within {graphed_vs_eager[1]:.2e} of")
+                + " the eager batched step")
+    f32_pool, stats = pool_run(pipes["float32"], wavs, controls, starved=POOL_STARVED, mode="fused")
+    f32_pool_vs = {"single": [check_same(f"pool float32 fused slot {k}", a, singles["float32"][k][: a.numel()],
+                                         CPU_TOL["emitted"]) for k, a in enumerate(f32_pool)],
+                   "batched": [check_same(f"pool float32 fused slot {k} vs batch", a, batched["float32"][k, : a.numel()],
+                                          CPU_TOL["emitted"]) for k, a in enumerate(f32_pool)]}
+    stats.update(vs_one_stream=f32_pool_vs["single"], vs_batched=f32_pool_vs["batched"])
+    out["float32_pool"] = stats
+    log("pool", f"StreamPool({POOL_B}, float32, fused) slots {POOL_STARVED} starved for 3 ticks: tick p50 "
+                f"{stats['tick_p50_ms']:.2f} ms; each slot against its float32 one-stream step "
+                + ", ".join(f"{r:.2e}" for _, r in f32_pool_vs["single"]) + " of max|audio| (bound "
+                f"{CPU_TOL['emitted']}), against the float32 batched step "
+                + ", ".join("bit-identical" if b else f"{r:.2e}" for b, r in f32_pool_vs["batched"]))
+    # the bfloat16 pool's reference on the int16 wire: the batched step on the voices rounded to int16
+    int16_in = (np.clip(np.rint(wavs * 32768.0), -32768, 32767) / 32768.0).astype(np.float32)
+    int16_chunks = [torch.from_numpy(np.ascontiguousarray(int16_in[:, i * n : (i + 1) * n])).to(dev)
+                    for i in range(POOL_CHUNKS)]
+    batched_q = stream_batch(bf.jit_step_batch, bf, int16_chunks, stacked)[0]
+    del pipes["float32"], f32_pool
+    bf._graphs.clear()  # timed below from their captures, B=1 (jit_step) too
+    torch.cuda.empty_cache()
+
+    # 3. the batched graph at every batch size: time, memory, a trace of 5 replays
+    timing = out["batches"] = {}
+    for B in POOL_BATCHES:
+        take = torch.arange(B, device=dev) % POOL_B
+        ch = [c[take] for c in chunks] * 2
+        ctl = StepControls.stack([controls[k % POOL_B] for k in range(B)], dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        graph = bf.batch_graph(B)
+        graph.capture()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        audio, times = stream_batch(bf.jit_step_batch, bf, ch, ctl, timed=True)
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        graph_bytes = torch.cuda.memory_reserved() - reserved0
+        if not bool(audio.isfinite().all()) or bool((audio[:, n:].abs().amax(dim=1) < 1e-3).any()):
+            raise AssertionError(f"pool B={B}: the batched audio is not finite, or a stream is silent")
+        want = {k: v * 5 for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+        (counts, busy, summed, wall, events), retraced = trace_replays(
+            "pool", bf.jit_step_batch, bf, ch[:5], ctl, want, lambda: StreamState.init_batch(cfg, B, device=dev))
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / 5
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        pos_conv = pos_conv_ms(bf, B)
+        owners, mine = traced_step_owners(bf, ch[0], ctl)
+        by_owner = {}
+        for kname, ms, op, shapes in owners:
+            key = f"{kname[:50]} <- {op} {shapes[:2]}"
+            by_owner[key] = by_owner.get(key, 0.0) + ms
+        top_owned = sorted(by_owner.items(), key=lambda kv: -kv[1])[:4]
+        pos_conv_eager = sum(ms for _, ms, _, _ in mine)
+        steady = np.asarray(times[2:])
+        p50 = float(np.percentile(steady, 50))
+        r = timing[B] = {
+            "capture_s": capture_s, "step_ms": times, "step_p50_ms": p50,
+            "step_p95_ms": float(np.percentile(steady, 95)), "ms_per_stream": p50 / B,
+            "audio_seconds_per_second": B * chunk_s / (p50 / 1e3), "peak_mem_bytes": int(peak),
+            "graph_pool_bytes": int(graph_bytes), "kernels_in_trace": counts, "device_busy_ms_per_step": busy,
+            "device_summed_ms_per_step": summed, "traced_step_ms": wall, "traced_again": retraced,
+            "top_kernels_ms_per_step": top, "pos_conv_ms_per_step": pos_conv[0],
+            "pos_conv_contiguous_ms_per_step": pos_conv[1], "pos_conv_eager_traced_ms": pos_conv_eager,
+            "pos_conv_eager_kernels": sorted({k for k, _, _, _ in mine}), "eager_top_kernels_by_operator": top_owned}
+        log("pool", f"jit_step_batch B={B}: captured in {capture_s:.2f} s; step p50 {p50:.2f} ms, p95 "
+                    f"{r['step_p95_ms']:.2f} ms over {len(steady)} steps, {r['ms_per_stream']:.3f} ms a stream, "
+                    f"{r['audio_seconds_per_second']:.1f} audio-s/s; peak device memory {peak / 2**20:.1f} MiB, the "
+                    f"graph holds {graph_bytes / 2**20:.1f} MiB")
+        log("pool", f"B={B} trace of 5 replayed steps: hand kernels {counts} (want {want}); device busy {busy:.2f} ms "
+                    f"a step of {wall:.2f} ms with the tracer on ({busy / wall:.1%}); ContentVec's pos_conv alone at "
+                    f"the step's shape and layout {pos_conv[0]:.2f} ms (graphed; on a contiguous copy "
+                    f"{pos_conv[1]:.2f}); the largest kernels: "
+                    + "; ".join(f"{v:.2f} ms {k[:60]}" for k, v in top))
+        log("pool", f"B={B} eager step traced with its operators: pos_conv's kernels' intervals sum to "
+                    f"{pos_conv_eager:.2f} ms (" + ", ".join(sorted({k[:60] for k, _, _, _ in mine}))
+                    + f"; they overlap: by CUDA events it takes {pos_conv[0]:.2f}); the largest summed intervals "
+                    "by operator: " + "; ".join(f"{v:.2f} ms {k}" for k, v in top_owned))
+        if counts != want:
+            raise AssertionError(f"pool B={B}: the trace of 5 steps shows {counts} hand kernel launches, want {want}")
+        del bf._graphs[f"jit_step_batch/{B}"], graph, audio
+    torch.cuda.empty_cache()
+
+    # 4. CREPE and FCPE through one batched step each, at 4 streams
+    pitch = out["pitch"] = {}
+    for algo in ("crepe", "fcpe"):
+        p = make("bfloat16", algo)
+        ch, ctl = [c[:4] for c in chunks[:2]], StepControls.stack(controls[:4], dev)
+        reset_launches()
+        eager_p, _ = stream_batch(lambda s, c, k: p.step(s, c, k, batched=True), p, ch, ctl)
+        launched = read_launches()
+        check_launches(f"pool {algo}", launched, len(ch), algo)
+        graphed_p, _ = stream_batch(p.jit_step_batch, p, ch, ctl)
+        same = check_same(f"pool {algo} jit_step_batch vs eager", graphed_p, eager_p, CPU_TOL["emitted"])
+        if bool((eager_p[:, n:].abs().amax(dim=1) < 1e-3).any()):
+            raise AssertionError(f"pool {algo}: a stream of the batched step is silent")
+        pitch[algo] = {"launches": launched, "graphed_bit_identical": same[0], "graphed_rel": same[1]}
+        log("pool", f"{algo} batched step of 4 streams, {len(ch)} chunks: launches {launched}; jit_step_batch "
+                    + ("bit-identical to" if same[0] else f"within {same[1]:.2e} of") + " the eager batched step")
+        del p
+        torch.cuda.empty_cache()
+
+    # 5. the pool in bfloat16: fused and staged, the float32 and int16 wires, pipelined ticks; two slots starved.
+    # Each slot against its row of the batched step on the same voices (on the int16 wire: rounded to int16)
+    runs = out["runs"] = {}
+    audio = {}
+    for name, kw, w, want in (
+            ("fused", dict(mode="fused", exec_cache=True), wavs, batched["bfloat16"]),
+            ("staged", dict(mode="staged"), wavs, batched["bfloat16"]),
+            ("fused-int16", dict(mode="fused", io_dtype="int16"), wavs, None),
+            ("fused-pipelined", dict(mode="fused", exec_cache=True, pipelined=True), wavs, batched["bfloat16"]),
+            ("fused-on-int16-input", dict(mode="fused", exec_cache=True), int16_in, batched_q)):
+        audio[name], stats = pool_run(bf, w, controls, starved=POOL_STARVED, **kw)
+        runs[name] = stats
+        if want is not None:  # the int16 wire is held below against the run on its rounded input
+            stats["vs_batched"] = same_slots(f"pool {name}", audio[name], want)
+        log("pool", f"StreamPool({POOL_B}, {kw}) slots {POOL_STARVED} starved for 3 ticks: {stats['ticks']} ticks, "
+                    f"tick p50 {stats['tick_p50_ms']:.2f} ms, p95 {stats['tick_p95_ms']:.2f} ms, capture "
+                    f"{stats['capture_s']:.2f} s; phases p50 "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in stats["phases_p50_ms"].items()) + " ms"
+                    + ("" if want is None else "; each slot against the batched step "
+                       + ", ".join("bit-identical" if b else f"{r:.2e}" for b, r in stats["vs_batched"])
+                       + f" (bound {POOL_SLOT_TOL})"))
+    for a, b in (("staged", "fused"), ("fused-pipelined", "fused")):
+        same = [check_same(f"pool {a} vs {b} slot {k}", x, y, CPU_TOL["emitted"])
+                for k, (x, y) in enumerate(zip(audio[a], audio[b]))]
+        runs[a][f"vs_{b}"] = same
+        log("pool", f"{a} vs {b}: " + ("every slot bit-identical" if all(s for s, _ in same) else
+                                       "max relative difference " + f"{max(r for _, r in same):.2e}"))
+    # the int16 wire: the same graph fed the int16-rounded input, its output rounded to int16 and back
+    lsb = [float((i - torch.clamp(r, -1.0, 32767 / 32768)).abs().max()) * 32768
+           for i, r in zip(audio["fused-int16"], audio["fused-on-int16-input"])]
+    runs["fused-int16"]["lsb_off_the_rounded_input_run"] = lsb
+    log("pool", "int16 wire against the float32 wire on the int16-rounded input: max |diff| "
+                + ", ".join(f"{v:.3f}" for v in lsb) + " LSB (bound 0.5)")
+    if max(lsb) > 0.5 + 1e-3:
+        raise AssertionError(f"pool int16 wire: {max(lsb):.3f} LSB off the float32 wire on the same input")
+    del singles, batched, batched_q, eager, audio
+    bf._graphs.clear()
+    torch.cuda.empty_cache()
+
+
+def pos_conv_ms(pipe, B):
+    """ContentVec's ``pos_conv`` as the step runs it (``conv_rounded`` of its
+    grouped convolution), alone, at the shape it gets in a step of ``B``
+    streams, graphed device ms a call: on the step's layout (the features
+    ``[B, T, C]`` transposed, a strided view) and on a contiguous copy."""
+    import torch
+    import torch.nn.functional as F
+
+    from obs_rvc_tpu_torch.ops._mma import conv_rounded
+
+    cv = pipe.contentvec
+    conv, dtype = cv.encoder.pos_conv[0], cv.post_extract_proj.weight.dtype
+    x = torch.zeros(1, 1, pipe.cfg.input_buffer_16k_size, device=pipe.device, dtype=dtype)
+    with torch.no_grad():
+        for layer in cv.feature_extractor.conv_layers:
+            x = layer(x)
+        x = torch.randn(B, x.shape[-1], conv.in_channels, device=pipe.device).to(dtype).transpose(1, 2)
+        return [graph_ms(lambda: conv_rounded(F.conv1d, v, conv.weight, conv.bias, padding=conv.padding,
+                                              groups=conv.groups)) for v in (x, x.contiguous())]
+
+
+def kernel_owners(prof):
+    """Each device kernel of a torch.profiler run with the outermost aten
+    operator that launched it: ``[(kernel, device ms, operator, its input
+    shapes)]``."""
+    out = []
+
+    def walk(e, top):
+        top = top or (e if e.name.startswith("aten::") else None)
+        for k in e.kernels:
+            out.append((k.name, k.duration / 1e3, (top or e).name, (top or e).input_shapes))
+        for c in e.cpu_children:
+            walk(c, top)
+
+    for e in prof.events():
+        if e.cpu_parent is None:
+            walk(e, None)
+    return out
+
+
+def traced_step_owners(pipe, chunk, controls, activities=None):
+    """One eager batched step of ``len(chunk)`` streams (after a warm-up one)
+    under torch.profiler with shapes: :func:`kernel_owners`, and those of
+    them launched by ContentVec's ``pos_conv`` (the operator whose weight
+    has ``pos_conv``'s shape). A kernel's interval can overlap the next
+    one's (its 16 group convolutions' do), so their sum is not a time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from obs_rvc_tpu_torch.stream import StreamState
+
+    wshape = list(pipe.contentvec.encoder.pos_conv[0].weight.shape)
+    state = StreamState.init_batch(pipe.cfg, chunk.shape[0], device=pipe.device)
+    pipe.step(state, chunk, controls, batched=True)
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+    with profile(activities=activities or [ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        pipe.step(state, chunk, controls, batched=True)
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+    owners = kernel_owners(prof)
+    ops = [e for e in prof.events() if e.name == "aten::conv1d" and len(e.input_shapes) > 1
+           and list(e.input_shapes[1]) == wshape]
+    if len(ops) != 1:
+        raise AssertionError(f"the traced step shows {len(ops)} convolutions of pos_conv's weight {wshape}, want 1")
+    mine = [o for o in owners if o[2] == "aten::conv1d" and len(o[3]) > 1 and list(o[3][1]) == wshape]
+    return owners, mine
+
+
+def phase_pool_serve(report):
+    """The server with ``--pool POOL_B`` at its other defaults (bfloat16,
+    staged pool ticks captured before it listens): 4 duplex and 2 WebSocket
+    sessions at once, each against its own run alone; ``POOL_B``
+    connections hold every slot and a ninth is closed; /metrics shows the
+    pool's occupancy and counts no error."""
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.serve.stream_server import StreamClient
+    from obs_rvc_tpu_torch.serve.ws import WsStreamClient
+
+    import torch
+
+    host = "127.0.0.1"
+    cfg = ChunkConfig.build()
+    chunk = cfg.sample_frame_size
+    with Server(server_argv(host, ["--pool", str(POOL_B)])) as srv:
+        bound = srv.bound
+        metrics_url = f"http://{host}:{bound['health']}/metrics"
+        log("pool", f"server with --pool {POOL_B} listening in {srv.startup_s:.1f} s: {bound}")
+        doors = ["duplex"] * 4 + ["websocket"] * 2
+        sigs = [voiced_signal((POOL_SERVE_CHUNKS + 2) * chunk, cfg.sample_rate, seed=SEED + 60 + i,
+                              f0=POOL_F0[i]) for i in range(len(doors))]
+
+        def session(i):
+            if doors[i] == "duplex":
+                return duplex_session(host, bound["duplex"], sigs[i], POOL_SERVE_CHUNKS, chunk, cfg.sample_rate)
+            client = WsStreamClient.connect(host, bound["ws"], timeout=120)
+            try:
+                return stream_door("websocket", client.send_audio, sigs[i], 2400, chunk, POOL_SERVE_CHUNKS,
+                                   cfg.sample_rate)
+            finally:
+                client.close()
+
+        t0 = time.perf_counter()
+        alone = [session(i) for i in range(len(doors))]
+        t_alone = time.perf_counter() - t0
+        together = [None] * len(doors)
+
+        def concurrent(i):
+            together[i] = session(i)
+
+        workers = [threading.Thread(target=concurrent, args=(i,)) for i in range(len(doors))]
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(180)
+        t_together = time.perf_counter() - t0
+        if any(w.is_alive() for w in workers) or any(t is None for t in together):
+            raise AssertionError("the concurrent pooled sessions did not finish")
+        same = []
+        for i, (a, b) in enumerate(zip(alone, together)):
+            m = min(a.size, b.size)
+            same.append(check_same(f"pooled {doors[i]} session {i} together vs alone", torch.from_numpy(b[:m]),
+                                   torch.from_numpy(a[:m]), CPU_TOL["emitted"]))
+        log("pool", f"4 duplex and 2 WebSocket sessions at once ({t_together:.1f} s; one by one {t_alone:.1f} s), "
+                    "each against its run alone: " + ", ".join("bit-identical" if b else f"{r:.2e}" for b, r in same))
+
+        # every slot held, then one connection too many
+        clients = [StreamClient.connect_tcp(host, bound["duplex"], timeout=60) for _ in range(POOL_B)]
+        for c in clients:
+            c.send_audio(np.zeros(2400, np.float32))
+        with urllib.request.urlopen(metrics_url, timeout=30) as r:
+            held = json.loads(r.read())
+        ninth = StreamClient.connect_tcp(host, bound["duplex"], timeout=60)
+        try:
+            ninth.send_audio(np.zeros(2400, np.float32))
+            rejected = False
+        except (EOFError, ConnectionError):
+            rejected = True
+        for c in clients + [ninth]:
+            c.close()
+        metrics = wait_metrics_settled(metrics_url)
+        log("pool", f"{POOL_B} connections held: /metrics pool_active {held['pool_active']} of "
+                    f"{held['pool_capacity']}; connection {POOL_B + 1} " + ("closed" if rejected else "ACCEPTED")
+                    + f"; /metrics at the end {metrics}")
+        if not rejected or held["pool_active"] != POOL_B or held["pool_capacity"] != POOL_B:
+            raise AssertionError(f"--pool {POOL_B}: occupancy {held}, connection {POOL_B + 1} rejected: {rejected}")
+        if metrics["errors"] != 0 or metrics["chunks"] < POOL_SERVE_CHUNKS:
+            raise AssertionError(f"--pool {POOL_B}: /metrics {metrics}")
+    report["pool_serve"] = {"ports": bound, "startup_s": srv.startup_s, "together_vs_alone":
+                            [{"bit_identical": b, "rel": r} for b, r in same], "held_metrics": held,
+                            "ninth_rejected": rejected, "metrics": metrics, "together_s": t_together,
+                            "alone_s": t_alone}
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -1534,7 +2120,7 @@ def phase_timing(report, trace=False):
     # bf16 tensor cores' rate, activations and packed weights of 2 bytes, cuDNN in bfloat16 beside
     rates = {torch.float32: ("", TF32X3_PEAK_FLOPS, "3xTF32's 165", 4),
              torch.bfloat16: (" bfloat16", BF16_PEAK_FLOPS, "bf16's 989", 2)}
-    chain_cases = [(shape, *chain_inputs(*shape, dev, rng)) for shape in CHAIN_SHAPES]
+    chain_cases = [(shape, *chain_inputs(*shape, dev, rng)) for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "conv_block_res_chain" + suffix
         for (label, B, H, W, cin, C), x32, blocks32 in chain_cases:
@@ -1552,8 +2138,8 @@ def phase_timing(report, trace=False):
                 log("profile", f"chain {label}: {len(last)} kernels per call, span "
                                f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel "
                                + ", ".join(f"{d:.1f} us at +{t:.1f}" for _, d, t in last))
-        chain_rows = rows[name]
-        for label, r in chain_rows.items():
+        chain_rows = {label: r for label, r in rows[name].items() if label in {sh[0] for sh in CHAIN_SHAPES}}
+        for label, r in rows[name].items():
             log("timing", f"chain level {label}{suffix}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
                           f"({r['ms'] / r['library_ms']:.2f}x cuDNN's time), eager one-call wrapper "
                           f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at {rate} TFLOP/s, "
@@ -1564,7 +2150,8 @@ def phase_timing(report, trace=False):
                       f"{sum(r['library_ms'] for r in chain_rows.values()):.4f} ms, bound "
                       f"{sum(r['bound_ms'] for r in chain_rows.values()):.4f} ms ({rate} TFLOP/s) / "
                       f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows.values()):.4f} ms (float32 CUDA cores)")
-    bank_cases = [(shape, *bank_inputs(*shape, dev, rng)) for shape in BANK_SHAPES + BANK_EXTRA_SHAPES]
+    bank_cases = [(shape, *bank_inputs(*shape, dev, rng))
+                  for shape in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "resblock_bank" + suffix
         for (label, B, L, C), x32, params32 in bank_cases:
@@ -1617,30 +2204,53 @@ def phase_timing(report, trace=False):
         measure("log_mel", label, lambda: stft_mel.log_mel(x, mel.log_mel_basis, win),
                 lambda: stft_mel.log_mel_plain(x, basis, win),
                 library, *mel_flops_bytes(L, basis, mel.log_mel_basis))
+    # the batched step's log-mel: one launch for the pool's streams
+    for label, B, L, kind in [m for m in MEL_BATCH_SHAPES if m[0] == MEL_BATCH_MAIN]:
+        win, basis = htk.window, htk.mel_basis
+        x = mel_inputs(L, kind, dev, rng, B=B)
+        library = mel_library(x, win, basis)
+        check_close(f"log_mel library composite {label}", library(), stft_mel.log_mel_plain(x, basis, win),
+                    *MEL_BOUND)
+        measure("log_mel", label, lambda: stft_mel.log_mel(x, htk.log_mel_basis, win),
+                lambda: stft_mel.log_mel_plain(x, basis, win),
+                library, *mel_flops_bytes(L, basis, htk.log_mel_basis, B=B))
     report["timing"] = rows
 
 
 def kernel_line(report):
     """One entry per kernel and dtype on the main path: float32 for all
     three (the float32 main run's launches), bfloat16 for the chain and the
-    bank (the bfloat16 run's; the log-mel stays float32 there); and the
-    log-mel on the FCPE path's Slaney basis (the FCPE float32 run's
-    launches). The log-mel's ``max_abs_err`` is the largest over both bases,
-    the Slaney entry's over its own basis."""
+    bank (the bfloat16 run's; the log-mel stays float32 there); the log-mel
+    on the FCPE path's Slaney basis (the FCPE float32 run's launches); and
+    the three on the pool phase's batched step of ``POOL_B`` streams, in its
+    bfloat16 (the pool phase's eager run's launches, times at ``POOL_B``
+    streams). The log-mel's ``max_abs_err`` is the largest over every shape
+    and both bases, the Slaney entry's over its own basis, the batched
+    entries' over their batched shapes."""
     srcs = {"log_mel": ("obs_rvc_tpu_torch/csrc/stft_mel.cu", "obs_rvc_tpu/ops/stft_mel.py:70"),
             "conv_block_res_chain": ("obs_rvc_tpu_torch/csrc/unet_block.cu", "obs_rvc_tpu/ops/unet_block.py:155"),
             "resblock_bank": ("obs_rvc_tpu_torch/csrc/resblock.cu", "obs_rvc_tpu/ops/resblock.py:298")}
     main_labels = {s[0] for s in CHAIN_SHAPES + BANK_SHAPES} | {MEL_MAIN}
-    entries = [(name, name, "float32", "main", main_labels, "") for name in srcs] + [
-        (name, f"{name} bfloat16", "bfloat16", "main_bf16", main_labels, "")
+    batch_labels = {s[0] for s in CHAIN_SHAPES_BATCH + BANK_SHAPES_BATCH} | {MEL_BATCH_MAIN}
+
+    def batched(label):
+        return label.startswith("batch-") or label.endswith(f"-b{POOL_B}")
+
+    entries = [(name, name, "float32", "main", main_labels, lambda label: True) for name in srcs] + [
+        (name, f"{name} bfloat16", "bfloat16", "main_bf16", main_labels, lambda label: True)
         for name in ("conv_block_res_chain", "resblock_bank")] + [
-        ("log_mel", "log_mel fcpe-slaney", "float32", "fcpe", {FCPE_MEL_MAIN}, FCPE_MEL_MAIN)]
+        ("log_mel", "log_mel fcpe-slaney", "float32", "fcpe", {FCPE_MEL_MAIN},
+         lambda label: label.startswith(FCPE_MEL_MAIN)),
+        ("log_mel", "log_mel batched", "float32", "pool", batch_labels, batched)] + [
+        (name, f"{name} bfloat16 batched", "bfloat16", "pool", batch_labels, batched)
+        for name in ("conv_block_res_chain", "resblock_bank")]
     kernels = []
-    for name, entry, dtype, run, labels, parity_prefix in entries:
+    for name, entry, dtype, run, labels, parity_label in entries:
         src, replaces = srcs[name]
         row_key = name if dtype == "float32" else f"{name} {dtype}"
         rows = [r for label, r in report["timing"][row_key].items() if label in labels]
-        errs = [v for k, v in report["parity"][name].items() if k.startswith(parity_prefix) and k.endswith(dtype)]
+        errs = [v for k, v in report["parity"][name].items()
+                if parity_label(k.rsplit(" ", 1)[0]) and k.endswith(dtype)]
         kernels.append({
             "name": entry, "route": "cuda", "source": src, "replaces": replaces,
             "launches": report[run]["launches"][name],
@@ -1734,6 +2344,8 @@ def main(argv=None) -> int:
         del pf, pb
         torch.cuda.empty_cache()
     phase_pitch_serve(report)
+    phase_pool(report)
+    phase_pool_serve(report)
     phase_timing(report, trace=args.profile)
     for key in ("main", "main_bf16", "v1", "crepe", "crepe_bf16", "fcpe", "fcpe_bf16"):
         m = report[key]

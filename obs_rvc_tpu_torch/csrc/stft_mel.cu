@@ -15,11 +15,15 @@
 // and the mel product over the triangles' nonzero entries), 0.03 us at
 // float32's 67 TFLOP/s, and must move 82 KB of signal, window, packed basis
 // and output, 0.025 us at 3.35 TB/s: bound by operations. At that size a launch and a handful of dependent shared-memory
-// round trips per frame are what the kernel pays; the design keeps both few.
+// round trips per frame are what the kernel pays; the design keeps both few. A batched step's B streams cost
+// B times the operations and the signal and output bytes, the basis once, in the same one launch.
 //
-// Design: a block of 128 threads owns one frame, so the grid has T blocks.
-// Two or four frames a block were measured on an H100 and were slower at
-// both T=64 and T=301 (PERF.md): with 64 blocks the SMs are already idle.
+// Design: a block of 128 threads owns one frame of one stream, so the grid
+// is (T, B): blockIdx.x the frame, blockIdx.y the stream, which offsets the
+// signal and the output. The window, cos table and packed basis are shared
+// by every stream. One launch covers a batched step's B streams. Two or four
+// frames a block were measured on an H100 and were slower at both T=64 and
+// T=301 (PERF.md): with 64 blocks the SMs are already idle.
 //
 // 1. The block builds its frame straight from the raw signal (with
 //    np.pad's repeated reflection, so T = 1 and signals shorter than the
@@ -111,13 +115,15 @@ __global__ void __launch_bounds__(GROUP)
 log_mel_kernel(const float* __restrict__ signal, const float* __restrict__ window,
                const float* __restrict__ cos_table, const int* __restrict__ row_start,
                const int* __restrict__ row_off, const float* __restrict__ weights,
-               const int* __restrict__ pieces, int n_pieces, float* __restrict__ out, int L, int T,
-               int hop, float clamp) {
+               const int* __restrict__ pieces, int n_pieces, float* __restrict__ out, int L, int stride,
+               int T, int hop, int n_mels, float clamp) {
   __shared__ float ctab[NFFT];
   __shared__ float2 b0[ROW], b1[ROW];
   __shared__ float wsm[PIECE];
 
   const int j = threadIdx.x, t = blockIdx.x;
+  signal += (size_t)blockIdx.y * stride;
+  out += (size_t)blockIdx.y * n_mels * T;
 
   for (int i = j; i < NFFT; i += GROUP) ctab[i] = cos_table[i];
   for (int m = j; m < NC; m += GROUP) {
@@ -173,20 +179,23 @@ log_mel_kernel(const float* __restrict__ signal, const float* __restrict__ windo
 
 }  // namespace
 
-// signal: [L] float32; window: [1024] float32; cos_table: [1024] float32,
+// signal: B streams of L float32 samples, row b at signal + b * stride (the
+// step's windows are the tails of its 16 kHz rings); window: [1024] float32; cos_table: [1024] float32,
 // cos(2 pi j / 1024); the packed basis (ops/stft_mel.py:pack_mel_basis):
 // row_start [n_mels] int32, the first bin of each row's weights; row_off
 // [n_mels + 1] int32, where each row's weights start in `weights`; weights
 // float32; pieces [n_pieces + 1] int32, the rows that start each piece of at
-// most 2048 weights, then n_mels. out: [n_mels, T] float32 with
+// most 2048 weights, then n_mels. out: [B, n_mels, T] float32 with
 // T = 1 + L / hop. Returns a CUDA error code (0 on success).
 extern "C" int rvc_log_mel(const float* signal, const float* window, const float* cos_table,
                            const int* row_start, const int* row_off, const float* weights, const int* pieces,
-                           int n_pieces, float* out, int L, int T, int hop, int n_mels, float clamp,
-                           void* stream) {
-  if (L < 1 || T < 1 || hop < 1 || n_mels < 1 || n_pieces < 1 || T != 1 + L / hop)
+                           int n_pieces, float* out, int B, int L, int stride, int T, int hop, int n_mels,
+                           float clamp, void* stream) {
+  if (B < 1 || B > 65535 || L < 1 || stride < L || T < 1 || hop < 1 || n_mels < 1 || n_pieces < 1 ||
+      T != 1 + L / hop)
     return (int)cudaErrorInvalidValue;
-  log_mel_kernel<<<T, GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
-      signal, window, cos_table, row_start, row_off, weights, pieces, n_pieces, out, L, T, hop, clamp);
+  log_mel_kernel<<<dim3(T, B), GROUP, 0, static_cast<cudaStream_t>(stream)>>>(
+      signal, window, cos_table, row_start, row_off, weights, pieces, n_pieces, out, L, stride, T, hop, n_mels,
+      clamp);
   return (int)cudaGetLastError();
 }

@@ -116,7 +116,8 @@ class MelSpectrogram:
         return self._windows[n]
 
     def __call__(self, signal: torch.Tensor, keyshift: int = 0) -> torch.Tensor:
-        """Log-mel spectrogram ``[n_mels, T]`` with ``T = 1 + L // hop``.
+        """Log-mel spectrogram ``[n_mels, T]`` with ``T = 1 + L // hop`` of a
+        signal ``[L]``; ``[B, n_mels, T]`` of ``B`` streams ``[B, L]``.
 
         At keyshift 0 with the 1024-sample FFT and window this is the fused
         frontend :func:`~obs_rvc_tpu_torch.ops.stft_mel.log_mel` (its CUDA
@@ -132,12 +133,12 @@ class MelSpectrogram:
         win_length_new = int(round(self.win_length * factor))
         magnitude = stft_magnitude(
             signal, fft_size_new, self.hop_length, self._window(win_length_new)
-        ).T  # [T, n_bins_new]
+        ).transpose(-1, -2)  # [..., T, n_bins_new]
         if keyshift != 0:
             size = self.fft_size // 2 + 1
             resize = magnitude.shape[-1]
             if resize < size:
                 magnitude = F.pad(magnitude, (0, size - resize))
-            magnitude = magnitude[:, :size] * (self.win_length / win_length_new)
-        mel = (magnitude @ self.mel_basis.T).T  # [n_mels, T]
+            magnitude = magnitude[..., :size] * (self.win_length / win_length_new)
+        mel = (magnitude @ self.mel_basis.T).transpose(-1, -2)  # [..., n_mels, T]
         return torch.log(torch.clamp(mel, min=self.clamp))

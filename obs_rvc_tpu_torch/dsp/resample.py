@@ -79,3 +79,29 @@ def resample_poly(
     out = F.conv1d(xp[:, None, :], G, stride=down)  # [B, up, m_out]
     y = out.transpose(1, 2).reshape(x.shape[0], m_out * up)[:, : -(-n * up // down)]
     return y[0] if squeeze else y
+
+
+class PolyphaseResampler:
+    """Fixed-geometry resampler for one ``(sr_in, sr_out, chunk)``
+    configuration (counterpart of ``obs_rvc_tpu/dsp/resample.py:PolyphaseResampler``):
+    the construction sites of the reference's two resamplers, a down path
+    ``device_rate → 16k`` over ``sample_frame + 2*zc`` windows and an up path
+    ``model_rate → device_rate`` over ``model_return_size`` chunks."""
+
+    def __init__(self, sr_in: int, sr_out: int, chunk_size_in: int, taps_per_phase: int = 16,
+                 beta: float = 8.555):
+        self.sr_in = sr_in
+        self.sr_out = sr_out
+        self.up, self.down = gcd_ratio(sr_in, sr_out)
+        self.chunk_size_in = chunk_size_in
+        if (chunk_size_in * self.up) % self.down != 0:
+            raise ValueError(f"chunk {chunk_size_in} not commensurate with {sr_in}->{sr_out}")
+        self.chunk_size_out = chunk_size_in * self.up // self.down
+        self.taps_per_phase = taps_per_phase
+        self.beta = beta
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``[chunk_size_in]`` or ``[B, chunk_size_in]`` → ``[..., chunk_size_out]``."""
+        if x.shape[-1] != self.chunk_size_in:
+            raise ValueError(f"a chunk of {x.shape[-1]} samples, the resampler takes {self.chunk_size_in}")
+        return resample_poly(x, self.sr_in, self.sr_out, self.taps_per_phase, self.beta)

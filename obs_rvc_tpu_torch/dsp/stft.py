@@ -1,7 +1,8 @@
 """Framed STFT magnitude (counterpart of ``obs_rvc_tpu/dsp/stft.py``).
 
 Centred frames (reflect padding of ``fft_size/2``), ``T = 1 + L // hop``
-frames, periodic-Hann windowing, one-sided magnitude ``[n_bins, T]``. The
+frames, periodic-Hann windowing, one-sided magnitude ``[n_bins, T]`` (over
+the last axis: ``[..., n_bins, T]`` for signals with leading stream axes). The
 DFT is two matmuls against cos/-sin bases, as the JAX package's default
 ``method="matmul"`` computes it.
 """
@@ -18,12 +19,12 @@ from obs_rvc_tpu_torch.dsp.window import pad_reflect
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop_length: int, num_frames: int) -> torch.Tensor:
-    """``[num_frames, frame_length]`` frames of a 1-D signal, frame ``i``
-    starting at ``i*hop_length``; zero-padded at the end where short."""
+    """``[..., num_frames, frame_length]`` frames of a signal's last axis,
+    frame ``i`` starting at ``i*hop_length``; zero-padded at the end where short."""
     need = (num_frames - 1) * hop_length + frame_length
-    if x.shape[0] < need:
-        x = F.pad(x, (0, need - x.shape[0]))
-    return x[:need].unfold(0, frame_length, hop_length)
+    if x.shape[-1] < need:
+        x = F.pad(x, (0, need - x.shape[-1]))
+    return x[..., :need].unfold(-1, frame_length, hop_length)
 
 
 @functools.lru_cache(maxsize=8)
@@ -58,8 +59,8 @@ def stft_magnitude(
         pad_left = (fft_size - win_length) // 2
         window = F.pad(window, (pad_left, fft_size - win_length - pad_left))
 
-    frames = frame_signal(signal, fft_size, hop_length, num_frames) * window[None, :]
+    frames = frame_signal(signal, fft_size, hop_length, num_frames) * window
     cos_b, msin_b = _dft_bases(fft_size, frames.device)
     re = frames @ cos_b
     im = frames @ msin_b
-    return torch.sqrt(re * re + im * im).T
+    return torch.sqrt(re * re + im * im).transpose(-1, -2)

@@ -1,4 +1,4 @@
-"""Window functions and 1-D padding (counterpart of ``obs_rvc_tpu/dsp/window.py``)."""
+"""Window functions and padding (counterpart of ``obs_rvc_tpu/dsp/window.py``)."""
 
 from __future__ import annotations
 
@@ -27,5 +27,6 @@ def fade_windows(sola_buffer_frame_size: int, device=None) -> tuple[torch.Tensor
 
 
 def pad_reflect(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad both ends of a 1-D signal without repeating the edge sample."""
-    return F.pad(x[None, None], (pad, pad), mode="reflect")[0, 0]
+    """Reflect-pad both ends of a signal's last axis without repeating the edge sample."""
+    n = x.shape[-1]
+    return F.pad(x.reshape(-1, 1, n), (pad, pad), mode="reflect").reshape(*x.shape[:-1], n + 2 * pad)

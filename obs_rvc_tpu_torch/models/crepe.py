@@ -75,9 +75,10 @@ def extract_crepe_frames(x16: torch.Tensor, num_frames: int, hop_length: int = 1
     """16 kHz signal → per-frame normalised ``[num_frames, 1024]`` windows
     centred at ``t*hop`` (torchcrepe's ``preprocess``): zero-padded by 512 on
     each side, framed, mean-centred and divided by the unbiased std clamped
-    at 1e-10, so a silent frame comes out 0."""
+    at 1e-10, so a silent frame comes out 0. Streams ``[B, L]`` give
+    ``[B, num_frames, 1024]``."""
     padded = F.pad(x16.float(), (WINDOW_SIZE // 2, WINDOW_SIZE // 2))
     frames = frame_signal(padded, WINDOW_SIZE, hop_length, num_frames)
-    centered = frames - frames.mean(dim=1, keepdim=True)
-    var = (centered * centered).sum(dim=1, keepdim=True) / (WINDOW_SIZE - 1)
+    centered = frames - frames.mean(dim=-1, keepdim=True)
+    var = (centered * centered).sum(dim=-1, keepdim=True) / (WINDOW_SIZE - 1)
     return centered / torch.clamp(torch.sqrt(var), min=1e-10)

@@ -67,7 +67,7 @@ class _DepthWiseConv1d(nn.Module):
 
 
 class _ConformerConvModule(nn.Module):
-    """``[1, T, dim]`` → ``[1, T, dim]``, the residual added by the caller.
+    """``[B, T, dim]`` → ``[B, T, dim]``, the residual added by the caller.
     ``net`` keeps torchfcpe's indices; the empty slots are its Transpose,
     GLU and SiLU."""
 
@@ -81,7 +81,7 @@ class _ConformerConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         net = self.net
-        h = net[2](net[0](x).transpose(1, 2))  # [1, 2*inner, T]
+        h = net[2](net[0](x).transpose(1, 2))  # [B, 2*inner, T]
         h = h[:, : self.inner] * torch.sigmoid(h[:, self.inner :])
         h = F.silu(net[4](h))
         return net[6](h).transpose(1, 2)
@@ -97,7 +97,8 @@ class _EncoderLayer(nn.Module):
 
 
 class Fcpe(nn.Module):
-    """Log-mel ``[T, n_mels]`` → salience ``[T, 360]`` (sigmoid)."""
+    """Log-mel ``[B, T, n_mels]`` → salience ``[B, T, 360]`` (sigmoid); one
+    stream's ``[T, n_mels]`` is the B=1 view, ``[T, 360]`` out."""
 
     def __init__(self, cfg: FcpeConfig = FcpeConfig()):
         super().__init__()
@@ -111,12 +112,14 @@ class Fcpe(nn.Module):
         self.output_proj = nn.Linear(cfg.hidden, cfg.out_dims)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        if mel.dim() == 2:
+            return self(mel[None])[0]
         st = self.input_stack
-        x = mel.to(self.output_proj.weight.dtype).T[None]  # [1, n_mels, T]
-        x = st[3](F.leaky_relu(st[1](st[0](x)), 0.01)).transpose(1, 2)  # [1, T, hidden]
+        x = mel.to(self.output_proj.weight.dtype).transpose(1, 2)  # [B, n_mels, T]
+        x = st[3](F.leaky_relu(st[1](st[0](x)), 0.01)).transpose(1, 2)  # [B, T, hidden]
         for layer in self.net.encoder_layers:
             x = layer(x)
-        return torch.sigmoid(self.output_proj(self.norm(x))[0]).float()
+        return torch.sigmoid(self.output_proj(self.norm(x))).float()
 
 
 def fcpe_cent_table(out_dims: int = N_CLASS, f0_min: float = F0_MIN, f0_max: float = F0_MAX) -> np.ndarray:
@@ -133,16 +136,16 @@ def _table_on(device: torch.device) -> torch.Tensor:
 
 
 def decode_f0_fcpe(salience: torch.Tensor, threshold: float = 0.05) -> torch.Tensor:
-    """Salience ``[T, 360]`` → f0 Hz ``[T]``, torchfcpe's local-argmax decode:
+    """Salience ``[..., T, 360]`` → f0 Hz ``[..., T]``, torchfcpe's local-argmax decode:
     the cent table averaged over the 9 bins centred on each frame's argmax,
     the indices clamped at the edges (edge bins repeat), weighted by the
     salience, over ``max(Σw, 1e-12)``; a frame whose peak is not above
     ``threshold`` is unvoiced (0 Hz). Reads nothing back to the host."""
-    n = salience.shape[1]
-    center = torch.argmax(salience, dim=1)
-    conf = torch.amax(salience, dim=1)
-    idx = torch.clamp(center[:, None] - 4 + torch.arange(9, device=salience.device)[None, :], 0, n - 1)
-    w = torch.gather(salience, 1, idx)
-    cents = torch.sum(w * _table_on(salience.device)[idx], dim=1) / torch.clamp(torch.sum(w, dim=1), min=1e-12)
+    n = salience.shape[-1]
+    center = torch.argmax(salience, dim=-1)
+    conf = torch.amax(salience, dim=-1)
+    idx = torch.clamp(center[..., None] - 4 + torch.arange(9, device=salience.device), 0, n - 1)
+    w = torch.gather(salience, -1, idx)
+    cents = torch.sum(w * _table_on(salience.device)[idx], dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1e-12)
     f0 = 10.0 * torch.exp2(cents / 1200.0)
     return torch.where(conf > threshold, f0, torch.zeros_like(f0))

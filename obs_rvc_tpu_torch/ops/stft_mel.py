@@ -1,7 +1,8 @@
 """The RMVPE log-mel frontend, fused (counterpart of
 ``obs_rvc_tpu/ops/stft_mel.py:log_mel_pallas``).
 
-For a 1-D signal of ``L`` samples and ``T = 1 + L // hop`` frames::
+For a signal of ``L`` samples and ``T = 1 + L // hop`` frames (``B`` streams
+``[B, L]`` give ``[B, n_mels, T]``; a 1-D signal is the B=1 view)::
 
     frames = reflect-padded (fft/2 each side) signal, hop-strided, x periodic Hann
     re, im = frames @ cos, frames @ (-sin)           (513 one-sided bins)
@@ -110,26 +111,29 @@ def pack_mel_basis(mel_basis: torch.Tensor, device=None) -> PackedMelBasis:
 
 def log_mel_plain(signal: torch.Tensor, mel_basis: torch.Tensor, window: torch.Tensor,
                   hop_length: int = 160, clamp: float = 1e-5) -> torch.Tensor:
-    """The frontend as framing, two DFT matmuls and a mel matmul, in float32."""
+    """The frontend as framing, two DFT matmuls and a mel matmul, in float32,
+    over the last axis: ``[L]`` → ``[n_mels, T]``, ``[B, L]`` → ``[B, n_mels, T]``."""
     fft_size = window.shape[0]
     L = signal.shape[-1]
     T = 1 + L // hop_length
     x = signal.to(torch.float32)
-    frames = x[reflect_indices(L, fft_size, hop_length, T, device=x.device)] * window[None, :]
+    frames = x[..., reflect_indices(L, fft_size, hop_length, T, device=x.device)] * window
     cos_b, msin_b = _dft_bases(fft_size, x.device)
     re = frames @ cos_b
     im = frames @ msin_b
-    mag = torch.sqrt(re * re + im * im)  # [T, bins]
-    mel = (mag @ mel_basis.T).T  # [n_mels, T]
+    mag = torch.sqrt(re * re + im * im)  # [..., T, bins]
+    mel = (mag @ mel_basis.T).transpose(-1, -2)  # [..., n_mels, T]
     return torch.log(torch.clamp(mel, min=clamp))
 
 
 def log_mel(signal: torch.Tensor, mel_basis: Union[torch.Tensor, PackedMelBasis], window: torch.Tensor,
             hop_length: int = 160, clamp: float = 1e-5) -> torch.Tensor:
-    """Log-mel ``[n_mels, 1 + L // hop]`` of a 1-D signal with center/reflect
-    padding, for an ``[fft_size]`` ``window``. ``mel_basis`` is the dense
-    ``[n_mels, fft/2 + 1]`` basis for a signal on the CPU, and that basis
-    packed by :func:`pack_mel_basis` for a signal on a card."""
+    """Log-mel ``[B, n_mels, 1 + L // hop]`` of ``B`` streams ``[B, L]`` with
+    center/reflect padding, for an ``[fft_size]`` ``window``; a 1-D signal
+    ``[L]`` is the B=1 view and gives ``[n_mels, 1 + L // hop]``. ``mel_basis``
+    is the dense ``[n_mels, fft/2 + 1]`` basis for a signal on the CPU, and
+    that basis packed by :func:`pack_mel_basis` for a signal on a card, where
+    one launch covers every stream."""
     if signal.device.type == "cpu":
         if isinstance(mel_basis, PackedMelBasis):
             raise ValueError("log_mel: on the CPU mel_basis is the dense basis, not its packed form")
@@ -141,8 +145,10 @@ def log_mel(signal: torch.Tensor, mel_basis: Union[torch.Tensor, PackedMelBasis]
 
 def _log_mel_cuda(signal, packed: PackedMelBasis, window, hop_length, clamp) -> torch.Tensor:
     global LAUNCHES
-    if signal.dim() != 1 or not signal.is_contiguous():
-        raise ValueError("log_mel: the signal must be a contiguous 1-D tensor")
+    if signal.dim() == 1:
+        return _log_mel_cuda(signal[None], packed, window, hop_length, clamp)[0]
+    if signal.dim() != 2 or signal.stride(1) != 1 or signal.stride(0) < signal.shape[1]:
+        raise ValueError("log_mel: the signal must be [L] or [B, L] with each row contiguous")
     if signal.dtype != torch.float32:
         raise ValueError(f"log_mel: unsupported dtype {signal.dtype} (the kernel takes float32)")
     if window.shape != (CUDA_FFT_SIZE,):
@@ -152,8 +158,8 @@ def _log_mel_cuda(signal, packed: PackedMelBasis, window, hop_length, clamp) -> 
         raise ValueError("log_mel: hop_length must be positive")
     if window.device != signal.device or window.dtype != torch.float32:
         raise ValueError("log_mel: window must be float32 on the signal's device")
-    L = signal.shape[0]
-    if L < 1:
+    B, L = signal.shape
+    if L < 1 or B < 1:
         raise ValueError("log_mel: the signal is empty")
     if not isinstance(packed, PackedMelBasis):
         raise ValueError("log_mel: on a card mel_basis must be packed by pack_mel_basis")
@@ -165,16 +171,16 @@ def _log_mel_cuda(signal, packed: PackedMelBasis, window, hop_length, clamp) -> 
     T = 1 + L // hop_length
     n_mels = packed.row_start.shape[0]
     fn = _cuda.function("stft_mel", "rvc_log_mel",
-                        [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 6
                         + [ctypes.c_float, ctypes.c_void_p])
     win = window.contiguous()
     table = _cos_table(CUDA_FFT_SIZE, signal.device)
-    out = torch.empty((n_mels, T), dtype=torch.float32, device=signal.device)
+    out = torch.empty((B, n_mels, T), dtype=torch.float32, device=signal.device)
     rc = fn(_cuda.ptr(signal), _cuda.ptr(win), _cuda.ptr(table), _cuda.ptr(packed.row_start),
             _cuda.ptr(packed.row_off), _cuda.ptr(packed.weights), _cuda.ptr(packed.pieces),
-            packed.pieces.shape[0] - 1, _cuda.ptr(out), L, T, hop_length, n_mels,
+            packed.pieces.shape[0] - 1, _cuda.ptr(out), B, L, signal.stride(0), T, hop_length, n_mels,
             ctypes.c_float(clamp), _cuda.stream_of(signal))
-    _cuda.check(rc, f"log_mel (L={L}, T={T})")
+    _cuda.check(rc, f"log_mel (B={B}, L={L}, T={T})")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1
     return out

@@ -1,7 +1,9 @@
 """One process that brings up every serving front door over one pipeline
 (counterpart of ``obs_rvc_tpu/serve/server.py``):
 
-- the duplex PCM stream over TCP (``stream_server``), a session per connection
+- the duplex PCM stream over TCP (``stream_server``), a session per
+  connection, or with ``--pool N`` a slot of one batched
+  :class:`~obs_rvc_tpu_torch.stream.pool.StreamPool` per connection
 - the same protocol over WebSocket (``ws``)
 - the plugin's reference RPC protocol over TCP (``rpc``), on an ``RvcEngine``
   that shares the pipeline's networks
@@ -23,9 +25,18 @@ the fused step's and the engine's graphs by key within the process
 (``utils/exec_cache.py``); the kernels' builds persist across processes
 under ``obs_rvc_tpu_torch/_build/`` either way. ``--pitch-algorithm crepe``
 or ``fcpe`` (with ``--crepe``/``--fcpe`` checkpoints, random weights without)
-serves every door with that pitch network. Flags of modules not ported yet
-(the pool, the mesh, retrieval) exit with an error that names their
-ROADMAP.md item.
+serves every door with that pitch network.
+
+``--pool N`` batches the duplex and WebSocket connections through one pool
+of ``N`` slots (``batch_min`` N/4, the server's controls as each slot's
+defaults, ``--step-mode`` as its mode, ``--exec-cache``), whose tick graphs
+are captured before any door listens; ``--pool-io-dtype int16`` and
+``--pool-pipelined`` (both need ``--step-mode fused``) are its wire width
+and its pipelined ticks. ``/metrics`` then counts the pool's chunks and
+shows ``pool_ready``, ``pool_active`` and ``pool_capacity``; a connection
+past the capacity is closed. The RPC door stays on its own engine. Flags of
+modules not ported yet (the mesh, retrieval) exit with an error that names
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ws-port", type=int, default=0, help="WebSocket port (0 = off)")
     p.add_argument("--health-port", type=int, default=0, help="health/metrics HTTP port (0 = off)")
     p.add_argument("--rpc-port", type=int, default=0, help="reference-compatible RPC port (0 = off)")
-    p.add_argument("--pool", type=int, default=0, help="not ported (ROADMAP.md queue 1 item 10)")
+    p.add_argument("--pool", type=int, default=0,
+                   help="batch the duplex and WebSocket connections through a StreamPool of this capacity "
+                        "(0 = a session per connection)")
     p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
     p.add_argument("--device-sample-rate", type=int, default=48000)
     add_model_flags(p, loudness_default=1.0, dtype_default="bfloat16")
@@ -59,8 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="staged: a CUDA graph per stage, replayed in turn; fused: one CUDA graph of the whole "
                         "step (both captured in this process before the server listens)")
     p.add_argument("--pool-io-dtype", default="float32", choices=["float32", "int16"],
-                   help="not ported (ROADMAP.md queue 1 item 10)")
-    p.add_argument("--pool-pipelined", action="store_true", help="not ported (ROADMAP.md queue 1 item 10)")
+                   help="the pool's PCM width to and from the card; int16 casts inside the fused graph "
+                        "(needs --step-mode fused)")
+    p.add_argument("--pool-pipelined", action="store_true",
+                   help="deliver a pool tick's output after the next tick's dispatch, overlapping its copy with "
+                        "that tick's compute (needs --step-mode fused)")
     p.add_argument("--exec-cache", action="store_true",
                    help="share the fused step's and the RPC engine's captured graphs by key within this process "
                         "(a CUDA graph cannot be saved; the kernels' builds persist under _build/ regardless)")
@@ -87,20 +103,30 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
     from obs_rvc_tpu_torch.serve.rpc import serve_tcp as rpc_serve_tcp
     from obs_rvc_tpu_torch.serve.stream_server import serve_tcp
     from obs_rvc_tpu_torch.serve.ws import serve_ws_tcp
-    from obs_rvc_tpu_torch.stream import StreamSession
+    from obs_rvc_tpu_torch.stream import StreamPool, StreamSession
     from obs_rvc_tpu_torch.stream.engine import RvcEngine
 
     pipe, controls = build_pipeline(args)
     stop = stop_event if stop_event is not None else threading.Event()
-    # one scrape target aggregating every connection's session
-    metrics = ChunkMetrics(chunk_seconds=pipe.cfg.latency_seconds)
+    pool = None
+    if args.pool:
+        pool = StreamPool(pipe, capacity=args.pool, batch_min=max(1, args.pool // 4), default_controls=controls,
+                          mode=args.step_mode, exec_cache=args.exec_cache, io_dtype=args.pool_io_dtype,
+                          pipelined=args.pool_pipelined)
+        metrics = pool.metrics
+    else:
+        # one scrape target aggregating every connection's session
+        metrics = ChunkMetrics(chunk_seconds=pipe.cfg.latency_seconds)
 
     def make_session():
         return StreamSession(pipe, controls, mode=args.step_mode, stage_timing=args.stage_timing,
                              metrics=metrics, exec_cache=args.exec_cache)
 
-    # the launch geometry's graphs, captured before any door listens
-    if args.port or args.ws_port:
+    # the launch geometry's graphs (or the pool's tick), captured before any door listens
+    if pool is not None:
+        pool.prepare()
+        pool.start()
+    elif args.port or args.ws_port:
         make_session().prepare()
     engine = None
     if args.rpc_port:
@@ -111,7 +137,7 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
     failed: dict[str, BaseException] = {}
     doors = []
 
-    def door(name, serve, *serve_args):
+    def door(name, serve, *serve_args, **serve_kwargs):
         listening = threading.Event()
 
         def on_ready(p):
@@ -120,7 +146,7 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
 
         def run():
             try:
-                serve(*serve_args, ready=on_ready, stop_event=stop)
+                serve(*serve_args, ready=on_ready, stop_event=stop, **serve_kwargs)
             except Exception as e:
                 if listening.is_set():
                     # a door that fails while serving ends alone, as a door's
@@ -135,14 +161,19 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
         doors.append((threading.Thread(target=run, daemon=True, name=f"rvc-{name}"), listening))
 
     if args.port:
-        door("duplex", serve_tcp, make_session, args.host, args.port)
+        door("duplex", serve_tcp, make_session, args.host, args.port, pool=pool)
     if args.ws_port:
-        door("ws", serve_ws_tcp, make_session, args.host, args.ws_port)
+        door("ws", serve_ws_tcp, make_session, args.host, args.ws_port, pool=pool)
     if args.rpc_port:
         door("rpc", rpc_serve_tcp, engine, args.host, args.rpc_port)
     health = None
     if args.health_port:
-        health, bound["health"] = start_health_server(metrics, args.host, args.health_port)
+        extra = None
+        if pool is not None:
+            def extra():
+                ready_slots, active = pool.ready_slots()
+                return {"pool_ready": ready_slots, "pool_active": active, "pool_capacity": pool.capacity}
+        health, bound["health"] = start_health_server(metrics, args.host, args.health_port, extra=extra)
         print(f"health/metrics on {args.host}:{bound['health']}", file=sys.stderr)
     try:
         for t, _ in doors:
@@ -163,6 +194,8 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
         if health is not None:
             health.shutdown()
             health.server_close()
+        if pool is not None:
+            pool.stop()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@
 The client streams device-rate mono frames of any size and gets converted
 audio back; rings, resampling, SOLA and envelope mixing all run in the
 server's :class:`~obs_rvc_tpu_torch.stream.scheduler.StreamSession`, one per
-connection, whose worker thread keeps the socket loop off the device.
+connection, whose worker thread keeps the socket loop off the device. With a
+:class:`~obs_rvc_tpu_torch.stream.pool.StreamPool`, each connection claims
+one of its slots instead, every voice batched through one step a tick; a
+connection past the pool's capacity is closed.
 
 Wire protocol (little-endian, tag-framed)::
 
@@ -134,21 +137,56 @@ class StreamClient:
             pass
 
 
+class _PoolSlotAdapter:
+    """One :class:`~obs_rvc_tpu_torch.stream.pool.StreamPool` slot with the
+    session interface the connection loops use (start, stop, push, pull,
+    update); stopping it detaches the slot."""
+
+    def __init__(self, pool, slot: int):
+        self._pool = pool
+        self._slot = slot
+
+    def start(self) -> None:
+        pass  # the pool's worker serves every slot
+
+    def stop(self) -> None:
+        self._pool.detach(self._slot)
+
+    def push_audio(self, frame: np.ndarray) -> int:
+        return self._pool.push_audio(self._slot, frame)
+
+    def pull_audio(self, n: int) -> np.ndarray:
+        return self._pool.pull_audio(self._slot, n)
+
+    def update_controls(self, **kw) -> None:
+        self._pool.update_controls(self._slot, **kw)
+
+
+def session_for(make_session: Callable, pool):
+    """The connection's session: a slot of ``pool`` (raises
+    :class:`~obs_rvc_tpu_torch.stream.pool.PoolFullError` when every slot is
+    taken), or ``make_session()`` without one."""
+    return _PoolSlotAdapter(pool, pool.attach()) if pool is not None else make_session()
+
+
 def serve_tcp(make_session: Callable, host: str, port: int,
               ready: Optional[Callable[[int], None]] = None,
-              stop_event: Optional[threading.Event] = None) -> None:
-    """Accept loop: each connection gets ``make_session()`` and a thread.
-    ``ready(port)`` fires once the socket listens (bind port 0 for a free
-    port); ``stop_event`` ends the accept loop, and connections in flight
-    finish on their threads."""
+              stop_event: Optional[threading.Event] = None, pool=None) -> None:
+    """Accept loop: each connection gets ``make_session()`` (with ``pool``, a
+    started pool: a slot of it) and a thread. ``ready(port)`` fires once the
+    socket listens (bind port 0 for a free port); ``stop_event`` ends the
+    accept loop, and connections in flight finish on their threads."""
+    from obs_rvc_tpu_torch.stream.pool import PoolFullError
 
     def handle(conn, addr):
         print(f"stream client {addr}", file=sys.stderr)
         with conn, conn.makefile("rb") as rin, conn.makefile("wb") as rout:
             try:
-                serve_connection(make_session(), rin, rout)
+                serve_connection(session_for(make_session, pool), rin, rout)
             except (EOFError, ConnectionError):
                 pass
+            except PoolFullError as e:
+                print(f"rejecting {addr}: {e}", file=sys.stderr)
 
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
         srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)

@@ -27,6 +27,7 @@ from obs_rvc_tpu_torch.serve.stream_server import (
     _read_exact,
     encode_audio_message,
     handle_message,
+    session_for,
 )
 
 _WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
@@ -181,18 +182,22 @@ def serve_ws_connection(session, rin: BinaryIO, rout: BinaryIO) -> None:
 
 def serve_ws_tcp(make_session: Callable, host: str, port: int,
                  ready: Optional[Callable[[int], None]] = None,
-                 stop_event: Optional[threading.Event] = None) -> None:
-    """WebSocket accept loop, a session and a thread per connection, with
+                 stop_event: Optional[threading.Event] = None, pool=None) -> None:
+    """WebSocket accept loop, a session (with ``pool``: a slot of it; a
+    connection past its capacity is closed) and a thread per connection, with
     ``ready``/``stop_event`` as in :func:`stream_server.serve_tcp`."""
+    from obs_rvc_tpu_torch.stream.pool import PoolFullError
 
     def handle(conn, addr):
         print(f"ws client {addr}", file=sys.stderr)
         with conn, conn.makefile("rb") as rin, conn.makefile("wb") as rout:
             try:
                 server_handshake(rin, rout)
-                serve_ws_connection(make_session(), rin, rout)
+                serve_ws_connection(session_for(make_session, pool), rin, rout)
             except (EOFError, ConnectionError, ValueError):
                 pass
+            except PoolFullError as e:
+                print(f"rejecting {addr}: {e}", file=sys.stderr)
 
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
         srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)

@@ -163,6 +163,8 @@ class GraphedFunction:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._out = None
         self._weights_key = None
+        #: the stream of the last run: a run on another stream waits for its work first
+        self._stream: Optional[torch.cuda.Stream] = None
 
     def capture(self) -> bool:
         """Capture now, unless a graph of the current weights is held (or
@@ -218,11 +220,18 @@ class GraphedFunction:
         return graph, out, warmup
 
     def run(self, *args):
-        """Copy ``args`` in and replay (on the CPU: call ``fn``); returns the
-        graph's outputs, valid until its next replay. Hold :attr:`lock` from
-        this call to the last read of what it returns."""
+        """Copy ``args`` in and replay (on the CPU: call ``fn``) on the
+        current stream; returns the graph's outputs, valid until its next
+        replay. Hold :attr:`lock` from this call to the last read of what it
+        returns (enqueued on the same stream: a run on another stream first
+        waits for everything the last run's stream had enqueued)."""
         with self.lock:
             self.capture()  # before the copy-in: the warm-up calls write the static arguments
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                if self._stream is not None and self._stream != stream:
+                    stream.wait_stream(self._stream)
+                self._stream = stream
             _copy_in(self._static_leaves, leaves(args), self.name)
             if self._graph is None:
                 return self.fn(*self.static_args)

@@ -19,17 +19,30 @@ and compare the stages one by one. ``with_config`` gives the same pipeline
 at another geometry over the same networks (the engine's per-request
 geometries).
 
+Every stage is written once, over a leading stream axis ``[B, ...]`` (the
+counterpart of what ``jax.vmap`` gives the JAX step): the state's tensors,
+the chunk and the controls carry it, and the networks batch over it. One
+stream's step is the B=1 case of the same code, its tensors viewed with a
+stream axis of 1 at the step's entry and without it at its exit.
+
 Three ways to run the step, the JAX package's names:
 
 - ``step``: eagerly, each operator sent from Python; the CPU path, the
   stage-by-stage diagnostic and what the graphs are held against.
+  ``step(..., batched=True)`` steps ``B`` streams at once.
 - ``jit_step``: one CUDA graph of the whole step (``stream/graphs.py``),
   the state donated: the new state is written into the caller's tensors.
-- ``staged_step``: a CUDA graph per stage, replayed in turn.
+  ``jit_step_batch`` is the same for ``B`` streams, a graph per batch size.
+- ``staged_step``: a CUDA graph per stage, replayed in turn
+  (``batched=True``: the stage graphs at that batch size).
 
-The live controls reach every path as 0-d float32 tensors (the speaker id
-int64), so they are graph inputs: a new pitch shift or mix rate is written
-before a replay and never recaptures. ``fingerprint()`` names what shapes a
+``jit_convert_scan`` converts a whole clip, chunked on the host, as one
+CUDA graph of every chunk's step (a graph per chunk count).
+
+The live controls reach every path as float32 tensors (the speaker id
+int64), 0-d for one stream and ``[B]`` for a batch (:meth:`StepControls.stack`),
+so they are graph inputs: a new pitch shift or mix rate is written before
+a replay and never recaptures. ``fingerprint()`` names what shapes a
 graph, for ``utils/exec_cache.cached_capture``.
 
 ``compute_dtype`` is the networks' dtype (float32, or bfloat16 as the JAX
@@ -46,12 +59,13 @@ follow it.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import threading
 import time
 import weakref
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -94,12 +108,12 @@ from obs_rvc_tpu_torch.stream.state import StreamState
 
 def slide_pitch_cache(cache: torch.Tensor, f0: torch.Tensor, shift: int) -> torch.Tensor:
     """Slide the f0 cache left by ``shift`` frames and write the chunk's pitch
-    track ``f0[3 : len-1]`` at offset ``len(cache) + 4 - len(f0)``. The slide
-    keeps ``copy_within`` semantics: the vacated tail holds stale values
-    until overwritten."""
-    pitch_len = f0.shape[0]
-    cache = torch.cat([cache[shift:], cache[-shift:]])
-    cache[cache.shape[0] + 4 - pitch_len :] = f0[3 : pitch_len - 1]
+    track ``f0[3 : len-1]`` at offset ``len(cache) + 4 - len(f0)``, over the
+    last axis (leading axes are streams). The slide keeps ``copy_within``
+    semantics: the vacated tail holds stale values until overwritten."""
+    pitch_len = f0.shape[-1]
+    cache = torch.cat([cache[..., shift:], cache[..., -shift:]], dim=-1)
+    cache[..., cache.shape[-1] + 4 - pitch_len :] = f0[..., 3 : pitch_len - 1]
     return cache
 
 
@@ -120,12 +134,29 @@ class StepControls:
     def on(self, device) -> "StepControls":
         """The controls as 0-d tensors on ``device``, float32 and the speaker
         id int64, as the graphs hold them: every path then does the same
-        float32 arithmetic on them. Filled on the device, no host copy."""
+        float32 arithmetic on them. Filled on the device, no host copy.
+        Leaves that are tensors already are kept as they are."""
         def full(v, dtype):
-            return v if isinstance(v, torch.Tensor) else torch.full((), v, dtype=dtype, device=device)
+            return v.to(device) if isinstance(v, torch.Tensor) else torch.full((), v, dtype=dtype, device=device)
 
         return StepControls(full(self.pitch_shift, torch.float32), full(self.rms_mix_rate, torch.float32),
                             full(self.index_rate, torch.float32), full(self.sid, torch.long))
+
+    @staticmethod
+    def stack(controls: Sequence["StepControls"], device) -> "StepControls":
+        """The controls of ``B`` streams as one ``StepControls`` whose leaves
+        are ``[B]`` tensors on ``device`` (float32, the speaker id int64): the
+        batched step's form."""
+        def col(name, dtype):
+            cast = int if dtype == torch.long else float
+            return torch.tensor([cast(getattr(c, name)) for c in controls], dtype=dtype, device=device)
+
+        return StepControls(col("pitch_shift", torch.float32), col("rms_mix_rate", torch.float32),
+                            col("index_rate", torch.float32), col("sid", torch.long))
+
+    def map(self, fn) -> "StepControls":
+        """``fn`` applied to each control."""
+        return StepControls(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
 
 
 def _untimed(name: str, fn, *args):
@@ -297,47 +328,50 @@ class RvcPipeline:
         return StreamState.init(self.cfg, device=self.device)
 
     # ------------------------------------------------------------------
-    # stages
+    # stages, each over B streams
     # ------------------------------------------------------------------
 
     def stage_pre(self, state: StreamState, chunk: torch.Tensor):
-        """Ring slides and the 48k→16k resample: returns ``(buf, buf16)``."""
+        """Ring slides and the 48k→16k resample of ``[B, ...]`` state and an
+        ``[B, sample_frame_size]`` chunk: returns ``(buf, buf16)``."""
         cfg = self.cfg
-        buf = torch.cat([state.input_buffer[cfg.sample_frame_size :], chunk])
-        res16 = resample_poly(buf[-cfg.downsample_window :], cfg.sample_rate, 16000)
+        buf = torch.cat([state.input_buffer[:, cfg.sample_frame_size :], chunk], dim=1)
+        res16 = resample_poly(buf[:, -cfg.downsample_window :], cfg.sample_rate, 16000)
         keep = cfg.downsample_keep_16k
         kept = state.input_buffer_16k[
-            cfg.sample_frame_16k_size : cfg.input_buffer_16k_size - (keep - cfg.sample_frame_16k_size)
+            :, cfg.sample_frame_16k_size : cfg.input_buffer_16k_size - (keep - cfg.sample_frame_16k_size)
         ]
-        return buf, torch.cat([kept, res16[-keep:]])
+        return buf, torch.cat([kept, res16[:, -keep:]], dim=1)
 
     def stage_features(self, buf16: torch.Tensor) -> torch.Tensor:
-        """ContentVec features at 100 Hz, sliced to the returned frames ``[1, T, C]``."""
+        """ContentVec features at 100 Hz, sliced to the returned frames ``[B, T, C]``."""
         cfg = self.cfg
-        feats = extract_feature(self.contentvec(buf16[None, :]))
+        feats = extract_feature(self.contentvec(buf16))
         return feats[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
 
     def stage_mel(self, buf16: torch.Tensor) -> torch.Tensor:
         """The pitch frontend of the pitch window (the stage keeps the JAX
-        staged step's name, "mel"): RMVPE's log-mel ``[128, T]``, CREPE's
-        normalised frames ``[T, 1024]`` or FCPE's Slaney log-mel ``[T, 128]``."""
-        window = buf16[-self.cfg.rmvpe_frame_16k :]
+        staged step's name, "mel"): RMVPE's log-mel ``[B, 128, T]`` (one
+        log-mel kernel launch for every stream), CREPE's normalised frames
+        ``[B, T, 1024]`` or FCPE's Slaney log-mel ``[B, T, 128]``."""
+        window = buf16[:, -self.cfg.rmvpe_frame_16k :]
         if self.pitch_algorithm == "crepe":
             return extract_crepe_frames(window, self.cfg.rmvpe_n_frames)
         if self.pitch_algorithm == "fcpe":
-            return self.fcpe_mel(window).T
+            return self.fcpe_mel(window).transpose(1, 2)
         return self.mel(window, keyshift=self.keyshift)
 
     def stage_salience(self, feat: torch.Tensor) -> torch.Tensor:
-        """The pitch network's salience ``[T, 360]``."""
-        if self.pitch_algorithm == "rmvpe":
-            return self.rmvpe(feat[None])[0]
+        """The pitch network's salience ``[B, T, 360]``; CREPE runs every
+        stream's frames as one batch of ``B·T``."""
+        if self.pitch_algorithm == "crepe":
+            return self.crepe(feat.flatten(0, 1)).unflatten(0, feat.shape[:2])
         return getattr(self, self.pitch_algorithm)(feat)
 
     def stage_pitch_post(self, cache: torch.Tensor, salience: torch.Tensor, controls: StepControls):
-        """Decode (FCPE by its own grid, RMVPE and CREPE by theirs), shift,
-        filter, slide the cache and slice the chunk's track: returns
-        ``(cache, pitch codes [T], pitchf [T])``."""
+        """Decode (FCPE by its own grid, RMVPE and CREPE by theirs), shift by
+        each stream's pitch shift, filter, slide the cache and slice the
+        chunk's track: returns ``(cache, pitch codes [B, T], pitchf [B, T])``."""
         cfg = self.cfg
         if self.pitch_algorithm == "fcpe":
             f0 = decode_f0_fcpe(salience, threshold=0.05)
@@ -348,23 +382,21 @@ class RvcPipeline:
             f0 = median_filter_f0(f0, self.f0_median_radius)
         cache = slide_pitch_cache(cache, f0, cfg.sample_frame_16k_size // RMVPE_HOP)
         start = cfg.pitch_cache_len - self.hubert_length + cfg.skip_head
-        pitch, pitchf = get_f0_post(cache[start : start + cfg.return_length])
+        pitch, pitchf = get_f0_post(cache[:, start : start + cfg.return_length])
         return cache, pitch, pitchf
 
     def stage_synth(self, phone, pitch, pitchf, sid, rnd=None) -> torch.Tensor:
-        """Synthesizer audio at the model rate, ``[model_return_size]``; ``sid``
-        an int or a 0-d int64 tensor."""
-        sid = torch.as_tensor(sid, dtype=torch.long, device=self.device).reshape(1)
-        audio = self.synthesizer(phone, pitch[None, :], pitchf[None, :], sid,
-                                 rnd[None] if rnd is not None else None)
-        return audio[0]
+        """Synthesizer audio at the model rate, ``[B, model_return_size]``;
+        ``sid`` the ``[B]`` int64 speaker ids, ``rnd`` ``[B, T, 192]`` or None."""
+        return self.synthesizer(phone, pitch, pitchf, sid, rnd)
 
     def stage_post(self, buf, model_out, sola_buffer, rms_mix_rate):
-        """Resample to the device rate, mix the envelope, align and crossfade:
-        returns ``(emitted, next sola_buffer)``."""
+        """Resample to the device rate, mix the envelope (``rms_mix_rate``
+        ``[B]``), align and crossfade each stream: returns ``(emitted, next
+        sola_buffer)``."""
         cfg = self.cfg
         out = resample_poly(model_out, cfg.model_sample_rate, cfg.sample_rate)
-        out = envelope_mixing(buf[cfg.extra_frame_size :], out, cfg.sample_rate, rms_mix_rate)
+        out = envelope_mixing(buf[:, cfg.extra_frame_size :], out, cfg.sample_rate, rms_mix_rate)
         offset = sola_offset(out, sola_buffer, cfg.sola_buffer_frame_size, cfg.sola_search_frame_size)
         return sola_crossfade(out, sola_buffer, offset, self._fade_in, self._fade_out,
                               cfg.sample_frame_size, phase_vocoder=self.phase_vocoder)
@@ -381,20 +413,35 @@ class RvcPipeline:
         controls: StepControls,
         rnd: Optional[torch.Tensor] = None,
         stage_times: Optional[dict] = None,
+        batched: bool = False,
     ) -> tuple[StreamState, torch.Tensor]:
         """One chunk ``[sample_frame_size]`` → ``(new state, emitted audio)``,
         eagerly. ``rnd`` is the ``[T, 192]`` prior noise (zeros when None).
-        With ``stage_times`` (a dict), each stage ends in a device synchronize
-        and its wall ms is written under its name: diagnostics, not
-        throughput."""
-        return self._run_step(state, chunk.to(self.device, torch.float32), controls.on(self.device), rnd,
-                              self._stage_runner(stage_times))
+        With ``batched``, ``B`` streams at once (the JAX ``jit_step_batch``'s
+        function, eagerly): the state's tensors, the chunk ``[B,
+        sample_frame_size]`` and ``rnd`` carry a leading stream axis, and each
+        control is ``[B]`` (:meth:`StepControls.stack`) or one value for every
+        stream. With ``stage_times`` (a dict), each stage ends in a device
+        synchronize and its wall ms is written under its name: diagnostics,
+        not throughput."""
+        _check_rank(chunk, batched)
+        return self._run_steps(state, chunk.to(self.device, torch.float32), controls, rnd,
+                               self._stage_runner(stage_times))
+
+    def _run_steps(self, state, chunk, controls, rnd, run):
+        """The step of ``B`` streams (a chunk ``[B, N]``), or of one (``[N]``)
+        as the B=1 case of the same code."""
+        controls = controls.on(self.device)
+        if chunk.dim() == 1:
+            return _one_stream(lambda *a: self._run_step(*a, None if rnd is None else rnd[None], run),
+                               state, chunk, controls)
+        return self._run_step(state, chunk, _for_streams(controls, chunk.shape[0]), rnd, run)
 
     def _run_step(self, state, chunk, controls, rnd, run):
         cfg = self.cfg
         buf, buf16 = run("pre", self.stage_pre, state, chunk)
         if cfg.skip_inference:
-            model_out, new_cache = buf16[-cfg.model_return_size :], state.cache_pitchf
+            model_out, new_cache = buf16[:, -cfg.model_return_size :], state.cache_pitchf
         else:
             model_out, new_cache = self._infer(state.cache_pitchf, buf16, controls, rnd, run)
         emitted, new_sola = run("post", self.stage_post, buf, model_out, state.sola_buffer,
@@ -427,33 +474,53 @@ class RvcPipeline:
     @property
     def jit_step(self) -> "GraphedStep":
         """``(state, chunk, controls) → (state, emitted)`` by one CUDA graph of
-        the whole step, captured at its first call (or :meth:`GraphedStep.capture`)."""
-        return self._graph("jit_step", lambda: GraphedStep(self))
+        the whole step, captured at its first call (or :meth:`GraphedStep.capture`):
+        the graph of :meth:`jit_step_batch` at one stream."""
+        return self.batch_graph(1)
+
+    def batch_graph(self, batch: int) -> "GraphedStep":
+        """The graph :meth:`jit_step_batch` replays for ``batch`` streams."""
+        return self._graph(f"jit_step_batch/{batch}", lambda: GraphedStep(self, batch))
+
+    def jit_step_batch(self, state: StreamState, chunk: torch.Tensor,
+                       controls: StepControls) -> tuple[StreamState, torch.Tensor]:
+        """The batched step of ``B = len(chunk)`` streams by one CUDA graph (one
+        per batch size, captured at its first call), the state donated as in
+        :attr:`jit_step`; each control ``[B]``, or a number for every stream.
+        The counterpart of the JAX ``jit_step_batch``."""
+        _check_rank(chunk, True)
+        return self.batch_graph(chunk.shape[0])(state, chunk, controls)
 
     @property
     def staged_graphs(self) -> "StagedGraphs":
-        """The graphs of :meth:`staged_step`, one per stage."""
-        return self._graph("staged", lambda: StagedGraphs(self))
+        """The graphs of :meth:`staged_step`, one per stage: those of one stream."""
+        return self.staged_batch_graphs(1)
+
+    def staged_batch_graphs(self, batch: int) -> "StagedGraphs":
+        """The graphs of ``staged_step(..., batched=True)`` at ``batch`` streams."""
+        return self._graph(f"staged/{batch}", lambda: StagedGraphs(self, batch))
 
     @torch.no_grad()
     def staged_step(self, state: StreamState, chunk: torch.Tensor, controls: StepControls,
-                    stage_times: Optional[dict] = None) -> tuple[StreamState, torch.Tensor]:
+                    stage_times: Optional[dict] = None, batched: bool = False) -> tuple[StreamState, torch.Tensor]:
         """The step as one CUDA graph per stage (``pre`` … ``post``), each
         captured at its first call and replayed in turn, the counterpart of
-        the JAX ``staged_step``. The state is donated, as in ``jit_step``.
-        With ``stage_times``, each replay ends in a synchronize and its wall
-        ms is written under the stage's name."""
-        return self.staged_graphs(state, chunk, controls, stage_times)
+        the JAX ``staged_step``; ``batched`` as in :meth:`step`, with the
+        stage graphs of that batch size. The state is donated, as in
+        ``jit_step``. With ``stage_times``, each replay ends in a synchronize
+        and its wall ms is written under the stage's name."""
+        _check_rank(chunk, batched)
+        return self.staged_batch_graphs(chunk.shape[0] if batched else 1)(state, chunk, controls, stage_times)
 
     @property
     def jit_infer(self) -> GraphedFunction:
         """``(cache, buf16, controls) → (model-rate audio, new f0 cache)`` by one
-        CUDA graph of :meth:`_infer` at this geometry: the engine's step."""
+        CUDA graph of one stream's :meth:`_infer` at this geometry: the engine's step."""
         def make():
             cfg = self.cfg
             example = (torch.zeros(cfg.pitch_cache_len), torch.zeros(cfg.input_buffer_16k_size),
                        StepControls.default())
-            return GraphedFunction(self._infer, example, device=self.device, name="engine_infer",
+            return GraphedFunction(self._infer_single, example, device=self.device, name="engine_infer",
                                    weights=self._weight_modules)
         return self._graph("jit_infer", make)
 
@@ -461,7 +528,8 @@ class RvcPipeline:
         return self.modules().values()
 
     def _infer(self, cache, buf16, controls, rnd=None, run=None):
-        """The networks' part of the step: ``(model-rate audio, new f0 cache)``."""
+        """The networks' part of the step of ``B`` streams: ``(model-rate
+        audio, new f0 cache)``."""
         run = run or _untimed
         phone = run("features", self.stage_features, buf16)
         mel = run("mel", self.stage_mel, buf16)
@@ -469,8 +537,15 @@ class RvcPipeline:
         new_cache, pitch, pitchf = run("pitch_post", self.stage_pitch_post, cache, salience, controls)
         return run("synth", self.stage_synth, phone, pitch, pitchf, controls.sid, rnd), new_cache
 
+    def _infer_single(self, cache, buf16, controls):
+        audio, new_cache = self._infer(cache[None], buf16[None], _for_streams(controls.on(self.device), 1))
+        return audio[0], new_cache[0]
+
     def _pitch_cache_update(self, cache, buf16, controls):
-        return self.stage_pitch_post(cache, self.stage_salience(self.stage_mel(buf16)), controls)
+        """The pitch half of one stream's step: ``(cache, codes [T], pitchf [T])``."""
+        sal = self.stage_salience(self.stage_mel(buf16[None]))
+        out = self.stage_pitch_post(cache[None], sal, _for_streams(controls.on(self.device), 1))
+        return tuple(t[0] for t in out)
 
     @torch.no_grad()
     def convert_offline(self, wav: torch.Tensor, controls: Optional[StepControls] = None) -> torch.Tensor:
@@ -488,6 +563,60 @@ class RvcPipeline:
             outs.append(out)
         return torch.cat(outs) if outs else torch.zeros(0, device=self.device)
 
+    @torch.no_grad()
+    def jit_convert_scan(self, wav_chunks: torch.Tensor, controls: Optional[StepControls] = None) -> torch.Tensor:
+        """Whole-clip conversion, ``[n_chunks, sample_frame_size]`` (chunked on
+        the host) → ``[n_chunks * sample_frame_size]`` from a zeroed state, as
+        one CUDA graph of every chunk's step: one replay a clip, the
+        counterpart of the JAX ``jit_convert_scan``'s ``lax.scan``. A graph is
+        captured per chunk count at its first call; the last
+        :data:`SCAN_GRAPHS` counts are kept."""
+        n = wav_chunks.shape[0]
+        with self._graphs_lock:
+            held = self._graphs.setdefault("jit_convert_scan", collections.OrderedDict())
+            graph = held.get(n)
+            if graph is None:
+                example = (torch.zeros(n, self.cfg.sample_frame_size), StepControls.default())
+                graph = held[n] = GraphedFunction(self._convert_scan, example, device=self.device,
+                                                  name=f"jit_convert_scan[{n}]", weights=self._weight_modules)
+                while len(held) > SCAN_GRAPHS:
+                    held.popitem(last=False)
+            held.move_to_end(n)
+        return graph(wav_chunks.to(self.device, torch.float32),
+                     controls if controls is not None else StepControls.default())
+
+    def _convert_scan(self, wav_chunks, controls):
+        state = StreamState.init(self.cfg, device=self.device)
+        outs = []
+        for chunk in wav_chunks:
+            state, out = self._run_steps(state, chunk, controls, None, _untimed)
+            outs.append(out)
+        return torch.cat(outs)
+
+
+#: chunk counts whose :meth:`RvcPipeline.jit_convert_scan` graph a pipeline keeps
+SCAN_GRAPHS = 4
+
+
+def _for_streams(controls: StepControls, batch: int) -> StepControls:
+    """Tensor controls as ``[batch]`` leaves: one value each, or one for all."""
+    return controls.map(lambda t: t.reshape(-1).expand(batch))
+
+
+def _one_stream(step, state: StreamState, chunk: torch.Tensor, controls: StepControls):
+    """``step`` of ``B`` streams run on one stream's state and ``[N]`` chunk
+    as the B=1 case: views of their tensors with a stream axis of 1 (a graph,
+    which writes its state in place, writes the caller's), and views of the
+    results without it. ``controls`` are on the step's device."""
+    new, emitted = step(state.map(lambda t: t[None]), chunk[None], _for_streams(controls, 1))
+    return new.map(lambda t: t[0]), emitted[0]
+
+
+def _check_rank(chunk: torch.Tensor, batched: bool) -> None:
+    if chunk.dim() != 1 + batched:
+        raise ValueError(f"a {'batched ' if batched else ''}step takes a chunk of "
+                         f"{'[B, N]' if batched else '[N]'}, not {tuple(chunk.shape)}")
+
 
 def _write_state(dst: StreamState, src: StreamState) -> None:
     for f in dataclasses.fields(StreamState):
@@ -495,24 +624,24 @@ def _write_state(dst: StreamState, src: StreamState) -> None:
 
 
 class GraphedStep:
-    """:attr:`RvcPipeline.jit_step`: the whole step as one CUDA graph. Its
-    static state is written in place inside the graph, and after the replay
-    copied into the caller's state tensors, which the call returns (the
-    counterpart of ``donate_argnums=(1,)``: the caller's old state is
+    """The graph of :meth:`RvcPipeline.jit_step_batch` at ``batch`` streams:
+    the whole step as one CUDA graph (:attr:`RvcPipeline.jit_step` is the
+    one at one stream, called with one stream's state and an ``[N]`` chunk).
+    Its static state is written in place inside the graph, and after the
+    replay copied into the caller's state tensors, which the call returns
+    (the counterpart of ``donate_argnums=(1,)``: the caller's old state is
     consumed). Host work per call: copy in, replay, copy out, under a lock,
     so sessions on several threads may share it."""
 
-    def __init__(self, pipe: RvcPipeline):
+    def __init__(self, pipe: RvcPipeline, batch: int):
         self._pipe = weakref.ref(pipe)  # the pipeline owns this graph: no cycle back to it
-        cfg = pipe.cfg
-        example = (StreamState.init(cfg, device=pipe.device), torch.zeros(cfg.sample_frame_size),
-                   StepControls.default())
-        self.graph = GraphedFunction(self._step, example, device=pipe.device, name="jit_step",
-                                     weights=pipe._weight_modules)
+        self.batch = batch
+        self.graph = GraphedFunction(self._step, _example(pipe, batch), device=pipe.device,
+                                     name=f"jit_step_batch[{batch}]", weights=pipe._weight_modules)
         self.weights = self.graph.weights
 
     def _step(self, state, chunk, controls):
-        new, emitted = self._pipe()._run_step(state, chunk, controls, None, _untimed)
+        new, emitted = self._pipe()._run_steps(state, chunk, controls, None, _untimed)
         _write_state(state, new)
         return emitted
 
@@ -525,19 +654,31 @@ class GraphedStep:
 
     def __call__(self, state: StreamState, chunk: torch.Tensor,
                  controls: StepControls) -> tuple[StreamState, torch.Tensor]:
+        if chunk.dim() == 1:  # written into the views of the caller's tensors: its state is the new one
+            return state, _one_stream(self, state, chunk, controls.on(self.graph.device))[1]
         with self.graph.lock:
             emitted = self.graph.run(state, chunk, controls)
             _write_state(state, self.graph.static_args[0])
             return state, emitted.clone()
 
 
-class StagedGraphs:
-    """:meth:`RvcPipeline.staged_step`'s graphs, one per stage, in one memory
-    pool (they replay in the order they were captured, under one lock).
-    When the weights changed, every stage is captured again."""
+def _example(pipe: RvcPipeline, batch: int) -> tuple:
+    """Arguments of the shapes a step of ``batch`` streams takes: a zeroed
+    state, chunks of silence, default controls."""
+    return (StreamState.init_batch(pipe.cfg, batch, device=pipe.device),
+            torch.zeros(batch, pipe.cfg.sample_frame_size),
+            StepControls.stack([StepControls.default()] * batch, pipe.device))
 
-    def __init__(self, pipe: RvcPipeline):
+
+class StagedGraphs:
+    """:meth:`RvcPipeline.staged_step`'s graphs, one per stage, at ``batch``
+    streams (at one, called with one stream's state and an ``[N]`` chunk),
+    in one memory pool (they replay in the order they were captured, under
+    one lock). When the weights changed, every stage is captured again."""
+
+    def __init__(self, pipe: RvcPipeline, batch: int):
         self._pipe = weakref.ref(pipe)  # the pipeline owns these graphs: no cycle back to it
+        self.batch = batch
         self.graphs: dict[str, GraphedFunction] = {}
         self.lock = threading.RLock()
         self._pool = None  # made with the first graphs
@@ -561,8 +702,7 @@ class StagedGraphs:
             self._drop_if_weights_changed()
             if self.graphs:
                 return False
-            self(StreamState.init(pipe.cfg, device=pipe.device), torch.zeros(pipe.cfg.sample_frame_size),
-                 StepControls.default())
+            self(*_example(pipe, self.batch))
             return True
 
     def _drop_if_weights_changed(self) -> None:
@@ -576,10 +716,12 @@ class StagedGraphs:
 
     def __call__(self, state, chunk, controls, stage_times=None):
         pipe = self._pipe()
+        if chunk.dim() == 1:  # as in GraphedStep
+            return state, _one_stream(lambda *a: self(*a, stage_times), state, chunk, controls.on(pipe.device))[1]
         with self.lock:
             if pipe.device.type == "cuda":
                 self._drop_if_weights_changed()
             run = stage_runner(self.graphs, pipe.device, self._pool, stage_times)
-            new, emitted = pipe._run_step(state, chunk, controls, None, run)
+            new, emitted = pipe._run_steps(state, chunk, controls, None, run)
             _write_state(state, new)
             return state, emitted.clone()

@@ -1,0 +1,478 @@
+"""Batched multi-stream serving pool (counterpart of ``obs_rvc_tpu/stream/pool.py``).
+
+One :class:`StreamPool` drives ``capacity`` concurrent voice streams through
+one batched step per tick (``RvcPipeline.step(..., batched=True)``, replayed
+as CUDA graphs): each slot has its own rings, controls and streaming state,
+and the worker steps every slot together at fixed shapes (detached or
+starved slots process silence), so a tick's launches serve every stream.
+
+A slot that is active but has no full input chunk is *frozen*: it rides the
+batched step with silence, but its state and output are discarded, so the
+stream resumes exactly where it left off (the reference accumulates and
+waits, ``obs-rvc/src/lib.rs:811-828``). In ``fused`` mode the
+``where(mask, new, cur)`` merge runs inside the tick's one CUDA graph, the
+fed-slot mask a graph input; in ``staged`` mode the stage graphs step a copy
+of the state and the merge follows them.
+
+Slots attach and detach while the worker runs. Attach clears the slot's
+state; a per-slot epoch counter drops what a tick computed from a state
+older than the slot's current epoch, and the rows of such slots are zeroed
+again after the tick. A slot whose resident state is still zeros is not
+written on attach (``_slot_dirty``).
+
+On a card every device operation of the pool goes on the pool's own CUDA
+stream, in order: the chunks' upload, the replay, the copy of the output
+into pinned host memory, a slot's clear and the stale-epoch fixup (both
+issued under the pool's lock). A clear issued while a tick is in flight is
+thereby ordered after the replay that reads the same rows. With
+``pipelined=True`` a tick records an event after its output copy and
+returns; the next tick (or :meth:`flush_pending`) waits on that event and
+pushes the audio to the rings, so the copy of tick k-1 overlaps the compute
+of tick k, at one tick of added output latency.
+
+``io_dtype="int16"`` ships 16-bit PCM both ways; the casts (``rint`` on the
+host on the way in, ``round`` in the graph on the way out) are inside the
+fused graph. ``exec_cache=True`` shares the fused graph within the process
+through :func:`~obs_rvc_tpu_torch.utils.exec_cache.cached_capture`. Serving
+across a device mesh (``mesh=``) is not ported (ROADMAP.md queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+from obs_rvc_tpu_torch.stream.graphs import GraphedFunction
+from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
+from obs_rvc_tpu_torch.stream.ringbuf import make_ring_buffer
+from obs_rvc_tpu_torch.stream.state import StreamState
+from obs_rvc_tpu_torch.utils.exec_cache import cached_capture
+
+logger = logging.getLogger(__name__)
+
+
+class PoolFullError(RuntimeError):
+    """:meth:`StreamPool.attach` on a pool whose every slot is taken."""
+
+
+def _merge(mask: torch.Tensor, new: StreamState, cur: StreamState) -> None:
+    """``cur = where(mask, new, cur)`` row by row, in place."""
+    for f in dataclasses.fields(StreamState):
+        c = getattr(cur, f.name)
+        c.copy_(torch.where(mask[:, None], getattr(new, f.name), c))
+
+
+def _step_and_merge(pipe: RvcPipeline, pcm16: bool):
+    """The fused tick: the batched step, the frozen-slot merge written into
+    ``states`` in place, and the int16 casts with ``pcm16``; returns the
+    emitted audio ``[B, chunk]``."""
+
+    def step_and_merge(states, chunks, controls, mask):
+        if pcm16:
+            chunks = chunks.float() * (1.0 / 32768.0)
+        new, out = pipe.step(states, chunks, controls, batched=True)
+        _merge(mask, new, states)
+        if pcm16:
+            out = torch.clamp(torch.round(out * 32768.0), -32768.0, 32767.0).to(torch.int16)
+        return out
+
+    return step_and_merge
+
+
+class StreamPool:
+    def __init__(
+        self,
+        pipeline: RvcPipeline,
+        capacity: int = 8,
+        input_capacity_chunks: int = 8,
+        output_capacity_chunks: int = 12,
+        batch_min: int = 1,
+        batch_deadline_ms: float = 30.0,
+        default_controls: Optional[StepControls] = None,
+        mode: str = "staged",
+        exec_cache: bool = False,
+        mesh=None,
+        io_dtype: str = "float32",
+        pipelined: bool = False,
+    ):
+        if mode not in ("staged", "fused"):
+            raise ValueError(f"unknown pool mode {mode!r}")
+        if io_dtype not in ("float32", "int16"):
+            raise ValueError(f"unknown io_dtype {io_dtype!r}")
+        if io_dtype == "int16" and mode != "fused":
+            raise ValueError("io_dtype='int16' needs mode='fused' (the PCM cast is inside the fused graph)")
+        if pipelined and mode != "fused":
+            raise ValueError("pipelined=True needs mode='fused'")
+        if mesh is not None:
+            raise NotImplementedError("pool serving across a mesh is not ported yet (ROADMAP.md queue 1 item 13)")
+        if capacity < 1:
+            raise ValueError("capacity must be at least 1")
+        self.pipeline = pipeline
+        self.capacity = capacity
+        #: "staged" (a graph per stage, the merge after them) or "fused" (one graph a tick, the merge inside)
+        self.mode = mode
+        #: fused mode: share the tick's graph by key within the process
+        self.exec_cache = exec_cache
+        self._fused_step: Optional[GraphedFunction] = None
+        #: the PCM width of the chunks and the output on their way to and from the card
+        self.io_dtype = io_dtype
+        #: deliver a tick's output after the next tick's dispatch (fused mode)
+        self.pipelined = pipelined
+        #: (pinned output, its event, fed mask, epochs) of the tick not delivered yet
+        self._pending: Optional[tuple] = None
+        #: controls a slot starts with when attach() gets none (the server's flags)
+        self.default_controls = default_controls or StepControls.default()
+        #: tick gate: step when ``>= min(batch_min, n_active)`` slots have a full
+        #: chunk, or the first ready one has waited ``batch_deadline_ms``
+        self.batch_min = batch_min
+        self.batch_deadline_ms = batch_deadline_ms
+        self._ready_since: Optional[float] = None
+        cfg = pipeline.cfg
+        self._chunk = cfg.sample_frame_size
+        self._device = pipeline.device
+        #: the pool's CUDA stream (None on the CPU), where all its device work goes in order
+        self._stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
+        #: the stacked controls on the device, rebuilt only when a control changed
+        self._controls_version = 0
+        self._controls_dev: Optional[StepControls] = None
+        self._controls_dev_ver = -1
+        #: wall ms of the last tick's phases: controls, drain, dispatch, d2h, merge
+        self.last_tick_phases: dict = {}
+
+        self._in = [make_ring_buffer(self._chunk * input_capacity_chunks) for _ in range(capacity)]
+        self._out = [make_ring_buffer(self._chunk * output_capacity_chunks) for _ in range(capacity)]
+        self._active = [False] * capacity
+        self._controls = [self.default_controls for _ in range(capacity)]
+        with self._on_stream():
+            self._states = StreamState.init_batch(cfg, capacity, device=self._device)
+        # bumped by _clear_slot: a tick's results for a slot of an older epoch are dropped
+        self._epoch = [0] * capacity
+        #: False while a slot's resident state is still zeros: _clear_slot then writes nothing
+        self._slot_dirty = [False] * capacity
+        self.metrics = ChunkMetrics(chunk_seconds=cfg.latency_seconds)
+
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
+
+    # --- slot management ---
+
+    def attach(self, controls: Optional[StepControls] = None) -> int:
+        """Claim a free slot → slot id; raises :class:`PoolFullError` when full."""
+        with self._lock:
+            for i in range(self.capacity):
+                if not self._active[i]:
+                    self._active[i] = True
+                    self._controls[i] = controls or self.default_controls
+                    self._controls_version += 1
+                    self._clear_slot(i)
+                    return i
+        raise PoolFullError("pool full")
+
+    def detach(self, slot: int) -> None:
+        with self._lock:
+            self._active[slot] = False
+            self._clear_slot(slot)
+
+    def _clear_slot(self, i: int) -> None:
+        # caller holds self._lock; the zeroing is ordered after any tick in flight on the pool's stream
+        self._epoch[i] += 1
+        if self._slot_dirty[i]:
+            with self._on_stream():
+                for f in dataclasses.fields(StreamState):
+                    getattr(self._states, f.name)[i].zero_()
+            self._slot_dirty[i] = False
+        while self._in[i].pop(self._chunk).size:
+            pass
+        while self._out[i].pop(self._chunk).size:
+            pass
+
+    def _zero_rows(self, rows: np.ndarray) -> None:
+        """Zero the state of the slots where ``rows`` (``[capacity]`` bool) is set, on the pool's stream."""
+        with self._on_stream():
+            mask = torch.from_numpy(rows).to(self._device)
+            for f in dataclasses.fields(StreamState):
+                getattr(self._states, f.name).masked_fill_(mask[:, None], 0.0)
+
+    def update_controls(self, slot: int, **kwargs) -> None:
+        """Replace a slot's live controls (``pitch_shift``, ``rms_mix_rate``,
+        ``index_rate``, ``sid``) from its next tick on."""
+        unknown = set(kwargs) - {f.name for f in dataclasses.fields(StepControls)}
+        if unknown:
+            raise ValueError(f"unknown controls {sorted(unknown)}")
+        cast = {k: int(v) if k == "sid" else float(v) for k, v in kwargs.items()}
+        with self._lock:
+            self._controls[slot] = dataclasses.replace(self._controls[slot], **cast)
+            self._controls_version += 1
+
+    # --- audio sides ---
+
+    def push_audio(self, slot: int, frame: np.ndarray) -> int:
+        frame = np.asarray(frame, np.float32).ravel()
+        written = self._in[slot].push(frame)
+        dropped = frame.size - written
+        if dropped:
+            self.metrics.record_dropped(dropped)
+        self._wake.set()
+        return dropped
+
+    def pull_audio(self, slot: int, n: int) -> np.ndarray:
+        return self._out[slot].pop(n)
+
+    # --- batched worker ---
+
+    def ready_slots(self) -> tuple[int, int]:
+        """``(n_ready, n_active)``: active slots with a full input chunk, and active slots."""
+        with self._lock:
+            flags = [(self._active[i], self._in[i].available() >= self._chunk) for i in range(self.capacity)]
+        n_active = sum(a for a, _ in flags)
+        n_ready = sum(a and r for a, r in flags)
+        return n_ready, n_active
+
+    def should_step(self, now: Optional[float] = None) -> bool:
+        """Tick gate: enough ready slots to batch, or the first ready chunk
+        has waited ``batch_deadline_ms``."""
+        n_ready, n_active = self.ready_slots()
+        if n_ready == 0:
+            self._ready_since = None
+            return False
+        if now is None:
+            now = time.monotonic()
+        if self._ready_since is None:
+            self._ready_since = now
+        if n_ready >= min(self.batch_min, max(n_active, 1)):
+            return True
+        return (now - self._ready_since) * 1000.0 >= self.batch_deadline_ms
+
+    def _controls_device(self, controls_snap, version: int) -> StepControls:
+        """The slots' controls stacked into ``[capacity]`` tensors on the
+        device, kept until a control changes."""
+        if self._controls_dev is None or self._controls_dev_ver != version:
+            self._controls_dev = StepControls.stack(controls_snap, self._device)
+            self._controls_dev_ver = version
+        return self._controls_dev
+
+    def _fused(self) -> GraphedFunction:
+        """The fused tick's graph, captured on the pool's stream at first use."""
+        if self._fused_step is None:
+            cap, pipe = self.capacity, self.pipeline
+            pcm16 = self.io_dtype == "int16"
+            example = (StreamState.init_batch(pipe.cfg, cap, device=self._device),
+                       torch.zeros(cap, self._chunk, dtype=torch.int16 if pcm16 else torch.float32),
+                       StepControls.stack([StepControls.default()] * cap, self._device),
+                       torch.zeros(cap, dtype=torch.bool))
+            graph = GraphedFunction(_step_and_merge(pipe, pcm16), example, device=self._device,
+                                    name=f"pool_fused_merge[{cap}]", weights=pipe._weight_modules)
+            with self._on_stream():
+                if self.exec_cache:
+                    graph, _ = cached_capture(graph, example, semantic_key=pipe.fingerprint()
+                                              + f"|pool_fused_merge|capacity={cap}|io={self.io_dtype}")
+                else:
+                    graph.capture()
+            self._fused_step = graph
+        return self._fused_step
+
+    def prepare(self) -> None:
+        """Capture the tick's graphs now (the server calls it before it listens)."""
+        if self.mode == "fused":
+            self._fused()
+        else:
+            with self._on_stream():
+                self.pipeline.staged_batch_graphs(self.capacity).capture()
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self._device.type != "cuda":
+            return t
+        return t.pin_memory().to(self._device, non_blocking=True)
+
+    def _dispatch(self, chunks: np.ndarray, have: np.ndarray, controls: StepControls):
+        """Enqueue the tick on the pool's stream: upload, step, merge, and the
+        output's copy into pinned host memory. Returns ``(host output, event)``
+        (the event None on the CPU, where the output is ready)."""
+        chunks_dev, mask_dev = self._to_device(chunks), self._to_device(have)
+        if self.mode == "staged":
+            work = self._states.map(torch.clone)  # the merge reads the pre-step state
+            _, out = self.pipeline.staged_step(work, chunks_dev, controls, batched=True)
+            _merge(mask_dev, work, self._states)
+        else:
+            graph = self._fused()
+            with graph.lock:  # the graph's output and static state are read before anyone replays it again
+                out = graph.run(self._states, chunks_dev, controls, mask_dev)
+                for f in dataclasses.fields(StreamState):
+                    getattr(self._states, f.name).copy_(getattr(graph.static_args[0], f.name))
+                return self._to_host(out)
+        return self._to_host(out)
+
+    def _to_host(self, out: torch.Tensor):
+        if self._device.type != "cuda":
+            return out.clone(), None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return host, event
+
+    @staticmethod
+    def _audio(host: torch.Tensor) -> np.ndarray:
+        out = host.numpy()
+        return out.astype(np.float32) * (1.0 / 32768.0) if out.dtype == np.int16 else out
+
+    def process_pending(self) -> int:
+        """One batched step when at least one active slot has a full chunk;
+        returns the slots fed.
+
+        Slots without a full chunk ride the step with silence but are frozen:
+        their post-step state and output are discarded by the merge, so a
+        starved stream resumes with its context intact. Slots cleared while
+        the tick ran (epoch moved) get their rows zeroed again after it."""
+        t0 = time.perf_counter()
+        with self._lock:
+            active = list(self._active)
+            controls_snap = list(self._controls)
+            cver = self._controls_version
+            epochs = list(self._epoch)
+
+        with self._on_stream():
+            controls = self._controls_device(controls_snap, cver)
+        t_controls = time.perf_counter()
+
+        chunks = np.zeros((self.capacity, self._chunk), np.float32)
+        have = np.zeros(self.capacity, bool)
+        for i in range(self.capacity):
+            if not active[i]:
+                continue
+            c = self._in[i].pop_exact(self._chunk)
+            if c is not None:
+                chunks[i] = c
+                have[i] = True
+        if not have.any():
+            return 0
+        self._ready_since = None
+        if self.io_dtype == "int16":
+            # rint on the way in, as the output's round on the way out: half an LSB, unbiased
+            chunks = np.clip(np.rint(chunks * 32768.0), -32768, 32767).astype(np.int16)
+        t_drain = time.perf_counter()
+        failed = False
+        out = None
+        with self.metrics.time_chunk(), torch.no_grad():
+            try:
+                with self._on_stream():
+                    host, event = self._dispatch(chunks, have, controls)
+                t_step = time.perf_counter()
+                if self.pipelined:
+                    t_d2h = t_step  # delivered after the next tick's dispatch, or on flush
+                else:
+                    if event is not None:
+                        event.synchronize()
+                    out = self._audio(host)
+                    t_d2h = time.perf_counter()
+            except Exception:
+                logger.exception("batched step failed; emitting silence for fed slots and resetting them")
+                self.metrics.record_error()
+                failed = True
+                # a stashed tick's audio precedes this tick's silence
+                self.flush_pending()
+                t_step = t_d2h = time.perf_counter()
+                out = np.zeros((self.capacity, self._chunk), np.float32)
+
+        with self._lock:
+            # output goes only to slots that consumed input this tick and were not cleared meanwhile
+            fresh_ok = [have[i] and self._epoch[i] == epochs[i] for i in range(self.capacity)]
+            stale = np.array([self._epoch[i] != epochs[i] for i in range(self.capacity)])
+            if failed:
+                self._zero_rows(have | stale)  # fed slots restart from zeros; frozen ones keep their context
+            elif stale.any():
+                self._zero_rows(stale)
+            for i in range(self.capacity):
+                if stale[i]:
+                    self._slot_dirty[i] = False  # the fixup restored zeros
+                elif have[i]:
+                    self._slot_dirty[i] = not failed
+                if out is not None and fresh_ok[i]:
+                    self._out[i].push(out[i])
+        t_pub = time.perf_counter()
+        if self.pipelined and not failed:
+            # deliver the previous tick's audio while the device runs this one, then stash this one
+            self.flush_pending()
+            self._pending = (host, event, have, epochs)
+        t_end = time.perf_counter()
+        self.last_tick_phases = {
+            "controls_ms": (t_controls - t0) * 1e3,
+            "drain_ms": (t_drain - t_controls) * 1e3,
+            "dispatch_ms": (t_step - t_drain) * 1e3,
+            "d2h_ms": (t_d2h - t_step) * 1e3 + (t_end - t_pub) * 1e3,
+            "merge_ms": (t_pub - t_d2h) * 1e3,
+        }
+        return int(have.sum())
+
+    def flush_pending(self) -> None:
+        """Pipelined mode: wait for the stashed tick's output and deliver it
+        (epoch-checked, as a synchronous tick does). A wait that surfaces a
+        device failure emits silence for that tick's fed slots and resets
+        their state."""
+        prev, self._pending = self._pending, None
+        if prev is None:
+            return
+        host, event, have, epochs = prev
+        try:
+            if event is not None:
+                event.synchronize()
+            out = self._audio(host)
+            ok = True
+        except Exception:
+            logger.exception("pipelined output copy failed; silence for fed slots and reset")
+            self.metrics.record_error()
+            out = np.zeros((self.capacity, self._chunk), np.float32)
+            ok = False
+        with self._lock:
+            for i in range(self.capacity):
+                if have[i] and (not ok or self._epoch[i] == epochs[i]):
+                    self._out[i].push(out[i])
+            if not ok:
+                self._zero_rows(np.asarray(have, bool))
+                for i in np.nonzero(have)[0]:
+                    self._epoch[int(i)] += 1  # drop in-flight results for these slots
+                    self._slot_dirty[int(i)] = False
+
+    def _loop(self) -> None:
+        with torch.no_grad():  # grad mode is thread-local
+            while self._running:
+                if self.should_step() and self.process_pending():
+                    continue
+                if self._pending is not None:
+                    # quiescent with a stashed tick: deliver it now
+                    self.flush_pending()
+                    continue
+                # sleep until more audio arrives or, with a chunk waiting, the batching deadline
+                timeout = 1.0
+                if self._ready_since is not None:
+                    timeout = max(self.batch_deadline_ms / 1000.0 / 4, 0.001)
+                self._wake.wait(timeout=timeout)
+                self._wake.clear()
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._running = True
+            self._thread = threading.Thread(target=self._loop, daemon=True, name="rvc-pool")
+            self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._running = False
+            self._wake.set()
+            self._thread.join()
+            self._thread = None
+        self.flush_pending()

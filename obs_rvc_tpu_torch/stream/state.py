@@ -1,4 +1,5 @@
-"""Streaming state of one stream (counterpart of ``obs_rvc_tpu/stream/state.py``):
+"""Streaming state of one stream, or of ``B`` with each tensor ``[B, n]``
+(counterpart of ``obs_rvc_tpu/stream/state.py``):
 
 - ``input_buffer``      device-rate input ring
 - ``input_buffer_16k``  16 kHz ring fed to the networks
@@ -47,6 +48,16 @@ class StreamState:
             sola_buffer=zeros(cfg.sola_buffer_frame_size),
             cache_pitchf=zeros(cfg.pitch_cache_len),
         )
+
+    @staticmethod
+    def init_batch(cfg: ChunkConfig, batch: int, device=None) -> "StreamState":
+        """Zeroed state of ``batch`` streams, each tensor ``[batch, n]``
+        (the batched step's form); ``device=None`` means the card."""
+        return StreamState.init(cfg, device).map(lambda t: t.expand(batch, -1).contiguous())
+
+    def map(self, fn) -> "StreamState":
+        """``fn`` applied to each tensor."""
+        return StreamState(**{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
     def clear(self) -> "StreamState":
         return StreamState(**{f.name: torch.zeros_like(getattr(self, f.name))

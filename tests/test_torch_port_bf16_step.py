@@ -96,7 +96,7 @@ def run_streams(version):
             for chunk in chunks:
                 new, audio = tpipe.step(state, torch.from_numpy(chunk), tc)
                 _, codes, f0 = tpipe._pitch_cache_update(state.cache_pitchf, new.input_buffer_16k, tc)
-                sal = tpipe.stage_salience(tpipe.stage_mel(new.input_buffer_16k))
+                sal = tpipe.stage_salience(tpipe.stage_mel(new.input_buffer_16k[None]))[0]
                 assert audio.dtype == f0.dtype == sal.dtype == new.cache_pitchf.dtype == torch.float32
                 rows.append(tuple(t.numpy() for t in (audio, sal, f0, codes)))
                 state = new

@@ -551,3 +551,162 @@ def test_a_capture_that_fails_raises(cuda):
     ok = GraphedFunction(lambda x: x * 2.0, (torch.ones(3, device=cuda),), device=cuda, name="double")
     torch.testing.assert_close(ok(torch.arange(3.0, device=cuda)), torch.tensor([0.0, 2.0, 4.0], device=cuda))
     assert ok.captures == 1
+
+
+# --- the batched step and the pool ---
+
+@pytest.mark.parametrize("B,L,kind", [
+    (1, 10080, "voiced"),   # the one-stream step's window as a batch of one
+    (3, 10080, "mixed"),    # voiced, normal and silent streams in one launch
+    (3, 9920, "mixed"),     # T=63, ragged
+    (3, 100, "normal"),     # T=1
+    (3, 10080, "silence"),
+])
+def test_log_mel_kernel_takes_a_stream_axis(cuda, B, L, kind):
+    """One launch for ``B`` streams, each row the kernel's one-stream result
+    bit for bit and the plain version's within the log-mel bound; rows may
+    lie a stride apart."""
+    rng = np.random.default_rng(L + B)
+    rows = {"voiced": [_voiced_16k(L, seed=b) for b in range(B)],
+            "normal": [rng.standard_normal(L).astype(np.float32) for _ in range(B)],
+            "silence": [np.zeros(L, np.float32)] * B,
+            "mixed": [_voiced_16k(L), rng.standard_normal(L).astype(np.float32), np.zeros(L, np.float32)]}[kind]
+    sig = torch.from_numpy(np.stack(rows)).to(cuda)
+    mel = MelSpectrogram(device=cuda)
+    before = stft_mel.LAUNCHES
+    got = stft_mel.log_mel(sig, mel.log_mel_basis, mel.window)
+    assert stft_mel.LAUNCHES == before + 1
+    want = stft_mel.log_mel_plain(sig, mel.mel_basis, mel.window)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, 128, 1 + L // 160)
+    _close(got, want, *BOUNDS["mel"])
+    for b in range(B):
+        assert torch.equal(got[b], stft_mel.log_mel(sig[b], mel.log_mel_basis, mel.window))
+    # the step's windows are the tails of its rings: rows a stride apart
+    wide = torch.cat([torch.ones(B, 37, device=cuda), sig], dim=1)
+    assert torch.equal(stft_mel.log_mel(wide[:, 37:], mel.log_mel_basis, mel.window), got)
+    if kind == "silence":
+        torch.testing.assert_close(got, torch.full_like(got, float(np.log(1e-5))), atol=1e-5, rtol=0)
+
+
+def _batch_inputs(pipe, n, controls):
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    chunks = torch.stack([torch.stack(_chunks(pipe, n, seed=s)) for s in range(len(controls))], dim=1)
+    return chunks.to(pipe.device), StepControls.stack([StepControls.default(**c) for c in controls], pipe.device)
+
+
+def _stream_batch(step, pipe, chunks, controls):
+    from obs_rvc_tpu_torch.stream import StreamState
+
+    state, outs = StreamState.init_batch(pipe.cfg, chunks.shape[1], device=pipe.device), []
+    for chunk in chunks:
+        state, out = step(state, chunk, controls)
+        outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+BATCH_CONTROLS = [dict(pitch_shift=0.0, rms_mix_rate=1.0, sid=0), dict(pitch_shift=7.0, rms_mix_rate=0.3, sid=2),
+                  dict(pitch_shift=-4.5, rms_mix_rate=0.6, sid=3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_graphed_steps_equal_the_eager_batched_step(cuda, deterministic_cudnn, dtype):
+    """Three streams with their own controls: ``jit_step_batch`` and the
+    batched stage graphs against the eager batched step, which calls each
+    kernel's wrapper as often as the one-stream step does. bfloat16 bit for
+    bit; float32 within 1e-5 of max|audio|: cuBLAS computes the phone
+    projection (a float32 ``Linear`` of [3, 15, 64]) in another order under
+    capture than eagerly, 4.2e-7 apart (every other module of the
+    synthesizer, and every module at one stream, bit for bit)."""
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    pipe = _graph_pipe(cuda, dtype)
+    chunks, controls = _batch_inputs(pipe, 4, BATCH_CONTROLS)
+    counters = (stft_mel, unet_block, resblock)
+    before = [m.LAUNCHES for m in counters]
+    pipe.step(pipe.new_state(), chunks[0, 0], StepControls.default())
+    single = [m.LAUNCHES - b for m, b in zip(counters, before)]
+    before = [m.LAUNCHES for m in counters]
+    want = _stream_batch(lambda s, c, k: pipe.step(s, c, k, batched=True), pipe, chunks, controls)
+    assert [m.LAUNCHES - b for m, b in zip(counters, before)] == [4 * n for n in single]
+    assert torch.isfinite(want).all() and (want.abs().amax(dim=1) > 1e-3).all()
+    def same(got, want):
+        if dtype == torch.bfloat16:
+            return torch.equal(got, want)
+        return float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    for step in (pipe.jit_step_batch, lambda s, c, k: pipe.staged_step(s, c, k, batched=True)):
+        assert same(_stream_batch(step, pipe, chunks, controls), want)
+    captures = pipe.batch_graph(3).captures
+    assert same(_stream_batch(pipe.jit_step_batch, pipe, chunks.flip(0), controls),
+                _stream_batch(lambda s, c, k: pipe.step(s, c, k, batched=True), pipe, chunks.flip(0), controls))
+    assert pipe.batch_graph(3).captures == captures
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convert_scan_graph_equals_convert_offline(cuda, deterministic_cudnn, dtype):
+    """``jit_convert_scan`` captures every chunk's step of a clip as one
+    graph; on 4 chunks it equals ``convert_offline`` (a ``jit_step`` replay
+    a chunk) bit for bit, and a second clip of the same count replays it."""
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    pipe = _graph_pipe(cuda, dtype)
+    controls = StepControls.default(pitch_shift=3.0, rms_mix_rate=0.5)
+    for seed in (0, 1):
+        wav = torch.cat(_chunks(pipe, 4, seed=seed)).to(cuda)
+        want = pipe.convert_offline(wav, controls)
+        got = pipe.jit_convert_scan(wav.reshape(4, -1), controls)
+        assert got.shape == want.shape == (4 * pipe.cfg.sample_frame_size,)
+        assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert list(pipe._graphs["jit_convert_scan"]) == [4]
+    assert pipe._graphs["jit_convert_scan"][4].captures == 1
+
+
+def _pool_run(pipe, wavs, n, **pool_kw):
+    """Three slots; slot 1 starves for two ticks mid-stream."""
+    from obs_rvc_tpu_torch.stream import StreamPool
+
+    chunk = pipe.cfg.sample_frame_size
+    pool = StreamPool(pipe, capacity=3, **pool_kw)
+    slots = [pool.attach() for _ in wavs]
+    fed, ticks = [0] * len(wavs), 0
+    while min(fed) < n:
+        for k, s in enumerate(slots):
+            if not (k == 1 and fed[1] == 2 and ticks in (2, 3)) and fed[k] < n:
+                pool.push_audio(s, wavs[k][fed[k] * chunk : (fed[k] + 1) * chunk])
+                fed[k] += 1
+        ticks += 1
+        pool.process_pending()
+    pool.stop()
+    assert pool.metrics.snapshot().errors == 0
+    return [pool.pull_audio(s, n * chunk) for s in slots]
+
+
+def test_pool_fused_tick_matches_staged(cuda, deterministic_cudnn):
+    """A pool of three on the card in bfloat16, the server's dtype: the
+    fused tick (one graph, the merge inside) and the staged one bit for bit,
+    across a starved slot; pipelined ticks the same audio; the int16 wire
+    within half an LSB of the fused pool fed the same int16-rounded input,
+    clipped to int16's range (random weights reach |audio| > 1). (In float32
+    the fused and staged ticks differ by 1.6e-6 of audio near 0.86: cuBLAS
+    sums the phone projection in another order in the two captures, as in
+    ``test_batched_graphed_steps_equal_the_eager_batched_step``.)"""
+    pipe = _graph_pipe(cuda, torch.bfloat16)
+    n = 5
+    wavs = [torch.cat(_chunks(pipe, n, seed=s)).numpy() for s in range(3)]
+    staged = _pool_run(pipe, wavs, n)
+    fused = _pool_run(pipe, wavs, n, mode="fused")
+    pipelined = _pool_run(pipe, wavs, n, mode="fused", pipelined=True)
+    int16 = _pool_run(pipe, wavs, n, mode="fused", io_dtype="int16")
+    rounded = _pool_run(pipe, [np.clip(np.rint(w * 32768.0), -32768, 32767).astype(np.float32) / 32768.0
+                               for w in wavs], n, mode="fused")
+    for k, (s, f, p, i, r) in enumerate(zip(staged, fused, pipelined, int16, rounded)):
+        assert s.size == n * pipe.cfg.sample_frame_size and np.abs(s).max() > 1e-3
+        # the int16 wire's output is the float32 wire's, clipped to int16's range and rounded
+        clipped = np.clip(r, -1.0, 32767 / 32768)
+        diffs = {name: float(np.abs(a - b).max()) for name, a, b in
+                 (("fused-staged", f, s), ("pipelined-staged", p, s), ("int16-rounded", i, clipped))}
+        assert diffs["fused-staged"] == diffs["pipelined-staged"] == 0.0, (k, diffs)
+        assert diffs["int16-rounded"] <= 0.5 / 32768 + 1e-7, (k, diffs)

@@ -103,7 +103,9 @@ def test_log_mel_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         stft_mel._log_mel_cuda(torch.zeros(20160)[::2], basis, win, 160, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
-        stft_mel._log_mel_cuda(torch.zeros(2, 10080), basis, win, 160, 1e-5)
+        stft_mel._log_mel_cuda(torch.zeros(2, 2, 10080), basis, win, 160, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_mel._log_mel_cuda(torch.zeros(10080, 2).T, basis, win, 160, 1e-5)
     with pytest.raises(ValueError, match="dtype"):
         stft_mel._log_mel_cuda(torch.zeros(10080, dtype=torch.float64), basis, win, 160, 1e-5)
     with pytest.raises(NotImplementedError, match="1024"):

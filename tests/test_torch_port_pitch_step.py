@@ -1,5 +1,6 @@
 """The port's streaming step with the CREPE and FCPE pitch algorithms against
-the JAX step, and through the graphed session, the engine and the CLI.
+the JAX step, also two streams at once through the batched step, and
+through the graphed session, the engine and the CLI.
 
 Reduced widths: the ``CV``/``SY`` of ``test_torch_port_pipeline.py``, CREPE
 ``tiny``, FCPE at hidden 64 with 2 layers; the pitch network's weights are
@@ -44,6 +45,7 @@ from obs_rvc_tpu_torch.serve import cli
 from obs_rvc_tpu_torch.stream import RvcEngine, RvcPipeline, StepControls, StreamSession, StreamState
 from obs_rvc_tpu_torch.utils import read_wav, write_wav
 
+from test_torch_port_batch import STREAMS, assert_rows_match, run_jax_streams, run_port_batch, stream_inputs
 from test_torch_port_bf16 import budget, init_variables
 from test_torch_port_models import few_torch_threads, randomize  # noqa: F401 (autouse fixture)
 from test_torch_port_pipeline import CV, SY, _stream_and_compare, voiced_signal
@@ -84,13 +86,41 @@ def make_pitch_pipes(algo, geometry=None, dtype="float32", params=None):
     return jpipe, params, tpipe
 
 
+@pytest.fixture(scope="module")
+def default_pipes():
+    """``get(algo)``: :func:`make_pitch_pipes` at the default geometry with
+    the JAX step and pitch update jitted, built once per module."""
+    built = {}
+
+    def get(algo):
+        if algo not in built:
+            jpipe, params, tpipe = make_pitch_pipes(algo)
+            built[algo] = (jpipe, params, jax.jit(jpipe.step), jax.jit(jpipe._pitch_cache_update), tpipe)
+        return built[algo]
+
+    return get
+
+
 @pytest.mark.parametrize("algo", ["crepe", "fcpe"])
-def test_step_matches_jax_over_chunks(algo):
-    jpipe, params, tpipe = make_pitch_pipes(algo)
+def test_step_matches_jax_over_chunks(default_pipes, algo):
+    pipes = default_pipes(algo)
+    jpipe, params, _, _, tpipe = pipes
     assert set(tpipe.modules()) == {"contentvec", algo, "synthesizer"} and tpipe.rmvpe is None
     assert set(params) == {"contentvec", algo, "synthesizer"}
-    _stream_and_compare((jpipe, params, jax.jit(jpipe.step), jax.jit(jpipe._pitch_cache_update), tpipe),
-                        CONTROLS, 5)
+    _stream_and_compare(pipes, CONTROLS, 5)
+
+
+@pytest.mark.parametrize("algo", ["crepe", "fcpe"])
+def test_batched_pitch_algorithms_match_jax(default_pipes, algo):
+    """Two streams with their own voices and controls (pitch shift, rms mix,
+    speaker id) through the port's batched step, one chunk, each against
+    the JAX step on that stream alone (what the JAX ``jit_step_batch`` maps
+    over the stream axis), with the step's bounds."""
+    jpipe, params, jstep, _, tpipe = default_pipes(algo)
+    chunks, controls = stream_inputs(tpipe.cfg, STREAMS[1:], 1)
+    assert_rows_match(run_port_batch(tpipe, chunks, controls),
+                      run_jax_streams(jpipe, jstep, tpipe, params, chunks, controls),
+                      f"{algo} port batch vs the JAX step stream by stream")
 
 
 @pytest.fixture(scope="module", params=["crepe", "fcpe"])
@@ -188,7 +218,7 @@ def _bf16_streams(algo):
             with torch.no_grad():
                 tnew, taudio = tpipe.step(tstate, torch.from_numpy(chunk), tc)
                 _, tcodes, tf0 = tpipe._pitch_cache_update(tstate.cache_pitchf, tnew.input_buffer_16k, tc)
-                sal = tpipe.stage_salience(tpipe.stage_mel(tnew.input_buffer_16k))
+                sal = tpipe.stage_salience(tpipe.stage_mel(tnew.input_buffer_16k[None]))[0]
             assert taudio.dtype == tf0.dtype == sal.dtype == torch.float32
             trows.append(tuple(t.numpy() for t in (taudio, sal, tf0, tcodes)))
             tstate = tnew

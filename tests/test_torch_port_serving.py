@@ -244,9 +244,7 @@ def test_server_builds_the_pipeline_from_flags():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pool", "4"], "item 10"),
-    (["--pool-pipelined"], "item 10"),
-    (["--pool-io-dtype", "int16"], "item 10"),
+    (["--pool", "4", "--mesh", "data=4"], "item 13"),
     (["--mesh", "data=4"], "item 13"),
     (["--index", "v.index"], "item 12"),
     (["--index-mode", "ivf"], "item 12"),
