@@ -90,7 +90,23 @@ Phases, each printing its own lines:
            at its defaults: 4 duplex and 2 WebSocket sessions at once, each
            against its run alone, a ninth connection closed, /metrics with
            the pool's occupancy and no error
-8. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
+8. retrieval  a 1M x 768 table (v2 features; clustered, Student-t noise) from
+           the seed: exact search over float32 and bfloat16 rows and IVF (k-means
+           on the card at the default nlist, lists balanced to 64 rows), each
+           blend on the card against the port's CPU blend on the same table and
+           queries (1e-4, TF32 off), IVF's recall@8 against exact on correlated
+           chunks (at least 0.9), each blend alone timed by CUDA events at 1 and
+           8 streams beside its bound; the full-width step with the exact
+           float32 table at index_rate 0.75 in both dtypes: eager against
+           jit_step and staged_step (bfloat16 bit for bit, float32 under
+           cudnn.deterministic within the float32 bound), the wrappers launched
+           1/4/2 times a step, step p50 with and without the index, peak memory
+           at 1 and 8 streams; jit_step_batch of 8 streams at 8 index rates
+           against their one-stream steps (1e-3) and a StreamPool of 8 against
+           it (1e-5); a server with --index <file>.index --index-mode ivf
+           serves a duplex session with no error and serve.cli converts a WAV
+           file with --index <file>.onnx (both on the table's first 65536 rows)
+9. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
            function and its eager call; the U-Net chain and the resblock
@@ -2217,6 +2233,336 @@ def phase_timing(report, trace=False):
     report["timing"] = rows
 
 
+# ---------------------------------------------------------------------------
+# retrieval
+# ---------------------------------------------------------------------------
+
+#: the retrieval phase's table: ContentVec v2 features (C=768), 1M rows (the JAX package's BASELINE config 4
+#: on one card), exact search and IVF at the default nlist rule with lists balanced to RETRIEVAL_LCAP rows
+RETRIEVAL_N = 1_000_000
+RETRIEVAL_C = 768
+RETRIEVAL_LCAP = 64
+RETRIEVAL_RATE = 0.75
+#: the card's blend against the port's CPU blend on the same table and queries, TF32 off
+RETRIEVAL_TOL = 1e-4
+RETRIEVAL_RECALL_FLOOR = 0.9
+#: chunks each step comparison streams, and the index rates of the batched step's streams
+RETRIEVAL_CHUNKS = 6
+RETRIEVAL_RATES = (0.0, 0.25, 0.5, 0.75, 1.0, 0.6, 0.9, 0.3)
+#: rows of the .index and .onnx files the server and the CLI load (a cut of the table: their load is plumbing)
+RETRIEVAL_DOOR_N = 65536
+
+
+def retrieval_table(n, c, seed, nclust=1024, spread=0.7):
+    """``scripts/ivf_recall.py``'s ``make_table``: cluster centres ~ N(0, I),
+    rows = centre + ``spread`` · Student-t(4) noise, a tenth of the rows
+    diffuse background (1.5 · t(4)). t(4) is drawn as z / sqrt(chi²₄ / 4),
+    chi²₄ = 2 (e₁ + e₂) with e exponential (numpy's ``standard_t`` takes
+    minutes at this size), in blocks of rows, each block from its own
+    generator spawned from ``seed``, on a thread each (numpy draws without
+    the interpreter lock)."""
+    import concurrent.futures
+
+    block = 65536
+    root, children = np.random.SeedSequence(seed), None
+    rng = np.random.default_rng(root)
+    centers = rng.standard_normal((nclust, c), dtype=np.float32)
+    which = rng.integers(0, nclust, n)
+    background = rng.random(n) < 0.1
+    table = np.empty((n, c), np.float32)
+    children = root.spawn(-(-n // block))
+
+    def fill(j):
+        g = np.random.default_rng(children[j])
+        s = j * block
+        rows = min(block, n - s)
+        z = g.standard_normal((rows, c), dtype=np.float32)
+        e = g.standard_exponential((2, rows, c), dtype=np.float32)
+        t4 = z / np.sqrt(0.5 * (e[0] + e[1]))
+        bg = background[s : s + rows, None]
+        table[s : s + rows] = np.where(bg, 1.5 * t4, centers[which[s : s + rows]] + spread * t4)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, range(len(children))))
+    return table
+
+
+def retrieval_queries(table, rng, chunks, frames, walk=0.1):
+    """Chunks of correlated frames ``[chunks, frames, C]``: random walks from table rows, as consecutive 10 ms
+    ContentVec frames are (``scripts/ivf_recall.py``'s ``make_queries``)."""
+    starts = table[rng.integers(0, len(table), chunks)]
+    steps = walk * rng.standard_normal((chunks, frames, table.shape[1]), dtype=np.float32)
+    return (starts[:, None, :] + np.cumsum(steps, axis=1)).astype(np.float32)
+
+
+def blend_bound_ms(B, T, N, C, itemsize, mode, nlist=0, lcap=0, probes=0):
+    """The least time of one blend of ``B`` streams of ``T`` frames: the bytes it must move (exact: every row
+    and norm once; ivf: the centroids, and each stream's probed slabs) over the HBM rate, against its products
+    over the peak rate of their type (2·B·T·C a row searched, and a centroid scored; float32 without TF32,
+    the exact search of a bfloat16 table as three bf16 products on the tensor cores)."""
+    io = 2 * B * T * C * 4  # the features in and the blend out
+    if mode == "exact":
+        nbytes, flops = N * (C * itemsize + 4) + io, 2.0 * B * T * N * C
+        t_ops = flops * (3 / BF16_PEAK_FLOPS if itemsize == 2 else 1 / F32_PEAK_FLOPS)
+    else:
+        rows = B * probes * lcap
+        nbytes = nlist * (C * 4 + 4) + rows * (C * itemsize + 4) + io
+        t_ops = 2.0 * B * T * C * (nlist + probes * lcap) / F32_PEAK_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_retrieval(report, smi):
+    """Retrieval at full width (ROADMAP item 12): a 1M x 768 table from the seed, searched exactly (float32 and
+    bfloat16 rows) and by IVF (the quantizer trained on the card at the default nlist, lists balanced to
+    RETRIEVAL_LCAP); each blend on the card held to the port's CPU blend on the same table and queries
+    (RETRIEVAL_TOL, TF32 off); IVF's recall@8 against exact on correlated chunks (>= RETRIEVAL_RECALL_FLOOR);
+    the blend timed alone by CUDA events at 1 and POOL_B streams. Then the full-width step with the exact
+    float32 table at index_rate RETRIEVAL_RATE, in each dtype: eager against jit_step and staged_step
+    (bfloat16 bit for bit; float32 under cudnn.deterministic, within the float32 bound), the hand kernels
+    counted, step p50 with and without the index, jit_step_batch of POOL_B streams each at its own rate, and
+    peak memory at 1 and POOL_B streams; in float32 the batched streams against their one-stream steps (1e-3),
+    in bfloat16 a StreamPool of POOL_B slots against the batched step (POOL_SLOT_TOL). Last, a server with
+    --index <file>.index --index-mode ivf serves a duplex session with no error, and serve.cli converts a WAV
+    file with --index <file>.onnx."""
+    import dataclasses
+
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.models.onnx_reader import write_onnx_weights
+    from obs_rvc_tpu_torch.retrieval import IvfFlatIndex, RetrievalIndex, train_ivf
+    from obs_rvc_tpu_torch.retrieval.build import default_nlist
+    from obs_rvc_tpu_torch.retrieval.faiss_reader import write_ivf_flat
+    from obs_rvc_tpu_torch.retrieval.index import ivf_search, table_products
+    from obs_rvc_tpu_torch.serve import cli
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
+    from obs_rvc_tpu_torch.utils import read_wav, write_wav
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("retrieval: TF32 is on; the float32 comparisons need it off")
+    dev = torch.device("cuda")
+    cfg = ChunkConfig.build()
+    T, N, C, K = cfg.return_length, RETRIEVAL_N, RETRIEVAL_C, 8
+    t_phase = time.perf_counter()
+    out = report["retrieval"] = {"n": N, "c": C, "t": T, "k": K, "nvidia_smi": smi, "mm_out_dtype": True}
+    t0 = time.perf_counter()
+    table = retrieval_table(N, C, SEED + 60)
+    queries = retrieval_queries(table, np.random.default_rng(SEED + 61), POOL_B, T)
+    out["table_s"] = time.perf_counter() - t0
+    log("retrieval", f"table {N} x {C} float32 from seed {SEED + 60} in {out['table_s']:.1f} s (clustered, "
+                     f"Student-t(4) noise, 10 % background rows); {POOL_B} correlated query chunks of {T} frames")
+
+    def blend_fn(idx, q, rate):
+        return lambda: idx.blend(q, rate)
+
+    def compare(name, idx_card, idx_cpu):
+        """The blend of one chunk and of POOL_B on the card against the CPU's; returns the max abs errors."""
+        errs = {}
+        for B in (1, POOL_B):
+            q = torch.from_numpy(queries[:B])
+            rate = torch.full((B,), RETRIEVAL_RATE)
+            want = idx_cpu.blend(q, rate)
+            got = idx_card.blend(q.to(dev), rate.to(dev)).cpu()
+            errs[B] = check_close(f"retrieval {name} B={B} card vs cpu", got, want, RETRIEVAL_TOL, 0.0)
+            if float((got - q).abs().max()) < 1e-3:
+                raise AssertionError(f"retrieval {name}: the blend left the features as they were")
+        return errs
+
+    def timed(name, idx, mode, itemsize):
+        rows = {}
+        for B in (1, POOL_B):
+            q = torch.from_numpy(queries[:B]).to(dev)
+            rate = torch.full((B,), RETRIEVAL_RATE, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = graph_ms(blend_fn(idx, q, rate), calls=3, replays=5)
+            nlist = 0 if idx.centroids is None else len(idx.centroids)
+            bound, by = blend_bound_ms(B, T, N, C, itemsize, mode, nlist, idx.lcap or 0, max(64, T))
+            rows[B] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                       "work_bytes": int(torch.cuda.max_memory_allocated() - base)}
+        log("retrieval", f"{name} blend alone (CUDA events, a graph of its calls): "
+                         + "; ".join(f"B={B} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                                     f"{r['work_bytes'] / 2**20:.0f} MiB working memory)" for B, r in rows.items())
+                         + f" [{smi}]")
+        return rows
+
+    # 1. exact search, float32 and bfloat16 rows
+    exact = {}
+    for dtype in ("float32", "bfloat16"):
+        params = RetrievalIndex.make_params(table, dtype=getattr(torch, dtype))
+        card, cpu = RetrievalIndex().load(params, dev), RetrievalIndex().load(params, "cpu")
+        scores = table_products(torch.from_numpy(queries[0, :2]).to(dev), card.vectors)
+        if scores.dtype != torch.float32:
+            raise AssertionError(f"retrieval: a {dtype} table's scores came back in {scores.dtype}")
+        errs = compare(f"exact {dtype}", card, cpu)
+        exact[dtype] = {"max_abs_err": errs,
+                        "timing": timed(f"exact {dtype}", card, "exact", card.vectors.element_size())}
+        # where one stream's exact blend spends its time: the products alone, the top-k alone
+        q = torch.from_numpy(queries[0]).to(dev)
+        neg = table_products(q, card.vectors)
+        exact[dtype]["products_ms"] = graph_ms(lambda: table_products(q, card.vectors), calls=3, replays=5)
+        exact[dtype]["topk_ms"] = graph_ms(lambda: torch.topk(neg, K, dim=-1), calls=3, replays=5)
+        log("retrieval", f"exact {dtype}, one stream: the [{T}, {C}] x [{C}, {N}] products alone "
+                         f"{exact[dtype]['products_ms']:.4f} ms, torch.topk of [{T}, {N}] alone "
+                         f"{exact[dtype]['topk_ms']:.4f} ms [{smi}]")
+        log("retrieval", f"exact {dtype} rows: the card's blend against the CPU's, max abs err "
+                         + ", ".join(f"B={B} {e:.3e}" for B, e in errs.items()) + f" (bound {RETRIEVAL_TOL}); "
+                         f"scores {scores.dtype}")
+        if dtype == "float32":
+            exact_index = card
+        del card, cpu, params, neg
+    out["exact"] = exact
+    torch.cuda.empty_cache()
+
+    # 2. IVF: the quantizer on the card, lists balanced on the host
+    t0 = time.perf_counter()
+    cent, assign = train_ivf(table, device=dev)
+    out["train_ivf_s"] = time.perf_counter() - t0
+    ivf = RetrievalIndex(mode="ivf")
+    t0 = time.perf_counter()
+    params = ivf.make_ivf_params(IvfFlatIndex(table, cent, assign), lcap=RETRIEVAL_LCAP)
+    out["balance_s"] = time.perf_counter() - t0
+    counts = np.bincount(assign, minlength=len(cent))
+    out.update(nlist=int(len(cent)), nlist_balanced=int(len(params["lengths"])), longest_list=int(counts.max()))
+    log("retrieval", f"train_ivf on the card: nlist {len(cent)} (default_nlist({N}) = {default_nlist(N)}), 10 "
+                     f"iterations in {out['train_ivf_s']:.1f} s, longest list {counts.max()} rows; make_ivf_params "
+                     f"(balance_lists at lcap {RETRIEVAL_LCAP}, host) in {out['balance_s']:.1f} s -> "
+                     f"{out['nlist_balanced']} lists")
+    ivf.load(params, dev)
+    ivf_cpu = RetrievalIndex(mode="ivf").load(params, "cpu")
+    # recall@8 against exact search on the float32 table, each chunk its own union (probes = max(64, T))
+    truth = torch.topk(table_products(torch.from_numpy(queries).to(dev).flatten(0, 1), exact_index.vectors)
+                       .mul_(2.0).sub_(exact_index.norms), K).indices.cpu().numpy()
+    _, _, rows = ivf_search(ivf.vectors, ivf.norms, ivf.lengths, ivf.offsets, ivf.centroids, ivf.cnorms,
+                            torch.from_numpy(queries).to(dev), k=K, probes=max(64, T), lcap=ivf.lcap)
+    found = ivf.row_order[rows.flatten(0, 1).cpu().numpy()]
+    recall = float(np.mean([len(set(f) & set(t)) / K for f, t in zip(found, truth)]))
+    out["recall_at_8"] = recall
+    log("retrieval", f"IVF recall@8 against exact over {POOL_B} correlated chunks of {T} frames (probes "
+                     f"{max(64, T)}, lcap {ivf.lcap}): {recall:.4f} (floor {RETRIEVAL_RECALL_FLOOR}) [{smi}]")
+    if recall < RETRIEVAL_RECALL_FLOOR:
+        raise AssertionError(f"retrieval: IVF recall@8 {recall:.4f} below {RETRIEVAL_RECALL_FLOOR}")
+    out["ivf"] = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            p16 = dict(params, vectors=params["vectors"].to(torch.bfloat16))
+            ivf, ivf_cpu = RetrievalIndex(mode="ivf").load(p16, dev), RetrievalIndex(mode="ivf").load(p16, "cpu")
+        errs = compare(f"ivf {dtype}", ivf, ivf_cpu)
+        out["ivf"][dtype] = {"max_abs_err": errs,
+                             "timing": timed(f"ivf {dtype}", ivf, "ivf", ivf.vectors.element_size())}
+        log("retrieval", f"ivf {dtype} rows: the card's blend against the CPU's, max abs err "
+                         + ", ".join(f"B={B} {e:.3e}" for B, e in errs.items()) + f" (bound {RETRIEVAL_TOL})")
+    del ivf, ivf_cpu, params
+    torch.cuda.empty_cache()
+
+    # 3. the full-width step with the exact float32 table
+    chunks = [c[0] for c in pool_streams(cfg, 1, RETRIEVAL_CHUNKS, dev)[1]]
+    controls = StepControls.default(index_rate=RETRIEVAL_RATE)
+    wavs, bchunks, bcontrols = pool_streams(cfg, POOL_B, RETRIEVAL_CHUNKS, dev)
+    bcontrols = [dataclasses.replace(c, index_rate=r) for c, r in zip(bcontrols, RETRIEVAL_RATES)]
+    stacked = StepControls.stack(bcontrols, dev)
+    out["step"] = {}
+    for dtype in ("float32", "bfloat16"):
+        pipe = RvcPipeline(cfg, compute_dtype=getattr(torch, dtype), retrieval_index=exact_index)
+        pipe.init_params(SEED, std=None)
+        if dtype == "bfloat16":
+            cast_params_for_serving(pipe)
+        res = out["step"][dtype] = {}
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = dtype == "float32"
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            eager, _ = stream(pipe.step, pipe, chunks, controls)
+            launches = read_launches()
+            check_launches("retrieval step", launches, RETRIEVAL_CHUNKS)
+            torch.cuda.reset_peak_memory_stats()
+            fused, times = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
+            res["peak_mem_bytes_b1"] = int(torch.cuda.max_memory_allocated())
+            staged, _ = stream(pipe.staged_step, pipe, chunks, controls)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        tol = 0.0 if dtype == "bfloat16" else CPU_TOL["emitted"]
+        res["fused_vs_eager"] = check_same(f"retrieval {dtype} jit_step vs eager", fused, eager, tol)
+        res["staged_vs_eager"] = check_same(f"retrieval {dtype} staged_step vs eager", staged, eager, tol)
+        plain = pipe.with_config(cfg)  # the same networks, graphs of its own, no index
+        plain.retrieval_index = None
+        plain.jit_step.capture()
+        _, plain_times = stream(plain.jit_step, plain, chunks, StepControls.default(), timed=True)
+        _, times = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
+        res.update(launches=launches, step_p50_ms=float(np.median(times[1:])),
+                   step_p50_ms_without_index=float(np.median(plain_times[1:])))
+        log("retrieval", f"{dtype} step with the exact 1M float32 index at index_rate {RETRIEVAL_RATE}: kernel "
+                         f"launches {launches} over {RETRIEVAL_CHUNKS} eager steps; jit_step and staged_step vs "
+                         f"eager bit-identical {res['fused_vs_eager'][0]}/{res['staged_vs_eager'][0]} (rel "
+                         f"{res['fused_vs_eager'][1]:.2e}/{res['staged_vs_eager'][1]:.2e}, bound {tol}); fused "
+                         f"graph step p50 {res['step_p50_ms']:.2f} ms with the index, "
+                         f"{res['step_p50_ms_without_index']:.2f} ms without; peak device memory "
+                         f"{res['peak_mem_bytes_b1'] / 2**20:.0f} MiB at one stream [{smi}]")
+        torch.cuda.reset_peak_memory_stats()
+        batched, btimes = stream_batch(pipe.jit_step_batch, pipe, bchunks, stacked, timed=True)
+        res.update(peak_mem_bytes_b8=int(torch.cuda.max_memory_allocated()),
+                   batch_p50_ms=float(np.median(btimes[1:])))
+        if dtype == "float32":  # the batched rule of float32: each stream within 1e-3 of its one-stream steps
+            singles = [stream(pipe.jit_step, pipe, [c[k] for c in bchunks], bcontrols[k])[0] for k in range(POOL_B)]
+            rels = [check_same(f"retrieval batch stream {k}", batched[k], singles[k], CPU_TOL["emitted"])[1]
+                    for k in range(POOL_B)]
+            res["batch_rel"] = rels
+            held = ("against their one-stream jit_step runs: max|diff| / max|audio| "
+                    + ", ".join(f"{r:.2e}" for r in rels) + f" (bound {CPU_TOL['emitted']})")
+        else:  # the pool's rule, in the server's dtype: each slot against its row of the batched step
+            pooled, _ = pool_run(pipe, wavs, bcontrols, mode="fused")
+            slots = same_slots("retrieval pool", pooled, batched)
+            res["pool_slots_rel"] = [r for _, r in slots]
+            held = ("a StreamPool of 8 slots (fused) against it: max|diff| / max|audio| "
+                    + ", ".join(f"{r:.1e}" for _, r in slots) + f" (bound {POOL_SLOT_TOL})")
+        log("retrieval", f"{dtype} jit_step_batch of {POOL_B} voices at index rates {RETRIEVAL_RATES}: step p50 "
+                         f"{res['batch_p50_ms']:.2f} ms, peak device memory {res['peak_mem_bytes_b8'] / 2**20:.0f} "
+                         f"MiB; {held} [{smi}]")
+        del pipe, plain
+        torch.cuda.empty_cache()
+
+    # 4. the front doors: a server with an .index in ivf mode, the CLI with an .onnx, on a cut of the table
+    OUT_DIR.mkdir(exist_ok=True)
+    door = table[:RETRIEVAL_DOOR_N]
+    dcent, dassign = train_ivf(door, device=dev)
+    write_ivf_flat(OUT_DIR / "door.index", door, centroids=dcent, assignments=dassign)
+    write_onnx_weights(OUT_DIR / "door.onnx", {"vectors": door})
+    host, chunk = "127.0.0.1", cfg.sample_frame_size
+    argv = server_argv(host, ["--index", str(OUT_DIR / "door.index"), "--index-mode", "ivf",
+                              "--index-rate", str(RETRIEVAL_RATE)])
+    with Server(argv) as srv:
+        url = f"http://{host}:{srv.bound['health']}/metrics"
+        wav = voiced_signal((PITCH_SERVE_CHUNKS + 2) * chunk, cfg.sample_rate, seed=SEED + 61)
+        streamed = duplex_session(host, srv.bound["duplex"], wav, PITCH_SERVE_CHUNKS, chunk, cfg.sample_rate)
+        metrics = wait_metrics_settled(url)
+        if metrics["chunks"] < PITCH_SERVE_CHUNKS or metrics["errors"] != 0:
+            raise AssertionError(f"retrieval server: /metrics counts {metrics['chunks']} chunks and "
+                                 f"{metrics['errors']} errors")
+        out["server"] = {"startup_s": srv.startup_s, "metrics": metrics}
+        log("retrieval", f"server --index door.index ({RETRIEVAL_DOOR_N} rows) --index-mode ivf --index-rate "
+                         f"{RETRIEVAL_RATE} (bfloat16, staged graphs) listening in {srv.startup_s:.1f} s; duplex: "
+                         f"{streamed.size} samples back, all finite; /metrics {metrics}")
+    src, dst = OUT_DIR / "retrieval_in.wav", OUT_DIR / "retrieval_out.wav"
+    write_wav(src, voiced_signal(5 * chunk, cfg.sample_rate, seed=SEED + 62), cfg.sample_rate)
+    t0 = time.perf_counter()
+    cli.main([str(src), str(dst), "--index", str(OUT_DIR / "door.onnx"), "--index-rate", str(RETRIEVAL_RATE)])
+    converted, sr = read_wav(dst)
+    out["cli_s"] = time.perf_counter() - t0
+    if sr != cfg.sample_rate or converted.shape != (1, 5 * chunk) or not np.isfinite(converted).all() or \
+            float(np.abs(converted).max()) < 1e-3:
+        raise AssertionError(f"serve.cli --index door.onnx wrote {converted.shape} at {sr} Hz, or silence")
+    log("retrieval", f"cli --index door.onnx --index-rate {RETRIEVAL_RATE} (float32): {converted.shape[1]} samples "
+                     f"in {out['cli_s']:.1f} s, max |y| {float(np.abs(converted).max()):.4f}")
+    for f in ("door.index", "door.onnx"):
+        (OUT_DIR / f).unlink()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("retrieval", f"the retrieval phase ran {out['phase_s']:.1f} s")
+
+
 def kernel_line(report):
     """One entry per kernel and dtype on the main path: float32 for all
     three (the float32 main run's launches), bfloat16 for the chain and the
@@ -2346,6 +2692,8 @@ def main(argv=None) -> int:
     phase_pitch_serve(report)
     phase_pool(report)
     phase_pool_serve(report)
+    phase_retrieval(report, smi)
+    torch.cuda.empty_cache()
     phase_timing(report, trace=args.profile)
     for key in ("main", "main_bf16", "v1", "crepe", "crepe_bf16", "fcpe", "fcpe_bf16"):
         m = report[key]

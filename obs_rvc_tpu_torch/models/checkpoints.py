@@ -13,8 +13,12 @@ a wrong shape raises.
 
 Checkpoints are unpickled with ``torch.load(weights_only=False)``, as the
 upstream files need (fairseq stores its config objects): load only files you
-trust. ``.onnx`` weight containers and msgpack parameter files are not
-ported (ROADMAP.md queue 1 item 7).
+trust. ``.onnx`` weight containers are parsed without the onnx package
+(``models/onnx_reader.py``): torch-exported initializer names are the
+state-dict names, so the same loaders apply. :func:`save_params` and
+:func:`load_params` write and read the JAX package's msgpack parameter
+files (flax's format, byte for byte); ``models/weights.load_jax_params``
+puts such a tree into a pipeline.
 """
 
 from __future__ import annotations
@@ -25,15 +29,20 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from obs_rvc_tpu_torch.models.onnx_reader import read_onnx_initializers
 from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
 from obs_rvc_tpu_torch.models.weights import load_state_dict
+from obs_rvc_tpu_torch.retrieval.build import load_or_train_ivf
+from obs_rvc_tpu_torch.retrieval.faiss_reader import load_index_vectors
+from obs_rvc_tpu_torch.stream.state import pack_tree, unpack_tree
 
 _SR_STRINGS = {"32k": 32000, "40k": 40000, "48k": 48000}
 
 
 def _torch_load(path) -> Any:
+    """A weight container: torch ``.pth``/``.pt``, or ``.onnx`` (its initializers)."""
     if str(path).endswith(".onnx"):
-        raise NotImplementedError(f"{path}: .onnx weight files are not ported (ROADMAP.md queue 1 item 7)")
+        return read_onnx_initializers(path)
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
@@ -180,12 +189,21 @@ def load_pipeline_params(
     seed: int = 0,
     crepe_path: Optional[str | pathlib.Path] = None,
     fcpe_path: Optional[str | pathlib.Path] = None,
+    index_path: Optional[str | pathlib.Path] = None,
+    index_dtype: torch.dtype = torch.float32,
 ) -> None:
     """Fill a pipeline's networks: random fan-in-scaled weights from ``seed``
     (``RvcPipeline.init_params(seed, std=None)``), then each checkpoint that
     is given; a network whose path is left out keeps its random weights. A
     path for a pitch network the pipeline does not run raises ``ValueError``
-    (the JAX loader fails on it too: the pipeline has no parameters for it)."""
+    (the JAX loader fails on it too: the pipeline has no parameters for it).
+
+    ``index_path`` (``.index``, ``.npy``, ``.npz`` or ``.onnx``) loads the
+    pipeline's retrieval index, its rows in ``index_dtype``: in ivf mode
+    through ``load_or_train_ivf`` and ``make_ivf_params`` at the index's
+    ``lcap`` (a flat table gets its quantizer trained on the pipeline's
+    device), otherwise through ``load_index_vectors`` and ``make_params``.
+    A pipeline without a retrieval index raises ``ValueError`` for it."""
     pipeline.init_params(seed, std=None)
     if contentvec_path:
         load_contentvec(pipeline.contentvec, contentvec_path)
@@ -198,6 +216,16 @@ def load_pipeline_params(
             load(pipeline.modules()[name], path)
     if synthesizer_path:
         load_synthesizer(pipeline.synthesizer, synthesizer_path)
+    if index_path:
+        ridx = pipeline.retrieval_index
+        if ridx is None:
+            raise ValueError("an index path was given, but the pipeline has no retrieval_index")
+        if ridx.mode == "ivf":
+            table = ridx.make_ivf_params(load_or_train_ivf(index_path, device=pipeline.device), dtype=index_dtype,
+                                         lcap=ridx.lcap)
+        else:
+            table = ridx.make_params(load_index_vectors(index_path), dtype=index_dtype)
+        ridx.load(table, pipeline.device)
 
 
 def cast_params_for_serving(pipeline, dtype: torch.dtype = torch.bfloat16):
@@ -216,8 +244,9 @@ def cast_params_for_serving(pipeline, dtype: torch.dtype = torch.bfloat16):
     bank kernels are keyed on each weight's storage and version, so they
     are rebuilt after a cast that moved a weight. The pitch network is cast
     whichever it is, BatchNorm statistics included, as the JAX cast maps over
-    the whole tree. Retrieval is not ported, so there is no index to leave
-    alone yet.
+    the whole tree. The retrieval index is left alone, as the JAX cast leaves
+    its ``"index"`` subtree: ``modules()`` does not list it, and its dtype is
+    the table's own (``index_dtype``).
     """
     if dtype != pipeline.compute_dtype:
         raise ValueError(f"cast_params_for_serving: the pipeline computes in {pipeline.compute_dtype}; "
@@ -225,3 +254,21 @@ def cast_params_for_serving(pipeline, dtype: torch.dtype = torch.bfloat16):
     for module in pipeline.modules().values():
         module.to(dtype)
     return pipeline
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's msgpack parameter files
+# ---------------------------------------------------------------------------
+
+
+def save_params(path: str | pathlib.Path, params: Mapping) -> None:
+    """Write a parameter tree (nested maps of numpy arrays or torch tensors,
+    in the JAX package's layout) as flax msgpack, the bytes the JAX
+    package's ``save_params`` writes for the same arrays."""
+    pathlib.Path(path).write_bytes(pack_tree(params))
+
+
+def load_params(path: str | pathlib.Path) -> dict:
+    """Read a flax msgpack parameter file, of either package: nested dicts
+    of CPU tensors (bfloat16 kept)."""
+    return unpack_tree(pathlib.Path(path).read_bytes())

@@ -254,7 +254,9 @@ def load_jax_params(pipe, params: Mapping[str, Any]) -> None:
     :class:`~obs_rvc_tpu_torch.stream.pipeline.RvcPipeline`: ``"contentvec"``,
     ``"synthesizer"`` and the pitch network the pipeline was built with,
     ``"rmvpe"``, ``"crepe"`` or ``"fcpe"`` (the JAX ``init_params`` gives
-    only that one)."""
+    only that one), and ``"index"`` (the JAX ``make_params`` or
+    ``make_ivf_params`` table) into the pipeline's retrieval index, when it
+    has one (the JAX step ignores the table without one too)."""
     cv = pipe.contentvec_cfg
     load_state_dict(pipe.contentvec,
                     contentvec_state_dict(params["contentvec"], cv.num_layers, cv.final_proj))
@@ -268,3 +270,5 @@ def load_jax_params(pipe, params: Mapping[str, Any]) -> None:
         sd = rmvpe_state_dict(params["rmvpe"], rm.n_blocks, rm.en_de_layers, rm.inter_layers)
     load_state_dict(pipe.modules()[algo], sd)
     load_state_dict(pipe.synthesizer, synthesizer_state_dict(params["synthesizer"], pipe.synth_cfg))
+    if "index" in params and pipe.retrieval_index is not None:
+        pipe.retrieval_index.load(params["index"], pipe.device)

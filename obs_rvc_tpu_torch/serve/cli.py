@@ -6,9 +6,14 @@ a command line carries over, plus ``--device``.
     python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --model model.pth --pitch-shift 12
     python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --pitch-algorithm fcpe --fcpe fcpe.pt
     python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --skip-inference --device cpu
+    python -m obs_rvc_tpu_torch.serve.cli in.wav out.wav --index voice.index --index-mode ivf --index-rate 0.75
 
-A flag whose module is not ported yet exits with an error that names its
-ROADMAP.md item instead of being ignored.
+``--index`` (a faiss ``.index``, a ``.npy``/``.npz`` table or an ``.onnx``
+container) blends the features with their nearest table rows at
+``--index-rate``: exact search over the whole table, or ``--index-mode ivf``
+(``--index-probes``, 0 for ``max(64, T)``; ``--index-lcap``, the slab
+length). ``--mesh`` is not ported yet and exits naming its ROADMAP.md item
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -39,11 +44,14 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_d
     p.add_argument("--rmvpe", help="RMVPE .pt checkpoint")
     p.add_argument("--crepe", help="torchcrepe .pth checkpoint (pitch-algorithm crepe)")
     p.add_argument("--fcpe", help="torchfcpe .pt checkpoint (pitch-algorithm fcpe)")
-    p.add_argument("--index", help="not ported (ROADMAP.md queue 1 item 12)")
-    p.add_argument("--index-dtype", default="float32", choices=["float32", "bfloat16"])
-    p.add_argument("--index-mode", default="exact", choices=["exact", "ivf"])
-    p.add_argument("--index-probes", type=int, default=0)
-    p.add_argument("--index-lcap", type=int, default=64)
+    p.add_argument("--index", help="retrieval index: faiss .index, .npy/.npz table or .onnx container")
+    p.add_argument("--index-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="the table's dtype on the device (scores are float32 either way)")
+    p.add_argument("--index-mode", default="exact", choices=["exact", "ivf"],
+                   help="exact: search the whole table; ivf: probe a union of inverted lists a chunk")
+    p.add_argument("--index-probes", type=int, default=0, help="ivf lists probed a chunk (0 = max(64, T))")
+    p.add_argument("--index-lcap", type=int, default=64,
+                   help="ivf slab length; longer lists are split to fit (0 = the longest list)")
     p.add_argument("--model-version", default="v2", choices=["v1", "v2"])
     p.add_argument("--dest-sample-rate", type=int, default=40000)
     p.add_argument("--pitch-algorithm", default="rmvpe", choices=["rmvpe", "crepe", "fcpe"])
@@ -68,17 +76,11 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_d
 
 def check_ported(args) -> None:
     """Exit, naming the ROADMAP.md item, on a flag whose module is not ported."""
-    def refuse(what, item):
-        raise SystemExit(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
     if getattr(args, "no_pallas_resblocks", False):
         raise SystemExit("--no-pallas-resblocks is refused: on the card it would run the kernels' "
                          "plain versions on the main path")
-    if (args.index or args.index_dtype != "float32" or args.index_mode != "exact"
-            or args.index_probes != 0 or args.index_lcap != 64):
-        refuse("retrieval (--index*)", 12)
     if getattr(args, "mesh", ""):
-        refuse("--mesh", 13)
+        raise SystemExit("--mesh is not ported yet (ROADMAP.md queue 1 item 13)")
 
 
 def settings_from_args(args):
@@ -106,10 +108,11 @@ def pipeline_from_args(args, sample_rate: int):
     ``--dtype`` and ``--pitch-algorithm`` with its weights loaded (random from seed 0 where no
     checkpoint is given; none at all for ``--skip-inference``, which runs no
     network) and, in bfloat16, cast for serving as the JAX entry points cast
-    them."""
+    them; with ``--index``, its retrieval index loaded."""
     import torch
 
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving, load_pipeline_params
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
     from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
 
     check_ported(args)
@@ -123,10 +126,13 @@ def pipeline_from_args(args, sample_rate: int):
         device=args.device,
         compute_dtype=getattr(torch, args.dtype),
         pitch_algorithm=str(settings.pitch_algorithm),
+        retrieval_index=RetrievalIndex(mode=args.index_mode, probes=args.index_probes or None,
+                                       lcap=args.index_lcap or None) if args.index else None,
     )
     if not pipe.cfg.skip_inference:
         load_pipeline_params(pipe, contentvec_path=args.contentvec, rmvpe_path=args.rmvpe,
-                             crepe_path=args.crepe, fcpe_path=args.fcpe, synthesizer_path=args.model)
+                             crepe_path=args.crepe, fcpe_path=args.fcpe, synthesizer_path=args.model,
+                             index_path=args.index, index_dtype=getattr(torch, args.index_dtype))
         if args.dtype == "bfloat16":
             cast_params_for_serving(pipe)
     controls = StepControls.default(pitch_shift=args.pitch_shift, rms_mix_rate=args.loudness_factor,

@@ -34,9 +34,14 @@ are captured before any door listens; ``--pool-io-dtype int16`` and
 ``--pool-pipelined`` (both need ``--step-mode fused``) are its wire width
 and its pipelined ticks. ``/metrics`` then counts the pool's chunks and
 shows ``pool_ready``, ``pool_active`` and ``pool_capacity``; a connection
-past the capacity is closed. The RPC door stays on its own engine. Flags of
-modules not ported yet (the mesh, retrieval) exit with an error that names
-their ROADMAP.md item.
+past the capacity is closed. The RPC door stays on its own engine.
+
+``--index`` (with ``--index-mode``, ``--index-dtype``, ``--index-probes``,
+``--index-lcap``) gives every session, pool slot and the RPC engine the
+retrieval blend; ``--index-rate`` is each stream's starting blend, a live
+control like the others (the RPC protocol carries none, so its requests
+blend at 0, as the JAX engine's do). ``--mesh`` is not ported yet and exits
+naming its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -121,7 +121,9 @@ class WeightsVersion:
     """The identity of the weights that ``modules()`` reads: the modules, and
     each parameter's and buffer's storage and in-place version. A
     ``load_state_dict`` bumps the versions; a cast to another dtype moves the
-    storage. The list of tensors is taken again when a module is swapped."""
+    storage. The list of tensors is taken again when a module is swapped, or
+    when a module that puts new tensors in its buffers (the retrieval
+    index) counts another load in its ``generation``."""
 
     def __init__(self, modules: Callable[[], Iterable[torch.nn.Module]]):
         self._modules = weakly(modules)
@@ -130,7 +132,7 @@ class WeightsVersion:
 
     def key(self) -> tuple:
         mods = tuple(self._modules())
-        ids = tuple(map(id, mods))
+        ids = tuple((id(m), getattr(m, "generation", 0)) for m in mods)
         if ids != self._ids:
             self._ids = ids
             self._tensors = [t for m in mods for t in itertools.chain(m.parameters(), m.buffers())]

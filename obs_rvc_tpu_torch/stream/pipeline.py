@@ -4,6 +4,7 @@
     device-rate ring slide
     → 48k→16k resample into the 16 kHz ring
     → ContentVec features, 2x upsampled, skip_head/return_length slice
+    → retrieval blend (with a ``retrieval_index``)
     → pitch frontend → salience → f0 → pitch shift → 1024-frame cache slide
       (RMVPE: HTK log-mel; CREPE: normalised 1024-sample frames; FCPE:
       Slaney log-mel; each on the same hop-160 frame grid)
@@ -55,6 +56,13 @@ resampling, envelope mixing and SOLA stay float32, as in the JAX step.
 (torchfcpe). Only that network is built; ``modules()`` names it, so the
 graphs' weights check, ``init_params`` and ``cast_params_for_serving``
 follow it.
+
+``retrieval_index`` (a :class:`~obs_rvc_tpu_torch.retrieval.RetrievalIndex`)
+blends each stream's features with its nearest table rows at the stream's
+``index_rate``, right after the feature slice, in every form of the step.
+``modules()`` leaves it out (nothing randomises or casts the table); the
+graphs watch it beside the networks, so loading another table recaptures
+them.
 """
 
 from __future__ import annotations
@@ -102,6 +110,7 @@ from obs_rvc_tpu_torch.models import (
 from obs_rvc_tpu_torch.models.contentvec import extract_feature, feature_frames
 from obs_rvc_tpu_torch.models.layers import VitsLayerNorm
 from obs_rvc_tpu_torch.models.weights import load_state_dict
+from obs_rvc_tpu_torch.retrieval.index import RetrievalIndex
 from obs_rvc_tpu_torch.stream.graphs import GraphedFunction, WeightsVersion, graph_pool, stage_runner
 from obs_rvc_tpu_torch.stream.state import StreamState
 
@@ -123,7 +132,7 @@ class StepControls:
 
     pitch_shift: float = 0.0  # semitones
     rms_mix_rate: float = 1.0  # 0..1, 1 = no envelope mixing
-    index_rate: float = 0.0  # retrieval blend (no retrieval in this port yet)
+    index_rate: float = 0.0  # retrieval blend, 0..1 (read only with a retrieval index)
     sid: int = 0  # speaker id
 
     @staticmethod
@@ -214,6 +223,7 @@ class RvcPipeline:
         pitch_algorithm: str = "rmvpe",
         crepe_cfg: Optional[CrepeConfig] = None,
         fcpe_cfg: Optional[FcpeConfig] = None,
+        retrieval_index: Optional[RetrievalIndex] = None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
@@ -228,6 +238,7 @@ class RvcPipeline:
         self.f0_median_radius = f0_median_radius
         self.keyshift = keyshift
         self.phase_vocoder = phase_vocoder
+        self.retrieval_index = retrieval_index
         if contentvec_cfg is None:
             contentvec_cfg = (
                 ContentVecConfig.v1() if version is RvcModelVersion.V1 else ContentVecConfig.v2()
@@ -278,7 +289,7 @@ class RvcPipeline:
     def with_config(self, cfg: ChunkConfig) -> "RvcPipeline":
         """This pipeline at another geometry: the same options, compute dtype
         and ``nn.Module`` objects (no networks are built or re-initialised),
-        a geometry and graphs of its own."""
+        a geometry and graphs of its own. The retrieval index is shared too."""
         other = copy.copy(self)
         other._set_geometry(cfg)
         return other
@@ -293,7 +304,7 @@ class RvcPipeline:
             repr(self.cfg),
             str(self.version),
             f"median={self.f0_median_radius}",
-            "retrieval=none",
+            f"retrieval={'none' if self.retrieval_index is None else self.retrieval_index.describe()}",
             f"keyshift={self.keyshift}",
             f"pvoc={self.phase_vocoder}",
             f"pitch={self.pitch_algorithm}",
@@ -343,11 +354,14 @@ class RvcPipeline:
         ]
         return buf, torch.cat([kept, res16[:, -keep:]], dim=1)
 
-    def stage_features(self, buf16: torch.Tensor) -> torch.Tensor:
-        """ContentVec features at 100 Hz, sliced to the returned frames ``[B, T, C]``."""
+    def stage_features(self, buf16: torch.Tensor, index_rate=None) -> torch.Tensor:
+        """ContentVec features at 100 Hz, sliced to the returned frames ``[B, T, C]``
+        and, with a retrieval index, blended at each stream's ``index_rate`` (``[B]``)."""
         cfg = self.cfg
-        feats = extract_feature(self.contentvec(buf16))
-        return feats[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
+        phone = extract_feature(self.contentvec(buf16))[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
+        if self.retrieval_index is not None:
+            phone = self.retrieval_index.blend(phone, index_rate)
+        return phone
 
     def stage_mel(self, buf16: torch.Tensor) -> torch.Tensor:
         """The pitch frontend of the pitch window (the stage keeps the JAX
@@ -525,13 +539,15 @@ class RvcPipeline:
         return self._graph("jit_infer", make)
 
     def _weight_modules(self):
-        return self.modules().values()
+        """What the graphs read besides their arguments: the networks and the retrieval index."""
+        mods = list(self.modules().values())
+        return mods if self.retrieval_index is None else mods + [self.retrieval_index]
 
     def _infer(self, cache, buf16, controls, rnd=None, run=None):
         """The networks' part of the step of ``B`` streams: ``(model-rate
         audio, new f0 cache)``."""
         run = run or _untimed
-        phone = run("features", self.stage_features, buf16)
+        phone = run("features", self.stage_features, buf16, controls.index_rate)
         mel = run("mel", self.stage_mel, buf16)
         salience = run("salience", self.stage_salience, mel)
         new_cache, pitch, pitchf = run("pitch_post", self.stage_pitch_post, cache, salience, controls)

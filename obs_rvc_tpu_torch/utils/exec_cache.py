@@ -54,6 +54,7 @@ _TRACED_GLOBS = (
     "dsp/*.py",
     "models/*.py",
     "ops/*.py",
+    "retrieval/index.py",
     "csrc/*.cu",
     "csrc/*.cuh",
     "stream/graphs.py",

@@ -4,7 +4,8 @@ write: an RVC release-format ``.pth`` (``{"weight", "config", "f0",
 packages, and their synthesizers agree to atol 2e-3 (the synthesizer's
 bound); ``synthesizer_config_from_meta`` agrees field by field. fairseq and
 RMVPE files with their prefixes, weight-normed ``pos_conv`` and training-only
-keys load into the port exactly.
+keys load into the port exactly, and so does an ``.onnx`` container of the
+same state dict.
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ from obs_rvc_tpu.models.checkpoints import synthesizer_config_from_meta as j_con
 from obs_rvc_tpu_torch.config import ChunkConfig
 from obs_rvc_tpu_torch.models import ContentVec, ContentVecConfig, RMVPE, RMVPEConfig, Synthesizer
 from obs_rvc_tpu_torch.models import checkpoints as C
+from obs_rvc_tpu_torch.models.onnx_reader import write_onnx_weights
 from obs_rvc_tpu_torch.stream import RvcPipeline
 
 from test_checkpoint_conversion import make_synth_state_dict
@@ -116,8 +118,15 @@ def test_contentvec_and_rmvpe_files_load_exactly(tmp_path):
     torch.save(sd, tmp_path / "wrong.pt")
     with pytest.raises(ValueError, match="shape"):
         C.load_rmvpe(RMVPE(RMVPEConfig(**RM)), tmp_path / "wrong.pt")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        C.load_rmvpe(rm, tmp_path / "rmvpe.onnx")
+    # an .onnx container of the same state dict (its initializers) loads the same way
+    want = _randomized(rm, 1)
+    # (torch's ONNX export keeps no BatchNorm step counters)
+    write_onnx_weights(tmp_path / "rmvpe.onnx", {"model." + k: v.numpy() for k, v in want.items()
+                                                 if not k.endswith("num_batches_tracked")})
+    fresh = C.load_rmvpe(RMVPE(RMVPEConfig(**RM)), tmp_path / "rmvpe.onnx")
+    for k, v in fresh.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            torch.testing.assert_close(v, want[k], rtol=0, atol=0)
 
 
 def test_load_pipeline_params_fills_what_is_given(release_pth):

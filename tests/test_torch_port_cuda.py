@@ -8,7 +8,10 @@ tile edges, every channel count the kernels are built for, and the launch
 counters; the log-mel kernel on FCPE's Slaney basis; and, at reduced
 widths, the step's CUDA graphs against the eager step (with each pitch
 algorithm), replayed from two threads, captured again after a weight
-reload, and a capture that fails. On a machine with a card, run them as::
+reload, and a capture that fails; retrieval's edge cases on the card (a
+union with fewer valid rows than k, a slab length that is no multiple of
+8, a bfloat16 table's float32 scores, the blend graphed, a second table
+loaded into a graphed step). On a machine with a card, run them as::
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -380,7 +383,7 @@ def deterministic_cudnn():
     torch.backends.cudnn.deterministic = saved
 
 
-def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe"):
+def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", retrieval_index=None):
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
     from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
@@ -395,7 +398,7 @@ def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe"):
                        rmvpe_cfg=RMVPEConfig(**GRAPH_WIDTHS["rmvpe"]),
                        synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype,
                        pitch_algorithm=pitch_algorithm, crepe_cfg=CrepeConfig("tiny"),
-                       fcpe_cfg=FcpeConfig(hidden=64, n_layers=2))
+                       fcpe_cfg=FcpeConfig(hidden=64, n_layers=2), retrieval_index=retrieval_index)
     pipe.init_params(seed, std=None)
     if dtype == torch.bfloat16:
         cast_params_for_serving(pipe)
@@ -710,3 +713,121 @@ def test_pool_fused_tick_matches_staged(cuda, deterministic_cudnn):
                  (("fused-staged", f, s), ("pipelined-staged", p, s), ("int16-rounded", i, clipped))}
         assert diffs["fused-staged"] == diffs["pipelined-staged"] == 0.0, (k, diffs)
         assert diffs["int16-rounded"] <= 0.5 / 32768 + 1e-7, (k, diffs)
+
+
+# --- retrieval ---
+
+def _clustered_table(n, c, seed=0, nclust=32):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((nclust, c)).astype(np.float32) * 2.0
+    table = centers[rng.integers(0, nclust, n)] + 0.6 * rng.standard_t(4, (n, c)).astype(np.float32)
+    walk = table[rng.integers(0, n, 3)][:, None, :] + np.cumsum(0.2 * rng.standard_normal((3, 12, c)), axis=1)
+    return table.astype(np.float32), walk.astype(np.float32)
+
+
+def _ivf_table(table, lcap, nlist=32, dtype=torch.float32):
+    from obs_rvc_tpu_torch.retrieval import IvfFlatIndex, RetrievalIndex
+    from obs_rvc_tpu_torch.retrieval.build import train_ivf
+
+    cent, assign = train_ivf(table, nlist=nlist, iters=4, seed=0, device="cpu")
+    return RetrievalIndex(mode="ivf").make_ivf_params(IvfFlatIndex(table, cent, assign), dtype=dtype, lcap=lcap)
+
+
+@pytest.mark.parametrize("mode,dtype,lcap", [
+    ("exact", torch.float32, None), ("exact", torch.bfloat16, None),
+    ("ivf", torch.float32, 20),   # a slab length that is no multiple of 8
+    ("ivf", torch.bfloat16, 64),
+])
+def test_retrieval_blend_on_the_card_matches_the_cpu(cuda, mode, dtype, lcap):
+    """The blend of three streams on the card against the same function on
+    the CPU, on the same table and queries: 1e-4 (TF32 off); scores are
+    float32 whatever the table's dtype."""
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+    from obs_rvc_tpu_torch.retrieval.index import table_products
+
+    table, walk = _clustered_table(3000, 64)
+    if mode == "exact":
+        params = RetrievalIndex.make_params(table, dtype=dtype)
+    else:
+        params = _ivf_table(table, lcap, dtype=dtype)
+    card = RetrievalIndex(mode=mode, probes=8).load(params, cuda)
+    cpu = RetrievalIndex(mode=mode, probes=8).load(params, "cpu")
+    rate = torch.tensor([0.75, 0.3, 1.0])
+    want = cpu.blend(torch.from_numpy(walk), rate)
+    got = card.blend(torch.from_numpy(walk).to(cuda), rate.to(cuda))
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert table_products(torch.from_numpy(walk[0]).to(cuda), card.vectors).dtype == torch.float32
+
+
+def test_ivf_search_with_k_above_the_unions_valid_rows(cuda):
+    """Lists of 3 rows, one probed list, k=8: five of the eight are masked
+    rows (weight 0). The blend is finite and equals the CPU's; the valid
+    rows found are the CPU's."""
+    from obs_rvc_tpu_torch.retrieval import IvfFlatIndex, RetrievalIndex
+    from obs_rvc_tpu_torch.retrieval.index import ivf_search
+
+    rng = np.random.default_rng(3)
+    cent = rng.standard_normal((10, 16)).astype(np.float32) * 5.0
+    table = np.repeat(cent, 3, axis=0) + 0.1 * rng.standard_normal((30, 16)).astype(np.float32)
+    params = RetrievalIndex(mode="ivf").make_ivf_params(IvfFlatIndex(table, cent, np.repeat(np.arange(10), 3)))
+    q = torch.from_numpy(cent[4:5] + 0.05 * rng.standard_normal((1, 16)).astype(np.float32))
+    tables = {dev: [params[k].to(dev) for k in ("vectors", "norms", "lengths", "offsets", "centroids", "cnorms")]
+              for dev in ("cpu", cuda)}
+    (_, ws, wr), (_, gs, gr) = (ivf_search(*tables[d], q.to(d), k=8, probes=1, lcap=8) for d in ("cpu", cuda))
+    valid = ws > -1e29
+    assert int(valid.sum()) == 3
+    assert torch.equal(gs.cpu() > -1e29, valid)
+    assert set(gr.cpu()[valid].tolist()) == set(wr[valid].tolist())
+    card = RetrievalIndex(mode="ivf", probes=1).load(params, cuda)
+    cpu = RetrievalIndex(mode="ivf", probes=1).load(params, "cpu")
+    got, want = card.blend(q[None].to(cuda), 1.0).cpu(), cpu.blend(q[None], 1.0)
+    assert torch.isfinite(got).all() and float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["exact", "ivf"])
+def test_graphed_blend_equals_eager(cuda, mode):
+    """The blend alone as a CUDA graph: nothing in it waits for the host,
+    and its replays equal the eager blend bit for bit, whatever the rates."""
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+    from obs_rvc_tpu_torch.stream.graphs import GraphedFunction
+
+    table, walk = _clustered_table(3000, 64, seed=1)
+    params = RetrievalIndex.make_params(table) if mode == "exact" else _ivf_table(table, 24)
+    idx = RetrievalIndex(mode=mode).load(params, cuda)
+    phone, rate = torch.from_numpy(walk).to(cuda), torch.tensor([0.75, 0.3, 1.0], device=cuda)
+    graphed = GraphedFunction(idx.blend, (phone, rate), device=cuda, name=f"blend_{mode}", weights=lambda: [idx])
+    for r in (rate, rate.flip(0)):
+        assert torch.equal(graphed(phone, r), idx.blend(phone, r))
+    assert graphed.captures == 1
+
+
+def test_loading_a_second_index_recaptures(cuda, deterministic_cudnn):
+    """A graphed step reads the table it was captured over: loading another
+    table into the pipeline's index captures jit_step again (once), and the
+    step then blends with the new table, as the eager step does."""
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    idx = RetrievalIndex()
+    pipe = _graph_pipe(cuda, retrieval_index=idx)
+    first, _ = _clustered_table(2048, 64, seed=2)
+    second, _ = _clustered_table(4096, 64, seed=3)
+    idx.load(RetrievalIndex.make_params(first), cuda)
+    chunks = _chunks(pipe, 3)
+
+    def run(step):
+        state, outs = pipe.new_state(), []
+        for chunk in chunks:
+            state, out = step(state, chunk.to(cuda), StepControls.default(index_rate=0.75))
+            outs.append(out)
+        return torch.cat(outs)
+
+    before = run(pipe.jit_step)
+    assert torch.equal(before, run(pipe.step))
+    captures = pipe.jit_step.captures
+    idx.load(RetrievalIndex.make_params(second), cuda)
+    want = run(pipe.step)
+    assert torch.equal(run(pipe.jit_step), want)
+    assert pipe.jit_step.captures == captures + 1
+    assert not torch.equal(want, before)

@@ -246,8 +246,8 @@ def test_server_builds_the_pipeline_from_flags():
 @pytest.mark.parametrize("flags,item", [
     (["--pool", "4", "--mesh", "data=4"], "item 13"),
     (["--mesh", "data=4"], "item 13"),
-    (["--index", "v.index"], "item 12"),
-    (["--index-mode", "ivf"], "item 12"),
+    (["--index", "v.index", "--mesh", "model=2"], "item 13"),
+    (["--index-mode", "ivf", "--mesh", "model=2"], "item 13"),
     (["--no-pallas-resblocks"], "refused"),
 ])
 def test_unported_server_flags_exit_naming_their_item(flags, item):
@@ -405,8 +405,8 @@ def test_cli_skip_inference_writes_the_jax_cli_samples(tmp_path):
     # which moves the PCM16 rounding of a few samples by one step
     np.testing.assert_allclose(got, ref, rtol=0, atol=1.5 / 32768)
     assert np.mean(got != ref) < 1e-3
-    with pytest.raises(SystemExit, match="item 12"):
-        cli.main([str(tmp_path / "in.wav"), str(tmp_path / "o.wav"), "--index", "v.index", "--device", "cpu"])
+    # the retrieval flags are ported: only --mesh still exits
+    cli.check_ported(cli.build_parser().parse_args(["in.wav", "o.wav", "--index", "v.index", "--index-mode", "ivf"]))
     with pytest.raises(SystemExit, match="item 13"):
         cli.main([str(tmp_path / "in.wav"), str(tmp_path / "o.wav"), "--mesh", "model=2", "--device", "cpu"])
 
