@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level and bank
+    python3 chip_smoke.py --only mesh,stage_repeat  # the build and these phases alone, no kernel line
 
 Phases, each printing its own lines:
 
@@ -39,7 +40,14 @@ Phases, each printing its own lines:
            device's busy share; MFU (utils/flops.py over step p50, against
            989 TFLOP/s in bfloat16 and 67 in float32); the controls changed
            mid-stream (pitch 0 -> 12 -> -5, rms_mix_rate 1 -> 0.5) with no
-           capture; on v1, new weights after the capture reach both graphs
+           capture; on v1, new weights after the capture reach both graphs.
+           Between the bfloat16 run and v1 ("stage_repeat"), a child process
+           with cuDNN's API log on captures the bfloat16 stage graphs 6 times
+           (each forced by loading the weights again), each stream within
+           the float32 bound of the eager one (how many bit for bit is
+           reported), every leaf module's output of an eager step on the
+           graphs' capture thread against the main thread's, and the cuDNN
+           log's engine lines compared capture by capture
 5. serve   the port's server (serve.server.main, at its defaults: bfloat16,
            staged graphs captured before it listens) on a thread at the same
            geometry and width, listening on the duplex, WebSocket, RPC and
@@ -106,7 +114,24 @@ Phases, each printing its own lines:
            it (1e-5); a server with --index <file>.index --index-mode ivf
            serves a duplex session with no error and serve.cli converts a WAV
            file with --index <file>.onnx (both on the table's first 65536 rows)
-9. timing  step p50/p95 and peak device memory in both dtypes; each kernel's
+9. mesh    obs_rvc_tpu_torch/parallel at full width with RMVPE, TF32 off,
+           every mesh the one card named more than once: a data=2 x model=2
+           StreamPool of 8, fused and staged, in float32 and bfloat16, two
+           slots starved, against the one-device pool on the same chunks
+           (float32 within 1e-3 of max|audio|; bfloat16 each stream nearer
+           its own than any other, its error printed); the eager mesh step's
+           wrapper launches (2 x 1/4/2 a tick), a trace of 5 pool ticks
+           (2 x 1/32/18 hand kernels a tick), tick p50/p95 and peak memory
+           beside the one-device pool's; ContentVec split at model=2 against
+           the unsharded network (2e-4); the exact blend over the retrieval
+           phase's table split at model=2 against the unsharded blend (1e-4),
+           both timed at 1 and 8 streams; dryrun_multichip(8) over the card
+           named 8 times; a server with --pool 8 --mesh data=1,model=1 serves
+           a duplex session with no error, --mesh data=2 exits naming the
+           device count; two processes of tests/torch_distributed_worker.py
+           (gloo, full width, float32) against one process, and NCCL at
+           world size 1 in a process of its own
+10. timing step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
            function and its eager call; the U-Net chain and the resblock
@@ -131,6 +156,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import pathlib
 import platform
 import socket
@@ -2561,6 +2587,466 @@ def phase_retrieval(report, smi):
         (OUT_DIR / f).unlink()
     out["phase_s"] = time.perf_counter() - t_phase
     log("retrieval", f"the retrieval phase ran {out['phase_s']:.1f} s")
+    return table, queries
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 stage graphs captured again and again (a fault seen once)
+# ---------------------------------------------------------------------------
+
+#: captures of the bfloat16 stage graphs, each forced by loading the weights again, and the chunks each streams
+STAGE_REPEATS = 6
+STAGE_REPEAT_CHUNKS = 12
+#: the cuDNN API log's lines kept in the output directory for reading, at most
+CUDNN_LOG_SAMPLE = 400
+
+
+def _leaf_outputs(pipe, state, chunk, controls):
+    """Every leaf module's output (its first tensor) in one eager step, by
+    module name, on the CPU: which operator's result moves between threads."""
+    import torch
+
+    outs, hooks = {}, []
+    for net, module in pipe.modules().items():
+        for name, m in module.named_modules():
+            if not list(m.children()):
+                def hook(_m, _inp, out, key=f"{net}.{name}"):
+                    t = out[0] if isinstance(out, tuple) else out
+                    if isinstance(t, torch.Tensor):
+                        outs[key] = t.detach().float().cpu()
+                hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            _, emitted = pipe.step(state, chunk, controls)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    outs["emitted"] = emitted.float().cpu()
+    return outs
+
+
+def stage_repeat_child(out_path: str, log_path: str) -> None:
+    """The child of :func:`phase_stage_repeat`, with cuDNN's API log on: the
+    bfloat16 pipeline at full width with RMVPE, one eager stream of the
+    voiced signal, then ``STAGE_REPEATS`` captures of the stage graphs, each
+    forced by loading the same weights again, each stream held to the eager
+    one; per capture, every leaf module's output of an eager step run on the
+    graphs' capture thread against the main thread's, and the cuDNN log's
+    engine lines of the capture. Writes a JSON summary to ``out_path``."""
+    import collections
+    import re
+
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.ops import _cuda
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, graphs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.build()
+    cfg = ChunkConfig.build()
+    pipe = RvcPipeline(cfg, compute_dtype=torch.bfloat16)
+    pipe.init_params(SEED, std=None)
+    cast_params_for_serving(pipe)
+    saved = {name: {k: v.clone() for k, v in m.state_dict().items()} for name, m in pipe.modules().items()}
+    n = cfg.sample_frame_size
+    wav = torch.from_numpy(voiced_signal(STAGE_REPEAT_CHUNKS * n, cfg.sample_rate))
+    chunks = [wav[i * n : (i + 1) * n].to(pipe.device) for i in range(STAGE_REPEAT_CHUNKS)]
+    controls = StepControls.default()
+    # the eager stream, and the state half-way through it: one step's leaf outputs from there, main thread
+    state, outs, half = pipe.new_state(), [], STAGE_REPEAT_CHUNKS // 2
+    with torch.no_grad():
+        for i, c in enumerate(chunks):
+            if i == half:
+                probe_state = state
+            state, out = pipe.step(state, c, controls)
+            outs.append(out)
+    eager = torch.cat(outs).cpu()
+    state, probe = probe_state, chunks[half]
+    main_leaves = _leaf_outputs(pipe, state, probe, controls)
+
+    def log_size():
+        return pathlib.Path(log_path).stat().st_size if pathlib.Path(log_path).exists() else 0
+
+    marks, runs = [log_size()], []
+    for i in range(STAGE_REPEATS):
+        for name, m in pipe.modules().items():
+            m.load_state_dict(saved[name])  # the same values: the graphs see new weights and capture again
+        before = pipe.staged_graphs.captures
+        got, _ = stream(pipe.staged_step, pipe, chunks, controls)
+        torch.cuda.synchronize()
+        marks.append(log_size())
+        rel = float((got - eager).abs().max()) / max(float(eager.abs().max()), 1e-12)
+        on_thread = graphs._capture_thread().submit(_leaf_outputs, pipe, state, probe, controls).result()
+        moved = sorted(k for k, v in on_thread.items() if not torch.equal(v, main_leaves[k]))
+        runs.append({"recaptured": pipe.staged_graphs.captures > before, "bit_identical": bool(torch.equal(got, eager)),
+                     "rel_max_err": rel, "leaves_moved_on_capture_thread": moved[:20], "leaves": len(on_thread)})
+        print(f"[stage_repeat] capture {i + 1}: " + ("bit-identical to eager" if runs[-1]["bit_identical"] else
+                                                    f"{rel:.3e} of max|eager|")
+              + f"; on the capture thread {len(moved)} of {len(on_thread)} leaf outputs differ from the main thread's",
+              flush=True)
+
+    # the cuDNN API log, cut at each capture's end: its engine lines by capture
+    engines, sample = [], []
+    pattern = re.compile(r"(engine|ENGINE|globalIndex|GLOBAL_INDEX|knob|KNOB)")
+    if pathlib.Path(log_path).exists():
+        with open(log_path, "rb") as f:
+            for i in range(STAGE_REPEATS):
+                f.seek(marks[i])
+                text = f.read(marks[i + 1] - marks[i]).decode("utf-8", "replace")
+                lines = [re.sub(r"\d+:\d+:\d+\.\d+|0x[0-9a-f]+|Time: .*|pid=\d+|tid=\d+", "", ln).strip()
+                         for ln in text.splitlines() if pattern.search(ln)]
+                engines.append(collections.Counter(lines))
+                if i == 0:
+                    sample = text.splitlines()[:CUDNN_LOG_SAMPLE]
+    # the first capture is the capture thread's first cuDNN work: its segment holds the heuristic
+    # queries of every convolution, which the thread's plan cache answers in the later ones
+    later = engines[1:]
+    summary = {"runs": runs, "log_bytes": marks[-1], "log_marks": marks,
+               "engine_lines_per_capture": [sum(c.values()) for c in engines],
+               "distinct_engine_lines_per_capture": [len(c) for c in engines],
+               "engine_lines_same_after_the_first": all(c == later[0] for c in later[1:]) if later else None,
+               "engine_lines_differing_after_the_first": sorted({ln for c in later for ln in c
+                                                                 if any(d.get(ln) != c.get(ln) for d in later)})[:40]}
+    pathlib.Path(out_path).write_text(json.dumps(summary, indent=1))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "cudnn_log_sample.txt").write_text("\n".join(sample))
+
+
+def phase_stage_repeat(report):
+    """A fault seen once in an earlier run: the bfloat16 stage graphs
+    1.279e-2 of max|audio| off the eager step. A child process with cuDNN's
+    API log on (``CUDNN_LOGLEVEL_DBG=3``, set before cuDNN loads) captures
+    them ``STAGE_REPEATS`` times (:func:`stage_repeat_child`); every capture
+    must be within the float32 bound of the emitted audio, as in
+    :func:`phase_graphs`, and how many are bit for bit is reported with any
+    leaf output that differs on the capture thread and any change in the
+    engine lines of cuDNN's log from one capture to the next."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path, log_path = pathlib.Path(tmp) / "repeat.json", pathlib.Path(tmp) / "cudnn.log"
+        env = dict(os.environ, CUDNN_LOGLEVEL_DBG="3", CUDNN_LOGDEST_DBG=str(log_path))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()), "--stage-repeat-child",
+                               str(out_path), str(log_path)], env=env, capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith("[stage_repeat]"):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"stage_repeat: the child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        summary = json.loads(out_path.read_text())
+    summary["phase_s"] = time.perf_counter() - t0
+    report["stage_repeat"] = summary
+    runs = summary["runs"]
+    bit = sum(r["bit_identical"] for r in runs)
+    moved = sorted({k for r in runs for k in r["leaves_moved_on_capture_thread"]})
+    log("stage_repeat", f"{len(runs)} captures of the bfloat16 stage graphs (each forced by loading the weights "
+                        f"again), {STAGE_REPEAT_CHUNKS} chunks each: {bit} bit-identical to the eager stream, max "
+                        f"error {max(r['rel_max_err'] for r in runs):.3e} of max|eager| (bound {CPU_TOL['emitted']}); "
+                        f"leaf outputs that differ on the capture thread: {moved or 'none'}; cuDNN API log "
+                        f"{summary['log_bytes'] / 2**20:.1f} MiB, engine lines per capture "
+                        f"{summary['engine_lines_per_capture']} (the first holds the capture thread's heuristic "
+                        f"queries), the same in every later capture: {summary['engine_lines_same_after_the_first']} "
+                        f"({summary['phase_s']:.1f} s)")
+    if summary["engine_lines_same_after_the_first"] is False:
+        log("stage_repeat", "cuDNN engine lines that moved between captures: "
+                            + "; ".join(summary["engine_lines_differing_after_the_first"]))
+    if not all(r["recaptured"] for r in runs):
+        raise AssertionError(f"stage_repeat: a weight load did not recapture the stage graphs: {runs}")
+    bad = [i for i, r in enumerate(runs) if r["rel_max_err"] > CPU_TOL["emitted"]]
+    if bad:
+        raise AssertionError(f"stage_repeat: captures {bad} are off the eager stream by more than "
+                             f"{CPU_TOL['emitted']}: {[runs[i]['rel_max_err'] for i in bad]}; moved: {moved}")
+
+
+# ---------------------------------------------------------------------------
+# the mesh: streams split along data, ContentVec and the exact table along model
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's pool mesh: data rows x model shards, all on the one card
+MESH_DATA, MESH_MODEL = 2, 2
+#: the dry run's device count (the card named this many times)
+MESH_DRYRUN_DEVICES = 8
+#: the TP ContentVec's bound against the unsharded network (the JAX mesh tests')
+MESH_TP_TOL = 2e-4
+#: chunks the distributed workers' parent compares, and each worker's time limit
+MESH_DIST_TIMEOUT_S = 300
+
+
+def trace_pool_ticks(pipe, wavs, controls, want, ticks=5, **pool_kw):
+    """A pool of ``len(wavs)`` slots, every slot fed each tick: the hand
+    kernels in a trace of ``ticks`` ticks after one untraced, and the
+    device's busy ms a tick; traced once more if the tracer lost records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from obs_rvc_tpu_torch.stream import StreamPool
+
+    n = pipe.cfg.sample_frame_size
+    pool = StreamPool(pipe, capacity=len(wavs), **pool_kw)
+    pool.prepare()
+    slots = [pool.attach(c) for c in controls]
+    fed = [0]
+
+    def tick():
+        i = fed[0] % (wavs.shape[1] // n)
+        for k, s in enumerate(slots):
+            pool.push_audio(s, wavs[k, i * n : (i + 1) * n])
+            pool.pull_audio(s, n)
+        fed[0] += 1
+        pool.process_pending()
+
+    def trace():
+        tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(ticks):
+                tick()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if not marks:
+            raise AssertionError("the trace holds no marker kernel: torch.profiler recorded no device activity")
+        events = events[marks[-1] + 1 :]
+        return kernel_counts(events), device_busy_ms(events) / ticks
+
+    with torch.no_grad():
+        counts, busy = trace()
+        retraced = counts != want and all(counts[k] <= v for k, v in want.items())
+        if retraced:
+            counts, busy = trace()
+    pool.stop()
+    return counts, busy, retraced
+
+
+def phase_mesh(report, smi, table=None, queries=None):
+    """The mesh (``obs_rvc_tpu_torch/parallel/``) at full width with RMVPE,
+    TF32 off, every mesh the one card named more than once: a data=2 x
+    model=2 StreamPool of ``POOL_B`` against the one-device pool on the same
+    chunks (float32 within 1e-3 of max|audio|, bfloat16 by
+    :func:`pool_parity`), fused and staged, two slots starved; the eager
+    mesh step's wrapper launches a tick (2 x 1/4/2), a trace of 5 pool ticks
+    (2 x 1/32/18 hand kernels a tick), tick p50/p95 and peak memory beside
+    the one-device pool's; ContentVec split at model=2 against the unsharded
+    network; the exact blend over the retrieval phase's table split at
+    model=2 against the unsharded blend, both timed; ``dryrun_multichip``
+    over the card named 8 times; a server with ``--pool 8 --mesh
+    data=1,model=1`` and ``--mesh data=2`` refused; two processes of
+    ``tests/torch_distributed_worker.py`` at full width over gloo against one
+    process, and NCCL at world size 1."""
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.parallel import make_mesh, shard_controls, shard_params, shard_state
+    from obs_rvc_tpu_torch.parallel.dryrun import dryrun_multichip
+    from obs_rvc_tpu_torch.parallel.sharding import gather_rows, shard_contentvec, step_rows
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+    from obs_rvc_tpu_torch.serve import server
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamState
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("mesh: TF32 is on; the float32 comparisons need it off")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = ChunkConfig.build()
+    n = cfg.sample_frame_size
+    mesh = make_mesh(n_data=MESH_DATA, n_model=MESH_MODEL, devices=[dev] * (MESH_DATA * MESH_MODEL))
+    out = report["mesh"] = {"nvidia_smi": smi, "mesh": mesh.shape, "devices": "cuda:0 named "
+                            f"{MESH_DATA * MESH_MODEL} times", "streams": POOL_B, "chunks": POOL_CHUNKS}
+    wavs, chunks, controls = pool_streams(cfg, POOL_B, POOL_CHUNKS, dev)
+    stacked = StepControls.stack(controls, dev)
+    per_tick = {k: MESH_DATA * v for k, v in LAUNCHES_PER_STEP["rmvpe"].items()}
+    kernels_want = {k: 5 * MESH_DATA * v for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+
+    # 1. pools: one device, then the mesh, in each dtype
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        pipe = RvcPipeline(cfg, compute_dtype=getattr(torch, dtype))
+        pipe.init_params(SEED, std=None)
+        if dtype == "bfloat16":
+            cast_params_for_serving(pipe)
+        r = out[dtype] = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one[dtype], stats = pool_run(pipe, wavs, controls, starved=POOL_STARVED, mode="fused")
+        stats["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+        r["one_device_fused"] = stats
+        # the eager mesh step: each row launches each wrapper as a one-device step does
+        rows = shard_params(pipe, mesh)
+        states = shard_state(StreamState.init_batch(cfg, POOL_B, device=dev), mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        with torch.no_grad():
+            for c in chunks[:2]:
+                states, _ = step_rows(rows, states, shard_state(c, mesh), shard_controls(stacked, mesh))
+        launches = read_launches()
+        r["eager_launches_per_tick"] = {k: v / 2 for k, v in launches.items()}
+        log("mesh", f"{dtype}: the eager step on a data={MESH_DATA} x model={MESH_MODEL} mesh, 2 ticks of "
+                    f"{POOL_B} streams: wrapper launches {launches} (want {MESH_DATA} rows x "
+                    f"{LAUNCHES_PER_STEP['rmvpe']} a tick)")
+        if launches != {k: 2 * v for k, v in per_tick.items()}:
+            raise AssertionError(f"mesh {dtype}: launches {launches} over 2 ticks, want {per_tick} a tick")
+        for mode in ("fused", "staged"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got, stats = pool_run(pipe, wavs, controls, starved=POOL_STARVED, mode=mode, mesh=mesh)
+            stats["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+            if dtype == "float32":
+                same = [check_same(f"mesh float32 {mode} slot {k}", a, one["float32"][k], CPU_TOL["emitted"])
+                        for k, a in enumerate(got)]
+                stats["vs_one_device"] = same
+                verdict = ", ".join("bit-identical" if b else f"{e:.2e}" for b, e in same) + \
+                    f" of max|audio| (bound {CPU_TOL['emitted']})"
+            else:
+                par = pool_parity(f"mesh bfloat16 {mode}", torch.stack(got), one["bfloat16"], one["float32"])
+                stats["parity"] = par
+                verdict = ("off the float32 one-device pool " + ", ".join(f"{e:.4f}" for e in par["rel"])
+                           + " (the bfloat16 one-device pool: " + ", ".join(f"{e:.4f}" for e in par["single_rel"])
+                           + "); relative L2 off its own stream " + ", ".join(f"{e:.3f}" for e in par["l2_own"])
+                           + ", off the nearest other " + ", ".join(f"{e:.3f}" for e in par["l2_nearest_other"]))
+            counts, busy, retraced = trace_pool_ticks(pipe, wavs, controls, kernels_want, mode=mode, mesh=mesh)
+            stats.update(kernels_in_trace=counts, device_busy_ms_per_tick=busy, traced_again=retraced)
+            r[mode] = stats
+            base = r["one_device_fused"]
+            log("mesh", f"{dtype} StreamPool({POOL_B}, {mode}) on data={MESH_DATA} x model={MESH_MODEL}, slots "
+                        f"{POOL_STARVED} starved for 3 ticks: tick p50 {stats['tick_p50_ms']:.2f} ms, p95 "
+                        f"{stats['tick_p95_ms']:.2f} (one device, fused: {base['tick_p50_ms']:.2f} / "
+                        f"{base['tick_p95_ms']:.2f}); capture {stats['capture_s']:.2f} s; peak memory "
+                        f"{stats['peak_mem_bytes'] / 2**20:.0f} MiB (one device {base['peak_mem_bytes'] / 2**20:.0f}); "
+                        f"each slot against the one-device pool: {verdict}; a trace of 5 ticks: hand kernels "
+                        f"{counts} (want {kernels_want}), device busy {busy:.2f} ms a tick [{smi}]")
+            if counts != kernels_want:
+                raise AssertionError(f"mesh {dtype} {mode}: 5 ticks traced {counts} hand kernels, want {kernels_want}")
+        if dtype == "float32":
+            # 2. ContentVec alone, split at model=2, against the unsharded network
+            cv = pipe.contentvec
+            tp = shard_contentvec(cv, [dev, dev])
+            wav16 = torch.from_numpy(np.random.default_rng(SEED + 70).standard_normal((1, 16000))
+                                     .astype(np.float32) * 0.1).to(dev)
+            with torch.no_grad():
+                want, got = cv(wav16), tp(wav16)
+                err = check_close("mesh ContentVec model=2 vs unsharded", got, want, MESH_TP_TOL, 1e-4)
+                ms = {"unsharded": cuda_ms(lambda: cv(wav16)), "model2": cuda_ms(lambda: tp(wav16))}
+            out["contentvec_tp"] = {"max_abs_err": err, "ms": ms}
+            log("mesh", f"ContentVec (768-d, 12 heads, 3072 FFN) split at model=2 against the unsharded network, 1 s "
+                        f"of audio: max abs err {err:.3e} (bound {MESH_TP_TOL}); CUDA events {ms['model2']:.3f} ms "
+                        f"against {ms['unsharded']:.3f} [{smi}]")
+            del tp
+        del pipe, rows, states
+        torch.cuda.empty_cache()
+
+    # 3. the exact blend over the table split at model=2, against the unsharded blend
+    if table is None:
+        table = retrieval_table(RETRIEVAL_N, RETRIEVAL_C, SEED + 60)
+        queries = retrieval_queries(table, np.random.default_rng(SEED + 61), POOL_B, cfg.return_length)
+    params = RetrievalIndex.make_params(table)
+    whole = RetrievalIndex().load(params, dev)
+    split = RetrievalIndex(mesh=make_mesh(n_data=1, n_model=2, devices=[dev, dev])).load(params)
+    blend = {}
+    for B in (1, POOL_B):
+        q = torch.from_numpy(queries[:B]).to(dev)
+        rate = torch.full((B,), RETRIEVAL_RATE, device=dev)
+        err = check_close(f"mesh sharded blend B={B}", split.blend(q, rate), whole.blend(q, rate), RETRIEVAL_TOL, 0.0)
+        bound, by = blend_bound_ms(B, cfg.return_length, len(table), RETRIEVAL_C, 4, "exact")
+        blend[B] = {"max_abs_err": err, "ms": graph_ms(lambda: split.blend(q, rate), calls=3, replays=5),
+                    "unsharded_ms": graph_ms(lambda: whole.blend(q, rate), calls=3, replays=5),
+                    "bound_ms": bound, "bound_by": by}
+    out["sharded_blend"] = blend
+    log("mesh", f"the exact blend over {len(table)} x {RETRIEVAL_C} float32 rows split at model=2 against the "
+                "unsharded blend: " + "; ".join(f"B={B} max abs err {b['max_abs_err']:.2e} (bound {RETRIEVAL_TOL}), "
+                                              f"{b['ms']:.4f} ms against {b['unsharded_ms']:.4f} (bound "
+                                              f"{b['bound_ms']:.4f} by {b['bound_by']})" for B, b in blend.items())
+                + f" (CUDA events, a graph of its calls) [{smi}]")
+    del whole, split, params
+    torch.cuda.empty_cache()
+
+    # 4. both mesh shapes of 8 devices at production widths, the card named 8 times
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dryrun_multichip(MESH_DRYRUN_DEVICES, devices=[dev] * MESH_DRYRUN_DEVICES)
+    out["dryrun_s"] = time.perf_counter() - t0
+    log("mesh", f"dryrun_multichip({MESH_DRYRUN_DEVICES}) over cuda:0 named {MESH_DRYRUN_DEVICES} times: "
+                f"data=4 x model=2 (with a pool tick) and data=2 x model=4 in {out['dryrun_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 5. the server on a mesh pool; a mesh the card cannot hold is refused, naming the count
+    host = "127.0.0.1"
+    with Server(server_argv(host, ["--pool", str(POOL_B), "--mesh", "data=1,model=1"])) as srv:
+        url = f"http://{host}:{srv.bound['health']}/metrics"
+        wav = voiced_signal((POOL_SERVE_CHUNKS + 2) * n, cfg.sample_rate, seed=SEED + 71)
+        streamed = duplex_session(host, srv.bound["duplex"], wav, POOL_SERVE_CHUNKS, n, cfg.sample_rate)
+        metrics = wait_metrics_settled(url)
+        if metrics["errors"] != 0 or metrics["chunks"] < POOL_SERVE_CHUNKS:
+            raise AssertionError(f"mesh server: /metrics {metrics}")
+        out["server"] = {"startup_s": srv.startup_s, "metrics": metrics}
+    try:
+        server.main(["--mesh", "data=2", "--port", "0"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    out["server"]["data2_refused"] = refused
+    log("mesh", f"server --pool {POOL_B} --mesh data=1,model=1 (bfloat16, staged): a duplex session, "
+                f"{streamed.size} samples back; /metrics {metrics}; --mesh data=2 on one card: {refused!r}")
+    if not refused or "need 2 devices, have 1" not in refused:
+        raise AssertionError(f"mesh: --mesh data=2 on one card was not refused naming the count: {refused!r}")
+
+    # 6. two processes over gloo on the card at full width, against one process; NCCL at world size 1
+    worker = pathlib.Path(__file__).resolve().parent / "tests" / "torch_distributed_worker.py"
+    OUT_DIR.mkdir(exist_ok=True)
+
+    def run_workers(nprocs, extra):
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(worker), str(i), str(nprocs), str(port), str(OUT_DIR), *extra],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in range(nprocs)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=MESH_DIST_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, (p, text) in enumerate(zip(procs, texts)):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh: distributed worker {i} of {nprocs} exited {p.returncode}:\n{text[-3000:]}")
+        return time.perf_counter() - t0, texts
+
+    dist_s, texts = run_workers(2, ["--device", "cuda:0", "--full-width", "--backend", "gloo"])
+    got = torch.from_numpy(np.load(OUT_DIR / "dist_out.npy"))
+    sys.path.insert(0, str(worker.parent))
+    import torch_distributed_worker as tdw
+
+    pipe = RvcPipeline(cfg, device=dev)
+    pipe.init_params(0, std=None)
+    B = tdw.LOCAL * 2
+    with torch.no_grad():
+        _, want = pipe.step(StreamState.init_batch(cfg, B, device=dev), torch.from_numpy(tdw.inputs(cfg, B)).to(dev),
+                            StepControls.stack([StepControls.default()] * B, dev), batched=True)
+    same = check_same("mesh two processes vs one", got, want.cpu(), CPU_TOL["emitted"])
+    nccl_s, nccl = run_workers(1, ["--device", "cuda:0", "--backend", "nccl"])
+    for f in ("dist_out.npy", "dist_buf16.npy"):
+        (OUT_DIR / f).unlink()
+    out["distributed"] = {"two_process_s": dist_s, "bit_identical": same[0], "rel_max_err": same[1],
+                          "workers": [t.strip().splitlines()[-1] for t in texts],
+                          "nccl": nccl[0].strip().splitlines()[-1], "nccl_s": nccl_s}
+    log("mesh", f"two processes (gloo, {tdw.LOCAL} rows each, full width float32 on cuda:0) in {dist_s:.1f} s: "
+                f"the gathered {B} streams " + ("bit-identical to" if same[0] else f"within {same[1]:.2e} of")
+                + f" one process's batched step; {out['distributed']['nccl']} ({nccl_s:.1f} s)")
+    del pipe
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("mesh", f"the mesh phase ran {out['phase_s']:.1f} s")
 
 
 def kernel_line(report):
@@ -2614,9 +3100,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps with torch.profiler (device busy share, top operators)")
+    ap.add_argument("--only", default="",
+                    help="run only these phases after the build, comma-separated (stage_repeat, mesh), and print "
+                         "no kernel line: for iterating on one phase")
+    ap.add_argument("--stage-repeat-child", nargs=2, metavar=("OUT", "LOG"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
+
+    if args.stage_repeat_child:
+        stage_repeat_child(*args.stage_repeat_child)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2657,6 +3151,19 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 log("build", f"{name}: {line.strip()}")
 
+    if args.only:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi)}
+        for name in args.only.split(","):
+            phases[name]()
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+        log("done", f"chip_smoke --only {args.only} ran {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     phase_parity(report)
     f32 = phase_main(report, "main", N_CHUNKS, "float32", cpu_chunks=CPU_CHUNKS["float32"], breakdown=True)
     if args.profile:
@@ -2670,6 +3177,7 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(report, "main_bf16", bf16)
     phase_graphs(report, "main_bf16", bf16)
+    phase_stage_repeat(report)
     v1 = phase_main(report, "v1", V1_CHUNKS, "bfloat16", version="v1")
     phase_graphs(report, "v1", v1, reload_weights=True)
     del v1
@@ -2692,7 +3200,10 @@ def main(argv=None) -> int:
     phase_pitch_serve(report)
     phase_pool(report)
     phase_pool_serve(report)
-    phase_retrieval(report, smi)
+    table, queries = phase_retrieval(report, smi)
+    torch.cuda.empty_cache()
+    phase_mesh(report, smi, table, queries)
+    del table, queries
     torch.cuda.empty_cache()
     phase_timing(report, trace=args.profile)
     for key in ("main", "main_bf16", "v1", "crepe", "crepe_bf16", "fcpe", "fcpe_bf16"):

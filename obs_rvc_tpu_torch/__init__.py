@@ -15,12 +15,17 @@ against that package module by module:
               session with its ring buffers, and the RPC engine
 - ``serve``   the front doors: reference RPC, duplex stream, WebSocket,
               health/metrics, the server that runs them, the offline CLI
+- ``parallel`` the ``('data', 'model')`` device mesh: streams split along
+              data, ContentVec and the exact retrieval table along model,
+              ``torch.distributed`` across processes
 - ``utils``   WAV I/O and channel mixing
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``--device cpu`` on a command line).
 """
 
-from obs_rvc_tpu_torch.config import ChunkConfig, RvcModelVersion
+from obs_rvc_tpu_torch.config import ChunkConfig, PitchAlgorithm, RvcModelVersion, StreamSettings
 
-__all__ = ["ChunkConfig", "RvcModelVersion"]
+__version__ = "0.1.0"
+
+__all__ = ["ChunkConfig", "PitchAlgorithm", "RvcModelVersion", "StreamSettings", "__version__"]

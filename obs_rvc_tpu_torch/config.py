@@ -30,6 +30,11 @@ class RvcModelVersion(enum.Enum):
         """Feature width fed to the synthesizer."""
         return 256 if self is RvcModelVersion.V1 else 768
 
+    @property
+    def output_layers(self) -> int:
+        """ContentVec transformer layer tapped for the features: 9 for v1, 12 for v2."""
+        return 9 if self is RvcModelVersion.V1 else 12
+
     @classmethod
     def from_str(cls, s: str) -> "RvcModelVersion":
         return {"v1": cls.V1, "v2": cls.V2}.get(s.lower(), cls.V2)
@@ -290,3 +295,37 @@ def gcd_ratio(sr_in: int, sr_out: int) -> tuple[int, int]:
     """Reduced (up, down) resampling ratio."""
     g = math.gcd(sr_in, sr_out)
     return sr_out // g, sr_in // g
+
+
+class ReloadTier(enum.IntEnum):
+    """What a settings change requires: the plugin's three classes of change
+    (counterpart of ``obs_rvc_tpu.config.ReloadTier``)."""
+
+    NONE = 0      #: identical settings
+    LIVE = 1      #: live controls, taken at the next chunk
+    GEOMETRY = 2  #: a new chunk geometry (a new ChunkConfig, new graphs)
+    MODEL = 3     #: new weights or a new pipeline
+
+
+#: settings fields by reload tier
+_LIVE_FIELDS = frozenset({"pitch_shift", "index_rate", "rms_mix_rate"})
+_GEOMETRY_FIELDS = frozenset({"sample_length", "fade_length", "extra_inference_time", "dest_sample_rate",
+                              "skip_inference", "resonance_shift"})
+_MODEL_FIELDS = frozenset({"model_path", "index_path", "model_version", "pitch_algorithm"})
+
+
+def diff_settings(old: StreamSettings, new: StreamSettings) -> ReloadTier:
+    """The most invasive tier a settings change touches."""
+    tier = ReloadTier.NONE
+    for f in dataclasses.fields(StreamSettings):
+        if getattr(old, f.name) == getattr(new, f.name):
+            continue
+        if f.name in _MODEL_FIELDS:
+            return ReloadTier.MODEL
+        if f.name in _GEOMETRY_FIELDS:
+            tier = max(tier, ReloadTier.GEOMETRY)
+        elif f.name in _LIVE_FIELDS:
+            tier = max(tier, ReloadTier.LIVE)
+        else:
+            raise ValueError(f"unclassified setting {f.name!r}")
+    return tier

@@ -42,7 +42,9 @@ def _cents_on(device: torch.device) -> torch.Tensor:
 def to_local_average_cents(salience: torch.Tensor, threshold: float = 0.03) -> torch.Tensor:
     """Per-frame weighted-average cents from salience ``[..., T, 360]``."""
     padded = F.pad(salience, (4, 4))  # [..., T, 368]
-    center = torch.argmax(padded, dim=-1)
+    # an all-zero frame (every bin's sigmoid underflowed) peaks at a padding bin: its window is
+    # kept in bounds, and the threshold zeroes its cents, as JAX's wrapped indices end up doing
+    center = torch.argmax(padded, dim=-1).clamp(4, padded.shape[-1] - 5)
     win_idx = center[..., None] - 4 + torch.arange(9, device=salience.device)
     todo_salience = torch.gather(padded, -1, win_idx)
     todo_cents = _cents_on(salience.device)[win_idx]

@@ -8,6 +8,7 @@ resize → mel matmul → ``ln(max(x, clamp))``.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Optional
 
@@ -109,6 +110,20 @@ class MelSpectrogram:
         #: the analysis window at keyshift 0
         self.window = hann_window_periodic(win_length, device=self.device)
         self._windows: dict[int, torch.Tensor] = {win_length: self.window}
+
+    def to(self, device) -> "MelSpectrogram":
+        """This frontend on ``device`` (itself when it is there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        other = copy.copy(self)
+        other.device = device
+        other.mel_basis = self.mel_basis.to(device)
+        other.log_mel_basis = (stft_mel.pack_mel_basis(other.mel_basis) if device.type == "cuda"
+                               else other.mel_basis)
+        other.window = self.window.to(device)
+        other._windows = {self.win_length: other.window}
+        return other
 
     def _window(self, n: int) -> torch.Tensor:
         if n not in self._windows:

@@ -105,3 +105,23 @@ class PolyphaseResampler:
         if x.shape[-1] != self.chunk_size_in:
             raise ValueError(f"a chunk of {x.shape[-1]} samples, the resampler takes {self.chunk_size_in}")
         return resample_poly(x, self.sr_in, self.sr_out, self.taps_per_phase, self.beta)
+
+
+def resample_poly_dilated(x: torch.Tensor, sr_in: int, sr_out: int, taps_per_phase: int = 16,
+                          beta: float = 8.555) -> torch.Tensor:
+    """The textbook form of :func:`resample_poly`: the signal zero-stuffed by
+    ``up``, the whole lowpass run over it at stride ``down``. Kept as the
+    oracle of the phase-bank path (counterpart of the JAX
+    ``resample_poly_dilated``); ``[L]`` or ``[B, L]``."""
+    up, down = gcd_ratio(sr_in, sr_out)
+    if up == 1 and down == 1:
+        return x
+    h = torch.from_numpy(_design_filter(up, down, taps_per_phase, beta)).to(x.device)
+    pad = (h.shape[0] - 1) // 2
+    squeeze = x.dim() == 1
+    x = (x[None] if squeeze else x).to(torch.float32)
+    stuffed = x.new_zeros(x.shape[0], (x.shape[1] - 1) * up + 1)
+    stuffed[:, ::up] = x
+    stuffed = F.pad(stuffed, (pad, pad + up - 1))
+    out = F.conv1d(stuffed[:, None, :], h.flip(0)[None, None, :], stride=down)[:, 0, :]
+    return out[0] if squeeze else out

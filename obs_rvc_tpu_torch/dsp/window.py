@@ -7,6 +7,13 @@ import torch
 import torch.nn.functional as F
 
 
+def hann_window(window_length: int, device=None) -> torch.Tensor:
+    """Symmetric Hann window, ``0.5*(1-cos(2*pi*i/(n-1)))``."""
+    i = np.arange(window_length, dtype=np.float64)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * i / (window_length - 1.0)))
+    return torch.tensor(w, dtype=torch.float32, device=device)
+
+
 def hann_window_periodic(window_length: int, device=None) -> torch.Tensor:
     """Periodic Hann window, ``0.5*(1-cos(2*pi*i/n))``."""
     i = np.arange(window_length, dtype=np.float64)
@@ -30,3 +37,8 @@ def pad_reflect(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflect-pad both ends of a signal's last axis without repeating the edge sample."""
     n = x.shape[-1]
     return F.pad(x.reshape(-1, 1, n), (pad, pad), mode="reflect").reshape(*x.shape[:-1], n + 2 * pad)
+
+
+def pad_constant(x: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """Constant-pad both ends of a signal's last axis."""
+    return F.pad(x, (pad, pad), mode="constant", value=value)

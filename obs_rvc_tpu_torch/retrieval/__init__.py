@@ -9,8 +9,8 @@
 - :mod:`build`  feature extraction, k-means IVF training, list balancing,
   export
 
-The mesh-sharded search (``sharded_knn_blend``) is not ported yet
-(ROADMAP.md queue 1 item 13).
+``index.sharded_knn_blend`` is the exact search over a table split by rows
+along a mesh's ``model`` axis (``RetrievalIndex(mesh=...)``).
 """
 
 from obs_rvc_tpu_torch.retrieval.build import build_index, extract_features, train_ivf

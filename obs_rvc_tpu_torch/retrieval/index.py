@@ -192,7 +192,58 @@ def ivf_knn_blend(vectors, norms, lengths, offsets, centroids, cnorms, phone: to
     return _blend(q, neighbors, neg_scores, phone, index_rate)
 
 
+def _row_shards(vectors, norms, devices) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``(vectors, norms)`` by rows over ``devices``, in ``tensor_split``'s
+    sizes: a list of shards as it is when it already has one per device,
+    else joined and split again. A shard on the device it lies on is a view."""
+    if isinstance(vectors, torch.Tensor):
+        vectors, norms = [vectors], [norms]
+    if len(vectors) != len(devices):
+        vectors = torch.cat([v.to(vectors[0].device) for v in vectors]).tensor_split(len(devices))
+        norms = torch.cat([n.to(norms[0].device) for n in norms]).tensor_split(len(devices))
+    return [(v.to(d), n.to(d)) for v, n, d in zip(vectors, norms, devices)]
+
+
+def _sharded_blend(shards, phone: torch.Tensor, index_rate, k: int) -> torch.Tensor:
+    """The exact search over table shards ``[(vectors, norms), ...]`` and the blend, on ``phone``'s device."""
+    B, T, C = phone.shape
+    q = phone.reshape(B * T, C).to(torch.float32)
+    negs, cands = [], []
+    for v, n in shards:
+        qs = q.to(v.device)
+        neg = table_products(qs, v).mul_(2.0).sub_(n)
+        local, idx = torch.topk(neg, min(k, v.shape[0]), dim=-1)
+        negs.append(local.to(q.device))
+        cands.append(v[idx].to(q.device))
+    # the candidates in shard order, as a tiled all_gather lays them out; a stable sort
+    # keeps lax.top_k's lower-position-first among equal scores (duplicate rows across shards)
+    all_neg, all_vecs = torch.cat(negs, dim=1), torch.cat(cands, dim=1)
+    order = torch.sort(all_neg, dim=-1, descending=True, stable=True).indices[:, :k]
+    chosen = torch.gather(all_vecs, 1, order[..., None].expand(-1, -1, C))
+    return _blend(q, chosen, torch.gather(all_neg, 1, order), phone, index_rate)
+
+
+def sharded_knn_blend(vectors, norms, phone: torch.Tensor, index_rate, mesh, k: int = 8) -> torch.Tensor:
+    """Exact retrieval over a table split by rows along the mesh's ``model``
+    axis (counterpart of the JAX ``sharded_knn_blend``): each shard's local
+    top-``k`` of ``2 q·v − |v|²``, the ``k`` candidates' scores and vectors
+    gathered to ``phone``'s device in shard order, a global top-``k`` among
+    them, then RVC's blend. ``vectors``/``norms`` are the whole table (split
+    here over the mesh's first row, a view per shard on the device it lies
+    on) or one shard per model device."""
+    return _sharded_blend(_row_shards(vectors, norms, mesh.rows()[0]), phone, index_rate, k)
+
+
 _TABLE = ("vectors", "norms", "lengths", "offsets", "centroids", "cnorms")
+
+
+class _Shard(nn.Module):
+    """One model device's rows of the exact table, as buffers."""
+
+    def __init__(self, vectors: torch.Tensor, norms: torch.Tensor):
+        super().__init__()
+        self.register_buffer("vectors", vectors)
+        self.register_buffer("norms", norms)
 
 
 def _tensor(x) -> torch.Tensor:
@@ -220,16 +271,30 @@ class RetrievalIndex(nn.Module):
     :attr:`generation`, which the step's CUDA graphs watch (beside the
     networks' weights), so loading another index captures them again.
     ``RvcPipeline.modules()`` does not list the index: it is neither
-    randomised nor cast for serving (its dtype is the table's own)."""
+    randomised nor cast for serving (its dtype is the table's own).
+
+    **On a mesh.** With ``mesh`` (a ``('data', 'model')`` mesh of
+    ``model > 1``), :meth:`load` splits the table by rows along ``model``
+    over the mesh's first row (:attr:`shards`), and :meth:`blend` is
+    :func:`sharded_knn_blend`'s exact search in either mode, as the JAX
+    index's is (the list-major IVF table's padding rows never rank).
+    ``parallel.shard_params`` gives each data row of a pipeline's mesh its
+    own index (:meth:`on_row`): an exact table split by rows over the row's
+    devices, an IVF table whole on the row's first device (a split by rows
+    would cut the list slabs; GSPMD gives the JAX step the same results
+    either way)."""
 
     def __init__(self, k: int = 8, mode: str = "exact", probes: Optional[int] = None, nprobe: int = 1,
                  lcap: Optional[int] = None, mesh=None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded retrieval index is not ported yet "
-                                      "(ROADMAP.md queue 1 item 13)")
         if mode not in ("exact", "ivf"):
             raise ValueError(f"unknown retrieval mode {mode!r}")
+        if mesh is not None and "model" not in mesh.axis_names:
+            raise ValueError(f"a retrieval mesh needs a 'model' axis, not {mesh.axis_names}")
+        #: the mesh whose ``model`` axis the table is split along (None: whole on one device)
+        self.mesh = mesh
+        #: the exact table's rows, one :class:`_Shard` per model device (None: whole in ``vectors``)
+        self.shards: Optional[nn.ModuleList] = None
         self.k = k
         self.mode = mode
         self.probes = probes
@@ -291,9 +356,9 @@ class RetrievalIndex(nn.Module):
     def load(self, params: Mapping, device=None) -> "RetrievalIndex":
         """Put a table (from :meth:`make_params`/:meth:`make_ivf_params`, or
         the JAX package's ``params["index"]``) on ``device`` (``None`` means
-        the card). An ivf table's slab length must fit its padding: the
-        slab gather does not clamp."""
-        device = resolve_device(device)
+        the card; with a mesh, its first device). An ivf table's slab
+        length must fit its padding: the slab gather does not clamp."""
+        device = resolve_device(device if device is not None or self.mesh is None else self.mesh.rows()[0][0])
         if self.mode == "ivf" and "offsets" not in params:
             raise ValueError("mode='ivf' but the table was built by make_params; build it with make_ivf_params")
         t = {name: _tensor(params[name]) for name in _TABLE if name in params}
@@ -304,15 +369,50 @@ class RetrievalIndex(nn.Module):
                 self.lcap = pad
             if len(t["offsets"]) and int(t["offsets"].max()) + self.lcap > t["vectors"].shape[0]:
                 raise ValueError(f"lcap {self.lcap} reaches past the table's {pad} padding rows")
+        self.shards = None
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            # split from the host copy: no device holds the whole table
+            self.shards = self._split(self.mesh.rows()[0], t.pop("vectors"), t.pop("norms"))
         for name in _TABLE:
             setattr(self, name, t[name].to(device) if name in t else None)
         self.generation += 1
         return self
 
+    def _split(self, devices, vectors=None, norms=None) -> nn.ModuleList:
+        """The exact table (``vectors``/``norms``, else this index's) by rows over ``devices``."""
+        if vectors is None:
+            if self.shards is not None:
+                vectors, norms = [s.vectors for s in self.shards], [s.norms for s in self.shards]
+            else:
+                vectors, norms = self.vectors, self.norms
+        return nn.ModuleList(_Shard(v, n) for v, n in _row_shards(vectors, norms, devices))
+
+    def on_row(self, devices) -> "RetrievalIndex":
+        """This index for one data row of a mesh over ``devices`` (its model
+        shards), as the class docstring says: sharded over ``devices`` when
+        exact with more than one, or when this index has a mesh of its own;
+        else whole on ``devices[0]``. A tensor already on its device is not
+        copied."""
+        devices = [torch.device(d) for d in devices]
+        row = RetrievalIndex(k=self.k, mode=self.mode, probes=self.probes, nprobe=self.nprobe, lcap=self.lcap,
+                             mesh=self.mesh)
+        row.row_order, row.generation = self.row_order, self.generation
+        if self.shards is None and self.vectors is None:
+            return row
+        if self.shards is not None or (self.mode == "exact" and len(devices) > 1):
+            row.shards = self._split(devices)
+        else:
+            for name in _TABLE:
+                t = getattr(self, name)
+                setattr(row, name, None if t is None else t.to(devices[0]))
+        return row
+
     def blend(self, phone: torch.Tensor, index_rate) -> torch.Tensor:
         """Retrieve and blend each of ``B`` streams' features ``phone [B, T,
         C]`` with its ``index_rate`` (one value, or ``[B]``); ``phone``
         unchanged while no table is loaded."""
+        if self.shards is not None:
+            return _sharded_blend([(s.vectors, s.norms) for s in self.shards], phone, index_rate, self.k)
         if self.vectors is None:
             return phone
         if self.mode == "exact":
@@ -327,4 +427,5 @@ class RetrievalIndex(nn.Module):
 
     def describe(self) -> str:
         """The static geometry, as the JAX ``RvcPipeline.fingerprint`` spells it."""
-        return f"k={self.k},mode={self.mode},probes={self.probes},nprobe={self.nprobe},lcap={self.lcap},mesh=None"
+        mesh = None if self.mesh is None else self.mesh.shape
+        return f"k={self.k},mode={self.mode},probes={self.probes},nprobe={self.nprobe},lcap={self.lcap},mesh={mesh}"

@@ -9,3 +9,7 @@
 
 Nothing here starts a thread or opens a socket at import time.
 """
+
+from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+
+__all__ = ["ChunkMetrics"]

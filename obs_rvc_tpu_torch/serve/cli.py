@@ -12,8 +12,11 @@ a command line carries over, plus ``--device``.
 container) blends the features with their nearest table rows at
 ``--index-rate``: exact search over the whole table, or ``--index-mode ivf``
 (``--index-probes``, 0 for ``max(64, T)``; ``--index-lcap``, the slab
-length). ``--mesh`` is not ported yet and exits naming its ROADMAP.md item
-instead of being ignored.
+length). ``--mesh model=N`` converts with ContentVec (and an exact table)
+split over N devices (every visible card by default, the CPU named
+``parallel.mesh.CPU_MESH_DEVICES`` times with ``--device cpu``); conversion
+is one stream, so the mesh's ``data`` axis defaults to 1 and must be 1, as
+in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("output", help="output WAV")
     add_model_flags(p, loudness_default=0.5, dtype_default="float32")
     p.add_argument("--metrics-json", action="store_true", help="print metrics JSON to stderr")
-    p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
+    p.add_argument("--mesh", default="",
+                   help="convert with ContentVec split over a device mesh, e.g. 'model=2' (one stream: the "
+                        "data axis must be 1; see serve.server --mesh for data parallelism)")
     return p
 
 
@@ -75,12 +80,25 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_d
 
 
 def check_ported(args) -> None:
-    """Exit, naming the ROADMAP.md item, on a flag whose module is not ported."""
+    """Exit on a flag the port refuses."""
     if getattr(args, "no_pallas_resblocks", False):
         raise SystemExit("--no-pallas-resblocks is refused: on the card it would run the kernels' "
                          "plain versions on the main path")
-    if getattr(args, "mesh", ""):
-        raise SystemExit("--mesh is not ported yet (ROADMAP.md queue 1 item 13)")
+
+
+def mesh_from_args(args, default_data=None):
+    """The ``--mesh`` flag's mesh over the visible devices (the CPU's with
+    ``--device cpu``), or None without it; a spec those devices cannot hold
+    exits naming their count."""
+    if not args.mesh:
+        return None
+    from obs_rvc_tpu_torch.parallel import parse_mesh_spec
+    from obs_rvc_tpu_torch.parallel.mesh import visible_devices
+
+    try:
+        return parse_mesh_spec(args.mesh, default_data=default_data, devices=visible_devices(args.device))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
 
 
 def settings_from_args(args):
@@ -143,6 +161,10 @@ def pipeline_from_args(args, sample_rate: int):
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     check_ported(args)
+    # default_data=1: conversion is one stream, so "--mesh model=2" means tensor parallelism alone
+    mesh = mesh_from_args(args, default_data=1)
+    if mesh is not None and mesh.shape["data"] != 1:
+        raise SystemExit("offline conversion is one stream — use data=1 (DP lives in serve.server --pool --mesh)")
 
     import numpy as np
     import torch
@@ -153,6 +175,10 @@ def main(argv=None) -> None:
     channels = audio.shape[0]
     mono = downmix_to_mono(audio)
     pipe, controls = pipeline_from_args(args, sr)
+    if mesh is not None:
+        from obs_rvc_tpu_torch.parallel import shard_params
+
+        pipe = shard_params(pipe, mesh)[0]
 
     t0 = time.perf_counter()
     out = pipe.convert_offline(torch.from_numpy(mono), controls).cpu().numpy()

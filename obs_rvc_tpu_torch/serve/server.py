@@ -40,8 +40,16 @@ past the capacity is closed. The RPC door stays on its own engine.
 ``--index-lcap``) gives every session, pool slot and the RPC engine the
 retrieval blend; ``--index-rate`` is each stream's starting blend, a live
 control like the others (the RPC protocol carries none, so its requests
-blend at 0, as the JAX engine's do). ``--mesh`` is not ported yet and exits
-naming its ROADMAP.md item.
+blend at 0, as the JAX engine's do).
+
+``--mesh data=D,model=M`` serves across a grid of devices (every visible
+card by default; with ``--device cpu``, the CPU named
+``parallel.mesh.CPU_MESH_DEVICES`` times), by the JAX server's rules: the
+networks are sharded once, before any front door is built
+(``parallel.shard_params``: ContentVec and an exact table split along
+``model``), and every session and the RPC engine step the first data row's
+pipeline; ``data`` > 1 needs ``--pool``, whose slots split along ``data``,
+a row per group. A spec the devices cannot hold exits naming their count.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ import sys
 import threading
 from typing import Callable, Optional
 
-from obs_rvc_tpu_torch.serve.cli import add_model_flags, check_ported, pipeline_from_args
+from obs_rvc_tpu_torch.serve.cli import add_model_flags, check_ported, mesh_from_args, pipeline_from_args
 
 logger = logging.getLogger(__name__)
 
@@ -70,7 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pool", type=int, default=0,
                    help="batch the duplex and WebSocket connections through a StreamPool of this capacity "
                         "(0 = a session per connection)")
-    p.add_argument("--mesh", default="", help="not ported (ROADMAP.md queue 1 item 13)")
+    p.add_argument("--mesh", default="",
+                   help="serve across a device mesh, e.g. 'data=4,model=2': with --pool the slots split along "
+                        "data and ContentVec (and an exact table) along model; without --pool the mesh must "
+                        "be data=1")
     p.add_argument("--device-sample-rate", type=int, default=48000)
     add_model_flags(p, loudness_default=1.0, dtype_default="bfloat16")
     p.add_argument("--step-mode", default="staged", choices=["staged", "fused"],
@@ -102,6 +113,12 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
     front door that is on listens."""
     args = build_parser().parse_args(argv)
     check_ported(args)
+    mesh = mesh_from_args(args)
+    if mesh is not None:
+        print(f"serving on mesh {mesh.shape}", file=sys.stderr)
+        if not args.pool and mesh.shape["data"] != 1:
+            raise SystemExit("--mesh with data>1 needs --pool (per-connection sessions "
+                             "are unbatched; only the pool rides the data axis)")
 
     from obs_rvc_tpu_torch.serve.health import start_health_server
     from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
@@ -113,18 +130,25 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
 
     pipe, controls = build_pipeline(args)
     stop = stop_event if stop_event is not None else threading.Event()
+    door_pipe = pipe
+    if mesh is not None:
+        from obs_rvc_tpu_torch.parallel import shard_params
+
+        # sharded once, at the top: the sessions and the engine step the first row, and the
+        # pool's own shard_params call returns these rows
+        door_pipe = shard_params(pipe, mesh)[0]
     pool = None
     if args.pool:
         pool = StreamPool(pipe, capacity=args.pool, batch_min=max(1, args.pool // 4), default_controls=controls,
                           mode=args.step_mode, exec_cache=args.exec_cache, io_dtype=args.pool_io_dtype,
-                          pipelined=args.pool_pipelined)
+                          pipelined=args.pool_pipelined, mesh=mesh)
         metrics = pool.metrics
     else:
         # one scrape target aggregating every connection's session
         metrics = ChunkMetrics(chunk_seconds=pipe.cfg.latency_seconds)
 
     def make_session():
-        return StreamSession(pipe, controls, mode=args.step_mode, stage_timing=args.stage_timing,
+        return StreamSession(door_pipe, controls, mode=args.step_mode, stage_timing=args.stage_timing,
                              metrics=metrics, exec_cache=args.exec_cache)
 
     # the launch geometry's graphs (or the pool's tick), captured before any door listens
@@ -135,7 +159,7 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
         make_session().prepare()
     engine = None
     if args.rpc_port:
-        engine = RvcEngine(pipe, exec_cache=args.exec_cache)
+        engine = RvcEngine(door_pipe, exec_cache=args.exec_cache)
         engine.prepare()
 
     bound: dict[str, int] = {}

@@ -285,6 +285,8 @@ class RvcPipeline:
         #: this geometry's graphs by name, made at first use
         self._graphs: dict[str, object] = {}
         self._graphs_lock = threading.Lock()
+        #: its pipelines by data row on each mesh ``parallel.shard_params`` gave it, and the weights they hold
+        self._mesh_rows: dict = {}
 
     def with_config(self, cfg: ChunkConfig) -> "RvcPipeline":
         """This pipeline at another geometry: the same options, compute dtype

@@ -21,9 +21,9 @@ again after the tick. A slot whose resident state is still zeros is not
 written on attach (``_slot_dirty``).
 
 On a card every device operation of the pool goes on the pool's own CUDA
-stream, in order: the chunks' upload, the replay, the copy of the output
-into pinned host memory, a slot's clear and the stale-epoch fixup (both
-issued under the pool's lock). A clear issued while a tick is in flight is
+stream (each row's own, on a mesh), in order: the chunks' upload, the
+replay, the copy of the output into pinned host memory, a slot's clear and
+the stale-epoch fixup (both issued under the pool's lock). A clear issued while a tick is in flight is
 thereby ordered after the replay that reads the same rows. With
 ``pipelined=True`` a tick records an event after its output copy and
 returns; the next tick (or :meth:`flush_pending`) waits on that event and
@@ -33,8 +33,25 @@ of tick k, at one tick of added output latency.
 ``io_dtype="int16"`` ships 16-bit PCM both ways; the casts (``rint`` on the
 host on the way in, ``round`` in the graph on the way out) are inside the
 fused graph. ``exec_cache=True`` shares the fused graph within the process
-through :func:`~obs_rvc_tpu_torch.utils.exec_cache.cached_capture`. Serving
-across a device mesh (``mesh=``) is not ported (ROADMAP.md queue 1 item 13).
+through :func:`~obs_rvc_tpu_torch.utils.exec_cache.cached_capture`.
+
+**On a mesh** (``mesh=``, a ``('data', 'model')`` mesh from
+:mod:`obs_rvc_tpu_torch.parallel`; ``capacity`` a multiple of its ``data``
+axis): the slots split into ``n_data`` contiguous groups, one per data row.
+Each row holds its slots' resident state on its first device and steps them
+with its own pipeline (``parallel.shard_params``: ContentVec split along
+``model`` over the row's devices, the rest on its first device), its own
+batched graphs (fused or staged, captured on that device), its own CUDA
+stream and its own pinned output. A tick dispatches every row, then
+collects them; the lock, the epochs, the frozen-slot merge and the
+attach/detach rules are the one-device pool's, slot by slot. With no mesh
+the pool is one such row over the pipeline itself. The rows follow the
+pipeline's weights: when they change, the next tick steps rows sharded
+afresh (and captures their graphs again).
+
+A CUDA graph is captured on one card, so a row whose model shards sit on
+different cards cannot be one graph; the pool refuses such a mesh (its
+``step`` runs eagerly across cards, but nothing here falls back to it).
 """
 
 from __future__ import annotations
@@ -87,6 +104,26 @@ def _step_and_merge(pipe: RvcPipeline, pcm16: bool):
     return step_and_merge
 
 
+class _Row:
+    """One data row of a pool: slots ``lo:hi``, the pipeline that steps them,
+    its device and CUDA stream, the slots' resident state, the fused tick's
+    graph and the slots' controls on the device."""
+
+    def __init__(self, pipeline: RvcPipeline, lo: int, hi: int):
+        self.pipeline, self.lo, self.hi = pipeline, lo, hi
+        self.device = pipeline.device
+        #: the row's CUDA stream (None on the CPU), where all its device work goes in order
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        with self.on_stream():
+            self.states = StreamState.init_batch(pipeline.cfg, hi - lo, device=self.device)
+        self.fused_step: Optional[GraphedFunction] = None
+        self.controls_dev: Optional[StepControls] = None
+        self.controls_ver = -1
+
+    def on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+
 class StreamPool:
     def __init__(
         self,
@@ -111,22 +148,34 @@ class StreamPool:
             raise ValueError("io_dtype='int16' needs mode='fused' (the PCM cast is inside the fused graph)")
         if pipelined and mode != "fused":
             raise ValueError("pipelined=True needs mode='fused'")
-        if mesh is not None:
-            raise NotImplementedError("pool serving across a mesh is not ported yet (ROADMAP.md queue 1 item 13)")
         if capacity < 1:
             raise ValueError("capacity must be at least 1")
+        if mesh is not None:
+            if "data" not in mesh.axis_names or "model" not in mesh.axis_names:
+                raise ValueError(f"pool mesh needs ('data','model') axes, got {mesh.axis_names}")
+            n_data = mesh.shape["data"]
+            if capacity % n_data:
+                raise ValueError(f"capacity {capacity} not divisible by mesh data axis {n_data}")
+            for r, row in enumerate(mesh.rows()):
+                if not mesh.row_is_local(r):
+                    raise ValueError(f"data row {r} of the mesh is another process's: a pool steps its own rows")
+                if len(set(row)) > 1 and any(d.type == "cuda" for d in row):
+                    raise NotImplementedError(
+                        f"data row {r} spans the cards {sorted({str(d) for d in row})}: a CUDA graph is captured on "
+                        "one card, so the pool needs each row's model shards on one card")
         self.pipeline = pipeline
         self.capacity = capacity
+        #: the ('data', 'model') mesh the slots are split over (None: one row, the pipeline itself)
+        self.mesh = mesh
         #: "staged" (a graph per stage, the merge after them) or "fused" (one graph a tick, the merge inside)
         self.mode = mode
         #: fused mode: share the tick's graph by key within the process
         self.exec_cache = exec_cache
-        self._fused_step: Optional[GraphedFunction] = None
         #: the PCM width of the chunks and the output on their way to and from the card
         self.io_dtype = io_dtype
         #: deliver a tick's output after the next tick's dispatch (fused mode)
         self.pipelined = pipelined
-        #: (pinned output, its event, fed mask, epochs) of the tick not delivered yet
+        #: (each row's pinned output and its event, fed mask, epochs) of the tick not delivered yet
         self._pending: Optional[tuple] = None
         #: controls a slot starts with when attach() gets none (the server's flags)
         self.default_controls = default_controls or StepControls.default()
@@ -137,13 +186,12 @@ class StreamPool:
         self._ready_since: Optional[float] = None
         cfg = pipeline.cfg
         self._chunk = cfg.sample_frame_size
-        self._device = pipeline.device
-        #: the pool's CUDA stream (None on the CPU), where all its device work goes in order
-        self._stream = torch.cuda.Stream(self._device) if self._device.type == "cuda" else None
-        #: the stacked controls on the device, rebuilt only when a control changed
+        pipes = self._row_pipelines()
+        per = capacity // len(pipes)
+        #: the data rows, each stepping its own contiguous group of slots
+        self._rows = [_Row(p, r * per, (r + 1) * per) for r, p in enumerate(pipes)]
+        #: bumped by a change of any slot's controls; each row restacks its own on the device
         self._controls_version = 0
-        self._controls_dev: Optional[StepControls] = None
-        self._controls_dev_ver = -1
         #: wall ms of the last tick's phases: controls, drain, dispatch, d2h, merge
         self.last_tick_phases: dict = {}
 
@@ -151,8 +199,6 @@ class StreamPool:
         self._out = [make_ring_buffer(self._chunk * output_capacity_chunks) for _ in range(capacity)]
         self._active = [False] * capacity
         self._controls = [self.default_controls for _ in range(capacity)]
-        with self._on_stream():
-            self._states = StreamState.init_batch(cfg, capacity, device=self._device)
         # bumped by _clear_slot: a tick's results for a slot of an older epoch are dropped
         self._epoch = [0] * capacity
         #: False while a slot's resident state is still zeros: _clear_slot then writes nothing
@@ -165,7 +211,36 @@ class StreamPool:
         self._thread: Optional[threading.Thread] = None
 
     def _on_stream(self):
-        return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
+        """The first row's stream (the only one without a mesh)."""
+        return self._rows[0].on_stream()
+
+    def _row_pipelines(self) -> list:
+        if self.mesh is None:
+            return [self.pipeline]
+        from obs_rvc_tpu_torch.parallel.sharding import shard_params  # parallel imports stream: not at the top
+
+        return shard_params(self.pipeline, self.mesh)
+
+    def _refresh_rows(self) -> None:
+        """Step with :attr:`pipeline`'s rows (on a mesh, those of its current
+        weights: ``shard_params`` returns the same rows until they change)."""
+        for row, pipe in zip(self._rows, self._row_pipelines()):
+            if pipe is not row.pipeline:
+                row.pipeline, row.fused_step = pipe, None
+
+    def _row_of(self, slot: int) -> tuple[_Row, int]:
+        row = self._rows[slot * len(self._rows) // self.capacity]
+        return row, slot - row.lo
+
+    @property
+    def _states(self) -> StreamState:
+        """The slots' resident state: the row's own tensors with one row, a
+        copy of every row's joined on the first row's device with several."""
+        if len(self._rows) == 1:
+            return self._rows[0].states
+        first = self._rows[0].device
+        return StreamState(**{f.name: torch.cat([getattr(r.states, f.name).to(first) for r in self._rows])
+                              for f in dataclasses.fields(StreamState)})
 
     # --- slot management ---
 
@@ -190,9 +265,10 @@ class StreamPool:
         # caller holds self._lock; the zeroing is ordered after any tick in flight on the pool's stream
         self._epoch[i] += 1
         if self._slot_dirty[i]:
-            with self._on_stream():
+            row, j = self._row_of(i)
+            with row.on_stream():
                 for f in dataclasses.fields(StreamState):
-                    getattr(self._states, f.name)[i].zero_()
+                    getattr(row.states, f.name)[j].zero_()
             self._slot_dirty[i] = False
         while self._in[i].pop(self._chunk).size:
             pass
@@ -200,11 +276,14 @@ class StreamPool:
             pass
 
     def _zero_rows(self, rows: np.ndarray) -> None:
-        """Zero the state of the slots where ``rows`` (``[capacity]`` bool) is set, on the pool's stream."""
-        with self._on_stream():
-            mask = torch.from_numpy(rows).to(self._device)
-            for f in dataclasses.fields(StreamState):
-                getattr(self._states, f.name).masked_fill_(mask[:, None], 0.0)
+        """Zero the state of the slots where ``rows`` (``[capacity]`` bool) is set, each on its row's stream."""
+        for row in self._rows:
+            if not rows[row.lo : row.hi].any():
+                continue
+            with row.on_stream():
+                mask = torch.from_numpy(np.ascontiguousarray(rows[row.lo : row.hi])).to(row.device)
+                for f in dataclasses.fields(StreamState):
+                    getattr(row.states, f.name).masked_fill_(mask[:, None], 0.0)
 
     def update_controls(self, slot: int, **kwargs) -> None:
         """Replace a slot's live controls (``pitch_shift``, ``rms_mix_rate``,
@@ -256,79 +335,95 @@ class StreamPool:
             return True
         return (now - self._ready_since) * 1000.0 >= self.batch_deadline_ms
 
-    def _controls_device(self, controls_snap, version: int) -> StepControls:
-        """The slots' controls stacked into ``[capacity]`` tensors on the
-        device, kept until a control changes."""
-        if self._controls_dev is None or self._controls_dev_ver != version:
-            self._controls_dev = StepControls.stack(controls_snap, self._device)
-            self._controls_dev_ver = version
-        return self._controls_dev
+    def _controls_device(self, controls_snap, version: int, row: Optional[_Row] = None) -> StepControls:
+        """A row's slots' controls (the first row's by default: every slot's
+        without a mesh) stacked into tensors on its device, kept until a
+        control changes."""
+        row = row or self._rows[0]
+        if row.controls_dev is None or row.controls_ver != version:
+            row.controls_dev = StepControls.stack(controls_snap[row.lo : row.hi], row.device)
+            row.controls_ver = version
+        return row.controls_dev
 
-    def _fused(self) -> GraphedFunction:
-        """The fused tick's graph, captured on the pool's stream at first use."""
-        if self._fused_step is None:
-            cap, pipe = self.capacity, self.pipeline
+    def _fused(self, row: Optional[_Row] = None) -> GraphedFunction:
+        """A row's fused tick graph (the first row's by default), captured on its stream at first use."""
+        row = row or self._rows[0]
+        if row.fused_step is None:
+            n, pipe = row.hi - row.lo, row.pipeline
             pcm16 = self.io_dtype == "int16"
-            example = (StreamState.init_batch(pipe.cfg, cap, device=self._device),
-                       torch.zeros(cap, self._chunk, dtype=torch.int16 if pcm16 else torch.float32),
-                       StepControls.stack([StepControls.default()] * cap, self._device),
-                       torch.zeros(cap, dtype=torch.bool))
-            graph = GraphedFunction(_step_and_merge(pipe, pcm16), example, device=self._device,
-                                    name=f"pool_fused_merge[{cap}]", weights=pipe._weight_modules)
-            with self._on_stream():
+            example = (StreamState.init_batch(pipe.cfg, n, device=row.device),
+                       torch.zeros(n, self._chunk, dtype=torch.int16 if pcm16 else torch.float32),
+                       StepControls.stack([StepControls.default()] * n, row.device),
+                       torch.zeros(n, dtype=torch.bool))
+            graph = GraphedFunction(_step_and_merge(pipe, pcm16), example, device=row.device,
+                                    name=f"pool_fused_merge[{n}]", weights=pipe._weight_modules)
+            with row.on_stream():
                 if self.exec_cache:
                     graph, _ = cached_capture(graph, example, semantic_key=pipe.fingerprint()
-                                              + f"|pool_fused_merge|capacity={cap}|io={self.io_dtype}")
+                                              + f"|pool_fused_merge|capacity={n}|io={self.io_dtype}")
                 else:
                     graph.capture()
-            self._fused_step = graph
-        return self._fused_step
+            row.fused_step = graph
+        return row.fused_step
 
     def prepare(self) -> None:
-        """Capture the tick's graphs now (the server calls it before it listens)."""
-        if self.mode == "fused":
-            self._fused()
-        else:
-            with self._on_stream():
-                self.pipeline.staged_batch_graphs(self.capacity).capture()
+        """Capture every row's tick graphs now (the server calls it before it listens)."""
+        self._refresh_rows()
+        for row in self._rows:
+            if self.mode == "fused":
+                self._fused(row)
+            else:
+                with row.on_stream():
+                    row.pipeline.staged_batch_graphs(row.hi - row.lo).capture()
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self._device.type != "cuda":
-            return t
-        return t.pin_memory().to(self._device, non_blocking=True)
+    def _to_device(self, a: np.ndarray, row: Optional[_Row] = None) -> torch.Tensor:
+        row = row or self._rows[0]
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if row.device.type != "cuda":
+            return t.to(row.device)
+        return t.pin_memory().to(row.device, non_blocking=True)
 
-    def _dispatch(self, chunks: np.ndarray, have: np.ndarray, controls: StepControls):
-        """Enqueue the tick on the pool's stream: upload, step, merge, and the
+    def _dispatch(self, row: _Row, chunks: np.ndarray, have: np.ndarray, controls: StepControls):
+        """Enqueue one row's tick on its stream: upload, step, merge, and the
         output's copy into pinned host memory. Returns ``(host output, event)``
         (the event None on the CPU, where the output is ready)."""
-        chunks_dev, mask_dev = self._to_device(chunks), self._to_device(have)
+        chunks_dev, mask_dev = self._to_device(chunks, row), self._to_device(have, row)
         if self.mode == "staged":
-            work = self._states.map(torch.clone)  # the merge reads the pre-step state
-            _, out = self.pipeline.staged_step(work, chunks_dev, controls, batched=True)
-            _merge(mask_dev, work, self._states)
+            work = row.states.map(torch.clone)  # the merge reads the pre-step state
+            _, out = row.pipeline.staged_step(work, chunks_dev, controls, batched=True)
+            _merge(mask_dev, work, row.states)
         else:
-            graph = self._fused()
+            graph = self._fused(row)
             with graph.lock:  # the graph's output and static state are read before anyone replays it again
-                out = graph.run(self._states, chunks_dev, controls, mask_dev)
+                out = graph.run(row.states, chunks_dev, controls, mask_dev)
                 for f in dataclasses.fields(StreamState):
-                    getattr(self._states, f.name).copy_(getattr(graph.static_args[0], f.name))
-                return self._to_host(out)
-        return self._to_host(out)
+                    getattr(row.states, f.name).copy_(getattr(graph.static_args[0], f.name))
+                return self._to_host(out, row)
+        return self._to_host(out, row)
 
-    def _to_host(self, out: torch.Tensor):
-        if self._device.type != "cuda":
-            return out.clone(), None
+    @staticmethod
+    def _to_host(out: torch.Tensor, row: _Row):
+        if row.device.type != "cuda":
+            return out.cpu().clone(), None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
-        event.record(self._stream)
+        event.record(row.stream)
         return host, event
 
     @staticmethod
     def _audio(host: torch.Tensor) -> np.ndarray:
         out = host.numpy()
         return out.astype(np.float32) * (1.0 / 32768.0) if out.dtype == np.int16 else out
+
+    def _collect(self, sent: list) -> np.ndarray:
+        """The rows' ``(host output, event)``: wait for each, join them ``[capacity, chunk]``."""
+        outs = []
+        for host, event in sent:
+            if event is not None:
+                event.synchronize()
+            outs.append(self._audio(host))
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
     def process_pending(self) -> int:
         """One batched step when at least one active slot has a full chunk;
@@ -345,8 +440,10 @@ class StreamPool:
             cver = self._controls_version
             epochs = list(self._epoch)
 
-        with self._on_stream():
-            controls = self._controls_device(controls_snap, cver)
+        controls = []
+        for row in self._rows:
+            with row.on_stream():
+                controls.append(self._controls_device(controls_snap, cver, row))
         t_controls = time.perf_counter()
 
         chunks = np.zeros((self.capacity, self._chunk), np.float32)
@@ -369,15 +466,16 @@ class StreamPool:
         out = None
         with self.metrics.time_chunk(), torch.no_grad():
             try:
-                with self._on_stream():
-                    host, event = self._dispatch(chunks, have, controls)
+                self._refresh_rows()
+                sent = []  # every row dispatched, then collected
+                for row, ctl in zip(self._rows, controls):
+                    with row.on_stream():
+                        sent.append(self._dispatch(row, chunks[row.lo : row.hi], have[row.lo : row.hi], ctl))
                 t_step = time.perf_counter()
                 if self.pipelined:
                     t_d2h = t_step  # delivered after the next tick's dispatch, or on flush
                 else:
-                    if event is not None:
-                        event.synchronize()
-                    out = self._audio(host)
+                    out = self._collect(sent)
                     t_d2h = time.perf_counter()
             except Exception:
                 logger.exception("batched step failed; emitting silence for fed slots and resetting them")
@@ -407,7 +505,7 @@ class StreamPool:
         if self.pipelined and not failed:
             # deliver the previous tick's audio while the device runs this one, then stash this one
             self.flush_pending()
-            self._pending = (host, event, have, epochs)
+            self._pending = (sent, have, epochs)
         t_end = time.perf_counter()
         self.last_tick_phases = {
             "controls_ms": (t_controls - t0) * 1e3,
@@ -426,11 +524,9 @@ class StreamPool:
         prev, self._pending = self._pending, None
         if prev is None:
             return
-        host, event, have, epochs = prev
+        sent, have, epochs = prev
         try:
-            if event is not None:
-                event.synchronize()
-            out = self._audio(host)
+            out = self._collect(sent)
             ok = True
         except Exception:
             logger.exception("pipelined output copy failed; silence for fed slots and reset")

@@ -26,6 +26,7 @@ from obs_rvc_tpu.stream import RvcPipeline as JPipeline
 from obs_rvc_tpu.stream import StreamPool as JStreamPool
 
 from obs_rvc_tpu_torch.config import ChunkConfig
+from obs_rvc_tpu_torch.parallel.mesh import Mesh
 from obs_rvc_tpu_torch.serve import server
 from obs_rvc_tpu_torch.serve.stream_server import StreamClient, _PoolSlotAdapter, serve_connection
 from obs_rvc_tpu_torch.stream import PoolFullError, RvcPipeline, StepControls, StreamPool, StreamState
@@ -84,8 +85,8 @@ def test_pool_full(pipe):
     pool.attach()
     with pytest.raises(PoolFullError):
         pool.attach()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        StreamPool(pipe, capacity=2, mesh=object())
+    with pytest.raises(ValueError, match="axes"):  # JAX's mesh check: a pool mesh has data and model axes
+        StreamPool(pipe, capacity=2, mesh=Mesh(["cpu", "cpu"], ("rows",)))
     with pytest.raises(ValueError):
         StreamPool(pipe, capacity=1, mode="bogus")
 

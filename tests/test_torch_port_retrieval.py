@@ -22,6 +22,7 @@ from obs_rvc_tpu.retrieval.build import balance_lists as j_balance_lists
 from obs_rvc_tpu.retrieval.build import train_ivf as j_train_ivf
 from obs_rvc_tpu.retrieval.faiss_reader import IvfFlatIndex
 
+from obs_rvc_tpu_torch.parallel.mesh import Mesh
 from obs_rvc_tpu_torch.retrieval import index as T
 from obs_rvc_tpu_torch.retrieval.build import balance_lists, default_nlist, train_ivf
 
@@ -230,8 +231,8 @@ def test_balance_lists_matches_jax(ivf, cap):
 
 
 def test_index_refusals():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        T.RetrievalIndex(mesh=object())
+    with pytest.raises(ValueError, match="'model' axis"):  # a retrieval mesh splits the table along model
+        T.RetrievalIndex(mesh=Mesh(["cpu", "cpu"], ("rows",)))
     with pytest.raises(ValueError, match="mode"):
         T.RetrievalIndex(mode="hnsw")
     flat = T.RetrievalIndex.make_params(np.ones((32, 8), np.float32))

@@ -9,8 +9,8 @@ server and CLI entry points, on the CPU.
   tone comes back (FFT peak within 7 Hz).
 - WebSocket framing: the RFC 6455 accept-key vector and frames of every
   length class, each package reading the other's.
-- ``serve.server``: the pipeline from flags, flags of unported modules exit
-  naming their ROADMAP.md item, and ``main`` serves all four doors.
+- ``serve.server``: the pipeline from flags, the JAX ``--mesh`` rules, the
+  refused flag, and ``main`` serves all four doors.
 - ``serve.cli``: ``--skip-inference`` writes the samples the JAX CLI writes.
 
 Every socket binds port 0 (or a free port found that way), every read has a
@@ -243,16 +243,52 @@ def test_server_builds_the_pipeline_from_flags():
     assert args.dtype == "bfloat16" and pipe.compute_dtype == torch.bfloat16  # the JAX server's default
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--pool", "4", "--mesh", "data=4"], "item 13"),
-    (["--mesh", "data=4"], "item 13"),
-    (["--index", "v.index", "--mesh", "model=2"], "item 13"),
-    (["--index-mode", "ivf", "--mesh", "model=2"], "item 13"),
-    (["--no-pallas-resblocks"], "refused"),
+@pytest.mark.parametrize("entry,flags,item", [
+    ("server", ["--skip-inference", "--mesh", "data=4"], "needs --pool"),  # data>1 without --pool
+    ("cli", ["--skip-inference", "--mesh", "data=2"], "one stream"),  # the CLI's data must be 1
+    ("server", ["--skip-inference", "--pool", "16", "--mesh", "data=16"], "need 16 devices, have 8"),
+    ("server", ["--index", "table.npy", "--mesh", "data=1,model=2"], None),  # builds a sharded index
+    ("server", ["--skip-inference", "--no-pallas-resblocks"], "refused"),
 ])
-def test_unported_server_flags_exit_naming_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        server.main(["--device", "cpu", "--skip-inference", *flags])
+def test_unported_server_flags_exit_naming_their_item(entry, flags, item, tmp_path, monkeypatch):
+    """The JAX ``--mesh`` rules on the port's server and CLI (on the CPU, a
+    mesh spans the CPU named eight times, the JAX tests' eight virtual
+    devices), and the flag the port refuses."""
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            if entry == "cli":
+                cli.main([str(tmp_path / "in.wav"), str(tmp_path / "out.wav"), "--device", "cpu", *flags])
+            else:
+                server.main(["--device", "cpu", *flags])
+        return
+    # --index with --mesh data=1,model=2: the table split by rows over two CPU devices, built once
+    # before the doors; reduced widths, every door off
+    from obs_rvc_tpu_torch import parallel
+    from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+    from obs_rvc_tpu_torch.stream import pipeline as pipeline_mod
+
+    from test_torch_port_pipeline import CV, RM, SY
+
+    monkeypatch.setattr(ContentVecConfig, "v2", staticmethod(lambda: ContentVecConfig(**CV)))
+    monkeypatch.setattr(SynthesizerConfig, "for_sample_rate",
+                        staticmethod(lambda sr, feature_dim=768: SynthesizerConfig(**SY)))
+    monkeypatch.setattr(pipeline_mod, "RMVPEConfig", lambda: RMVPEConfig(**RM))
+    table = np.random.default_rng(8).standard_normal((97, CV["out_dim"])).astype(np.float32)
+    np.save(tmp_path / "table.npy", table)
+    sharded = []
+    real = parallel.shard_params
+    monkeypatch.setattr(parallel, "shard_params", lambda p, m: sharded.append((p, m, real(p, m))) or sharded[-1][2])
+    argv = [str(tmp_path / f) if f == "table.npy" else f for f in flags]
+    server.main(["--device", "cpu", *SMALL, "--dtype", "float32", "--port", "0", *argv])
+    (pipe, mesh, rows), = sharded
+    assert mesh.shape == {"data": 1, "model": 2} and len(rows) == 1
+    index = rows[0].retrieval_index
+    assert [s.vectors.device.type for s in index.shards] == ["cpu", "cpu"] and index.vectors is None
+    assert sum(s.vectors.shape[0] for s in index.shards) == 97
+    phone = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 5, CV["out_dim"])).astype(np.float32))
+    torch.testing.assert_close(index.blend(phone, 0.75), pipe.retrieval_index.blend(phone, 0.75), atol=1e-5, rtol=0)
 
 
 def test_server_defaults_to_bf16_and_the_cli_to_float32():
@@ -405,10 +441,13 @@ def test_cli_skip_inference_writes_the_jax_cli_samples(tmp_path):
     # which moves the PCM16 rounding of a few samples by one step
     np.testing.assert_allclose(got, ref, rtol=0, atol=1.5 / 32768)
     assert np.mean(got != ref) < 1e-3
-    # the retrieval flags are ported: only --mesh still exits
+    # the retrieval and mesh flags are ported: --mesh model=2 (data 1 by default) writes the same samples
     cli.check_ported(cli.build_parser().parse_args(["in.wav", "o.wav", "--index", "v.index", "--index-mode", "ivf"]))
-    with pytest.raises(SystemExit, match="item 13"):
-        cli.main([str(tmp_path / "in.wav"), str(tmp_path / "o.wav"), "--mesh", "model=2", "--device", "cpu"])
+    cli.main([str(tmp_path / "in.wav"), str(tmp_path / "o.wav"), "--skip-inference", "--device", "cpu",
+              "--mesh", "model=2", *SMALL])
+    np.testing.assert_array_equal(read_wav(tmp_path / "o.wav")[0], got)
+    with pytest.raises(SystemExit, match="one stream"):
+        cli.main([str(tmp_path / "in.wav"), str(tmp_path / "o.wav"), "--mesh", "data=2", "--device", "cpu"])
 
 
 def test_rpc_main_serves_stdio_at_reduced_widths(monkeypatch):
