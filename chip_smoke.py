@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level and bank
     python3 chip_smoke.py --only mesh,stage_repeat  # the build and these phases alone, no kernel line
+    python3 chip_smoke.py --only bench  # scripts/torch_bench.py's three runs alone
 
 Phases, each printing its own lines:
 
@@ -48,7 +49,15 @@ Phases, each printing its own lines:
            reported), every leaf module's output of an eager step on the
            graphs' capture thread against the main thread's, and the cuDNN
            log's engine lines compared capture by capture
-5. serve   the port's server (serve.server.main, at its defaults: bfloat16,
+5. bench   scripts/torch_bench.py (the port's counterpart of bench.py) in
+           three child processes at PyTorch's TF32 defaults, RMVPE in
+           bfloat16 at full width: one stream through jit_step with
+           --profile (the trace must show 1 log-mel, 32 chain and 18 bank
+           kernels a step), one stream through staged_step, and 8 streams
+           through jit_step_batch; each JSON line must hold every key, finite
+           numbers, the seven stages' device times and a p50 under 300 ms,
+           and is logged beside the main phase's bfloat16 jit_step
+6. serve   the port's server (serve.server.main, at its defaults: bfloat16,
            staged graphs captured before it listens) on a thread at the same
            geometry and width, listening on the duplex, WebSocket, RPC and
            health ports: a StreamClient and a WsStreamClient stream the
@@ -64,7 +73,7 @@ Phases, each printing its own lines:
            the session chunk times are read one by one. Then a second server
            with --step-mode fused --exec-cache, and an in-process engine's
            memory at one and two geometries
-6. pitch   the same for the CREPE (capacity "full") and FCPE (hidden 512, 6
+7. pitch   the same for the CREPE (capacity "full") and FCPE (hidden 512, 6
            layers) pitch algorithms in place of RMVPE, at the same geometry
            and widths, in float32 and in bfloat16, 12 chunks each: launches
            (CREPE 0 log-mel, 0 chain, 2 bank calls a step; FCPE 1, 0, 2), the
@@ -76,7 +85,7 @@ Phases, each printing its own lines:
            --pitch-algorithm fcpe at its defaults serves a duplex session
            (a device trace of a second one, /metrics with no error) and
            serve.cli --pitch-algorithm crepe converts a WAV file
-7. pool    the batched step and StreamPool at the same geometry and width
+8. pool    the batched step and StreamPool at the same geometry and width
            in bfloat16 with RMVPE: the eager batched step of 8 streams (the
            wrappers launched 1/4/2 times a step, as for one stream);
            jit_step_batch of 8 voices with their own controls against 8
@@ -98,7 +107,7 @@ Phases, each printing its own lines:
            at its defaults: 4 duplex and 2 WebSocket sessions at once, each
            against its run alone, a ninth connection closed, /metrics with
            the pool's occupancy and no error
-8. retrieval  a 1M x 768 table (v2 features; clustered, Student-t noise) from
+9. retrieval  a 1M x 768 table (v2 features; clustered, Student-t noise) from
            the seed: exact search over float32 and bfloat16 rows and IVF (k-means
            on the card at the default nlist, lists balanced to 64 rows), each
            blend on the card against the port's CPU blend on the same table and
@@ -114,7 +123,7 @@ Phases, each printing its own lines:
            it (1e-5); a server with --index <file>.index --index-mode ivf
            serves a duplex session with no error and serve.cli converts a WAV
            file with --index <file>.onnx (both on the table's first 65536 rows)
-9. mesh    obs_rvc_tpu_torch/parallel at full width with RMVPE, TF32 off,
+10. mesh   obs_rvc_tpu_torch/parallel at full width with RMVPE, TF32 off,
            every mesh the one card named more than once: a data=2 x model=2
            StreamPool of 8, fused and staged, in float32 and bfloat16, two
            slots starved, against the one-device pool on the same chunks
@@ -131,7 +140,7 @@ Phases, each printing its own lines:
            device count; two processes of tests/torch_distributed_worker.py
            (gloo, full width, float32) against one process, and NCCL at
            world size 1 in a process of its own
-10. timing step p50/p95 and peak device memory in both dtypes; each kernel's
+11. timing step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
            function and its eager call; the U-Net chain and the resblock
@@ -168,14 +177,12 @@ import urllib.request
 
 import numpy as np
 
-F32_PEAK_FLOPS = 67e12  # H100 SXM, float32 without tensor cores
-#: H100 SXM, float32 products as three TF32 tensor-core products (3xTF32: 495 / 3 TFLOP/s),
-#: the rate the chain's and the bank's float32 paths can reach
-TF32X3_PEAK_FLOPS = 495e12 / 3
-#: H100 SXM, dense bfloat16 on the tensor cores, the rate the bfloat16 paths can reach
-BF16_PEAK_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-N_SMS = 132  # H100 SXM
+# the card's peaks and timing helpers, and the networks' GFLOP a chunk, shared with scripts/torch_bench.py
+from obs_rvc_tpu_torch.utils.benchlib import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS, HBM_BYTES_PER_S, N_SMS,
+                                              TF32X3_PEAK_FLOPS, cuda_ms, device_busy_ms, events_after_mark,
+                                              graph_ms, kernel_counts, mark_trace, nvidia_smi_line)
+from obs_rvc_tpu_torch.utils.flops import chunk_gflops
+
 SEED = 0
 #: chunks streamed through the step on the card in each dtype (the first 4 are warm-up)
 N_CHUNKS = 24
@@ -198,57 +205,6 @@ OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events over ``iters`` back-to-back calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, calls: int = 10, replays: int = 10) -> float:
-    """Device time of one call of ``fn`` in ms: CUDA events around replays of
-    a CUDA graph that holds ``calls`` calls, so the host's per-launch cost
-    (Python, ctypes, the launch itself) is not in it. Warmed up first on a
-    side stream, which also lets cuDNN's autotuner choose before capture."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
 
 
 def check_close(name, got, want, atol, rtol) -> float:
@@ -500,49 +456,6 @@ def voiced_signal(n, sr, seed=SEED, f0=180.0):
     return (x + 0.01 * np.random.default_rng(seed).standard_normal(n)).astype(np.float32)
 
 
-def crepe_gflops(crepe, n_frames):
-    """CREPE's multiply-adds (x2) over ``n_frames`` frames of 1024 samples:
-    six convolutions over the frame axis (pads 254/254, then 31/32; stride 4
-    on the first), each output halved by its max-pool, and the classifier."""
-    fl, length = 0, 1024
-    for i in range(1, 7):
-        conv = getattr(crepe, f"conv{i}")
-        k, stride = conv.kernel_size[0], conv.stride[0]
-        out = (length + (508 if i == 1 else 63) - k) // stride + 1
-        fl += 2 * out * conv.in_channels * conv.out_channels * k
-        length = out // 2
-    fl += 2 * crepe.classifier.in_features * crepe.classifier.out_features
-    return n_frames * fl / 1e9
-
-
-def fcpe_gflops(fcpe, n_frames):
-    """FCPE's multiply-adds (x2) over ``n_frames`` mel frames: the two k3
-    input convs, each layer's two pointwise convs and its depthwise conv,
-    and the output projection (norms and gates not counted, as
-    ``utils/flops.py`` counts none)."""
-    c = fcpe.cfg
-    inner = c.hidden * c.expansion
-    per_layer = c.hidden * 2 * inner + inner * c.conv_kernel + inner * c.hidden
-    fl = 3 * c.n_mels * c.hidden + 3 * c.hidden * c.hidden + c.n_layers * per_layer + c.hidden * c.out_dims
-    return 2 * n_frames * fl / 1e9
-
-
-def chunk_gflops(pipe):
-    """The networks' GFLOP a chunk: ``utils/flops.py`` for ContentVec, RMVPE
-    and the synthesizer; CREPE and FCPE counted here (``utils/flops.py`` is
-    a copy of the JAX package's, which counts no other pitch network)."""
-    from obs_rvc_tpu_torch.utils import flops
-
-    cfg = pipe.cfg
-    total = flops.pipeline_gflops_per_chunk(cfg, pipe.contentvec_cfg.out_dim)
-    if pipe.pitch_algorithm == "rmvpe":
-        return total
-    total -= flops.rmvpe_gflops(cfg.rmvpe_n_frames)
-    if pipe.pitch_algorithm == "crepe":
-        return total + crepe_gflops(pipe.crepe, cfg.rmvpe_n_frames)
-    return total + fcpe_gflops(pipe.fcpe, cfg.rmvpe_n_frames)
-
-
 def phase_main(report, key, n_chunks, dtype, version="v2", cpu_chunks=0, breakdown=False, reference=None,
                pitch="rmvpe"):
     """Stream ``n_chunks`` through ``RvcPipeline.step`` at full width in
@@ -702,11 +615,6 @@ def stream(step, pipe, chunks, controls, timed=False):
     return torch.cat(outs).cpu(), times
 
 
-def kernel_counts(events):
-    """Launches of each hand kernel among torch.profiler's device events."""
-    return {k: sum(1 for e in events if k in e.name) for k in KERNELS_PER_STEP["rmvpe"]}
-
-
 def trace_steps(step, pipe, chunks, controls, state=None):
     """torch.profiler (device activity) over ``len(chunks)`` steps from
     ``state`` (a new one by default): the hand kernels' launches, per step
@@ -721,19 +629,13 @@ def trace_steps(step, pipe, chunks, controls, state=None):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # the tracer can miss the first kernels after it starts: a step not counted, then a marker kernel
         state, _ = step(state, chunks[0], controls)
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        mark_trace()
         t0 = time.perf_counter()
         for chunk in chunks:
             state, _ = step(state, chunk, controls)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    if not marks:
-        raise AssertionError("the trace holds no marker kernel: torch.profiler recorded no device activity")
-    events = events[marks[-1] + 1 :]
+    events = events_after_mark(prof)
     summed = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     n = len(chunks)
     return kernel_counts(events), device_busy_ms(events) / n, summed / n, wall / n, events
@@ -754,22 +656,6 @@ def trace_replays(key, step, pipe, chunks, controls, want, make_state=None):
                  "the tracer lost device records; traced again")
         traced = trace_steps(step, pipe, chunks, controls, state=make_state and make_state())
     return traced, short
-
-
-def device_busy_ms(events):
-    """The time some device activity of ``events`` runs: the union of their
-    intervals (in a replayed graph, kernels' intervals can overlap, so their
-    sum can exceed the wall time)."""
-    busy, end = 0.0, None
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
-        if end is None or start >= end:
-            busy += stop - start
-            end = stop
-        elif stop > end:
-            busy += stop - end
-            end = stop
-    return busy / 1e3
 
 
 def check_same(name, got, want, tol):
@@ -2764,6 +2650,98 @@ def phase_stage_repeat(report):
 
 
 # ---------------------------------------------------------------------------
+# the benchmark entry point
+# ---------------------------------------------------------------------------
+
+#: scripts/torch_bench.py's runs in the bench phase, each in a process of its own at PyTorch's TF32
+#: defaults: RMVPE, bfloat16, full width; (label, arguments)
+BENCH_RUNS = [("b1-fused-profiled", ["--batch", "1", "--mode", "fused", "--profile", str(OUT_DIR / "bench_trace")]),
+              ("b1-staged", ["--batch", "1", "--mode", "staged"]),
+              ("b8-fused", ["--batch", "8", "--mode", "fused"])]
+#: the keys of the bench line's ``extra`` that every run must print, and the numbers among them
+BENCH_EXTRA_KEYS = ("p95_ms", "sustained_ms_per_chunk", "rtf", "audio_seconds_per_second", "mfu",
+                    "model_gflops_per_chunk", "batch", "mode", "pitch_algorithm", "dtype", "chunk_ms", "backend",
+                    "device_name", "power_limit_w", "cudnn_tf32", "matmul_tf32", "stage_device_ms",
+                    "stage_device_ms_sum")
+BENCH_NUMBERS = ("p95_ms", "sustained_ms_per_chunk", "rtf", "audio_seconds_per_second", "mfu",
+                 "model_gflops_per_chunk", "chunk_ms", "power_limit_w", "stage_device_ms_sum")
+BENCH_STAGES = ("pre", "features", "mel", "salience", "pitch_post", "synth", "post")
+#: a chunk must be converted within its own 300 ms to keep up (PERF.md section 2)
+BENCH_LIMIT_MS = 300.0
+
+
+def run_bench(label, argv):
+    """One run of ``scripts/torch_bench.py`` (RMVPE, bfloat16) in a child
+    process; its JSON line, checked: every key, finite numbers, the seven
+    stages' device times, p50 under the real-time limit."""
+    script = pathlib.Path(__file__).resolve().parent / "scripts" / "torch_bench.py"
+    proc = subprocess.run([sys.executable, str(script), "--dtype", "bfloat16", "--pitch-algorithm", "rmvpe", *argv],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {label}: exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    extra = line.get("extra", {})
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline") if k not in line] + \
+        [k for k in BENCH_EXTRA_KEYS if k not in extra]
+    if missing or line["metric"] != "chunk_p50_ms" or extra["backend"] != "cuda":
+        raise AssertionError(f"bench {label}: keys missing {missing}, or not a card's chunk_p50_ms line: {line}")
+    stages = extra["stage_device_ms"]
+    numbers = [line["value"], line["vs_baseline"], *(extra[k] for k in BENCH_NUMBERS), *stages.values()]
+    if tuple(stages) != BENCH_STAGES or not all(isinstance(v, (int, float)) and np.isfinite(v) for v in numbers):
+        raise AssertionError(f"bench {label}: stages {list(stages)} or a number not finite: {line}")
+    if line["value"] >= BENCH_LIMIT_MS:
+        raise AssertionError(f"bench {label}: p50 {line['value']:.3f} ms, not under {BENCH_LIMIT_MS} ms")
+    return line, proc.stderr
+
+
+def phase_bench(report):
+    """``scripts/torch_bench.py`` at full width (RMVPE, bfloat16): one
+    stream fused with ``--profile``, whose trace must hold 1 log-mel, 32
+    chain and 18 bank kernels a step; one stream staged; 8 streams fused.
+    Each line is checked by :func:`run_bench` and logged beside the main
+    phase's bfloat16 ``jit_step`` (TF32 off there, and in this process: the
+    two are not held to each other)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for label, argv in BENCH_RUNS:
+        line, err = run_bench(label, argv)
+        prof = line["extra"].get("profile")
+        if prof is not None:
+            want = {k: v * prof["traced_steps"] for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+            counts = prof["kernels_in_trace"]
+            if counts != want and all(counts[k] <= v for k, v in want.items()):
+                log("bench", f"{label}: the trace shows {counts} hand kernels, fewer than the steps launch ({want}): "
+                             "the tracer lost device records; run again")
+                line, err = run_bench(label, argv)
+                prof = line["extra"]["profile"]
+                counts = prof["kernels_in_trace"]
+            if counts != want:
+                raise AssertionError(f"bench {label}: the trace of {prof['traced_steps']} steps shows {counts} hand "
+                                     f"kernel launches, want {want}")
+        x = line["extra"]
+        out[label] = {"line": line, "stderr": err.splitlines()[-20:]}
+        log("bench", f"{label}: p50 {line['value']:.3f} ms, p95 {x['p95_ms']:.3f}, sustained "
+                     f"{x['sustained_ms_per_chunk']:.3f} ms a step of {x['batch']} stream(s), "
+                     f"{x['audio_seconds_per_second']:.1f} audio-s/s, MFU {x['mfu']:.2%}; stage device ms "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in x["stage_device_ms"].items())
+                     + f" (sum {x['stage_device_ms_sum']:.3f}); capture {x['capture_s']:.2f} s, peak memory "
+                     f"{x['peak_memory_mib']:.1f} MiB; TF32 cuDNN {x['cudnn_tf32']}, matmul {x['matmul_tf32']}"
+                     + (f"; device busy {prof['device_busy_ms_per_step']:.3f} ms a step "
+                        f"({prof['busy_share']:.1%}), hand kernels {prof['kernels_in_trace']} in "
+                        f"{prof['traced_steps']} steps" if prof else ""))
+    fused = report.get("main_bf16", {}).get("graphs", {}).get("fused")
+    if fused:
+        b1 = out["b1-fused-profiled"]["line"]
+        log("bench", f"beside the main phase's bfloat16 jit_step in this process (TF32 off): p50 "
+                     f"{fused['step_p50_ms']:.3f} ms, device busy {fused['device_busy_ms_per_step']:.3f} ms a step; "
+                     f"the bench's (its own process, PyTorch's TF32 defaults, profiled): p50 {b1['value']:.3f} ms, "
+                     f"sustained {b1['extra']['sustained_ms_per_chunk']:.3f} ms")
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["bench"] = out
+    log("bench", f"the bench phase ran {out['phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the mesh: streams split along data, ContentVec and the exact table along model
 # ---------------------------------------------------------------------------
 
@@ -2805,17 +2783,11 @@ def trace_pool_ticks(pipe, wavs, controls, want, ticks=5, **pool_kw):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             tick()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            mark_trace()
             for _ in range(ticks):
                 tick()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        if not marks:
-            raise AssertionError("the trace holds no marker kernel: torch.profiler recorded no device activity")
-        events = events[marks[-1] + 1 :]
+        events = events_after_mark(prof)
         return kernel_counts(events), device_busy_ms(events) / ticks
 
     with torch.no_grad():
@@ -3101,7 +3073,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps with torch.profiler (device busy share, top operators)")
     ap.add_argument("--only", default="",
-                    help="run only these phases after the build, comma-separated (stage_repeat, mesh), and print "
+                    help="run only these phases after the build, comma-separated (stage_repeat, mesh, bench), and print "
                          "no kernel line: for iterating on one phase")
     ap.add_argument("--stage-repeat-child", nargs=2, metavar=("OUT", "LOG"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3154,7 +3126,8 @@ def main(argv=None) -> int:
     if args.only:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi)}
+        phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi),
+                  "bench": lambda: phase_bench(report)}
         for name in args.only.split(","):
             phases[name]()
         OUT_DIR.mkdir(exist_ok=True)
@@ -3178,6 +3151,7 @@ def main(argv=None) -> int:
         phase_profile(report, "main_bf16", bf16)
     phase_graphs(report, "main_bf16", bf16)
     phase_stage_repeat(report)
+    phase_bench(report)
     v1 = phase_main(report, "v1", V1_CHUNKS, "bfloat16", version="v1")
     phase_graphs(report, "v1", v1, reload_weights=True)
     del v1

@@ -240,6 +240,14 @@ class GraphedFunction:
             self._graph.replay()
             return self._out
 
+    def replay(self) -> None:
+        """Replay the captured graph on its static arguments as they stand:
+        no copy-in, no weights check, no capture. For timing the graph alone
+        (a function that writes its own arguments sees its last output)."""
+        if self._graph is None:
+            raise RuntimeError(f"{self.name} holds no captured graph")
+        self._graph.replay()
+
     def __call__(self, *args):
         """:meth:`run`, with the outputs copied out of the graph's memory."""
         with self.lock:

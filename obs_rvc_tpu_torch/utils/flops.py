@@ -2,9 +2,11 @@
 ``obs_rvc_tpu/utils/flops.py``, copied: the port imports nothing of the JAX
 package).
 
-``chip_smoke.py`` divides them by the step's time for the step's MFU against
-the card's peak. Counts are multiply-add = 2 FLOPs, inference path only,
-matching the shapes the default streaming geometry feeds.
+``scripts/torch_bench.py`` and ``chip_smoke.py`` divide them by the step's
+time for the step's MFU against the card's peak. Counts are multiply-add =
+2 FLOPs, inference path only, matching the shapes the default streaming
+geometry feeds. ``crepe_gflops``, ``fcpe_gflops`` and ``chunk_gflops`` are
+the port's own: they count the pitch network the pipeline runs.
 """
 
 from __future__ import annotations
@@ -71,3 +73,45 @@ def pipeline_gflops_per_chunk(cfg, feature_dim: int = 768) -> float:
         + rmvpe_gflops(cfg.rmvpe_n_frames)
         + synth_gflops(cfg.return_length)
     )
+
+
+def crepe_gflops(crepe, n_frames: int) -> float:
+    """CREPE's multiply-adds (x2) over ``n_frames`` frames of 1024 samples:
+    six convolutions over the frame axis (pads 254/254, then 31/32; stride 4
+    on the first), each output halved by its max-pool, and the classifier."""
+    fl, length = 0, 1024
+    for i in range(1, 7):
+        conv = getattr(crepe, f"conv{i}")
+        k, stride = conv.kernel_size[0], conv.stride[0]
+        out = (length + (508 if i == 1 else 63) - k) // stride + 1
+        fl += 2 * out * conv.in_channels * conv.out_channels * k
+        length = out // 2
+    fl += 2 * crepe.classifier.in_features * crepe.classifier.out_features
+    return n_frames * fl / 1e9
+
+
+def fcpe_gflops(fcpe, n_frames: int) -> float:
+    """FCPE's multiply-adds (x2) over ``n_frames`` mel frames: the two k3
+    input convs, each layer's two pointwise convs and its depthwise conv,
+    and the output projection (norms and gates not counted, as the counts
+    above count none)."""
+    c = fcpe.cfg
+    inner = c.hidden * c.expansion
+    per_layer = c.hidden * 2 * inner + inner * c.conv_kernel + inner * c.hidden
+    fl = 3 * c.n_mels * c.hidden + 3 * c.hidden * c.hidden + c.n_layers * per_layer + c.hidden * c.out_dims
+    return 2 * n_frames * fl / 1e9
+
+
+def chunk_gflops(pipe) -> float:
+    """The networks' GFLOP for one stream's chunk of an ``RvcPipeline``:
+    ContentVec, the pitch network it runs (RMVPE, CREPE or FCPE, each
+    counted; the JAX package's bench counts RMVPE for all three) and the
+    synthesizer."""
+    cfg = pipe.cfg
+    total = pipeline_gflops_per_chunk(cfg, pipe.contentvec_cfg.out_dim)
+    if pipe.pitch_algorithm == "rmvpe":
+        return total
+    total -= rmvpe_gflops(cfg.rmvpe_n_frames)
+    if pipe.pitch_algorithm == "crepe":
+        return total + crepe_gflops(pipe.crepe, cfg.rmvpe_n_frames)
+    return total + fcpe_gflops(pipe.fcpe, cfg.rmvpe_n_frames)
