@@ -16,8 +16,8 @@ Phases, each printing its own lines:
            chain and the resblock bank; float32 for the log-mel frontend,
            also at a ragged and an offline length and on silence, on RMVPE's
            HTK basis and on FCPE's Slaney basis with fmin 0), TF32 off; and
-           at the batched step's: the chain and the bank at 8 streams, the
-           log-mel on a stream axis (8 and 64 windows in one launch, a
+           at the batched step's: the chain at 8 and 64 streams, the bank at
+           8 streams, the log-mel on a stream axis (8 and 64 windows in one launch, a
            ragged length, silence), each row bit-identical to its own launch
 4. main    RvcPipeline.step at the default geometry and full width (v2
            ContentVec, full RMVPE, 40 kHz synthesizer) on random weights,
@@ -150,7 +150,11 @@ Phases, each printing its own lines:
            cores' 989 TFLOP/s, cuDNN in bfloat16 beside), the bank's grid
            (blocks, blocks an SM holds, the share of conv1's rows recomputed
            as halo); the log-mel also on FCPE's basis; the chain, the bank
-           and the log-mel also at the batched step's 8 streams
+           and the log-mel also at the batched step's 8 streams, the chain
+           at 64 streams too; each chain level's launch shape (the wrapper's
+           tile, the blocks and their waves over the SMs, shared memory,
+           registers, blocks an SM), and the chain's four levels summed at
+           1, 8 and 64 streams
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
@@ -251,6 +255,11 @@ MEL_BOUND = (2e-4, 1e-4)  # the JAX package's own bound for its Pallas kernel
 #: once for all of them, at these shapes
 POOL_B = 8
 CHAIN_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, H, W, cin, C) for label, _, H, W, cin, C in CHAIN_SHAPES]
+#: the chain at the pool phase's largest batch, 64 streams (gated and timed; its launches are the same C calls)
+CHAIN_B64 = 64
+CHAIN_SHAPES_B64 = [(f"{label}-b{CHAIN_B64}", CHAIN_B64, H, W, cin, C) for label, _, H, W, cin, C in CHAIN_SHAPES]
+#: the chain kernel against its plain version (abs, rel): float32 and bfloat16, the CUDA tests' BOUNDS["chain"]
+CHAIN_BOUNDS = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 2e-2)}
 BANK_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, L, C) for label, _, L, C in BANK_SHAPES]
 # (label, B, L, signal): the log-mel on a stream axis, one launch for B windows ("mixed": voiced, normal and
 # silent rows in turn); B=64 is the pool phase's largest batch
@@ -278,6 +287,28 @@ def chain_inputs(label, B, H, W, cin, C, device, rng):
         ci = C
     x = t(rng.standard_normal((B, H, W, cin)) * 0.5)
     return x, blocks
+
+
+def chain_library(x, blocks):
+    """One PyTorch composite of the chain, timed beside the kernel: cuDNN's
+    best (NCHW channels_last convs, autotuned), its convs unfused."""
+    import torch
+    import torch.nn.functional as F
+
+    h = x.permute(0, 3, 1, 2)
+    ws = [(w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), b1,
+           w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), b2,
+           None if wsc is None else wsc.T[:, :, None, None].contiguous(memory_format=torch.channels_last),
+           bsc) for w1, b1, w2, b2, wsc, bsc in blocks]
+
+    def run():
+        y0 = h
+        for w1, b1, w2, b2, wsc, bsc in ws:
+            y = F.relu(F.conv2d(y0, w1, b1, padding=1))
+            y = F.relu(F.conv2d(y, w2, b2, padding=1))
+            y0 = (F.conv2d(y0, wsc, bsc) if wsc is not None else y0) + y
+        return y0
+    return run
 
 
 def chain_flops_bytes(B, H, W, cin, C, elem=4, welem=4):
@@ -312,6 +343,20 @@ def bank_flops_bytes(B, L, C, elem=4, welem=4):
     flops = B * sum(len(BANK_DILS) * 2 * 2 * k * C * C * L for k in BANK_KS)
     wbytes = sum(len(BANK_DILS) * 2 * (welem * k * C * C + 4 * C) for k in BANK_KS)
     return flops, 2 * B * L * C * elem + wbytes
+
+
+def chain_launch(B, H, W, cin, C, dtype):
+    """The chain kernel's launch at one level: the wrapper's tiling, the
+    card's occupancy at it, and the waves of its blocks (a tile each) over
+    the blocks the card holds at once."""
+    import torch
+
+    from obs_rvc_tpu_torch.ops import unet_block
+
+    tl = unet_block.chain_tiling(B, H, W, cin, C, dtype,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+    info = unet_block.launch_info(cin, C, dtype, tl)
+    return dict(tl._asdict(), **info, waves=tl.tiles / (N_SMS * info["blocks_per_sm"]))
 
 
 def bank_grid(B, L, C, dtype):
@@ -380,7 +425,7 @@ def phase_parity(report):
     log("parity", "TF32 off for cuDNN and matmul: the plain versions run in full float32")
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    bounds = {"chain": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 2e-2)},
+    bounds = {"chain": {dt: CHAIN_BOUNDS[str(dt)[6:]] for dt in (torch.float32, torch.bfloat16)},
               "bank": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 2e-2)}}
     out = {"conv_block_res_chain": {}, "resblock_bank": {}, "log_mel": {}}
     # RMVPE's basis (HTK, fmin 30) and FCPE's (Slaney, fmin 0), each with its window and packed basis
@@ -415,7 +460,7 @@ def phase_parity(report):
         out["log_mel"][f"{label} float32"] = err
         log("parity", f"log_mel {label} [{B}, {L}] -> {list(got.shape)} {kind} float32, one launch: max abs err "
                       f"{err:.3e} (bound {MEL_BOUND[0]}/{MEL_BOUND[1]}); every row bit-identical to its own launch")
-    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH:
+    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -1982,23 +2027,6 @@ def phase_timing(report, trace=False):
             return torch.log(torch.clamp(basis @ spec, min=1e-5))
         return run
 
-    def chain_library(x, blocks):
-        """cuDNN's best: NCHW channels_last convs, autotuned."""
-        h = x.permute(0, 3, 1, 2)
-        ws = [(w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), b1,
-               w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), b2,
-               None if wsc is None else wsc.T[:, :, None, None].contiguous(memory_format=torch.channels_last),
-               bsc) for w1, b1, w2, b2, wsc, bsc in blocks]
-
-        def run():
-            y0 = h
-            for w1, b1, w2, b2, wsc, bsc in ws:
-                y = F.relu(F.conv2d(y0, w1, b1, padding=1))
-                y = F.relu(F.conv2d(y, w2, b2, padding=1))
-                y0 = (F.conv2d(y0, wsc, bsc) if wsc is not None else y0) + y
-            return y0
-        return run
-
     def bank_library(x, params):
         """cuDNN's best: the bank as autotuned conv1d calls on [B, C, L]."""
         xt = x.transpose(1, 2).contiguous()
@@ -2048,7 +2076,8 @@ def phase_timing(report, trace=False):
     # bf16 tensor cores' rate, activations and packed weights of 2 bytes, cuDNN in bfloat16 beside
     rates = {torch.float32: ("", TF32X3_PEAK_FLOPS, "3xTF32's 165", 4),
              torch.bfloat16: (" bfloat16", BF16_PEAK_FLOPS, "bf16's 989", 2)}
-    chain_cases = [(shape, *chain_inputs(*shape, dev, rng)) for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH]
+    chain_cases = [(shape, *chain_inputs(*shape, dev, rng))
+                   for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "conv_block_res_chain" + suffix
         for (label, B, H, W, cin, C), x32, blocks32 in chain_cases:
@@ -2058,7 +2087,14 @@ def phase_timing(report, trace=False):
             measure(name, label, lambda: unet_block.conv_block_res_chain(x, packed),
                     lambda: unet_block.conv_block_res_chain_plain(x, blocks), chain_library(x, blocks),
                     flops, nbytes, peak=peak)
-            rows[name][label]["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
+            r = rows[name][label]
+            r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
+            r["launch"] = chain_launch(B, H, W, cin, C, dt)
+            ln = r["launch"]
+            log("timing", f"chain {label}{suffix} launch: tiles of {ln['th']}x{ln['tw']} pixels, {ln['wm']} m16 "
+                          f"tiles a warp, {ln['threads']} threads; {ln['tiles']} blocks, a tile each, "
+                          f"{ln['waves']:.2f} waves over {N_SMS} SMs; {ln['smem_bytes']} B shared memory, "
+                          f"{ln['registers']} registers, {ln['blocks_per_sm']} blocks an SM")
             if trace and dt == torch.float32:
                 calls = kernel_trace(lambda: unet_block.conv_block_res_chain(x, packed), 2 * N_BLOCKS)
                 last = calls[-1]
@@ -2066,18 +2102,20 @@ def phase_timing(report, trace=False):
                 log("profile", f"chain {label}: {len(last)} kernels per call, span "
                                f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel "
                                + ", ".join(f"{d:.1f} us at +{t:.1f}" for _, d, t in last))
-        chain_rows = {label: r for label, r in rows[name].items() if label in {sh[0] for sh in CHAIN_SHAPES}}
         for label, r in rows[name].items():
             log("timing", f"chain level {label}{suffix}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
                           f"({r['ms'] / r['library_ms']:.2f}x cuDNN's time), eager one-call wrapper "
                           f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at {rate} TFLOP/s, "
                           f"{r['bound_ms_f32_cuda_cores']:.4f} ms at float32's 67 TFLOP/s")
-        log("timing", f"chain{suffix} per step (4 levels): kernel "
-                      f"{sum(r['ms'] for r in chain_rows.values()):.4f} ms, eager "
-                      f"{sum(r['eager_ms'] for r in chain_rows.values()):.4f} ms, cuDNN "
-                      f"{sum(r['library_ms'] for r in chain_rows.values()):.4f} ms, bound "
-                      f"{sum(r['bound_ms'] for r in chain_rows.values()):.4f} ms ({rate} TFLOP/s) / "
-                      f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows.values()):.4f} ms (float32 CUDA cores)")
+        for tag, shapes in (("", CHAIN_SHAPES), (f" at {POOL_B} streams", CHAIN_SHAPES_BATCH),
+                            (f" at {CHAIN_B64} streams", CHAIN_SHAPES_B64)):
+            chain_rows = [rows[name][sh[0]] for sh in shapes]
+            log("timing", f"chain{suffix} per step{tag} (4 levels): kernel "
+                          f"{sum(r['ms'] for r in chain_rows):.4f} ms, eager "
+                          f"{sum(r['eager_ms'] for r in chain_rows):.4f} ms, cuDNN "
+                          f"{sum(r['library_ms'] for r in chain_rows):.4f} ms, bound "
+                          f"{sum(r['bound_ms'] for r in chain_rows):.4f} ms ({rate} TFLOP/s) / "
+                          f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows):.4f} ms (float32 CUDA cores)")
     bank_cases = [(shape, *bank_inputs(*shape, dev, rng))
                   for shape in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH]
     for dt, (suffix, peak, rate, elem) in rates.items():

@@ -101,7 +101,6 @@ __device__ __forceinline__ void conv_gemm(float (&acc)[MT][4], const float* plan
   constexpr bool F32 = Prec<T>::PLANES == 2;
   constexpr int S = C + 4, KC = C / 8, NK = K * KC, STEP = KC * 32;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int o0 = a_col<T>(t, 0), o1 = a_col<T>(t, 1);
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 4;  // the lane's ldmatrix address
   float small[MT][4];
 #pragma unroll
@@ -124,8 +123,7 @@ __device__ __forceinline__ void conv_gemm(float (&acc)[MT][4], const float* plan
           ldmatrix_x4(a, plane + a0 + (m * 16 + lrow) * S + lcol);
           mma_3xtf32(acc[m], small[m], a, b);
         } else {
-          mma_step<T>(acc[m], small[m], plane, nullptr, a0 + (m * 16 + g) * S, a0 + (m * 16 + g + 8) * S, o0, o1,
-                      b);
+          mma_step_bf16(acc[m], plane, a0 + (m * 16 + g) * S, a0 + (m * 16 + g + 8) * S, t, b);
         }
       }
     }

@@ -9,252 +9,343 @@
 // Replaces: obs_rvc_tpu/ops/unet_block.py:conv_block_res_chain (Pallas,
 // TPU), which keeps a stream's whole [C, H*W + 2*pad] level activation in
 // VMEM and runs the level's blocks back to back in one call. Here one C call
-// runs the level too: it issues two launches per block (conv1; conv2 with
-// the shortcut and the residual add), each conv's output going through L2
-// (at most 0.5 MB a level).
+// runs the level too: it issues two launches per block (conv1, with the
+// 1x1 shortcut where the block has one; conv2 with the residual add), each
+// conv's output going through L2.
 //
 // What bounds it: the four C<=32 levels of the main path (enc0 1->16 and
 // dec4 32->16 at 64x128, enc1 16->32 and dec3 64->32 at 32x64) do 1.25 GFLOP
-// together against ~4 MB of activations and weights per step: bound by
-// arithmetic. In float32 the kernel runs each product as three TF32 tensor
-// core products (3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, with hi the
-// value rounded to TF32 and lo the rest, float32 accumulation), which keeps
-// float32's accuracy; its bound is 495 / 3 = 165 TFLOP/s, 0.0076 ms a step.
-// In bfloat16 one bf16 product, with float32 accumulation.
+// a stream against ~4 MB of activations and weights: bound by arithmetic.
+// In float32 the kernel runs each product as three TF32 tensor core
+// products (3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, hi the value cut to
+// TF32 and lo the rest, float32 accumulation), which keeps float32's
+// accuracy; its bound is 495 / 3 = 165 TFLOP/s. In bfloat16 one bf16
+// product, with float32 accumulation. A conv at these widths is short work
+// (at 8 streams 0.3 GFLOP, 2-4 MB), so what sets its time is latency: the
+// launch, a block's loads, its chain of K steps.
 //
 // Design: each conv is an implicit GEMM, M = output pixels, N = C, K = 9
-// Cin, on mma.sync.m16n8k8. A block owns a tile of 32/C rows x 16 columns
-// of output pixels and all C channels: four warps, each one row of 16
-// pixels and 8 channels (one n8 tile), so the grid has 256 blocks at the
-// 64x128 levels and 128 at the 32x64 ones. At that size a warp's chain of
-// dependent K steps sets the time, not the tensor cores' rate, so each
-// conv's K is split three ways by the taps' row over three such groups of
-// four warps (384 threads), and the sums meet in shared memory. The block
-// stages its input tile with a 1-pixel halo into shared memory once (zeros
-// outside the image), already split into TF32 hi and lo; a table of K
-// offsets turns each k into a tap and a channel, so any Cin (1, 3, 16, 32,
-// 64) runs the same loop, each slab's K padded to a multiple of 8 with zero
-// weights. Pixel rows are padded to Cin + 4 floats, so a fragment's 8
-// pixels x 4 channels hit 32 distinct banks. Weights are packed once per
-// weight version on the host (ops/unet_block.py:pack_chain) in the exact
-// order of the mma's B fragments, hi and lo side by side; each warp reads
-// its fragments straight from L2 with one 16-byte load per lane, eight K
-// steps ahead of their use (a ring in registers). No weight passes through
-// shared memory: each fragment is used by one warp of the block (two at
-// C=16), so staging it would buy little reuse and would cost barriers; the
-// ring hides the same latency a cp.async ring in shared memory would.
+// Cin, on mma.sync: m16n8k16 in bf16, m16n8k8 in TF32, so a K step is 32
+// bytes of one tap's channels either way (Cin padded with zeros to a
+// multiple of 16 or 8). A block computes a tile of TH rows x TW columns of
+// output pixels and all C channels; each warp owns WM m16 tiles (16 pixels
+// of one row each) and all C/8 n8 tiles, so each B fragment feeds WM mma and
+// each A fragment C/8 (register blocking, no split K). The wrapper chooses
+// (TH, TW, WM) from the batch and the level's size
+// (ops/unet_block.py:chain_tiling) and hands it over: 64-pixel tiles of 4
+// warps for one stream, 128-pixel tiles of 8 warps from 8 streams, of 4
+// warps with two m16 tiles each from 64. A block stages the conv's weights
+// into shared memory (cp.async), in the order of the B fragments
+// (ops/unet_block.py:pack_chain), so every warp reads them from there, and
+// its input tile with a 1-pixel halo in the activation's own dtype, zeros
+// outside the image: cp.async for rows of 16-byte multiples, plain stores
+// for an odd Cin such as 1. A fragments come by ldmatrix from pixel rows
+// padded by 16 bytes, so a fragment's 8 rows hit 32 distinct banks. conv1
+// also computes the 1x1 shortcut from the centre of the same tile and
+// writes it where conv2's output goes; conv2 adds it (or the block's input)
+// in its epilogue, so no launch stages a second tile.
+//
+// One block a tile, several on an SM, so one block's loads overlap
+// another's products; and each conv is launched as a programmatic dependent
+// of the one before (cudaLaunchAttributeProgrammaticStreamSerialization,
+// griddepcontrol): its blocks start and load their weights while that one
+// finishes, and wait for it before they read an activation. Blocks that
+// stay resident over several tiles (persistent, the next tile's input
+// loading while one computes) measured no faster on the card at 1 to 64
+// streams (PERF.md, section 6). mma.sync, not wgmma: wgmma's 64-row tiles and
+// swizzled shared-memory operands buy the tensor cores' full rate, and these
+// convs run at a few percent of it, held by latency.
 
 #include "mma.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;                 // warps of one tap-row group
-constexpr int NTHREADS = 3 * WARPS * 32;  // three tap-row groups
-constexpr int TW = 16;        // tile width, pixels
-constexpr int XW = TW + 2;    // tile width with the halo
 constexpr int MAX_CIN = 64;
+constexpr int MAX_WARPS = 8;
+constexpr int SMEM_CAP = 232448;  // what a block may use on Hopper
+constexpr int FRAG_STEP_BYTES = 32 * 8;  // one K step's B fragments of one n8 tile: 32 lanes x 8 bytes
 
-// shared-memory row stride of a pixel with cin channels, in floats
-__host__ __device__ constexpr int pixel_stride(int cin) { return cin % 8 == 0 ? cin + 4 : cin; }
-__host__ __device__ constexpr int pad8(int k) { return (k + 7) / 8 * 8; }
-
-// output rows a block's tile spans: each warp of a tap-row group owns one
-// row of 16 pixels and one n8 tile
-template <int C>
-__host__ __device__ constexpr int tile_rows() { return WARPS / (C / 8); }
-
-// shared memory of one launch, in 4-byte words
-template <typename T, int C>
-constexpr size_t smem_words(int cin, int sc_cin) {
-  constexpr int TH = tile_rows<C>();
-  return (size_t)pad8(3 * cin) + pad8(sc_cin) + 3 * WARPS * 32 * 4 +
-         (size_t)Prec<T>::PLANES * ((TH + 2) * XW * pixel_stride(cin) + TH * TW * pixel_stride(sc_cin));
-}
-
-// Stage one activation v at offset o of the planes: TF32 hi and lo in
-// float32, the value in bfloat16.
+// A K step of the mma: the channels it consumes (16 bf16 or 8 TF32, 32 bytes
+// either way) and a lane's B fragment: two bf16x2 registers, or the two
+// float32 it splits into TF32 hi and lo.
 template <typename T>
-__device__ __forceinline__ void put(float* hi, float* lo, int o, float v) {
-  if constexpr (Prec<T>::PLANES == 2) {
-    const float h = __uint_as_float(tf32(v));
-    hi[o] = h;
-    lo[o] = __uint_as_float(tf32(v - h));
-  } else {
-    hi[o] = v;
-  }
+struct Step;
+template <>
+struct Step<float> {
+  static constexpr int K = 8;
+  using Frag = float2;
+};
+template <>
+struct Step<__nv_bfloat16> {
+  static constexpr int K = 16;
+  using Frag = uint2;
+};
+
+__host__ __device__ constexpr int cin_pad(int cin, int ks) { return (cin + ks - 1) / ks * ks; }
+// a staged pixel's bytes: its channels padded to the K step, and 16 more so
+// the 8 rows of an ldmatrix matrix fall in distinct banks
+__host__ __device__ constexpr int pixel_bytes(int cinp, int elem) { return cinp * elem + 16; }
+
+// shared memory of one conv launch: the weights (and the shortcut's), the
+// input tile with its halo
+__host__ size_t conv_smem(int ks, int elem, int C, int cin, bool shortcut, int th, int tw) {
+  const int kc = cin_pad(cin, ks) / ks, nt = C / 8;
+  const size_t w = (size_t)(shortcut ? 10 : 9) * kc * nt * FRAG_STEP_BYTES;
+  return w + (size_t)(th + 2) * (tw + 2) * pixel_bytes(cin_pad(cin, ks), elem);
 }
 
-// Stage rows x COLS pixels of src (cin channels) whose top-left is image
-// pixel (h0, w0) into hi (and lo) planes, zeros outside the image. Each
-// thread has BATCH loads in flight before it writes any, so the block waits
-// on device memory a few times, not once per element it stages; its
-// (pixel, channel) pairs advance by additions, since a division by a
-// runtime cin costs a few dozen instructions an element.
-template <typename T, int COLS>
-__device__ __forceinline__ void stage(float* hi, float* lo, const T* src, int cin, int rows, int h0, int w0,
-                                      int H, int W) {
-  constexpr int BATCH = 8;
-  const int stride = pixel_stride(cin), npix = rows * COLS;
-  const int dp = NTHREADS / cin, dc = NTHREADS - dp * cin;
-  int p = threadIdx.x / cin, c = threadIdx.x - p * cin;
-  while (p < npix) {
-    int pu[BATCH], cu[BATCH];
-    float v[BATCH];
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
+
+__device__ __forceinline__ void load2(const float* p, size_t i, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p + i);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, size_t i, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+  a = v.x;
+  b = v.y;
+}
+
+// acc += A B for one K step: A's fragment (ldmatrix_x4), B's (Step<T>::Frag)
+__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&a)[4], const uint2& b) {
+  mma_bf16_k16(acc, a, b.x, b.y);
+}
+__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(acc, al, bh[0], bh[1]);
+  mma_tf32(acc, ah, bl[0], bl[1]);
+  mma_tf32(acc, ah, bh[0], bh[1]);
+}
+
+// acc[j][n] += the taps tap0 .. tap0 + ntaps - 1 of the conv on the staged
+// tile buf, for this warp's m16 tiles j (the lane's ldmatrix row at tap
+// (0, 0) in arow[j]) and every n8 tile n; w: the taps' B fragments in shared
+// memory, kc K steps a tap. The conv runs the nine taps; the shortcut the
+// centre tap alone, with its own weights.
+template <typename T, int C, int WM>
+__device__ __forceinline__ void conv_gemm(float (&acc)[WM][C / 8][4], const unsigned char* buf,
+                                          const int (&arow)[WM], const typename Step<T>::Frag* w, int tap0,
+                                          int ntaps, int kc, int xw, int pbytes) {
+  using Frag = typename Step<T>::Frag;
+  constexpr int NT = C / 8;
+  const int lane = threadIdx.x & 31;
+  for (int tp = 0; tp < ntaps; ++tp) {
+    const int tap = tap0 + tp;
+    const unsigned char* tb = buf + ((tap / 3) * xw + tap % 3) * pbytes;
+    const Frag* wt = w + tp * kc * NT * 32 + lane;
+#pragma unroll 2
+    for (int cc = 0; cc < kc; ++cc) {
+      Frag b[NT];
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      pu[u] = p;
-      cu[u] = c;
-      const int gh = h0 + p / COLS, gw = w0 + p % COLS;
-      v[u] = (p < npix && gh >= 0 && gh < H && gw >= 0 && gw < W) ? load(src, ((size_t)gh * W + gw) * cin + c)
-                                                                   : 0.f;
-      p += dp;
-      c += dc;
-      if (c >= cin) {
-        c -= cin;
-        ++p;
+      for (int n = 0; n < NT; ++n) b[n] = wt[(cc * NT + n) * 32];
+      if constexpr (Step<T>::K == 16) {
+#pragma unroll
+        for (int j = 0; j < WM; ++j) {
+          uint32_t a[4];
+          ldmatrix_x4(a, tb + arow[j] + cc * 32);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_k(acc[j][n], a, b[n]);
+        }
+      } else {
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          tf32_cut(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
+          tf32_cut(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < WM; ++j) {
+          uint32_t a[4], ah[4], al[4];
+          ldmatrix_x4(a, tb + arow[j] + cc * 32);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_cut(a[i], ah[i], al[i]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_k(acc[j][n], ah, al, bh[n], bl[n]);
+        }
       }
     }
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      if (pu[u] >= npix) break;
-      put<T>(hi, lo, pu[u] * stride + cu[u], v[u]);
-    }
   }
 }
 
-// acc += A B over kp/8 K steps: A's rows g and g + 8 start at a0 and a1 in
-// the planes, column k at koff[k]; B's fragments for this warp's n8 tile at
-// wf, one K step every nt8 * 32 entries. The fragments come from L2 through
-// a ring of RING registers, loaded RING K steps before their use, so a K
-// step does not wait on an L2 round trip.
-template <typename T>
-__device__ __forceinline__ void gemm(float (&acc)[4], const float* hi, const float* lo, int a0, int a1,
-                                     const int* koff, int kp, const typename Prec<T>::Frag* __restrict__ wf,
-                                     int nt8) {
-  using Frag = typename Prec<T>::Frag;
-  constexpr int RING = 8;
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  const int step = nt8 * 32, nk = kp / 8;
-  Frag ring[RING];
-#pragma unroll
-  for (int d = 0; d < RING; ++d) ring[d] = d < nk ? __ldg(wf + d * step + lane) : Frag{};
-  float small[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < nk; k0 += RING) {
-#pragma unroll
-    for (int d = 0; d < RING; ++d) {
-      const int kb = k0 + d;
-      if (kb >= nk) break;
-      const Frag b = ring[d];
-      if (kb + RING < nk) ring[d] = __ldg(wf + (kb + RING) * step + lane);
-      mma_step<T>(acc, small, hi, lo, a0, a1, koff[kb * 8 + a_col<T>(t, 0)], koff[kb * 8 + a_col<T>(t, 1)], b);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += small[i];
-}
+// One 3x3 conv of the chain, one TH x TW tile of output pixels a block (its
+// warps WM m16 tiles each), bias and ReLU fused:
+//   out = relu(conv(in) + bias) (+ res, where res is not null)
+// and, where wsc is not null, sc_out = Wsc^T in + bsc at the same pixels
+// (the block's 1x1 shortcut, from the centre of the staged tile). res may be
+// out itself: each element is read by the thread that then writes it. The
+// input rows are 16-byte aligned multiples where vec is set, and go by
+// cp.async.
+template <typename T, int C, int WM>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+conv3x3_kernel(const T* __restrict__ in, int cin, int vec, const typename Step<T>::Frag* __restrict__ wf,
+               const float* __restrict__ bias, const typename Step<T>::Frag* __restrict__ wsc,
+               const float* __restrict__ bsc, T* sc_out, const T* res, T* out, int H, int W, int TH, int TW) {
+  using Frag = typename Step<T>::Frag;
+  constexpr int KS = Step<T>::K, NT = C / 8, ELEM = sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cinp = cin_pad(cin, KS), kc = cinp / KS;
+  const int nw = 9 * kc * NT * 32, nsc = wsc != nullptr ? kc * NT * 32 : 0;  // fragments
+  Frag* wsm = reinterpret_cast<Frag*>(smem);
+  Frag* scsm = wsm + nw;
+  unsigned char* tile = reinterpret_cast<unsigned char*>(scsm + nsc);
+  const int xw = TW + 2, pbytes = pixel_bytes(cinp, ELEM), npix = (TH + 2) * xw;
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const int tx = blockIdx.x % tiles_w, ty = blockIdx.x / tiles_w % tiles_h, b = blockIdx.x / (tiles_w * tiles_h);
 
-// One 3x3 conv of the chain, bias and ReLU fused:
-//   sc_in == null:               out = relu(conv(in) + bias)
-//   sc_in != null, wsc == null:  out = relu(conv(in) + bias) + sc_in          (cin == C)
-//   wsc != null:                 out = relu(conv(in) + bias) + Wsc^T sc_in + bsc
-// The conv's K is split three ways by the taps' row: warp group s (4 warps)
-// sums the taps (s, 0..2), K = 3 cin padded to a multiple of 8, so each
-// warp's chain of dependent K steps is a third as long; group 2 also runs
-// the 1x1 shortcut. Groups 1 and 2 leave their sums in shared memory and
-// group 0 adds them, in that order, and writes the output.
-// At C = 16 the 64x128 levels have 256 blocks: registers are capped so that
-// two fit on an SM and the grid runs in one wave (80 a thread; the C = 32
-// grids have 128 blocks and keep what the compiler chooses).
-template <typename T, int C>
-__global__ void __launch_bounds__(NTHREADS, C == 16 ? 2 : 1)
-conv3x3_kernel(const T* __restrict__ in, int cin, const typename Prec<T>::Frag* __restrict__ wf,
-               const float* __restrict__ bias, T* __restrict__ out, const T* __restrict__ sc_in, int sc_cin,
-               const typename Prec<T>::Frag* __restrict__ wsc, const float* __restrict__ bsc, int H, int W) {
-  constexpr int TH = tile_rows<C>();
-  constexpr int NT8 = C / 8;
-  extern __shared__ float4 smem4[];
-  const int kp = pad8(3 * cin), kps = wsc != nullptr ? pad8(sc_cin) : 0;
-  const int stride = pixel_stride(cin), sstride = pixel_stride(sc_cin);
-  float4* red = smem4;  // [3][WARPS][32]: groups 1 and 2's conv sums, group 2's shortcut
-  int* koff = reinterpret_cast<int*>(red + 3 * WARPS * 32);
-  int* koffs = koff + kp;
-  float* hi = reinterpret_cast<float*>(koffs + kps);
-  float* lo = hi + (TH + 2) * XW * stride;
-  float* xhi = hi + Prec<T>::PLANES * (TH + 2) * XW * stride;
-  float* xlo = xhi + TH * TW * sstride;
-
-  const int b = blockIdx.z, h0 = blockIdx.y * TH, w0 = blockIdx.x * TW;
-  for (int k = threadIdx.x; k < kp; k += NTHREADS) {  // tap (s, k / cin) of group s, channel k % cin
-    const int dw = k / cin, ci = k - dw * cin;
-    koff[k] = k < 3 * cin ? dw * stride + ci : 0;
-  }
-  for (int k = threadIdx.x; k < kps; k += NTHREADS) koffs[k] = k < sc_cin ? k : 0;
-  stage<T, XW>(hi, lo, in + (size_t)b * H * W * cin, cin, TH + 2, h0 - 1, w0 - 1, H, W);
-  if (wsc != nullptr) stage<T, TW>(xhi, xlo, sc_in + (size_t)b * H * W * sc_cin, sc_cin, TH, h0, w0, H, W);
-  __syncthreads();
-
+  // the weights
+  const int4* w4 = reinterpret_cast<const int4*>(wf);
+  int4* s4 = reinterpret_cast<int4*>(wsm);
+  for (int i = threadIdx.x; i < nw * (int)sizeof(Frag) / 16; i += blockDim.x) cp_async16(s4 + i, w4 + i, 16);
+  w4 = reinterpret_cast<const int4*>(wsc);
+  s4 = reinterpret_cast<int4*>(scsm);
+  for (int i = threadIdx.x; i < nsc * (int)sizeof(Frag) / 16; i += blockDim.x) cp_async16(s4 + i, w4 + i, 16);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int s = warp / WARPS, w = warp % WARPS, wm = w / NT8, wn = w % NT8;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  gemm<T>(acc, hi, lo, ((wm + s) * XW + g) * stride, ((wm + s) * XW + g + 8) * stride, koff, kp,
-          wf + (size_t)s * (kp / 8) * NT8 * 32 + wn * 32, NT8);
-  if (s > 0) red[((s - 1) * WARPS + w) * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  if (s == 2 && wsc != nullptr) {
-    float sc[4] = {0.f, 0.f, 0.f, 0.f};
-    gemm<T>(sc, xhi, xlo, (wm * TW + g) * sstride, (wm * TW + g + 8) * sstride, koffs, kps, wsc + wn * 32, NT8);
-    red[(2 * WARPS + w) * 32 + lane] = make_float4(sc[0], sc[1], sc[2], sc[3]);
+  float bb[NT][2], bs[NT][2];  // the biases of the lane's two channels of each n8 tile
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    bb[n][0] = __ldg(bias + n * 8 + 2 * t);
+    bb[n][1] = __ldg(bias + n * 8 + 2 * t + 1);
+    bs[n][0] = wsc != nullptr ? __ldg(bsc + n * 8 + 2 * t) : 0.f;
+    bs[n][1] = wsc != nullptr ? __ldg(bsc + n * 8 + 2 * t + 1) : 0.f;
   }
+  int arow[WM], orow[WM], ocol[WM];
+#pragma unroll
+  for (int j = 0; j < WM; ++j) {
+    const int p = (warp * WM + j) * 16;
+    orow[j] = p / TW;
+    ocol[j] = p % TW;
+    arow[j] = (orow[j] * xw + ocol[j] + (lane & 15)) * pbytes + (lane >> 4) * 16;
+  }
+  // Launched as a programmatic dependent of the stream's kernel before it (conv()), the launch and the
+  // weights' loads above overlap that kernel; everything it writes is read, and everything this one
+  // writes is written, after this wait. Then the next conv may launch.
+  grid_dependency_wait();
+  grid_dependents_launch();
+
+  // the input tile with its halo
+  const int h0 = ty * TH - 1, w0 = tx * TW - 1;
+  const T* src = in + (size_t)b * H * W * cin;
+  if (vec) {
+    const int cpp = cinp * ELEM / 16, gcpp = cin * ELEM / 16;  // 16-byte chunks of a pixel: staged, in memory
+    for (int i = threadIdx.x; i < npix * cpp; i += blockDim.x) {
+      const int p = i / cpp, q = i - p * cpp, r = p / xw;
+      const int gh = h0 + r, gw = w0 + p - r * xw;
+      const bool inside = q < gcpp && gh >= 0 && gh < H && gw >= 0 && gw < W;
+      cp_async16(tile + p * pbytes + q * 16, inside ? src + ((size_t)gh * W + gw) * cin + q * (16 / ELEM) : src,
+                 inside ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < npix * cinp; i += blockDim.x) {
+      const int p = i / cinp, c = i - p * cinp, r = p / xw;
+      const int gh = h0 + r, gw = w0 + p - r * xw;
+      const bool inside = c < cin && gh >= 0 && gh < H && gw >= 0 && gw < W;
+      reinterpret_cast<T*>(tile + p * pbytes)[c] = inside ? src[((size_t)gh * W + gw) * cin + c] : zero<T>();
+    }
+  }
+  cp_async_commit();
+
+  // the epilogue: dst[pixel, channel] = f(acc + bias) at this warp's pixels inside the image
+  auto emit = [&](float(&acc)[WM][NT][4], const float(&bv)[NT][2], T* dst, bool conv) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float b0 = bv[n][0], b1 = bv[n][1];
+#pragma unroll
+      for (int j = 0; j < WM; ++j) {
+        const int oh = ty * TH + orow[j];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ow = tx * TW + ocol[j] + g + 8 * half;
+          if (oh >= H || ow >= W) continue;
+          const size_t o = (((size_t)b * H + oh) * W + ow) * C + n * 8 + 2 * t;
+          float v0 = acc[j][n][2 * half] + b0, v1 = acc[j][n][2 * half + 1] + b1;
+          if (conv) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+            if (res != nullptr) {
+              float r0, r1;
+              load2(res, o, r0, r1);
+              v0 += r0;
+              v1 += r1;
+            }
+          }
+          store2(dst, o, v0, v1);
+        }
+      }
+    }
+  };
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int oh = h0 + wm, n = wn * 8 + 2 * t;
-  if (s != 0 || oh >= H) return;
-  const float4 r1 = red[w * 32 + lane], r2 = red[(WARPS + w) * 32 + lane];
-  acc[0] += r1.x + r2.x;
-  acc[1] += r1.y + r2.y;
-  acc[2] += r1.z + r2.z;
-  acc[3] += r1.w + r2.w;
-  const float4 rs = red[(2 * WARPS + w) * 32 + lane];
-  const float sc[4] = {rs.x, rs.y, rs.z, rs.w};
-  const float bb0 = __ldg(bias + n), bb1 = __ldg(bias + n + 1);
+  float acc[WM][NT][4];
+  if (wsc != nullptr) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int ow = w0 + g + 8 * half;
-    if (ow >= W) continue;
-    const size_t o = (((size_t)b * H + oh) * W + ow) * C + n;
-    float v0 = fmaxf(acc[2 * half] + bb0, 0.f), v1 = fmaxf(acc[2 * half + 1] + bb1, 0.f);
-    if (wsc != nullptr) {
-      v0 += sc[2 * half] + __ldg(bsc + n);
-      v1 += sc[2 * half + 1] + __ldg(bsc + n + 1);
-    } else if (sc_in != nullptr) {
-      v0 += load(sc_in, o);
-      v1 += load(sc_in, o + 1);
-    }
-    store2(out, o, v0, v1);
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.f;
+    conv_gemm<T, C, WM>(acc, tile, arow, scsm, 4, 1, kc, xw, pbytes);
+    emit(acc, bs, sc_out, false);
   }
+#pragma unroll
+  for (int j = 0; j < WM; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.f;
+  conv_gemm<T, C, WM>(acc, tile, arow, wsm, 0, 9, kc, xw, pbytes);
+  emit(acc, bb, out, true);
 }
 
-template <typename T, int C>
-cudaError_t conv(const T* in, int cin, const void* wf, const float* bias, T* out, const T* sc_in, int sc_cin,
-                 const void* wsc, const float* bsc, int B, int H, int W, cudaStream_t stream) {
-  using Frag = typename Prec<T>::Frag;
-  constexpr int TH = tile_rows<C>();
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  const size_t smem = smem_words<T, C>(cin, wsc != nullptr ? sc_cin : 0) * 4;
-  conv3x3_kernel<T, C><<<grid, NTHREADS, smem, stream>>>(in, cin, static_cast<const Frag*>(wf), bias, out, sc_in,
-                                                          sc_cin, static_cast<const Frag*>(wsc), bsc, H, W);
-  return cudaGetLastError();
-}
+struct Tiling {
+  int th, tw, wm;
+  int warps() const { return th * tw / (16 * wm); }
+};
 
-template <typename T, int C>
-cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int n_blocks, int B, int H, int W,
-                  int cin, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(smem_words<T, C>(MAX_CIN, MAX_CIN) * 4));
+template <typename T, int C, int WM>
+cudaError_t set_smem_cap() {
+  static bool done = false;
+  if (!done) {
+    cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<T, C, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_CAP);
     if (e != cudaSuccess) return e;
-    attr_set = true;
+    done = true;
   }
+  return cudaSuccess;
+}
+
+template <typename T, int C, int WM>
+cudaError_t conv(const T* in, int cin, const void* wf, const float* bias, const void* wsc, const float* bsc,
+                 T* sc_out, const T* res, T* out, int B, int H, int W, const Tiling& tl, cudaStream_t stream) {
+  using Frag = typename Step<T>::Frag;
+  const size_t smem = conv_smem(Step<T>::K, sizeof(T), C, cin, wsc != nullptr, tl.th, tl.tw);
+  if (smem > (size_t)SMEM_CAP) return cudaErrorInvalidValue;
+  const int vec = (cin * (int)sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * ((H + tl.th - 1) / tl.th) * ((W + tl.tw - 1) / tl.tw));
+  cfg.blockDim = dim3(tl.warps() * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, conv3x3_kernel<T, C, WM>, in, cin, vec, static_cast<const Frag*>(wf), bias,
+                            static_cast<const Frag*>(wsc), bsc, sc_out, res, out, H, W, tl.th, tl.tw);
+}
+
+template <typename T, int C, int WM>
+cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int n_blocks, int B, int H, int W,
+                  int cin, const Tiling& tl, cudaStream_t stream) {
+  cudaError_t e = set_smem_cap<T, C, WM>();
+  if (e != cudaSuccess) return e;
   const size_t act = (size_t)B * H * W * C;
   T* y1 = scratch;
   T* ping[2] = {scratch + act, scratch + 2 * act};
@@ -262,11 +353,12 @@ cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int
   for (int i = 0; i < n_blocks; ++i) {
     const void* const* p = params + 6 * i;
     T* dst = i + 1 == n_blocks ? out : ping[i % 2];
-    cudaError_t e = conv<T, C>(src, cin, p[0], static_cast<const float*>(p[1]), y1, nullptr, 0, nullptr,
-                               nullptr, B, H, W, stream);
+    const bool sc = p[4] != nullptr;
+    e = conv<T, C, WM>(src, cin, p[0], static_cast<const float*>(p[1]), p[4], static_cast<const float*>(p[5]),
+                       sc ? dst : nullptr, nullptr, y1, B, H, W, tl, stream);
     if (e != cudaSuccess) return e;
-    e = conv<T, C>(y1, C, p[2], static_cast<const float*>(p[3]), dst, src, cin, p[4],
-                   static_cast<const float*>(p[5]), B, H, W, stream);
+    e = conv<T, C, WM>(y1, C, p[2], static_cast<const float*>(p[3]), nullptr, nullptr, nullptr, sc ? dst : src, dst,
+                       B, H, W, tl, stream);
     if (e != cudaSuccess) return e;
     src = dst;
     cin = C;
@@ -274,17 +366,44 @@ cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int
   return cudaSuccess;
 }
 
+// the kernel of (dtype, C, WM) as a pointer, for the occupancy queries
+template <typename T>
+const void* kernel_of(int C, int wm) {
+  switch (C * 10 + wm) {
+    case 161: return (const void*)conv3x3_kernel<T, 16, 1>;
+    case 162: return (const void*)conv3x3_kernel<T, 16, 2>;
+    case 321: return (const void*)conv3x3_kernel<T, 32, 1>;
+    case 322: return (const void*)conv3x3_kernel<T, 32, 2>;
+    default: return nullptr;
+  }
+}
+
 template <typename T>
 cudaError_t chain_c(int C, const void* x, void* out, void* scratch, const void* const* params, int n_blocks, int B,
-                    int H, int W, int cin, cudaStream_t s) {
+                    int H, int W, int cin, const Tiling& tl, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   T* st = static_cast<T*>(scratch);
-  switch (C) {
-    case 16: return chain<T, 16>(xt, ot, st, params, n_blocks, B, H, W, cin, s);
-    case 32: return chain<T, 32>(xt, ot, st, params, n_blocks, B, H, W, cin, s);
+  switch (C * 10 + tl.wm) {
+    case 161: return chain<T, 16, 1>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
+    case 162: return chain<T, 16, 2>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
+    case 321: return chain<T, 32, 1>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
+    case 322: return chain<T, 32, 2>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+bool valid_tiling(const Tiling& tl) {
+  return tl.th >= 1 && tl.tw >= 16 && tl.tw % 16 == 0 && (tl.wm == 1 || tl.wm == 2) &&
+         (tl.th * tl.tw) % (16 * tl.wm) == 0 && tl.warps() >= 1 && tl.warps() <= MAX_WARPS;
+}
+
+// the largest shared memory a launch of the level takes: conv1 (Cin, with the
+// shortcut) or conv2 (C)
+size_t level_smem(int dtype, int C, int cin, const Tiling& tl) {
+  const int ks = dtype == 0 ? 8 : 16, elem = dtype == 0 ? 4 : 2;
+  const size_t a = conv_smem(ks, elem, C, cin, true, tl.th, tl.tw), b = conv_smem(ks, elem, C, C, false, tl.th, tl.tw);
+  return a > b ? a : b;
 }
 
 }  // namespace
@@ -292,19 +411,47 @@ cudaError_t chain_c(int C, const void* x, void* out, void* scratch, const void* 
 // A whole level: x [B, H, W, cin] -> out [B, H, W, C] in the activation type
 // (dtype 0 float32, 1 bfloat16); scratch: 3 B H W C elements of it. params:
 // 6 pointers per block, (W1, b1, W2, b2, Wsc, bsc), the weights packed by
-// ops/unet_block.py:pack_chain into mma fragments (float32 hi/lo for dtype
-// 0, bf16 for dtype 1), the biases float32, Wsc and bsc null for an
-// identity shortcut. Launches two kernels per block on `stream`. Returns a
+// ops/unet_block.py:pack_chain into mma fragments (float32 for dtype 0, bf16
+// for dtype 1), the biases float32, Wsc and bsc null for an identity
+// shortcut. The tiling: th x tw output pixels a block (tw a multiple of 16),
+// wm m16 tiles a warp. Launches two kernels per block of the chain on
+// `stream`, each a programmatic dependent of the kernel before it. Returns a
 // CUDA error code (0 on success).
 extern "C" int rvc_conv_block_res_chain(const void* x, void* out, void* scratch, const void* const* params,
-                                        int n_blocks, int B, int H, int W, int cin, int C, int dtype,
-                                        void* stream) {
-  if (n_blocks < 1 || B < 1 || H < 1 || W < 1 || cin < 1 || cin > MAX_CIN) return (int)cudaErrorInvalidValue;
+                                        int n_blocks, int B, int H, int W, int cin, int C, int dtype, int th, int tw,
+                                        int wm, void* stream) {
+  const Tiling tl{th, tw, wm};
+  if (n_blocks < 1 || B < 1 || H < 1 || W < 1 || cin < 1 || cin > MAX_CIN || !valid_tiling(tl))
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_blocks; ++i)
     if (params[6 * i + 4] == nullptr && (i == 0 ? cin : C) != C) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0   ? chain_c<float>(C, x, out, scratch, params, n_blocks, B, H, W, cin, s)
-                  : dtype == 1 ? chain_c<__nv_bfloat16>(C, x, out, scratch, params, n_blocks, B, H, W, cin, s)
+  cudaError_t e = dtype == 0   ? chain_c<float>(C, x, out, scratch, params, n_blocks, B, H, W, cin, tl, s)
+                  : dtype == 1 ? chain_c<__nv_bfloat16>(C, x, out, scratch, params, n_blocks, B, H, W, cin, tl, s)
                                : cudaErrorInvalidValue;
   return (int)e;
+}
+
+// A level's launch on this card: out = (threads, shared memory bytes of its
+// largest launch, registers a thread, blocks an SM holds at that shared
+// memory). Returns a CUDA error code.
+extern "C" int rvc_chain_launch_info(int C, int dtype, int cin, int th, int tw, int wm, int* out) {
+  const Tiling tl{th, tw, wm};
+  if ((dtype != 0 && dtype != 1) || cin < 1 || cin > MAX_CIN || !valid_tiling(tl)) return (int)cudaErrorInvalidValue;
+  const void* k = dtype == 0 ? kernel_of<float>(C, wm) : kernel_of<__nv_bfloat16>(C, wm);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, k);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = level_smem(dtype, C, cin, tl);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, tl.warps() * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = tl.warps() * 32;
+  out[1] = (int)smem;
+  out[2] = attr.numRegs;
+  out[3] = blocks;
+  return 0;
 }

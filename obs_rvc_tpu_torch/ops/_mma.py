@@ -1,9 +1,10 @@
-"""Host-side packing for the port's tensor-core kernels (``csrc/mma.cuh``):
+"""Host-side packing for the bank's tensor-core kernel (``csrc/mma.cuh``):
 a weight in the order of the ``mma.sync.m16n8k8`` B fragments, float32 split
-into TF32 ``hi`` and ``lo`` for 3xTF32, bfloat16 rounded. Both
-``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank`` use it,
-once per weight version. Also the products of their plain versions, which
-round where the kernels round (:func:`conv_rounded`).
+into TF32 ``hi`` and ``lo`` for 3xTF32, bfloat16 rounded, which
+``ops/resblock.py:pack_bank`` makes once per weight version (the chain packs
+its own, ``ops/unet_block.py:pack_taps``). Also the products of the chain's
+and the bank's plain versions, which round where the kernels round
+(:func:`conv_rounded`).
 """
 
 from __future__ import annotations
@@ -22,11 +23,9 @@ def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A weight ``[K, C]``, or ``[G, K, C]`` for G slabs of K one after the
-    other (the chain's warp groups split a 3x3 conv's K by the taps' row:
-    ``[3, 3 * Cin, C]``, ``k = dw * Cin + ci``; the bank walks a ``[k, C, C]``
-    conv one tap's ``C`` at a time), in the order of the
-    ``mma.m16n8k8`` B fragments, each slab's K padded to a multiple of 8
-    with zeros: ``[G * Kp/8, C/8, 32 lanes, ...]``, lane ``4 g + t`` holding
+    other (the bank walks a ``[k, C, C]`` conv one tap's ``C`` at a time),
+    in the order of the ``mma.m16n8k8`` B fragments, each slab's K padded to
+    a multiple of 8 with zeros: ``[G * Kp/8, C/8, 32 lanes, ...]``, lane ``4 g + t`` holding
     column ``g`` of the n8 tile at rows ``t, t + 4`` of the k8 step as
     ``(hi, hi, lo, lo)`` float32 (``dtype`` float32, 3xTF32), or at rows
     ``2t, 2t + 1`` as two bfloat16 (``dtype`` bfloat16)."""

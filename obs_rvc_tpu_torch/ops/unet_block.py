@@ -15,27 +15,41 @@ the tensor cores, 3xTF32 in float32 and bf16 in bfloat16; one C call per
 level, two launches per block) for a tensor on a card; it never falls back
 from one to the other. The plain version takes the folded blocks; the kernel
 takes only their :func:`pack_chain` (the weights in its mma fragments'
-order, float32 ones split into TF32 hi and lo on the host), which
-``models/rmvpe.py:_Chain`` makes once per weight version.
+order), which ``models/rmvpe.py:_Chain`` makes once per weight version, and
+a tile shape that :func:`chain_tiling` chooses from the batch and the
+level's size (plain arithmetic, so the CPU tests check it).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import conv_rounded, pack_weight
+from obs_rvc_tpu_torch.ops._mma import conv_rounded
 
 #: output channel counts the CUDA kernel is built for
 CUDA_CHANNELS = (16, 32)
 CUDA_MAX_CIN = 64
-
 #: wrapper calls that launched the CUDA kernel
 LAUNCHES = 0
+
+#: the kernel's m16 tiles a warp (its template instances), and warps a block at most
+CUDA_WM = (1, 2)
+CUDA_MAX_WARPS = 8
+#: shared memory a block may take on Hopper
+SMEM_CAP = 232448
+#: the H100 SXM's SMs (a card reports its own count)
+N_SMS = 132
+#: tile shapes (rows, columns, m16 tiles a warp) by the level's output pixels an SM, B·H·W / SMs: below
+#: TILE_STEPS[0] (one stream's levels) 4 warps of one m16 tile over 4 rows; below TILE_STEPS[1] (8
+#: streams) 8 warps over 8 rows; beyond (64 streams) 4 warps of two m16 tiles each. Chosen from a sweep of
+#: every tile the kernel takes at 1, 8 and 64 streams (scripts/torch_chain_probe.py --sweep, PERF.md)
+TILES = ((4, 16, 1), (8, 16, 1), (8, 16, 2))
+TILE_STEPS = (128, 1024)
 
 
 def fold_bn(kernel, scale, bias, mean, var, eps: float = 1e-5):
@@ -75,10 +89,36 @@ class PackedChain(NamedTuple):
     params: ctypes.Array
 
 
+def k_step(dtype: torch.dtype) -> int:
+    """Channels one mma K step takes: 16 bf16 (m16n8k16), 8 TF32 (m16n8k8)."""
+    return 8 if dtype == torch.float32 else 16
+
+
+def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv weight ``[taps, Cin, C]`` (``[3, 3, Cin, C]`` flattened to 9
+    taps, a 1x1 one as 1) in the order of the kernel's B fragments: Cin
+    padded with zeros to a multiple of :func:`k_step` ``ks``, K = tap * Cinp
+    + ci, ``[taps * Cinp / ks, C / 8, 32 lanes, ...]``, lane ``4 g + t``
+    holding column ``g`` of the n8 tile as two float32 at rows ``t, t + 4``
+    of the k8 step (``dtype`` float32; the kernel splits them into TF32 hi
+    and lo) or four bfloat16 at rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of the
+    k16 step (``dtype`` bfloat16)."""
+    taps, cin, C = w.shape
+    ks = k_step(dtype)
+    cinp = -(-cin // ks) * ks
+    w = F.pad(w.float(), (0, 0, 0, cinp - cin)).reshape(taps * cinp, C)
+    nk = taps * cinp // ks
+    if dtype == torch.float32:  # k = 4 i + t
+        return w.reshape(nk, 2, 4, C // 8, 8).permute(0, 3, 4, 2, 1).reshape(nk, C // 8, 32, 2).contiguous()
+    # k = 8 h + 2 t + i: the lane's registers (h = 0, i = 0, 1) and (h = 1, i = 0, 1)
+    return w.to(dtype).reshape(nk, 2, 4, 2, C // 8, 8).permute(0, 4, 5, 2, 1, 3).reshape(
+        nk, C // 8, 32, 4).contiguous()
+
+
 def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
     """Check a level's folded blocks and pack them for the kernel in the
-    activation ``dtype``; the biases are rounded to ``dtype`` as the plain
-    version rounds them, and kept in float32."""
+    activation ``dtype`` (:func:`pack_taps`); the biases are rounded to
+    ``dtype`` as the plain version rounds them, and kept in float32."""
     C = blocks[0][0].shape[-1]
     cin = cin0 = blocks[0][0].shape[2]
     out, ptrs = [], []
@@ -93,9 +133,9 @@ def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
             raise ValueError(f"conv_block_res_chain: block {i} shortcut bias shape")
         if any(t is not None and t.device != blocks[0][0].device for t in (w1, b1, w2, b2, wsc, bsc)):
             raise ValueError(f"conv_block_res_chain: block {i} weights on more than one device")
-        packed = (pack_weight(w1.reshape(3, 3 * cin, C), dtype), _kernel_weight(b1, dtype),
-                  pack_weight(w2.reshape(3, 3 * C, C), dtype), _kernel_weight(b2, dtype),
-                  None if wsc is None else pack_weight(wsc.reshape(cin, C), dtype),
+        packed = (pack_taps(w1.reshape(9, cin, C), dtype), _kernel_weight(b1, dtype),
+                  pack_taps(w2.reshape(9, C, C), dtype), _kernel_weight(b2, dtype),
+                  None if wsc is None else pack_taps(wsc.reshape(1, cin, C), dtype),
                   None if wsc is None else _kernel_weight(bsc, dtype))
         out.append(packed)
         ptrs += [0 if t is None else t.data_ptr() for t in packed]
@@ -103,24 +143,98 @@ def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
     return PackedChain(dtype, blocks[0][0].device, C, cin0, out, (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
-def conv_block_res_chain(x, blocks: Union[list, PackedChain]) -> torch.Tensor:
+class ChainTiling(NamedTuple):
+    """A level's launch shape: one block a tile of ``th`` x ``tw`` output
+    pixels, ``warps`` warps of ``wm`` m16 tiles (16 pixels of a row) each,
+    ``tiles`` blocks in all; the shared memory of the level's largest
+    launch."""
+
+    th: int
+    tw: int
+    wm: int
+    warps: int
+    tiles: int
+    smem_bytes: int
+
+
+def level_smem(cin: int, C: int, dtype: torch.dtype, th: int, tw: int) -> int:
+    """Shared memory of the level's largest launch (``csrc/unet_block.cu:
+    conv_smem``): conv1 over Cin with the shortcut's weights, or conv2 over
+    C. A launch holds its conv's B fragments (9 taps, 10 with the
+    shortcut's, of Cinp / ks K steps of C / 8 n8 tiles of 32 lanes x 8
+    bytes) and its input tile of (th + 2) x (tw + 2) pixels of Cinp
+    channels and 16 bytes of padding."""
+    ks, elem = k_step(dtype), 4 if dtype == torch.float32 else 2
+
+    def conv(ci, shortcut):
+        cinp = -(-ci // ks) * ks
+        return (10 if shortcut else 9) * (cinp // ks) * (C // 8) * 256 + (th + 2) * (tw + 2) * (cinp * elem + 16)
+
+    return max(conv(cin, True), conv(C, False))
+
+
+def chain_tiling(B: int, H: int, W: int, cin: int, C: int, dtype: torch.dtype, n_sms: int = N_SMS,
+                 tile: Optional[tuple] = None) -> ChainTiling:
+    """The launch shape of a level ``[B, H, W, Cin] → C``: the tile of
+    :data:`TILES` for its pixels an SM, or ``tile``, a ``(th, tw, wm)``."""
+    if tile is None:
+        tile = TILES[sum(B * H * W >= step * n_sms for step in TILE_STEPS)]
+    th, tw, wm = tile
+    warps = th * tw // (16 * wm)
+    if tw % 16 or wm not in CUDA_WM or warps * 16 * wm != th * tw or not 1 <= warps <= CUDA_MAX_WARPS:
+        raise ValueError(f"chain_tiling: no kernel for tile {tuple(tile)}")
+    smem = level_smem(cin, C, dtype, th, tw)
+    if smem > SMEM_CAP:
+        raise ValueError(f"chain_tiling: tile {tuple(tile)} takes {smem} bytes of shared memory")
+    return ChainTiling(th, tw, wm, warps, B * -(-H // th) * -(-W // tw), smem)
+
+
+def chain_tiles(tiling: ChainTiling, B: int, H: int, W: int):
+    """The output pixels each block computes, in the kernel's order: block
+    ``(b * ceil(H/th) + ty) * ceil(W/tw) + tx`` takes tile ``(b, ty, tx)``,
+    its rows and columns cut at the image's edge. Yields ``(block, b, rows,
+    cols)`` with ``rows`` and ``cols`` ranges."""
+    tiles_w, tiles_h = -(-W // tiling.tw), -(-H // tiling.th)
+    for blk in range(tiling.tiles):
+        tx, ty, b = blk % tiles_w, blk // tiles_w % tiles_h, blk // (tiles_w * tiles_h)
+        yield (blk, b, range(ty * tiling.th, min(H, (ty + 1) * tiling.th)),
+               range(tx * tiling.tw, min(W, (tx + 1) * tiling.tw)))
+
+
+def launch_info(cin: int, C: int, dtype: torch.dtype, tiling: ChainTiling) -> dict:
+    """The level's launch on the card: threads, the largest launch's shared
+    memory, registers a thread and the blocks an SM holds at it (CUDA's
+    occupancy query)."""
+    fn = _cuda.function("unet_block", "rvc_chain_launch_info", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 4)()
+    _cuda.check(fn(C, 0 if dtype == torch.float32 else 1, cin, tiling.th, tiling.tw, tiling.wm,
+                   ctypes.cast(out, ctypes.c_void_p)), f"chain launch info ({cin}->{C}, {tiling})")
+    return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm"), out))
+
+
+def conv_block_res_chain(x, blocks: Union[list, PackedChain], tile: Optional[tuple] = None) -> torch.Tensor:
     """Fused ConvBlockRes chain, ``[B, H, W, Cin] → [B, H, W, C]``.
     ``blocks`` is the folded blocks for ``x`` on the CPU, and their
-    :func:`pack_chain` in ``x.dtype`` for ``x`` on a card."""
+    :func:`pack_chain` in ``x.dtype`` for ``x`` on a card; there ``tile``,
+    a ``(th, tw, wm)``, overrides :func:`chain_tiling`'s choice."""
     if x.device.type == "cpu":
         if isinstance(blocks, PackedChain):
             raise ValueError("conv_block_res_chain: on the CPU blocks are the folded blocks, not their pack")
         return conv_block_res_chain_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block_res_chain: unsupported device {x.device}")
-    return _chain_cuda(x, blocks)
+    return _chain_cuda(x, blocks, tile)
 
 
 def _kernel_weight(w, dt):
     return None if w is None else w.to(dt).float().contiguous()
 
 
-def _chain_cuda(x, packed: PackedChain) -> torch.Tensor:
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _chain_cuda(x, packed: PackedChain, tile: Optional[tuple] = None) -> torch.Tensor:
     global LAUNCHES
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("conv_block_res_chain: x must be a contiguous NHWC tensor")
@@ -138,12 +252,14 @@ def _chain_cuda(x, packed: PackedChain) -> torch.Tensor:
         raise ValueError("conv_block_res_chain: the packed weights do not match x's dtype or channels")
     if packed.device != x.device:
         raise ValueError("conv_block_res_chain: weights must be on the activation's device")
+    tl = chain_tiling(B, H, W, cin, C, x.dtype, _sms(x.device), tile)
     fn = _cuda.function("unet_block", "rvc_conv_block_res_chain",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     scratch = torch.empty((3, B, H, W, C), dtype=x.dtype, device=x.device)
     rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
-            len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, _cuda.stream_of(x))
+            len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
+            _cuda.stream_of(x))
     _cuda.check(rc, f"conv_block_res_chain ({cin}->{C}, {len(packed.blocks)} blocks)")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time the RMVPE U-Net chain kernel (``ops/unet_block.py``) level by level on
+the card, beside cuDNN, at 1, 8 and 64 streams.
+
+    python3 scripts/torch_chain_probe.py                       # this checkout's kernel
+    python3 scripts/torch_chain_probe.py --root _archive/parent --label parent
+    python3 scripts/torch_chain_probe.py --sweep --batches 1,8,64   # every tile shape at each level
+
+For each of the main path's four levels (``chip_smoke.CHAIN_SHAPES``) at each
+batch and dtype: the kernel against its plain version within
+``chip_smoke.CHAIN_BOUNDS``, its device time (CUDA events around replays of
+a CUDA graph of its calls, ``utils/benchlib.py:graph_ms``), cuDNN's
+(``chip_smoke.chain_library``, autotuned) and the bound
+(``chip_smoke.chain_flops_bytes``: 3xTF32's 165 TFLOP/s in float32, bf16's
+989 in bfloat16). TF32 is off. ``--root`` imports ``obs_rvc_tpu_torch`` from
+another checkout (an earlier version of the kernel, unpacked in a
+git-ignored directory), so two versions are timed by one script in one
+call, in turns. ``--sweep`` also times the kernel at every tile shape it
+takes (``unet_block.TILES`` and more; a checkout with ``chain_tiling``).
+Prints a line per level and a JSON line of every row last; ``--out`` writes
+the rows to a file too. Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent.parent
+
+
+def sweep_tiles(unet_block):
+    """Every (th, tw, wm) the kernel is built for: tiles of 16 to 256 pixels."""
+    out = []
+    for th in (1, 2, 4, 8):
+        for tw in (16, 32, 64):
+            for wm in unet_block.CUDA_WM:
+                warps = th * tw // (16 * wm)
+                if warps * 16 * wm == th * tw and 1 <= warps <= unet_block.CUDA_MAX_WARPS:
+                    out.append((th, tw, wm))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None, help="import obs_rvc_tpu_torch from this checkout")
+    ap.add_argument("--label", default="this", help="the version's name in the output")
+    ap.add_argument("--batches", default="1,8,64")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
+    ap.add_argument("--sweep", action="store_true", help="time every tile shape too")
+    ap.add_argument("--no-library", action="store_true", help="skip cuDNN's time")
+    ap.add_argument("--out", default=None, help="also write the rows to this JSON file")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve() if args.root else HERE))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_chain_probe: no CUDA device is available", file=sys.stderr)
+        return 2
+    import obs_rvc_tpu_torch
+    from obs_rvc_tpu_torch.ops import unet_block
+    from obs_rvc_tpu_torch.utils.benchlib import BF16_PEAK_FLOPS, TF32X3_PEAK_FLOPS, graph_ms, nvidia_smi_line
+
+    # this checkout's chip_smoke.py (shapes, inputs, bounds, cuDNN's composite), whichever package is timed
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    pkg = pathlib.Path(obs_rvc_tpu_torch.__file__).parent
+    print(f"[chain] {args.label}: obs_rvc_tpu_torch from {pkg}; {smi}", flush=True)
+    dev = torch.device("cuda")
+    dtypes = {"float32": (torch.float32, TF32X3_PEAK_FLOPS, 4), "bfloat16": (torch.bfloat16, BF16_PEAK_FLOPS, 2)}
+    tiled = hasattr(unet_block, "chain_tiling")
+    rows = []
+    for B in [int(b) for b in args.batches.split(",")]:
+        for label, _, H, W, cin, C in cs.CHAIN_SHAPES:
+            rng = np.random.default_rng(cs.SEED + 2)
+            x32, blocks32 = cs.chain_inputs(label, B, H, W, cin, C, dev, rng)
+            for dname in args.dtypes.split(","):
+                dt, peak, elem = dtypes[dname]
+                x = x32.to(dt)
+                blocks = [tuple(None if t is None else t.to(dt) for t in b) for b in blocks32]
+                packed = unet_block.pack_chain(blocks, dt)
+                got = unet_block.conv_block_res_chain(x, packed)
+                want = unet_block.conv_block_res_chain_plain(x, blocks)
+                torch.cuda.synchronize()
+                err = cs.check_close(f"chain {label} B={B} {dname}", got, want, *cs.CHAIN_BOUNDS[dname])
+                flops, nbytes = cs.chain_flops_bytes(B, H, W, cin, C, elem, elem)
+                bound, by = cs.bound_ms(flops, nbytes, peak)
+                ms = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed))
+                lib_ms = None
+                if not args.no_library:
+                    torch.backends.cudnn.benchmark = True
+                    lib_ms = graph_ms(cs.chain_library(x, blocks))
+                    torch.backends.cudnn.benchmark = False
+                ms2 = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed))
+                row = {"version": args.label, "level": label, "B": B, "dtype": dname, "ms": min(ms, ms2),
+                       "runs_ms": [ms, ms2], "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                       "max_abs_err": err}
+                if tiled:
+                    tl = unet_block.chain_tiling(B, H, W, cin, C, dt,
+                                                 torch.cuda.get_device_properties(0).multi_processor_count)
+                    row["tiling"] = tl._asdict()
+                    row["launch"] = unet_block.launch_info(cin, C, dt, tl)
+                lib = "" if lib_ms is None else f", cuDNN {lib_ms:.4f} ms ({row['ms'] / lib_ms:.2f}x)"
+                print(f"[chain] {args.label} {label} B={B} {dname}: kernel {row['ms']:.4f} ms (runs {ms:.4f}, "
+                      f"{ms2:.4f}){lib}, bound {bound:.4f} ms ({by}); max abs err {err:.3e}"
+                      + (f"; tile {row['tiling']['th']}x{row['tiling']['tw']} wm {row['tiling']['wm']}, "
+                         f"{row['tiling']['tiles']} blocks, {row['launch']}" if tiled else ""), flush=True)
+                if args.sweep and tiled:
+                    sweep = {}
+                    for tile in sweep_tiles(unet_block):
+                        try:
+                            unet_block.chain_tiling(B, H, W, cin, C, dt, tile=tile)
+                        except ValueError:
+                            continue  # does not fit shared memory
+                        got = unet_block.conv_block_res_chain(x, packed, tile=tile)
+                        torch.cuda.synchronize()
+                        cs.check_close(f"chain {label} B={B} {dname} tile {tile}", got, want,
+                                       *cs.CHAIN_BOUNDS[dname])
+                        sweep["%dx%d/%d" % tile] = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed,
+                                                                                                    tile=tile))
+                    row["sweep_ms"] = sweep
+                    best = sorted(sweep.items(), key=lambda kv: kv[1])[:5]
+                    print(f"[sweep] {label} B={B} {dname}: best " + ", ".join(f"{k} {v:.4f}" for k, v in best)
+                          + "; all " + " ".join(f"{k}={v:.4f}" for k, v in sweep.items()), flush=True)
+                rows.append(row)
+    for B in sorted({r["B"] for r in rows}):
+        for dname in args.dtypes.split(","):
+            sel = [r for r in rows if r["B"] == B and r["dtype"] == dname]
+            lib = sum(r["library_ms"] or 0.0 for r in sel)
+            print(f"[chain] {args.label} B={B} {dname}, 4 levels: kernel {sum(r['ms'] for r in sel):.4f} ms, "
+                  f"cuDNN {lib:.4f} ms, bound {sum(r['bound_ms'] for r in sel):.4f} ms", flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        pathlib.Path(args.out).write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
+    print(json.dumps({"device": smi, "version": args.label, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -210,6 +210,12 @@ MAIN_LEVELS = [(1, 16, 64, 128), (32, 16, 64, 128), (16, 32, 32, 64), (64, 32, 3
     (32, 32, 3, 17, 2, 3),    # identity shortcut from the first block
     (64, 16, 6, 40, 2, 2),    # the widest input at C = 16
     *[(cin, C, H, W, 1, 4) for cin, C, H, W in MAIN_LEVELS],
+    # the batched step's 8 and 64 streams: 8-row tiles, one and two m16 tiles a warp
+    *[(cin, C, H, W, 8, 4) for cin, C, H, W in MAIN_LEVELS],
+    *[(cin, C, H, W, 64, 4) for cin, C, H, W in MAIN_LEVELS],
+    (32, 16, 61, 125, 8, 2),  # 8 streams off the tile grid in both directions
+    (16, 32, 29, 61, 64, 2),  # 64 streams off the tile grid, a wave of blocks cut short
+    (1, 16, 63, 127, 64, 1),  # Cin 1 (plain stores) at 64 streams, ragged
 ])
 def test_unet_chain_kernel_at_edges_and_main_levels(cuda, cin, C, H, W, B, n, dtype):
     x, blocks = _chain(np.random.default_rng(cin * 1000 + H * W), B, H, W, cin, C, n, cuda)
@@ -222,6 +228,22 @@ def test_unet_chain_kernel_at_edges_and_main_levels(cuda, cin, C, H, W, B, n, dt
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype
     _close(got, want, *BOUNDS["chain"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", unet_block.TILES)
+def test_unet_chain_kernel_at_every_tile(cuda, tile, dtype):
+    """Each tile shape the wrapper may choose, on a ragged batched level,
+    and Cin 1 for the plain-store staging."""
+    for cin, C, H, W, B in [(16, 32, 11, 45, 3), (1, 16, 9, 35, 2)]:
+        x, blocks = _chain(np.random.default_rng(cin + H), B, H, W, cin, C, 2, cuda)
+        x = x.to(dtype)
+        if unet_block.level_smem(cin, C, dtype, *tile[:2]) > unet_block.SMEM_CAP:
+            continue
+        got = unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, dtype), tile=tile)
+        want = unet_block.conv_block_res_chain_plain(x, blocks)
+        torch.cuda.synchronize()
+        _close(got, want, *BOUNDS["chain"][dtype])
 
 
 def test_wrappers_count_one_launch_per_call(cuda):

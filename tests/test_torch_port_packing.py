@@ -5,11 +5,14 @@
   into pieces of at most ``PIECE`` weights) rebuilds the dense basis
   exactly, for the step's HTK basis, a Slaney-scale one, a random dense one
   and one of 80 rows.
-- ``ops/_mma.py:tf32_split`` / ``pack_weight`` and ``ops/unet_block.py:pack_chain``:
-  the chain kernel's weights in the order of the ``mma.m16n8k8`` B fragments,
-  a 3x3 conv's K in three slabs (one per tap row);
-  float32 split into a TF32 ``hi`` (10-bit mantissa) and ``lo = w - hi``,
-  exactly; bfloat16 rounded. They unpack to the folded weights.
+- ``ops/_mma.py:tf32_split`` / ``pack_weight``: the bank kernel's weights in
+  the order of the ``mma.m16n8k8`` B fragments, in slabs; float32 split into
+  a TF32 ``hi`` (10-bit mantissa) and ``lo = w - hi``, exactly; bfloat16
+  rounded.
+- ``ops/unet_block.py:pack_taps`` / ``pack_chain``: the chain kernel's
+  weights in the order of its B fragments, ``m16n8k8`` float32 (split in the
+  kernel) or ``m16n8k16`` bfloat16, each tap's Cin padded to the K step.
+  They unpack to the folded weights.
 - ``models/rmvpe.py:_Chain`` repacks when a parameter changes.
 - ``ops/resblock.py:pack_bank``: the bank kernel's weights, a ``[k, C, C]``
   conv as ``k`` slabs of one tap's ``C``, unpack to the bank params;
@@ -54,6 +57,18 @@ def unpack_weight(frag: torch.Tensor, K: int, groups: int = 1) -> torch.Tensor:
     else:
         w = frag.float().reshape(nk, nt, 8, 4, 2).permute(0, 3, 4, 1, 2)
     return w.reshape(groups, nk * 8 // groups, nt * 8)[:, :K].reshape(groups * K, nt * 8)
+
+
+def unpack_taps(frag: torch.Tensor, taps: int, cin: int) -> torch.Tensor:
+    """The float32 weight ``[taps, cin, C]`` that ``U.pack_taps`` packed:
+    float32 fragments hold rows ``k = 4 i + t`` of a k8 step, bfloat16 ones
+    ``k = 8 h + 2 t + i`` of a k16 step, at lane ``4 g + t``."""
+    nk, nt = frag.shape[:2]
+    if frag.dtype == torch.float32:
+        w, ks = frag.reshape(nk, nt, 8, 4, 2).permute(0, 4, 3, 1, 2), 8
+    else:
+        w, ks = frag.float().reshape(nk, nt, 8, 4, 2, 2).permute(0, 4, 3, 5, 1, 2), 16
+    return w.reshape(taps, nk * ks // taps, nt * 8)[:, :cin]
 
 
 def _bases():
@@ -130,10 +145,35 @@ def test_tf32_split_rounds_to_ten_mantissa_bits_and_keeps_the_rest():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,C", [(1, 16), (3, 32), (16, 16), (24, 16), (64, 32)])
+def test_packed_taps_unpack_and_follow_the_fragment_order(cin, C, dtype):
+    """A 3x3 weight packs as 9 taps of Cin padded with zeros to the K step
+    (8 in float32, 16 in bfloat16), K = tap * Cinp + ci."""
+    rng = np.random.default_rng(cin * 100 + C + 7)
+    w = torch.from_numpy(rng.standard_normal((9, cin, C)).astype(np.float32))
+    frag = U.pack_taps(w, dtype)
+    ks = U.k_step(dtype)
+    cinp = -(-cin // ks) * ks
+    assert frag.shape == (9 * cinp // ks, C // 8, 32, 2 if dtype == torch.float32 else 4) and frag.dtype == dtype
+    want = w if dtype == torch.float32 else w.to(dtype).float()
+    torch.testing.assert_close(unpack_taps(frag, 9, cin), want, rtol=0, atol=0)
+    # lane 4g + t of the n8 tile nt at K step kb holds column nt*8 + g at rows
+    # (t, t+4) of a k8 step in float32, (2t, 2t+1, 2t+8, 2t+9) of a k16 step
+    # in bfloat16; the padded channels are zero
+    wp = torch.cat([want, torch.zeros(9, cinp - cin, C)], dim=1).reshape(9 * cinp, C)
+    for kb, nt, lane in [(0, 0, 0), (cinp // ks, C // 8 - 1, 31), (9 * cinp // ks - 1, 1, 13)]:
+        g, t, n = lane // 4, lane % 4, nt * 8 + lane // 4
+        k0 = kb * ks
+        rows = [k0 + t, k0 + t + 4] if dtype == torch.float32 else [k0 + 2 * t, k0 + 2 * t + 1, k0 + 2 * t + 8,
+                                                                      k0 + 2 * t + 9]
+        assert frag[kb, nt, lane].float().tolist() == wp[rows, n].tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,C", [(1, 16), (3, 32), (16, 16), (64, 32)])
 def test_packed_weight_unpacks_and_follows_the_fragment_order(cin, C, dtype):
-    """A 3x3 weight packs as three slabs, one per tap row (the kernel's warp
-    groups), each of K = 3 Cin padded to a multiple of 8."""
+    """A weight in slabs (here a 3x3 conv's three tap rows) packs each slab's
+    K, 3 Cin, padded to a multiple of 8."""
     rng = np.random.default_rng(cin * 100 + C)
     w = torch.from_numpy(rng.standard_normal((3, 3, cin, C)).astype(np.float32))
     frag = M.pack_weight(w.reshape(3, 3 * cin, C), dtype)
@@ -177,13 +217,13 @@ def test_pack_chain_unpacks_to_the_folded_weights(dtype):
     assert packed.dtype == dtype and packed.C == 16 and packed.cin == 32 and len(packed.params) == 6 * 3
     for (w1, b1, w2, b2, wsc, bsc), (f1, c1, f2, c2, fsc, csc) in zip(blocks, packed.blocks):
         cin = w1.shape[2]
-        for w, f, groups in ((w1, f1, 3), (w2, f2, 3), (wsc, fsc, 1)):
+        for w, f, taps in ((w1, f1, 9), (w2, f2, 9), (wsc, fsc, 1)):
             if w is None:
                 assert f is None
                 continue
-            w = w.reshape(-1, 16)
+            w = w.reshape(taps, -1, 16)
             want = w if dtype == torch.float32 else w.to(dtype).float()
-            torch.testing.assert_close(unpack_weight(f, w.shape[0] // groups, groups), want, rtol=0, atol=0)
+            torch.testing.assert_close(unpack_taps(f, taps, w.shape[1]), want, rtol=0, atol=0)
         for b, c in ((b1, c1), (b2, c2), (bsc, csc)):
             if b is not None:
                 assert c.dtype == torch.float32
@@ -204,9 +244,9 @@ def test_chain_repacks_when_a_parameter_changes():
         chain[1].conv[3].weight.mul_(2.0)  # an in-place update bumps _version
     again = chain._packed(torch.float32)
     assert again is not first and chain._packed(torch.bfloat16) is not bf
-    w2 = chain._blocks()[1][2].reshape(-1, 32)
-    torch.testing.assert_close(unpack_weight(again.blocks[1][2], 96, groups=3), w2, rtol=0, atol=0)
-    assert not torch.equal(unpack_weight(first.blocks[1][2], 96, groups=3), w2)
+    w2 = chain._blocks()[1][2].reshape(9, 32, 32)
+    torch.testing.assert_close(unpack_taps(again.blocks[1][2], 9, 32), w2, rtol=0, atol=0)
+    assert not torch.equal(unpack_taps(first.blocks[1][2], 9, 32), w2)
     with torch.no_grad():
         chain[0].conv[1].running_var.add_(0.5)  # a buffer too
     assert chain._packed(torch.float32) is not again
