@@ -16,9 +16,10 @@ Phases, each printing its own lines:
            chain and the resblock bank; float32 for the log-mel frontend,
            also at a ragged and an offline length and on silence, on RMVPE's
            HTK basis and on FCPE's Slaney basis with fmin 0), TF32 off; and
-           at the batched step's: the chain at 8 and 64 streams, the bank at
-           8 streams, the log-mel on a stream axis (8 and 64 windows in one launch, a
-           ragged length, silence), each row bit-identical to its own launch
+           at the batched step's: the chain and the bank at 8 and 64
+           streams, the log-mel on a stream axis (8 and 64 windows in one
+           launch, a ragged length, silence), each row bit-identical to its
+           own launch
 4. main    RvcPipeline.step at the default geometry and full width (v2
            ContentVec, full RMVPE, 40 kHz synthesizer) on random weights,
            streaming a voiced test signal, in float32 and then in bfloat16
@@ -37,7 +38,7 @@ Phases, each printing its own lines:
            bitwise repeatable: cuDNN's float32 algorithms in RMVPE); capture
            times, step p50/p95, peak device memory and what the graphs hold;
            a torch.profiler trace of 5 replayed steps that must show 1
-           log-mel, 32 chain and 18 bank kernel launches a step, and the
+           log-mel, 32 chain and 6 bank kernel launches a step, and the
            device's busy share; MFU (utils/flops.py over step p50, against
            989 TFLOP/s in bfloat16 and 67 in float32); the controls changed
            mid-stream (pitch 0 -> 12 -> -5, rms_mix_rate 1 -> 0.5) with no
@@ -52,7 +53,7 @@ Phases, each printing its own lines:
 5. bench   scripts/torch_bench.py (the port's counterpart of bench.py) in
            three child processes at PyTorch's TF32 defaults, RMVPE in
            bfloat16 at full width: one stream through jit_step with
-           --profile (the trace must show 1 log-mel, 32 chain and 18 bank
+           --profile (the trace must show 1 log-mel, 32 chain and 6 bank
            kernels a step), one stream through staged_step, and 8 streams
            through jit_step_batch; each JSON line must hold every key, finite
            numbers, the seven stages' device times and a p50 under 300 ms,
@@ -69,7 +70,7 @@ Phases, each printing its own lines:
            wrapper, so the counters rise by 1/4/2 per call only in the
            warm-up and capture of the two graphs captured while serving; a
            device trace of replayed RPC requests and a duplex session must
-           show 1/32/18 kernel launches each; /metrics must count no error;
+           show 1/32/6 kernel launches each; /metrics must count no error;
            the session chunk times are read one by one. Then a second server
            with --step-mode fused --exec-cache, and an in-process engine's
            memory at one and two geometries
@@ -79,8 +80,8 @@ Phases, each printing its own lines:
            (CREPE 0 log-mel, 0 chain, 2 bank calls a step; FCPE 1, 0, 2), the
            stages on the card against the CPU (bfloat16 by the budget, the
            pitch codes by its rule), eager, jit_step and staged_step against
-           each other, a trace of 5 replayed steps (CREPE 0/0/18 kernels,
-           FCPE 1/0/18), step p50/p95, busy share, MFU (CREPE and FCPE GFLOP
+           each other, a trace of 5 replayed steps (CREPE 0/0/6 kernels,
+           FCPE 1/0/6), step p50/p95, busy share, MFU (CREPE and FCPE GFLOP
            counted here), capture times and memory; then a server with
            --pitch-algorithm fcpe at its defaults serves a duplex session
            (a device trace of a second one, /metrics with no error) and
@@ -96,7 +97,7 @@ Phases, each printing its own lines:
            two slots starved against the same one-stream steps (1e-3); the
            batched graph at 1, 8 and 64 streams: p50/p95, ms a stream,
            audio-seconds a second, capture, peak and graph memory, a trace
-           of 5 replays (1/32/18 hand kernels a step at every size, the busy
+           of 5 replays (1/32/6 hand kernels a step at every size, the busy
            share, the largest kernels), pos_conv alone at its shape and an
            eager step traced with each kernel's operator; a
            batched step with CREPE and with FCPE at 4 streams; a bfloat16
@@ -130,7 +131,7 @@ Phases, each printing its own lines:
            (float32 within 1e-3 of max|audio|; bfloat16 each stream nearer
            its own than any other, its error printed); the eager mesh step's
            wrapper launches (2 x 1/4/2 a tick), a trace of 5 pool ticks
-           (2 x 1/32/18 hand kernels a tick), tick p50/p95 and peak memory
+           (2 x 1/32/6 hand kernels a tick), tick p50/p95 and peak memory
            beside the one-device pool's; ContentVec split at model=2 against
            the unsharded network (2e-4); the exact blend over the retrieval
            phase's table split at model=2 against the unsharded blend (1e-4),
@@ -147,14 +148,15 @@ Phases, each printing its own lines:
            bank level by level beside cuDNN, in float32 (bounds at the 3xTF32
            rate their float32 paths run at, 165 TFLOP/s, with float32's 67
            TFLOP/s beside them) and in bfloat16 (bounds at the bf16 tensor
-           cores' 989 TFLOP/s, cuDNN in bfloat16 beside), the bank's grid
-           (blocks, blocks an SM holds, the share of conv1's rows recomputed
-           as halo); the log-mel also on FCPE's basis; the chain, the bank
-           and the log-mel also at the batched step's 8 streams, the chain
-           at 64 streams too; each chain level's launch shape (the wrapper's
+           cores' 989 TFLOP/s, cuDNN in bfloat16 beside); the log-mel also
+           on FCPE's basis; the chain, the bank and the log-mel also at the
+           batched step's 8 streams, the chain and the bank at 64 streams
+           too; each chain and bank level's launch shape (the wrapper's
            tile, the blocks and their waves over the SMs, shared memory,
-           registers, blocks an SM), and the chain's four levels summed at
-           1, 8 and 64 streams
+           registers, blocks an SM; the bank's ring, split last step and
+           the share of its conv rows computed past the tiles), and the
+           chain's four levels and the bank's two summed at 1, 8 and 64
+           streams
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
@@ -261,6 +263,13 @@ CHAIN_SHAPES_B64 = [(f"{label}-b{CHAIN_B64}", CHAIN_B64, H, W, cin, C) for label
 #: the chain kernel against its plain version (abs, rel): float32 and bfloat16, the CUDA tests' BOUNDS["chain"]
 CHAIN_BOUNDS = {"float32": (1e-4, 1e-3), "bfloat16": (5e-2, 2e-2)}
 BANK_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, L, C) for label, _, L, C in BANK_SHAPES]
+#: the bank at the pool phase's largest batch, 64 streams (gated and timed; its launches are the same C calls)
+BANK_B64 = 64
+BANK_SHAPES_B64 = [(f"{label}-b{BANK_B64}", BANK_B64, L, C) for label, _, L, C in BANK_SHAPES]
+#: the timing phase's CUDA graphs at 64 streams: 3 calls replayed 4 times (each call takes milliseconds)
+LARGE_DEPTH = (3, 4)
+#: the bank kernel against its plain version (abs, rel): the JAX package's own bounds, the CUDA tests' BOUNDS["bank"]
+BANK_BOUNDS = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 2e-2)}
 # (label, B, L, signal): the log-mel on a stream axis, one launch for B windows ("mixed": voiced, normal and
 # silent rows in turn); B=64 is the pool phase's largest batch
 MEL_BATCH_SHAPES = [(f"batch-main-b{POOL_B}", POOL_B, 10080, "mixed"), ("batch-main-b64", 64, 10080, "mixed"),
@@ -338,6 +347,28 @@ def bank_inputs(label, B, L, C, device, rng):
     return x, params
 
 
+def bank_library(x, params):
+    """One PyTorch composite of the bank, timed beside the kernel: cuDNN's
+    best (autotuned conv1d calls on [B, C, L]), its convs unfused."""
+    import torch.nn.functional as F
+
+    xt = x.transpose(1, 2).contiguous()
+    ws = [tuple((w[s].permute(2, 1, 0).contiguous(), b[s]) for s in range(len(BANK_DILS))
+                for w, b in ((w1, b1), (w2, b2))) for w1, b1, w2, b2 in params]
+
+    def run():
+        total = None
+        for k, convs in zip(BANK_KS, ws):
+            a = xt
+            for s, d in enumerate(BANK_DILS):
+                (w1, b1), (w2, b2) = convs[2 * s], convs[2 * s + 1]
+                t = F.leaky_relu(F.conv1d(F.leaky_relu(a, 0.1), w1, b1, padding=d * (k - 1) // 2, dilation=d), 0.1)
+                a = a + F.conv1d(t, w2, b2, padding=(k - 1) // 2)
+            total = a if total is None else total + a
+        return total / len(BANK_KS)
+    return run
+
+
 def bank_flops_bytes(B, L, C, elem=4, welem=4):
     """As :func:`chain_flops_bytes`."""
     flops = B * sum(len(BANK_DILS) * 2 * 2 * k * C * C * L for k in BANK_KS)
@@ -360,20 +391,22 @@ def chain_launch(B, H, W, cin, C, dtype):
 
 
 def bank_grid(B, L, C, dtype):
-    """The bank kernel's launches at one level: the grid, what an SM holds
-    (at the largest dilation, whose halo takes the most shared memory), the
-    waves over the card's SMs and the share of the first conv's rows a
-    block computes as its neighbours' halo, per kernel size."""
+    """The bank kernel's launches at one level: the wrapper's tiling, the
+    card's occupancy at it (at the largest dilation, whose halo takes the
+    most shared memory), the waves of the launches before the last (a block
+    a bank and tile) and of the last (a block a tile, every bank) over the
+    blocks the card holds at once, and the share of the conv rows computed
+    past the blocks' tiles (conv2's halo, and past L)."""
+    import torch
+
     from obs_rvc_tpu_torch.ops import resblock
 
-    out = {}
-    for k in BANK_KS:
-        info = resblock.launch_info(C, k, max(BANK_DILS), dtype)
-        blocks = B * -(-L // info["tile"])
-        rows = blocks * (info["conv1_rows"] + info["tile"])  # conv1's and conv2's m16 rows, all blocks
-        out[k] = dict(info, blocks=blocks, waves=blocks / (N_SMS * info["blocks_per_sm"]),
-                      recomputed=1.0 - 2 * B * L / rows)
-    return out
+    tl = resblock.bank_tiling(B, L, C, dtype, torch.cuda.get_device_properties(0).multi_processor_count,
+                              BANK_KS, BANK_DILS)
+    info = resblock.launch_info(C, dtype, tl, BANK_KS, BANK_DILS)
+    return dict(tl._asdict(), **info, waves=tl.blocks / (N_SMS * max(1, info["blocks_per_sm"])),
+                waves_last=tl.blocks / len(BANK_KS) / (N_SMS * max(1, info["blocks_per_sm_last"])),
+                recomputed=1.0 - B * L * len(BANK_KS) / (tl.blocks * tl.rows))
 
 
 def mel_inputs(L, kind, device, rng, B=None):
@@ -426,7 +459,7 @@ def phase_parity(report):
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     bounds = {"chain": {dt: CHAIN_BOUNDS[str(dt)[6:]] for dt in (torch.float32, torch.bfloat16)},
-              "bank": {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 2e-2)}}
+              "bank": {dt: BANK_BOUNDS[str(dt)[6:]] for dt in (torch.float32, torch.bfloat16)}}
     out = {"conv_block_res_chain": {}, "resblock_bank": {}, "log_mel": {}}
     # RMVPE's basis (HTK, fmin 30) and FCPE's (Slaney, fmin 0), each with its window and packed basis
     htk, slaney = MelSpectrogram(device=dev), MelSpectrogram(f_min=0.0, htk=False, device=dev)
@@ -472,7 +505,7 @@ def phase_parity(report):
             out["conv_block_res_chain"][f"{label} {str(dt)[6:]}"] = err
             log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} {str(dt)[6:]}: "
                           f"max abs err {err:.3e} (bound {atol}/{rtol}), |ref| max {float(want.float().abs().max()):.3g}")
-    for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH:
+    for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH + BANK_SHAPES_B64:
         x, params = bank_inputs(label, B, L, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -626,11 +659,25 @@ def check_launches(phase, launches, steps, pitch="rmvpe"):
 
 
 #: each hand kernel's device function and its launches per step (and per engine request), by pitch
-#: algorithm: the C calls of LAUNCHES_PER_STEP launch 1 log-mel, 8 chain (per level) and 9 bank (per level)
-#: kernels
-KERNELS_PER_STEP = {"rmvpe": {"log_mel_kernel": 1, "conv3x3_kernel": 32, "resblock_step_kernel": 18},
-                    "crepe": {"log_mel_kernel": 0, "conv3x3_kernel": 0, "resblock_step_kernel": 18},
-                    "fcpe": {"log_mel_kernel": 1, "conv3x3_kernel": 0, "resblock_step_kernel": 18}}
+#: algorithm: the C calls of LAUNCHES_PER_STEP launch 1 log-mel, 8 chain (per level) and 3 bank (per level, one a
+#: dilation) kernels, and the bank's sum kernel where its tiling splits a level's last step (kernels_per_step)
+KERNELS_PER_STEP = {"rmvpe": {"log_mel_kernel": 1, "conv3x3_kernel": 32, "resblock_bank_kernel": 6},
+                    "crepe": {"log_mel_kernel": 0, "conv3x3_kernel": 0, "resblock_bank_kernel": 6},
+                    "fcpe": {"log_mel_kernel": 1, "conv3x3_kernel": 0, "resblock_bank_kernel": 6}}
+
+
+def kernels_per_step(pitch="rmvpe", B=1):
+    """:data:`KERNELS_PER_STEP` at ``B`` streams a step: with one bank sum
+    kernel for each of the generator's bank levels (``BANK_SHAPES``) whose
+    last step ``bank_tiling`` splits at that batch (one stream's levels, on
+    this card)."""
+    import torch
+
+    from obs_rvc_tpu_torch.ops import resblock
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sums = sum(resblock.bank_tiling(B, L, C, torch.bfloat16, n_sms).split for _, _, L, C in BANK_SHAPES)
+    return dict(KERNELS_PER_STEP[pitch], resblock_bank_sum_kernel=sums)
 #: the schedule of live controls the graphs are streamed with: (first chunk, pitch shift, rms_mix_rate)
 CONTROL_SCHEDULE = [(0, 0.0, 1.0), (4, 12.0, 1.0), (6, 12.0, 0.5), (8, -5.0, 0.5)]
 
@@ -765,7 +812,7 @@ def phase_graphs(report, key, run, reload_weights=False):
         bit, rel = check_same(f"{key} {mode} vs eager", audio, eager, CPU_TOL["emitted"])
         steady = np.asarray(times[4:])
         p50 = float(np.percentile(steady, 50))
-        want = {k: v * 5 for k, v in KERNELS_PER_STEP[pipe.pitch_algorithm].items()}
+        want = {k: v * 5 for k, v in kernels_per_step(pipe.pitch_algorithm).items()}
         (counts, busy, summed, wall, _), retraced = trace_replays(key, step, pipe, chunks[:5], controls, want)
         # the live controls changed mid-stream: the same as eager, and nothing captured again
         sched_eager, _ = stream(pipe.step, pipe, chunks[:12], controls_at)
@@ -1277,7 +1324,7 @@ def phase_serve(report, main_pipe):
             if not marks:
                 raise AssertionError(f"serve: the trace holds no marker kernel among {len(events)} device events")
             counts = kernel_counts(events[marks[-1] + 1 :])
-            want = {k: v * (3 + traced_chunks) for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+            want = {k: v * (3 + traced_chunks) for k, v in kernels_per_step().items()}
             log("serve", f"device trace of 3 RPC requests and a {traced_chunks}-chunk duplex session, all replays: "
                          f"hand kernels {counts} (want {want}) among {len(events) - marks[-1] - 1} device events")
             if counts != want or graphs.CAPTURES != captures2:
@@ -1383,7 +1430,7 @@ def phase_pitch_serve(report):
     """The server with ``--pitch-algorithm fcpe`` at its defaults (bfloat16,
     staged graphs captured before it listens, random weights from seed 0):
     one duplex session, a device trace of a second one (its replays must
-    launch 1 log-mel, 0 chain and 18 bank kernels a chunk), ``/metrics``
+    launch 1 log-mel, 0 chain and 6 bank kernels a chunk), ``/metrics``
     with no error; then ``serve.cli --pitch-algorithm crepe`` (float32, its
     default) converts a WAV file."""
     import torch
@@ -1432,7 +1479,7 @@ def phase_pitch_serve(report):
                                  f"({sorted({e.name[:40] for e in events})[:8]})")
         counts = kernel_counts(events[marks[-1] + 1 :])
         traced = metrics["chunks"] - before["chunks"]
-        want = {k: v * traced for k, v in KERNELS_PER_STEP["fcpe"].items()}
+        want = {k: v * traced for k, v in kernels_per_step("fcpe").items()}
         log("pitch-serve", f"device trace of a {traced}-chunk duplex session, all replays: hand kernels {counts} "
                            f"(want {want}); /metrics {metrics}")
         if counts != want or graphs.CAPTURES != captures1:
@@ -1614,7 +1661,7 @@ def phase_pool(report):
     1e-3 of max|audio|, bfloat16 by :func:`pool_parity`) and a float32 pool
     against the same steps (1e-3); timing at every batch size of
     :data:`POOL_BATCHES` (p50/p95, ms a stream, audio-seconds a second,
-    capture, memory) with a trace of 5 replays (1/32/18 hand kernels a step
+    capture, memory) with a trace of 5 replays (1/32/6 hand kernels a step
     at every size, the busy share, the largest kernels), ContentVec's
     ``pos_conv`` alone, and an eager step traced with each kernel's
     operator; a batched step with CREPE and with FCPE; a bfloat16
@@ -1719,7 +1766,7 @@ def phase_pool(report):
         graph_bytes = torch.cuda.memory_reserved() - reserved0
         if not bool(audio.isfinite().all()) or bool((audio[:, n:].abs().amax(dim=1) < 1e-3).any()):
             raise AssertionError(f"pool B={B}: the batched audio is not finite, or a stream is silent")
-        want = {k: v * 5 for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+        want = {k: v * 5 for k, v in kernels_per_step("rmvpe", B).items()}
         (counts, busy, summed, wall, events), retraced = trace_replays(
             "pool", bf.jit_step_batch, bf, ch[:5], ctl, want, lambda: StreamState.init_batch(cfg, B, device=dev))
         by_name = {}
@@ -2009,7 +2056,6 @@ def kernel_trace(fn, per: int, calls: int = 3):
 
 def phase_timing(report, trace=False):
     import torch
-    import torch.nn.functional as F
 
     from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
     from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
@@ -2027,36 +2073,19 @@ def phase_timing(report, trace=False):
             return torch.log(torch.clamp(basis @ spec, min=1e-5))
         return run
 
-    def bank_library(x, params):
-        """cuDNN's best: the bank as autotuned conv1d calls on [B, C, L]."""
-        xt = x.transpose(1, 2).contiguous()
-        ws = [tuple((w[s].permute(2, 1, 0).contiguous(), b[s]) for s in range(len(BANK_DILS))
-                    for w, b in ((w1, b1), (w2, b2))) for w1, b1, w2, b2 in params]
-
-        def run():
-            total = None
-            for k, convs in zip(BANK_KS, ws):
-                a = xt
-                for s, d in enumerate(BANK_DILS):
-                    (w1, b1), (w2, b2) = convs[2 * s], convs[2 * s + 1]
-                    t = F.leaky_relu(F.conv1d(F.leaky_relu(a, 0.1), w1, b1, padding=d * (k - 1) // 2,
-                                              dilation=d), 0.1)
-                    a = a + F.conv1d(t, w2, b2, padding=(k - 1) // 2)
-                total = a if total is None else total + a
-            return total / len(BANK_KS)
-        return run
-
-    def measure(name, shape_label, kernel, plain, library, flops, nbytes, peak=F32_PEAK_FLOPS):
+    def measure(name, shape_label, kernel, plain, library, flops, nbytes, peak=F32_PEAK_FLOPS, depth=(10, 10)):
         """Kernel, plain version, library and kernel again, each as device
-        time in a CUDA graph; the kernel's wrapper also eagerly, as the step
-        calls it, where the host's launch cost shows."""
+        time in a CUDA graph of ``depth[0]`` calls replayed ``depth[1]``
+        times (fewer at 64 streams, whose calls take milliseconds); the
+        kernel's wrapper also eagerly, as the step calls it, where the
+        host's launch cost shows."""
         torch.backends.cudnn.benchmark = False
-        ms = graph_ms(kernel)
-        plain_ms = graph_ms(plain)
+        ms = graph_ms(kernel, *depth)
+        plain_ms = graph_ms(plain, *depth)
         torch.backends.cudnn.benchmark = True
-        library_ms = graph_ms(library)
+        library_ms = graph_ms(library, *depth)
         torch.backends.cudnn.benchmark = False
-        ms2 = graph_ms(kernel)
+        ms2 = graph_ms(kernel, *depth)
         eager_ms = cuda_ms(kernel)
         b, by = bound_ms(flops, nbytes, peak)
         r = {"ms": min(ms, ms2), "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2086,7 +2115,7 @@ def phase_timing(report, trace=False):
             flops, nbytes = chain_flops_bytes(B, H, W, cin, C, elem, elem)
             measure(name, label, lambda: unet_block.conv_block_res_chain(x, packed),
                     lambda: unet_block.conv_block_res_chain_plain(x, blocks), chain_library(x, blocks),
-                    flops, nbytes, peak=peak)
+                    flops, nbytes, peak=peak, depth=LARGE_DEPTH if B >= CHAIN_B64 else (10, 10))
             r = rows[name][label]
             r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
             r["launch"] = chain_launch(B, H, W, cin, C, dt)
@@ -2117,7 +2146,7 @@ def phase_timing(report, trace=False):
                           f"{sum(r['bound_ms'] for r in chain_rows):.4f} ms ({rate} TFLOP/s) / "
                           f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows):.4f} ms (float32 CUDA cores)")
     bank_cases = [(shape, *bank_inputs(*shape, dev, rng))
-                  for shape in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH]
+                  for shape in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH + BANK_SHAPES_B64]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "resblock_bank" + suffix
         for (label, B, L, C), x32, params32 in bank_cases:
@@ -2126,37 +2155,42 @@ def phase_timing(report, trace=False):
             flops, nbytes = bank_flops_bytes(B, L, C, elem, elem)
             measure(name, label, lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS),
                     lambda: resblock.resblock_bank_plain(x, params, BANK_KS, BANK_DILS),
-                    bank_library(x, params), flops, nbytes, peak=peak)
+                    bank_library(x, params), flops, nbytes, peak=peak,
+                    depth=LARGE_DEPTH if B >= BANK_B64 else (10, 10))
             r = rows[name][label]
             r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
-            r["grid"] = bank_grid(B, L, C, dt)
-            for k, gr in r["grid"].items():
-                log("timing", f"bank {label}{suffix} k={k}: {gr['blocks']} blocks of {gr['threads']} threads, "
-                              f"{gr['tile']} positions each, {gr['smem_bytes']} B shared memory at "
-                              f"d={max(BANK_DILS)}, {gr['registers']} registers; {gr['blocks_per_sm']} blocks an "
-                              f"SM, {gr['waves']:.2f} waves over {N_SMS} SMs; conv1 {gr['conv1_rows']} rows a "
-                              f"block, {gr['recomputed']:.1%} of the conv rows recomputed as halo or past L")
+            r["grid"] = gr = bank_grid(B, L, C, dt)
+            log("timing", f"bank {label}{suffix} launch: {gr['warps']} warps of {gr['wm']} m16 tiles, {gr['rows']} "
+                          f"conv rows and {gr['tile']} positions a block; {gr['blocks']} blocks a launch before the "
+                          f"last ({gr['waves']:.2f} waves over {N_SMS} SMs), {gr['blocks'] // len(BANK_KS)} in the "
+                          f"last ({gr['waves_last']:.2f}); {gr['smem_bytes']} B shared memory at "
+                          f"d={max(BANK_DILS)}; {gr['registers']} / {gr['registers_last']} registers, "
+                          f"{gr['blocks_per_sm']} / {gr['blocks_per_sm_last']} blocks an SM; "
+                          f"{gr['recomputed']:.1%} of the conv rows computed past the tiles")
             if trace and dt == torch.float32:
-                n = len(BANK_KS) * len(BANK_DILS)
-                calls = kernel_trace(lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS), n)
+                calls = kernel_trace(lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS), len(BANK_DILS))
                 last = calls[-1]
                 r["trace_us"] = last
                 log("profile", f"bank {label}: {len(last)} kernels per call, span "
                                f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel "
-                               "(k, d) " + ", ".join(f"({k},{d}) {dur:.1f} us at +{t:.1f}" for (k, d), (_, dur, t)
-                                                     in zip([(k, d) for k in BANK_KS for d in BANK_DILS], last)))
+                               "(d) " + ", ".join(f"({d}) {dur:.1f} us at +{t:.1f}" for d, (_, dur, t)
+                                                  in zip(BANK_DILS, last)))
         bank_rows = rows[name]
         for label, r in bank_rows.items():
             log("timing", f"bank level {label}{suffix}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
                           f"({r['ms'] / r['library_ms']:.2f}x cuDNN's time), eager one-call wrapper "
                           f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at {rate} TFLOP/s, "
                           f"{r['bound_ms_f32_cuda_cores']:.4f} ms at float32's 67 TFLOP/s")
-        main_banks = [bank_rows[sh[0]] for sh in BANK_SHAPES]
-        log("timing", f"bank{suffix} per step ({len(main_banks)} levels): kernel "
-                      f"{sum(r['ms'] for r in main_banks):.4f} ms, eager {sum(r['eager_ms'] for r in main_banks):.4f} "
-                      f"ms, cuDNN {sum(r['library_ms'] for r in main_banks):.4f} ms, bound "
-                      f"{sum(r['bound_ms'] for r in main_banks):.4f} ms ({rate} TFLOP/s) / "
-                      f"{sum(r['bound_ms_f32_cuda_cores'] for r in main_banks):.4f} ms (float32 CUDA cores)")
+        for tag, shapes in (("", BANK_SHAPES), (f" at {POOL_B} streams", BANK_SHAPES_BATCH),
+                            (f" at {BANK_B64} streams", BANK_SHAPES_B64)):
+            main_banks = [bank_rows[sh[0]] for sh in shapes]
+            log("timing", f"bank{suffix} per step{tag} ({len(main_banks)} levels): kernel "
+                          f"{sum(r['ms'] for r in main_banks):.4f} ms, eager "
+                          f"{sum(r['eager_ms'] for r in main_banks):.4f} ms, plain "
+                          f"{sum(r['plain_ms'] for r in main_banks):.4f} ms, cuDNN "
+                          f"{sum(r['library_ms'] for r in main_banks):.4f} ms, bound "
+                          f"{sum(r['bound_ms'] for r in main_banks):.4f} ms ({rate} TFLOP/s) / "
+                          f"{sum(r['bound_ms_f32_cuda_cores'] for r in main_banks):.4f} ms (float32 CUDA cores)")
     htk, slaney = MelSpectrogram(device=dev), MelSpectrogram(f_min=0.0, htk=False, device=dev)
     for label, L, kind, mel in [(*m, htk) for m in MEL_SHAPES if m[0] in (MEL_MAIN, "offline")] + \
             [(*m, slaney) for m in FCPE_MEL_SHAPES if m[0] == FCPE_MEL_MAIN]:
@@ -2735,7 +2769,7 @@ def run_bench(label, argv):
 def phase_bench(report):
     """``scripts/torch_bench.py`` at full width (RMVPE, bfloat16): one
     stream fused with ``--profile``, whose trace must hold 1 log-mel, 32
-    chain and 18 bank kernels a step; one stream staged; 8 streams fused.
+    chain and 6 bank kernels a step; one stream staged; 8 streams fused.
     Each line is checked by :func:`run_bench` and logged beside the main
     phase's bfloat16 ``jit_step`` (TF32 off there, and in this process: the
     two are not held to each other)."""
@@ -2745,7 +2779,7 @@ def phase_bench(report):
         line, err = run_bench(label, argv)
         prof = line["extra"].get("profile")
         if prof is not None:
-            want = {k: v * prof["traced_steps"] for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+            want = {k: v * prof["traced_steps"] for k, v in kernels_per_step().items()}
             counts = prof["kernels_in_trace"]
             if counts != want and all(counts[k] <= v for k, v in want.items()):
                 log("bench", f"{label}: the trace shows {counts} hand kernels, fewer than the steps launch ({want}): "
@@ -2844,7 +2878,7 @@ def phase_mesh(report, smi, table=None, queries=None):
     chunks (float32 within 1e-3 of max|audio|, bfloat16 by
     :func:`pool_parity`), fused and staged, two slots starved; the eager
     mesh step's wrapper launches a tick (2 x 1/4/2), a trace of 5 pool ticks
-    (2 x 1/32/18 hand kernels a tick), tick p50/p95 and peak memory beside
+    (2 x 1/32/6 hand kernels a tick), tick p50/p95 and peak memory beside
     the one-device pool's; ContentVec split at model=2 against the unsharded
     network; the exact blend over the retrieval phase's table split at
     model=2 against the unsharded blend, both timed; ``dryrun_multichip``
@@ -2875,7 +2909,7 @@ def phase_mesh(report, smi, table=None, queries=None):
     wavs, chunks, controls = pool_streams(cfg, POOL_B, POOL_CHUNKS, dev)
     stacked = StepControls.stack(controls, dev)
     per_tick = {k: MESH_DATA * v for k, v in LAUNCHES_PER_STEP["rmvpe"].items()}
-    kernels_want = {k: 5 * MESH_DATA * v for k, v in KERNELS_PER_STEP["rmvpe"].items()}
+    kernels_want = {k: 5 * MESH_DATA * v for k, v in kernels_per_step("rmvpe", POOL_B // MESH_DATA).items()}
 
     # 1. pools: one device, then the mesh, in each dtype
     one = {}

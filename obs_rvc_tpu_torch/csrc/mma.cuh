@@ -1,17 +1,16 @@
 // Tensor-core pieces shared by the port's implicit-GEMM kernels (unet_block.cu,
-// resblock.cu): mma.sync with float32 accumulation, float32 operands as three
-// TF32 products (3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, hi the value cut
-// or rounded to TF32 and lo the rest), bfloat16 operands as one bf16 product.
+// resblock.cu): mma.sync with float32 accumulation, bfloat16 operands on
+// m16n8k16, float32 operands on m16n8k8 as three TF32 products (3xTF32:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, hi the value cut to TF32 and lo the
+// rest), so a K step is 32 bytes of channels in either dtype (Step<T>).
 //
-// The bank (resblock.cu) stages activations in shared memory as float
-// planes: float32 as one plane it splits as it loads a fragment
-// (ldmatrix_x4, mma_3xtf32), bfloat16 as one plane of the values, rounded to
-// bf16 as a fragment is packed (mma_step_bf16, m16n8k8). Its weights come
-// packed by ops/_mma.py:pack_weight, in the order of the B fragments: per K
-// step and n8 tile, 32 lanes of (hi, hi, lo, lo) float32 or two bf16.
-// The chain (unet_block.cu) stages activations in their own dtype and reads
-// A fragments with ldmatrix_x4: bf16 on m16n8k16 (mma_bf16_k16), float32 on
-// m16n8k8 split as it goes (tf32_cut); cp_async16 stages them.
+// Both kernels stage activations in shared memory in their own dtype, rows
+// padded by 16 bytes, and read A fragments with ldmatrix_x4; their weights
+// come packed by ops/_mma.py:pack_taps, in the order of the B fragments (per
+// K step and n8 tile, 32 lanes of two float32 or four bf16), and are staged
+// into shared memory by cp_async16. mma_tap runs one tap's K steps of a
+// warp's m16 tiles against every n8 tile; each conv launch is a programmatic
+// dependent of the one before (griddepcontrol).
 //
 // The build hashes this header with each source that includes it
 // (ops/_cuda.py), so an edit here rebuilds both kernels.
@@ -26,19 +25,21 @@
 
 namespace {
 
-__device__ __forceinline__ float load(const float* p, size_t i) { return __ldg(p + i); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) { return __bfloat162float(__ldg(p + i)); }
+__device__ __forceinline__ void load2(const float* p, size_t i, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p + i);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, size_t i, float& a, float& b) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
+  a = v.x;
+  b = v.y;
+}
 __device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
   *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, size_t i, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
@@ -47,13 +48,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b));
 }
 
 // d += a b on one m16 x n8 x k16 bf16 tile: a's four registers as ldmatrix_x4
@@ -95,52 +89,6 @@ __device__ __forceinline__ void grid_dependents_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-struct Prec;
-template <>
-struct Prec<float> {  // 3xTF32: B fragments (hi0, hi1, lo0, lo1) per lane
-  static constexpr int PLANES = 2;
-  using Frag = float4;
-};
-template <>
-struct Prec<__nv_bfloat16> {  // one plane of bf16 values kept as floats, B fragment bf16x2 per lane
-  static constexpr int PLANES = 1;
-  using Frag = uint32_t;
-};
-
-// The 3xTF32 product of one K step: A's TF32 hi and lo fragments, B's
-// fragment from pack_weight. The two small products go to `small`, so each
-// K step adds one product to each of two chains, not three to one.
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], float (&small)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const float4& b) {
-  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
-  mma_tf32(small, al, bh0, bh1);
-  mma_tf32(small, ah, tf32(b.z), tf32(b.w));
-  mma_tf32(acc, ah, bh0, bh1);
-}
-
-// The same from A's float32 fragment, split here in two instructions a
-// value: hi is a cut to TF32 (its low 13 bits cleared), lo = a - hi exactly
-// (|lo| < 2^-10 |a|), passed as it is: the mma reads its TF32 bits, a
-// relative error under 2^-20 of a. Rounding both with cvt.rna here made the
-// bank kernel slower on the card than staging hi and lo planes. The chain
-// splits its A and B fragments the same way (tf32_cut).
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], float (&small)[4], const uint32_t (&a)[4],
-                                           const float4& b) {
-  uint32_t ah[4], al[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ah[i] = a[i] & 0xFFFFE000u;
-    al[i] = __float_as_uint(__uint_as_float(a[i]) - __uint_as_float(ah[i]));
-  }
-  mma_3xtf32(acc, small, ah, al, b);
-}
-
 // A's fragment of one m16 x 32-byte step (k8 in TF32, k16 in bf16) from
 // shared memory, in one instruction: lane l passes the address of the tile's
 // row (l & 7) + 8 ((l >> 3) & 1), byte 16 (l >> 4) (16-byte aligned), and
@@ -155,13 +103,74 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
                : "r"(addr));
 }
 
-// One bf16 K step (m16n8k8) of one m16 x n8 tile from a plane of floats:
-// the lane's A entries at rows a0 (row g) and a1 (row g + 8), columns 2t and
-// 2t + 1, rounded to bf16 as they are packed; its B fragment b.
-__device__ __forceinline__ void mma_step_bf16(float (&acc)[4], const float* plane, int a0, int a1, int t,
-                                              uint32_t b) {
-  mma_bf16(acc, pack_bf16(plane[a0 + 2 * t], plane[a0 + 2 * t + 1]),
-           pack_bf16(plane[a1 + 2 * t], plane[a1 + 2 * t + 1]), b);
+// A K step of the mma: the channels it consumes (16 bf16 or 8 TF32, 32 bytes
+// either way) and a lane's B fragment: two bf16x2 registers, or the two
+// float32 it splits into TF32 hi and lo.
+template <typename T>
+struct Step;
+template <>
+struct Step<float> {
+  static constexpr int K = 8;
+  using Frag = float2;
+};
+template <>
+struct Step<__nv_bfloat16> {
+  static constexpr int K = 16;
+  using Frag = uint2;
+};
+
+// acc += A B for one K step: A's fragment (ldmatrix_x4), B's (Step<T>::Frag)
+__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&a)[4], const uint2& b) {
+  mma_bf16_k16(acc, a, b.x, b.y);
+}
+__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(acc, al, bh[0], bh[1]);
+  mma_tf32(acc, ah, bl[0], bl[1]);
+  mma_tf32(acc, ah, bh[0], bh[1]);
+}
+
+// acc[j][n] += one tap of a conv: kc K steps of this warp's WM m16 tiles j
+// (the lane's ldmatrix address of tile j's first K step at tb + arow[j]
+// bytes) against every n8 tile n of the tap's B fragments wt (in shared
+// memory, this lane's of K step 0 and n8 tile 0; kc * NT * 32 fragments a
+// tap). Each A fragment feeds NT products, each B fragment WM. Float32
+// splits both into TF32 hi and lo as it goes.
+template <typename T, int NT, int WM>
+__device__ __forceinline__ void mma_tap(float (&acc)[WM][NT][4], const unsigned char* tb, const int (&arow)[WM],
+                                        const typename Step<T>::Frag* wt, int kc) {
+  using Frag = typename Step<T>::Frag;
+#pragma unroll 2
+  for (int cc = 0; cc < kc; ++cc) {
+    Frag b[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) b[n] = wt[(cc * NT + n) * 32];
+    if constexpr (Step<T>::K == 16) {
+#pragma unroll
+      for (int j = 0; j < WM; ++j) {
+        uint32_t a[4];
+        ldmatrix_x4(a, tb + arow[j] + cc * 32);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_k(acc[j][n], a, b[n]);
+      }
+    } else {
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        tf32_cut(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
+        tf32_cut(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < WM; ++j) {
+        uint32_t a[4], ah[4], al[4];
+        ldmatrix_x4(a, tb + arow[j] + cc * 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_cut(a[i], ah[i], al[i]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_k(acc[j][n], ah, al, bh[n], bl[n]);
+      }
+    }
+  }
 }
 
 }  // namespace

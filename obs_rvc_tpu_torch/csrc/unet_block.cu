@@ -65,22 +65,6 @@ constexpr int MAX_WARPS = 8;
 constexpr int SMEM_CAP = 232448;  // what a block may use on Hopper
 constexpr int FRAG_STEP_BYTES = 32 * 8;  // one K step's B fragments of one n8 tile: 32 lanes x 8 bytes
 
-// A K step of the mma: the channels it consumes (16 bf16 or 8 TF32, 32 bytes
-// either way) and a lane's B fragment: two bf16x2 registers, or the two
-// float32 it splits into TF32 hi and lo.
-template <typename T>
-struct Step;
-template <>
-struct Step<float> {
-  static constexpr int K = 8;
-  using Frag = float2;
-};
-template <>
-struct Step<__nv_bfloat16> {
-  static constexpr int K = 16;
-  using Frag = uint2;
-};
-
 __host__ __device__ constexpr int cin_pad(int cin, int ks) { return (cin + ks - 1) / ks * ks; }
 // a staged pixel's bytes: its channels padded to the K step, and 16 more so
 // the 8 rows of an ldmatrix matrix fall in distinct banks
@@ -101,28 +85,6 @@ __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
 
-__device__ __forceinline__ void load2(const float* p, size_t i, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p + i);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, size_t i, float& a, float& b) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
-  a = v.x;
-  b = v.y;
-}
-
-// acc += A B for one K step: A's fragment (ldmatrix_x4), B's (Step<T>::Frag)
-__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&a)[4], const uint2& b) {
-  mma_bf16_k16(acc, a, b.x, b.y);
-}
-__device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                      const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  mma_tf32(acc, al, bh[0], bh[1]);
-  mma_tf32(acc, ah, bl[0], bl[1]);
-  mma_tf32(acc, ah, bh[0], bh[1]);
-}
-
 // acc[j][n] += the taps tap0 .. tap0 + ntaps - 1 of the conv on the staged
 // tile buf, for this warp's m16 tiles j (the lane's ldmatrix row at tap
 // (0, 0) in arow[j]) and every n8 tile n; w: the taps' B fragments in shared
@@ -132,44 +94,11 @@ template <typename T, int C, int WM>
 __device__ __forceinline__ void conv_gemm(float (&acc)[WM][C / 8][4], const unsigned char* buf,
                                           const int (&arow)[WM], const typename Step<T>::Frag* w, int tap0,
                                           int ntaps, int kc, int xw, int pbytes) {
-  using Frag = typename Step<T>::Frag;
   constexpr int NT = C / 8;
   const int lane = threadIdx.x & 31;
   for (int tp = 0; tp < ntaps; ++tp) {
     const int tap = tap0 + tp;
-    const unsigned char* tb = buf + ((tap / 3) * xw + tap % 3) * pbytes;
-    const Frag* wt = w + tp * kc * NT * 32 + lane;
-#pragma unroll 2
-    for (int cc = 0; cc < kc; ++cc) {
-      Frag b[NT];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) b[n] = wt[(cc * NT + n) * 32];
-      if constexpr (Step<T>::K == 16) {
-#pragma unroll
-        for (int j = 0; j < WM; ++j) {
-          uint32_t a[4];
-          ldmatrix_x4(a, tb + arow[j] + cc * 32);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) mma_k(acc[j][n], a, b[n]);
-        }
-      } else {
-        uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          tf32_cut(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
-          tf32_cut(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
-        }
-#pragma unroll
-        for (int j = 0; j < WM; ++j) {
-          uint32_t a[4], ah[4], al[4];
-          ldmatrix_x4(a, tb + arow[j] + cc * 32);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) tf32_cut(a[i], ah[i], al[i]);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) mma_k(acc[j][n], ah, al, bh[n], bl[n]);
-        }
-      }
-    }
+    mma_tap<T, NT, WM>(acc, buf + ((tap / 3) * xw + tap % 3) * pbytes, arow, w + tp * kc * NT * 32 + lane, kc);
   }
 }
 

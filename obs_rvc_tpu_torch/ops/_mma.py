@@ -1,44 +1,43 @@
-"""Host-side packing for the bank's tensor-core kernel (``csrc/mma.cuh``):
-a weight in the order of the ``mma.sync.m16n8k8`` B fragments, float32 split
-into TF32 ``hi`` and ``lo`` for 3xTF32, bfloat16 rounded, which
-``ops/resblock.py:pack_bank`` makes once per weight version (the chain packs
-its own, ``ops/unet_block.py:pack_taps``). Also the products of the chain's
-and the bank's plain versions, which round where the kernels round
+"""Host-side packing for the tensor-core kernels (``csrc/mma.cuh``): a
+conv weight in the order of the ``mma.sync`` B fragments, ``m16n8k8``
+float32 (split into TF32 hi and lo in the kernel) or ``m16n8k16`` bfloat16,
+which ``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank``
+make once per weight version. Also the products of the chain's and the
+bank's plain versions, which round where the kernels round
 (:func:`conv_rounded`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
-def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)`` with ``hi`` the float32 ``w`` rounded to TF32 (10-bit
-    mantissa, to nearest, ties away from zero, as ``cvt.rna.tf32.f32``) and
-    ``lo = w - hi`` exactly, so ``hi + lo == w``."""
-    bits = w.float().contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
-    return hi, w.float() - hi
+def k_step(dtype: torch.dtype) -> int:
+    """Channels one mma K step takes: 16 bf16 (m16n8k16), 8 TF32 (m16n8k8)."""
+    return 8 if dtype == torch.float32 else 16
 
 
-def pack_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A weight ``[K, C]``, or ``[G, K, C]`` for G slabs of K one after the
-    other (the bank walks a ``[k, C, C]`` conv one tap's ``C`` at a time),
-    in the order of the ``mma.m16n8k8`` B fragments, each slab's K padded to
-    a multiple of 8 with zeros: ``[G * Kp/8, C/8, 32 lanes, ...]``, lane ``4 g + t`` holding
-    column ``g`` of the n8 tile at rows ``t, t + 4`` of the k8 step as
-    ``(hi, hi, lo, lo)`` float32 (``dtype`` float32, 3xTF32), or at rows
-    ``2t, 2t + 1`` as two bfloat16 (``dtype`` bfloat16)."""
-    w = w.float().reshape(-1, *w.shape[-2:])
-    G, K, C = w.shape
-    kp = -(-K // 8) * 8
-    w = torch.cat([w, w.new_zeros((G, kp - K, C))], dim=1).reshape(G * kp, C)
-    nk = G * kp // 8
-    if dtype == torch.float32:
-        hi, lo = (a.reshape(nk, 2, 4, C // 8, 8).permute(0, 3, 4, 2, 1).reshape(nk, C // 8, 32, 2)
-                  for a in tf32_split(w))
-        return torch.cat([hi, lo], dim=-1).contiguous()
-    return w.to(dtype).reshape(nk, 4, 2, C // 8, 8).permute(0, 3, 4, 1, 2).reshape(nk, C // 8, 32, 2).contiguous()
+def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv weight ``[taps, Cin, C]`` (the chain's ``[3, 3, Cin, C]``
+    flattened to 9 taps, a 1x1 one as 1; a bank conv's ``[k, C, C]``) in the
+    order of the kernels' B fragments: Cin padded with zeros to a multiple
+    of :func:`k_step` ``ks``, K = tap * Cinp + ci, ``[taps * Cinp / ks, C /
+    8, 32 lanes, ...]``, lane ``4 g + t`` holding column ``g`` of the n8
+    tile as two float32 at rows ``t, t + 4`` of the k8 step (``dtype``
+    float32; the kernel splits them into TF32 hi and lo) or four bfloat16 at
+    rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of the k16 step (``dtype``
+    bfloat16). A tap's fragments are one slab of ``Cinp / ks`` K steps."""
+    taps, cin, C = w.shape
+    ks = k_step(dtype)
+    cinp = -(-cin // ks) * ks
+    w = F.pad(w.float(), (0, 0, 0, cinp - cin)).reshape(taps * cinp, C)
+    nk = taps * cinp // ks
+    if dtype == torch.float32:  # k = 4 i + t
+        return w.reshape(nk, 2, 4, C // 8, 8).permute(0, 3, 4, 2, 1).reshape(nk, C // 8, 32, 2).contiguous()
+    # k = 8 h + 2 t + i: the lane's registers (h = 0, i = 0, 1) and (h = 1, i = 0, 1)
+    return w.to(dtype).reshape(nk, 2, 4, 2, C // 8, 8).permute(0, 4, 5, 2, 1, 3).reshape(
+        nk, C // 8, 32, 4).contiguous()
 
 
 def conv_rounded(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import conv_rounded
+from obs_rvc_tpu_torch.ops._mma import conv_rounded, k_step, pack_taps
 
 #: output channel counts the CUDA kernel is built for
 CUDA_CHANNELS = (16, 32)
@@ -87,32 +87,6 @@ class PackedChain(NamedTuple):
     blocks: list
     #: the blocks' pointers, six per block, as the C entry point takes them
     params: ctypes.Array
-
-
-def k_step(dtype: torch.dtype) -> int:
-    """Channels one mma K step takes: 16 bf16 (m16n8k16), 8 TF32 (m16n8k8)."""
-    return 8 if dtype == torch.float32 else 16
-
-
-def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A conv weight ``[taps, Cin, C]`` (``[3, 3, Cin, C]`` flattened to 9
-    taps, a 1x1 one as 1) in the order of the kernel's B fragments: Cin
-    padded with zeros to a multiple of :func:`k_step` ``ks``, K = tap * Cinp
-    + ci, ``[taps * Cinp / ks, C / 8, 32 lanes, ...]``, lane ``4 g + t``
-    holding column ``g`` of the n8 tile as two float32 at rows ``t, t + 4``
-    of the k8 step (``dtype`` float32; the kernel splits them into TF32 hi
-    and lo) or four bfloat16 at rows ``2t, 2t + 1, 2t + 8, 2t + 9`` of the
-    k16 step (``dtype`` bfloat16)."""
-    taps, cin, C = w.shape
-    ks = k_step(dtype)
-    cinp = -(-cin // ks) * ks
-    w = F.pad(w.float(), (0, 0, 0, cinp - cin)).reshape(taps * cinp, C)
-    nk = taps * cinp // ks
-    if dtype == torch.float32:  # k = 4 i + t
-        return w.reshape(nk, 2, 4, C // 8, 8).permute(0, 3, 4, 2, 1).reshape(nk, C // 8, 32, 2).contiguous()
-    # k = 8 h + 2 t + i: the lane's registers (h = 0, i = 0, 1) and (h = 1, i = 0, 1)
-    return w.to(dtype).reshape(nk, 2, 4, 2, C // 8, 8).permute(0, 4, 5, 2, 1, 3).reshape(
-        nk, C // 8, 32, 4).contiguous()
 
 
 def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:

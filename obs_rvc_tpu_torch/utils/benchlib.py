@@ -26,7 +26,7 @@ BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 N_SMS = 132
 #: the device functions of the hand kernels (``csrc/``), as a profiler trace names them
-HAND_KERNELS = ("log_mel_kernel", "conv3x3_kernel", "resblock_step_kernel")
+HAND_KERNELS = ("log_mel_kernel", "conv3x3_kernel", "resblock_bank_kernel", "resblock_bank_sum_kernel")
 
 
 def nvidia_smi_line() -> str:

@@ -117,22 +117,26 @@ def test_bf16_norms_follow_flax_rule(cuda):
         assert share <= 1e-2 and steps <= 1.0, (name, share, steps)
 
 
-def _bank(rng, B, L, C, ks, device):
+def _bank(rng, B, L, C, ks, device, S=3):
     def t(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
     params = [tuple(t(a) for a in (
-        rng.standard_normal((3, k, C, C)) / np.sqrt(k * C), rng.standard_normal((3, C)) * 0.05,
-        rng.standard_normal((3, k, C, C)) / np.sqrt(k * C), rng.standard_normal((3, C)) * 0.05))
+        rng.standard_normal((S, k, C, C)) / np.sqrt(k * C), rng.standard_normal((S, C)) * 0.05,
+        rng.standard_normal((S, k, C, C)) / np.sqrt(k * C), rng.standard_normal((S, C)) * 0.05))
         for k in ks]
     return t(rng.standard_normal((B, L, C)) * 0.5), params
 
 
-def _length(L, C, dtype):
-    """``L``, or for "TL-1" / "TL" / "TL+1" the kernel's tile length plus the offset."""
+def _length(L, B, C, dtype, tile=None):
+    """``L``, or for "TL-1" / "TL" / "TL+1" the length of the tile that
+    :func:`resblock.bank_tiling` picks (or ``tile``'s) plus the offset."""
     if isinstance(L, int):
         return L
-    return resblock.launch_info(C, 3, 1, dtype)["tile"] + int(L[2:] or 0)
+    tl = resblock.bank_tiling(B, 1, C, dtype, torch.cuda.get_device_properties(0).multi_processor_count, tile=tile)
+    n = tl.tile + int(L[2:] or 0)
+    assert resblock.bank_tiling(B, n, C, dtype, tile=tile).tile == tl.tile  # the same tile at that length
+    return n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -145,13 +149,20 @@ def _length(L, C, dtype):
     (16, 37, 3, (1, 3, 5)),    # a batch of 3
     (32, 300, 3, (1, 2, 4)),
     (64, 1000, 3, (1, 2, 4)),
-    (64, 7000, 1, (1, 3, 5)),  # the main path's two levels
+    (64, 7000, 1, (1, 3, 5)),  # the main path's two levels, at 1 and 8 streams, and one at 64
     (32, 14000, 1, (1, 3, 5)),
+    (64, 7000, 8, (1, 3, 5)),
+    (32, 14000, 8, (1, 3, 5)),
+    (32, 14000, 64, (1, 3, 5)),
+    (16, 28000, 1, (1, 3, 5)),  # C=16 (the JAX package's im2col range)
+    (64, 500, 2, (3,)),        # one dilation: the first launch is the last
+    (32, 400, 2, (1, 5)),      # two
+    (32, 2000, 40, (1, 3, 5)),  # 40 streams: the last step a block a tile, not split
 ])
 def test_resblock_bank_kernel_matches_plain(cuda, C, L, B, dil, dtype):
     ks = (3, 7, 11)
-    L = _length(L, C, dtype)
-    x, params = _bank(np.random.default_rng(C + L), B, L, C, ks, cuda)
+    L = _length(L, B, C, dtype)
+    x, params = _bank(np.random.default_rng(C + L), B, L, C, ks, cuda, S=len(dil))
     x = x.to(dtype)
     packed = resblock.pack_bank(params, ks, dil, dtype)  # as GeneratorNSF caches it per weight version
     before = resblock.LAUNCHES
@@ -161,6 +172,44 @@ def test_resblock_bank_kernel_matches_plain(cuda, C, L, B, dil, dtype):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (B, L, C) and got.dtype == dtype
     _close(got, want, *BOUNDS["bank"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [*resblock.SWEEP_TILES, (4, 2, 2, True), (4, 2, 8, False), (8, 2, 3, True)])
+def test_resblock_bank_kernel_at_every_tile(cuda, tile, dtype):
+    """Each tile the kernel takes, at its own edges (TL-1 and TL+1) on a
+    batch of 2, and ragged at C=16; banks of other kernel sizes; the ring's
+    least and largest depth, the last step split and not."""
+    for C, L, B, ks in [(64, "TL-1", 2, (3, 7, 11)), (32, "TL+1", 2, (3, 7, 11)), (16, 333, 3, (11, 3)),
+                        (32, 129, 1, (7,))]:
+        L = _length(L, B, C, dtype, tile)
+        x, params = _bank(np.random.default_rng(C + L + tile[0]), B, L, C, ks, cuda)
+        x = x.to(dtype)
+        got = resblock.resblock_bank(x, resblock.pack_bank(params, ks, (1, 3, 5), dtype), ks, (1, 3, 5), tile=tile)
+        want = resblock.resblock_bank_plain(x, params, ks, (1, 3, 5))
+        torch.cuda.synchronize()
+        _close(got, want, *BOUNDS["bank"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resblock_bank_kernel_repeats_bit_for_bit(cuda, dtype):
+    """Two calls on the same input give the same bits (the banks' sum is
+    taken in a fixed order, with no atomics), and so does a stream taken
+    alone: a position's arithmetic does not depend on the tile it falls in."""
+    x, params = _bank(np.random.default_rng(9), 8, 7000, 64, (3, 7, 11), cuda)
+    x = x.to(dtype)
+    packed = resblock.pack_bank(params, (3, 7, 11), (1, 3, 5), dtype)
+    first = resblock.resblock_bank(x, packed, (3, 7, 11), (1, 3, 5))
+    again = resblock.resblock_bank(x, packed, (3, 7, 11), (1, 3, 5))
+    alone = resblock.resblock_bank(x[5:6].contiguous(), packed, (3, 7, 11), (1, 3, 5))
+    # the last step a block a tile for every bank, or split into a block a bank and a sum kernel that adds
+    # the banks in the same order
+    fused = resblock.resblock_bank(x, packed, (3, 7, 11), (1, 3, 5), tile=(8, 2, 3, False))
+    split = resblock.resblock_bank(x, packed, (3, 7, 11), (1, 3, 5), tile=(4, 2, 4, True))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first[5:6], alone)
+    assert torch.equal(first, fused) and torch.equal(first, split)
 
 
 def _chain(rng, B, H, W, cin, C, n_blocks, device):

@@ -5,17 +5,16 @@
   into pieces of at most ``PIECE`` weights) rebuilds the dense basis
   exactly, for the step's HTK basis, a Slaney-scale one, a random dense one
   and one of 80 rows.
-- ``ops/_mma.py:tf32_split`` / ``pack_weight``: the bank kernel's weights in
-  the order of the ``mma.m16n8k8`` B fragments, in slabs; float32 split into
-  a TF32 ``hi`` (10-bit mantissa) and ``lo = w - hi``, exactly; bfloat16
-  rounded.
-- ``ops/unet_block.py:pack_taps`` / ``pack_chain``: the chain kernel's
-  weights in the order of its B fragments, ``m16n8k8`` float32 (split in the
-  kernel) or ``m16n8k16`` bfloat16, each tap's Cin padded to the K step.
-  They unpack to the folded weights.
+- ``ops/_mma.py:pack_taps``: both tensor-core kernels' weights in the order
+  of their B fragments, ``m16n8k8`` float32 (split in the kernel) or
+  ``m16n8k16`` bfloat16, each tap's Cin padded to the K step, a tap one slab
+  of K steps; a bank conv's ``[k, C, C]`` packs tap by tap.
+- ``ops/unet_block.py:pack_chain``: the chain's packed weights unpack to
+  the folded weights.
 - ``models/rmvpe.py:_Chain`` repacks when a parameter changes.
 - ``ops/resblock.py:pack_bank``: the bank kernel's weights, a ``[k, C, C]``
-  conv as ``k`` slabs of one tap's ``C``, unpack to the bank params;
+  conv as ``k`` slabs of one tap's ``C`` in the k16 (bfloat16) or k8
+  (float32) fragment order, unpack to the bank params;
   ``models/synthesizer.py:GeneratorNSF`` stacks and packs each level's banks
   once per weight version, and gives the same audio as before and as the
   JAX package's generator.
@@ -48,19 +47,8 @@ def unpack_mel_basis(packed: stft_mel.PackedMelBasis) -> torch.Tensor:
     return out
 
 
-def unpack_weight(frag: torch.Tensor, K: int, groups: int = 1) -> torch.Tensor:
-    """The float32 weight ``M.pack_weight`` packed (``hi + lo`` for float32
-    fragments), ``[groups * K, C]``: ``groups`` slabs of ``K`` rows."""
-    nk, nt = frag.shape[:2]
-    if frag.dtype == torch.float32:
-        w = (frag[..., :2] + frag[..., 2:]).reshape(nk, nt, 8, 4, 2).permute(0, 4, 3, 1, 2)
-    else:
-        w = frag.float().reshape(nk, nt, 8, 4, 2).permute(0, 3, 4, 1, 2)
-    return w.reshape(groups, nk * 8 // groups, nt * 8)[:, :K].reshape(groups * K, nt * 8)
-
-
 def unpack_taps(frag: torch.Tensor, taps: int, cin: int) -> torch.Tensor:
-    """The float32 weight ``[taps, cin, C]`` that ``U.pack_taps`` packed:
+    """The float32 weight ``[taps, cin, C]`` that ``M.pack_taps`` packed:
     float32 fragments hold rows ``k = 4 i + t`` of a k8 step, bfloat16 ones
     ``k = 8 h + 2 t + i`` of a k16 step, at lane ``4 g + t``."""
     nk, nt = frag.shape[:2]
@@ -129,21 +117,6 @@ def test_log_mel_cuda_wrapper_checks_the_packed_basis():
         stft_mel.log_mel(x, packed, mel.window)
 
 
-def test_tf32_split_rounds_to_ten_mantissa_bits_and_keeps_the_rest():
-    rng = np.random.default_rng(1)
-    w = torch.from_numpy(np.concatenate([
-        rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 4, 4096),
-        [0.0, -0.0, 1.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-11 - 2.0**-23, 3.0e-39],
-    ]).astype(np.float32))
-    hi, lo = M.tf32_split(w)
-    assert not bool((hi.view(torch.int32) & 0x1FFF).any())  # 10-bit mantissa
-    torch.testing.assert_close(hi + lo, w, rtol=0, atol=0)
-    normal = w.abs() >= 2.0**-126  # half a TF32 ulp, relative, where the exponent is not the least
-    assert bool((lo.abs() <= w.abs() * 2.0**-11)[normal].all())
-    # to nearest, ties away from zero, as cvt.rna.tf32.f32
-    assert hi[-5:-1].tolist() == [1.0, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0]
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,C", [(1, 16), (3, 32), (16, 16), (24, 16), (64, 32)])
 def test_packed_taps_unpack_and_follow_the_fragment_order(cin, C, dtype):
@@ -151,8 +124,8 @@ def test_packed_taps_unpack_and_follow_the_fragment_order(cin, C, dtype):
     (8 in float32, 16 in bfloat16), K = tap * Cinp + ci."""
     rng = np.random.default_rng(cin * 100 + C + 7)
     w = torch.from_numpy(rng.standard_normal((9, cin, C)).astype(np.float32))
-    frag = U.pack_taps(w, dtype)
-    ks = U.k_step(dtype)
+    frag = M.pack_taps(w, dtype)
+    ks = M.k_step(dtype)
     cinp = -(-cin // ks) * ks
     assert frag.shape == (9 * cinp // ks, C // 8, 32, 2 if dtype == torch.float32 else 4) and frag.dtype == dtype
     want = w if dtype == torch.float32 else w.to(dtype).float()
@@ -170,30 +143,31 @@ def test_packed_taps_unpack_and_follow_the_fragment_order(cin, C, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,C", [(1, 16), (3, 32), (16, 16), (64, 32)])
-def test_packed_weight_unpacks_and_follows_the_fragment_order(cin, C, dtype):
-    """A weight in slabs (here a 3x3 conv's three tap rows) packs each slab's
-    K, 3 Cin, padded to a multiple of 8."""
-    rng = np.random.default_rng(cin * 100 + C)
-    w = torch.from_numpy(rng.standard_normal((3, 3, cin, C)).astype(np.float32))
-    frag = M.pack_weight(w.reshape(3, 3 * cin, C), dtype)
-    kp = -(-3 * cin // 8) * 8
-    assert frag.shape == (3 * kp // 8, C // 8, 32, 4 if dtype == torch.float32 else 2) and frag.dtype == dtype
-    want = w.reshape(9 * cin, C)
-    want = want if dtype == torch.float32 else want.to(dtype).float()
-    torch.testing.assert_close(unpack_weight(frag, 3 * cin, groups=3), want, rtol=0, atol=0)
-    # lane 4g + t of the n8 tile nt at K step kb holds column nt*8 + g at rows
-    # (t, t+4) for TF32 (hi, hi, lo, lo), (2t, 2t+1) for bf16; K padding is zero
-    wp = torch.cat([w.reshape(3, 3 * cin, C), torch.zeros(3, kp - 3 * cin, C)], dim=1).reshape(3 * kp, C)
-    hi, lo = M.tf32_split(wp)
-    for kb, nt, lane in [(0, 0, 0), (kp // 8, C // 8 - 1, 31), (3 * kp // 8 - 1, 1, 13)]:
-        g, t, n = lane // 4, lane % 4, nt * 8 + lane // 4
-        if dtype == torch.float32:
-            rows = [kb * 8 + t, kb * 8 + t + 4]
-            assert frag[kb, nt, lane].tolist() == [hi[rows[0], n], hi[rows[1], n], lo[rows[0], n], lo[rows[1], n]]
-        else:
-            rows = [kb * 8 + 2 * t, kb * 8 + 2 * t + 1]
-            assert frag[kb, nt, lane].float().tolist() == wp[rows, n].to(dtype).float().tolist()
+@pytest.mark.parametrize("k,C", [(3, 16), (7, 32), (11, 64), (3, 64)])
+def test_packed_weight_unpacks_and_follows_the_fragment_order(k, C, dtype):
+    """A bank conv's ``[k, C, C]`` weight packs tap by tap: tap t's
+    fragments are one slab of C / ks K steps (the slab the bank kernel
+    streams into its ring), the tap's own weight packed alone, and lane
+    ``4 g + t`` of a k16 step holds four bf16 of column g (two float32 of a
+    k8 step)."""
+    rng = np.random.default_rng(k * 100 + C)
+    w = torch.from_numpy(rng.standard_normal((k, C, C)).astype(np.float32))
+    frag = M.pack_taps(w, dtype)
+    ks = M.k_step(dtype)
+    assert frag.shape == (k * C // ks, C // 8, 32, 2 if dtype == torch.float32 else 4) and frag.dtype == dtype
+    want = w if dtype == torch.float32 else w.to(dtype).float()
+    torch.testing.assert_close(unpack_taps(frag, k, C), want, rtol=0, atol=0)
+    for tap in (0, k // 2, k - 1):
+        slab = frag[tap * C // ks : (tap + 1) * C // ks]
+        assert torch.equal(slab, M.pack_taps(w[tap : tap + 1], dtype))
+    # lane 4g + t of n8 tile nt at K step kb of tap 1: column nt*8 + g, rows 2t, 2t+1, 2t+8, 2t+9 (bf16) or
+    # t, t+4 (float32) of the step's channels
+    kb, nt, lane = C // ks + 1 if C > ks else C // ks, C // 8 - 1, 13
+    g, t, n = lane // 4, lane % 4, nt * 8 + lane // 4
+    c0 = (kb % (C // ks)) * ks
+    rows = [c0 + t, c0 + t + 4] if dtype == torch.float32 else [c0 + 2 * t, c0 + 2 * t + 1, c0 + 2 * t + 8,
+                                                                 c0 + 2 * t + 9]
+    assert frag[kb, nt, lane].float().tolist() == want[1, rows, n].tolist()
 
 
 def _chain(in_ch, out_ch, seed=0):
@@ -285,7 +259,8 @@ def _bank_params(rng, C, ks, S=3):
 @pytest.mark.parametrize("C", [16, 32, 64])
 def test_pack_bank_unpacks_to_the_bank_params(C, k, dtype):
     """Each step's [k, C, C] conv weights pack as k slabs of one tap's C (the
-    kernel walks K one tap at a time); the biases are rounded to the
+    kernel walks K one tap at a time), bf16 in the m16n8k16 fragment order
+    and float32 in the m16n8k8 one; the biases are rounded to the
     activation type and kept in float32."""
     ks, dils = (k, 3), (1, 3, 5)
     params = _bank_params(np.random.default_rng(C * 100 + k), C, ks)
@@ -298,10 +273,10 @@ def test_pack_bank_unpacks_to_the_bank_params(C, k, dtype):
         for s in range(3):
             f1, c1, f2, c2 = next(steps)
             for w, f in ((w1[s], f1), (w2[s], f2)):
-                assert f.shape == (kk * C // 8, C // 8, 32, 4 if dtype == torch.float32 else 2) and f.dtype == dtype
-                want = w.reshape(kk * C, C)
-                want = want if dtype == torch.float32 else want.to(dtype).float()
-                torch.testing.assert_close(unpack_weight(f, C, groups=kk), want, rtol=0, atol=0)
+                ks = M.k_step(dtype)
+                assert f.shape == (kk * C // ks, C // 8, 32, 2 if dtype == torch.float32 else 4) and f.dtype == dtype
+                want = w if dtype == torch.float32 else w.to(dtype).float()
+                torch.testing.assert_close(unpack_taps(f, kk, C), want, rtol=0, atol=0)
             for b, c in ((b1[s], c1), (b2[s], c2)):
                 assert c.dtype == torch.float32
                 torch.testing.assert_close(c, b.to(dtype).float(), rtol=0, atol=0)
@@ -333,10 +308,10 @@ def test_generator_repacks_after_a_weight_update_and_not_otherwise():
     again = gen.packed_bank(1, torch.float32)
     assert again is not first and gen.packed_bank(1, torch.bfloat16) is not bf and gen.bank_params(1) is not dense
     assert gen.packed_bank(0, torch.float32) is other  # level 0's weights did not change
-    w2 = gen.resblocks[4].convs2[1].weight.permute(2, 1, 0).reshape(-1, 32)
-    torch.testing.assert_close(unpack_weight(again.steps[3 + 1][2], 32, groups=7), w2, rtol=0, atol=0)
-    torch.testing.assert_close(gen.bank_params(1)[1][2][1], gen.resblocks[4].convs2[1].weight.permute(2, 1, 0))
-    assert not torch.equal(unpack_weight(first.steps[3 + 1][2], 32, groups=7), w2)
+    w2 = gen.resblocks[4].convs2[1].weight.permute(2, 1, 0)
+    torch.testing.assert_close(unpack_taps(again.steps[3 + 1][2], 7, 32), w2, rtol=0, atol=0)
+    torch.testing.assert_close(gen.bank_params(1)[1][2][1], w2)
+    assert not torch.equal(unpack_taps(first.steps[3 + 1][2], 7, 32), w2)
     with torch.no_grad():
         gen.resblocks[3].convs1[0].bias.add_(0.5)  # a bias too
     assert gen.packed_bank(1, torch.float32) is not again
