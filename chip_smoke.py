@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's streaming step on one CUDA card and check it.
 
-    python3 chip_smoke.py            # every phase; needs one card
+    python3 chip_smoke.py            # every phase; needs one card (with more, the mesh phase runs across them)
     python3 chip_smoke.py --profile  # also torch.profiler traces: a few steps, one call of each chain level and bank
     python3 chip_smoke.py --only mesh,stage_repeat  # the build and these phases alone, no kernel line
     python3 chip_smoke.py --only bench  # scripts/torch_bench.py's three runs alone
@@ -116,8 +116,8 @@ Phases, each printing its own lines:
            chunks (at least 0.9), each blend alone timed by CUDA events at 1 and
            8 streams beside its bound; the full-width step with the exact
            float32 table at index_rate 0.75 in both dtypes: eager against
-           jit_step and staged_step (bfloat16 bit for bit, float32 under
-           cudnn.deterministic within the float32 bound), the wrappers launched
+           jit_step and staged_step (bfloat16 bit for bit, float32 within
+           the float32 bound), the wrappers launched
            1/4/2 times a step, step p50 with and without the index, peak memory
            at 1 and 8 streams; jit_step_batch of 8 streams at 8 index rates
            against their one-stream steps (1e-3) and a StreamPool of 8 against
@@ -125,22 +125,37 @@ Phases, each printing its own lines:
            serves a duplex session with no error and serve.cli converts a WAV
            file with --index <file>.onnx (both on the table's first 65536 rows)
 10. mesh   obs_rvc_tpu_torch/parallel at full width with RMVPE, TF32 off,
-           every mesh the one card named more than once: a data=2 x model=2
+           every mesh the one card named more than once (each row's
+           features as per-device graph segments, the path a row that spans
+           cards takes): a data=2 x model=2
            StreamPool of 8, fused and staged, in float32 and bfloat16, two
            slots starved, against the one-device pool on the same chunks
            (float32 within 1e-3 of max|audio|; bfloat16 each stream nearer
            its own than any other, its error printed); the eager mesh step's
-           wrapper launches (2 x 1/4/2 a tick), a trace of 5 pool ticks
+           wrapper launches (2 x 1/4/2 a tick); each row's segmented
+           jit_step_batch against the eager row step over 3 chunks
+           (bfloat16 bit-identical, float32 within 1e-3); a trace of 5 pool ticks
            (2 x 1/32/6 hand kernels a tick), tick p50/p95 and peak memory
            beside the one-device pool's; ContentVec split at model=2 against
            the unsharded network (2e-4); the exact blend over the retrieval
            phase's table split at model=2 against the unsharded blend (1e-4),
            both timed at 1 and 8 streams; dryrun_multichip(8) over the card
            named 8 times; a server with --pool 8 --mesh data=1,model=1 serves
-           a duplex session with no error, --mesh data=2 exits naming the
-           device count; two processes of tests/torch_distributed_worker.py
+           a duplex session with no error, --mesh data=<cards + 1> exits
+           naming the device count; two processes of tests/torch_distributed_worker.py
            (gloo, full width, float32) against one process, and NCCL at
-           world size 1 in a process of its own
+           world size 1 in a process of its own. Where two or more cards
+           are visible, also: the three kernels on the second card while the
+           first is current, against their plain versions; data=1 x model=2
+           and data=2 x model=2 pools whose rows span cards, fused and
+           staged, in both dtypes, against the one-device pool (tick
+           p50/p95, each card's peak memory, each card's busy time and the
+           peer copies' in a trace of 5 fused ticks); ContentVec and the
+           exact blend split over two cards by CUDA events beside the
+           unsharded ones; a server with --pool 8 --mesh data=N/2,model=2
+           serving a duplex session; two processes over NCCL, one card
+           each, against one process. A line says how many cards it saw
+           and which cross-card parts ran
 11. timing step p50/p95 and peak device memory in both dtypes; each kernel's
            device time (CUDA events around a CUDA graph of its calls) beside
            its bound, its plain version, one PyTorch composite of the same
@@ -750,15 +765,20 @@ def trace_replays(key, step, pipe, chunks, controls, want, make_state=None):
     return traced, short
 
 
-def check_same(name, got, want, tol):
-    """Bit-identical, or within ``tol`` of max|want|; returns (bit-identical, relative max error)."""
+def check_same(name, got, want, tol, chunk=None):
+    """Bit-identical, or within ``tol`` of max|want|; returns (bit-identical, relative max error).
+    With ``chunk`` (the samples of a chunk of a stream's audio), a failure names the first chunk that differs."""
     import torch
 
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or values not finite")
     rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
     if rel > tol:
-        raise AssertionError(f"{name}: relative max error {rel:.3e} (bound {tol})")
+        where = ""
+        if chunk:
+            off = (got != want).reshape(-1, chunk).any(dim=1).nonzero().flatten().tolist()
+            where = f"; chunks that differ: {off} of {got.numel() // chunk}"
+        raise AssertionError(f"{name}: relative max error {rel:.3e} (bound {tol}){where}")
     return bool((got == want).all()), rel
 
 
@@ -780,7 +800,8 @@ def phase_graphs(report, key, run, reload_weights=False):
     dtype = str(pipe.compute_dtype).removeprefix("torch.")
     n = len(chunks)
     eager, _ = stream(pipe.step, pipe, chunks, controls)
-    same, rel = check_same(f"{key} eager vs eager", eager, run["audio"], CPU_TOL["emitted"])
+    same, rel = check_same(f"{key} eager vs eager", eager, run["audio"], CPU_TOL["emitted"],
+                           chunk=pipe.cfg.sample_frame_size)
     out = {"eager_repeat_bit_identical": same, "eager_repeat_rel": rel}
     log(key, f"eager step run twice: {'bit-identical' if same else f'relative max difference {rel:.3e}'}")
     gflop = chunk_gflops(pipe)
@@ -809,7 +830,8 @@ def phase_graphs(report, key, run, reload_weights=False):
         peak_mem = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         pool = torch.cuda.memory_reserved() - reserved0
-        bit, rel = check_same(f"{key} {mode} vs eager", audio, eager, CPU_TOL["emitted"])
+        bit, rel = check_same(f"{key} {mode} vs eager", audio, eager, CPU_TOL["emitted"],
+                              chunk=pipe.cfg.sample_frame_size)
         steady = np.asarray(times[4:])
         p50 = float(np.percentile(steady, 50))
         want = {k: v * 5 for k, v in kernels_per_step(pipe.pitch_algorithm).items()}
@@ -2303,7 +2325,7 @@ def phase_retrieval(report, smi):
     (RETRIEVAL_TOL, TF32 off); IVF's recall@8 against exact on correlated chunks (>= RETRIEVAL_RECALL_FLOOR);
     the blend timed alone by CUDA events at 1 and POOL_B streams. Then the full-width step with the exact
     float32 table at index_rate RETRIEVAL_RATE, in each dtype: eager against jit_step and staged_step
-    (bfloat16 bit for bit; float32 under cudnn.deterministic, within the float32 bound), the hand kernels
+    (bfloat16 bit for bit; float32 within the float32 bound), the hand kernels
     counted, step p50 with and without the index, jit_step_batch of POOL_B streams each at its own rate, and
     peak memory at 1 and POOL_B streams; in float32 the batched streams against their one-stream steps (1e-3),
     in bfloat16 a StreamPool of POOL_B slots against the batched step (POOL_SLOT_TOL). Last, a server with
@@ -2455,20 +2477,15 @@ def phase_retrieval(report, smi):
         if dtype == "bfloat16":
             cast_params_for_serving(pipe)
         res = out["step"][dtype] = {}
-        saved = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = dtype == "float32"
-        try:
-            torch.cuda.synchronize()
-            reset_launches()
-            eager, _ = stream(pipe.step, pipe, chunks, controls)
-            launches = read_launches()
-            check_launches("retrieval step", launches, RETRIEVAL_CHUNKS)
-            torch.cuda.reset_peak_memory_stats()
-            fused, times = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
-            res["peak_mem_bytes_b1"] = int(torch.cuda.max_memory_allocated())
-            staged, _ = stream(pipe.staged_step, pipe, chunks, controls)
-        finally:
-            torch.backends.cudnn.deterministic = saved
+        torch.cuda.synchronize()
+        reset_launches()
+        eager, _ = stream(pipe.step, pipe, chunks, controls)
+        launches = read_launches()
+        check_launches("retrieval step", launches, RETRIEVAL_CHUNKS)
+        torch.cuda.reset_peak_memory_stats()
+        fused, times = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
+        res["peak_mem_bytes_b1"] = int(torch.cuda.max_memory_allocated())
+        staged, _ = stream(pipe.staged_step, pipe, chunks, controls)
         tol = 0.0 if dtype == "bfloat16" else CPU_TOL["emitted"]
         res["fused_vs_eager"] = check_same(f"retrieval {dtype} jit_step vs eager", fused, eager, tol)
         res["staged_vs_eager"] = check_same(f"retrieval {dtype} staged_step vs eager", staged, eager, tol)
@@ -2871,6 +2888,247 @@ def trace_pool_ticks(pipe, wavs, controls, want, ticks=5, **pool_kw):
     return counts, busy, retraced
 
 
+def segmented_vs_eager(name, rows, mesh, cfg, chunks, stacked, device):
+    """Each row's graphed step (``jit_step_batch``: ``pre``, the features'
+    per-device segments, ``after_features``) against the eager row step
+    (``step_rows``) from zeroed states over ``chunks`` (cuDNN on its
+    deterministic engines, as every pipeline on a card holds it); returns
+    ``check_same``'s (bit-identical, relative max error) and the segments a
+    row's graph holds."""
+    import torch
+
+    from obs_rvc_tpu_torch.parallel import shard_controls, shard_state
+    from obs_rvc_tpu_torch.parallel.sharding import gather_rows, step_rows
+    from obs_rvc_tpu_torch.stream import StreamState
+    from obs_rvc_tpu_torch.stream.graphs import SegmentedFunction
+
+    outs = {}
+    for graphed in (False, True):
+        states = shard_state(StreamState.init_batch(cfg, len(stacked.sid), device=device), mesh)
+        got = []
+        with torch.no_grad():
+            for c in chunks:
+                states, o = step_rows(rows, states, shard_state(c, mesh), shard_controls(stacked, mesh),
+                                      graphed=graphed)
+                got.append(gather_rows(o, device))
+        outs[graphed] = torch.cat(got, dim=1)
+    graph = rows[0].batch_graph(len(stacked.sid) // len(rows)).graph
+    if not isinstance(graph, SegmentedFunction):
+        raise AssertionError(f"{name}: the row's graph is a {type(graph).__name__}, not per-device segments")
+    return check_same(name, outs[True], outs[False], CPU_TOL["emitted"]), len(graph.segments)
+
+
+def cross_card_kernels(cards):
+    """The three kernels' wrappers on tensors of the second card while the
+    first is current, at the main path's shapes, against their plain
+    versions there (the chain and the bank in both dtypes); the first card
+    must be current again after each call. Returns each check's max abs error."""
+    import torch
+
+    from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
+    from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
+
+    dev = cards[1]
+    rng = np.random.default_rng(SEED + 80)
+    out = {}
+    with torch.cuda.device(cards[0]):
+        mel = MelSpectrogram(device=dev)
+        x = mel_inputs(10080, "voiced", dev, rng)
+        got = stft_mel.log_mel(x, mel.log_mel_basis, mel.window)
+        out["log_mel float32"] = check_close(f"log_mel on {dev}", got, stft_mel.log_mel_plain(x, mel.mel_basis,
+                                                                                             mel.window), *MEL_BOUND)
+        label, B, H, W, cin, C = CHAIN_SHAPES[1]
+        x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
+        for dt in (torch.float32, torch.bfloat16):
+            got = unet_block.conv_block_res_chain(x.to(dt), unet_block.pack_chain(blocks, dt))
+            want = unet_block.conv_block_res_chain_plain(x.to(dt), blocks)
+            out[f"conv_block_res_chain {str(dt)[6:]}"] = check_close(f"chain {label} on {dev} {dt}", got, want,
+                                                                     *CHAIN_BOUNDS[str(dt)[6:]])
+        label, B, L, C = BANK_SHAPES[0]
+        x, params = bank_inputs(label, B, L, C, dev, rng)
+        for dt in (torch.float32, torch.bfloat16):
+            got = resblock.resblock_bank(x.to(dt), resblock.pack_bank(params, BANK_KS, BANK_DILS, dt), BANK_KS,
+                                         BANK_DILS)
+            want = resblock.resblock_bank_plain(x.to(dt), params, BANK_KS, BANK_DILS)
+            out[f"resblock_bank {str(dt)[6:]}"] = check_close(f"bank {label} on {dev} {dt}", got, want,
+                                                              *BANK_BOUNDS[str(dt)[6:]])
+        torch.cuda.synchronize(dev)
+        if torch.cuda.current_device() != cards[0].index:
+            raise AssertionError(f"a wrapper left {torch.cuda.current_device()} current, not {cards[0]}")
+    return out
+
+
+def trace_copies(pipe, wavs, controls, ticks=5, **pool_kw):
+    """A trace of ``ticks`` fused pool ticks: each card's busy ms a tick and
+    the ms a tick of peer copies (``Memcpy PtoP``) and of copies within a
+    card (``Memcpy DtoD``: the segments' copy-in), as unions of intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from obs_rvc_tpu_torch.stream import StreamPool
+
+    n = pipe.cfg.sample_frame_size
+    pool = StreamPool(pipe, capacity=len(wavs), mode="fused", **pool_kw)
+    pool.prepare()
+    slots = [pool.attach(c) for c in controls]
+
+    def tick(i):
+        for k, s in enumerate(slots):
+            pool.push_audio(s, wavs[k, i * n : (i + 1) * n])
+            pool.pull_audio(s, n)
+        pool.process_pending()
+
+    with torch.no_grad():
+        tick(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tick(1)
+            mark_trace()
+            for i in range(ticks):
+                tick(2 + i % (wavs.shape[1] // n - 2))
+            torch.cuda.synchronize()
+    pool.stop()
+    events = events_after_mark(prof)
+    cards = sorted({e.device_index for e in events})
+    return {"busy_ms_per_tick": {str(c): device_busy_ms([e for e in events if e.device_index == c]) / ticks
+                                 for c in cards},
+            "peer_copy_ms_per_tick": device_busy_ms([e for e in events if "PtoP" in e.name]) / ticks,
+            "card_copy_ms_per_tick": device_busy_ms([e for e in events if "DtoD" in e.name]) / ticks,
+            "all_busy_ms_per_tick": device_busy_ms(events) / ticks}
+
+
+def phase_mesh_cards(report, smi, cards, one, wavs, controls, table, queries):
+    """The mesh across cards, where two or more are visible: the three
+    kernels on the second card; data=1 x model=2 and data=2 x model=2 pools
+    of ``POOL_B`` whose rows span cards (the visible ones in turn), fused and
+    staged, in both dtypes, against the one-device pool (float32 within 1e-3
+    of max|audio|, bfloat16 by :func:`pool_parity`), tick p50/p95 and each
+    card's peak memory, a trace of the fused tick (each card's busy ms and
+    the peer copies' share); ContentVec split over two cards and the exact
+    blend split over two cards, by CUDA events beside the unsharded ones;
+    ``serve.server --pool 8 --mesh data=N/2,model=2`` answering a duplex
+    session; two processes over NCCL, one card each, against one process."""
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.device import run_inline
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.parallel import make_mesh
+    from obs_rvc_tpu_torch.parallel.sharding import shard_contentvec
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+    from obs_rvc_tpu_torch.stream import RvcPipeline
+    from obs_rvc_tpu_torch.stream.graphs import GraphedFunction, SegmentedFunction
+
+    out = report["mesh"]["cross_card"] = {"cards": [str(c) for c in cards], "nvidia_smi": smi}
+    cfg = ChunkConfig.build()
+    n = cfg.sample_frame_size
+
+    # 1. each kernel on the second card while the first is current
+    out["kernels_on_second_card"] = cross_card_kernels(cards)
+    log("mesh", f"the three kernels on {cards[1]} while {cards[0]} is current, against their plain versions: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in out["kernels_on_second_card"].items()))
+
+    # 2. pools whose rows span cards
+    shapes = [(1, 2), (2, 2)]
+    for dtype in ("float32", "bfloat16"):
+        pipe = RvcPipeline(cfg, compute_dtype=getattr(torch, dtype), device=cards[0])
+        pipe.init_params(SEED, std=None)
+        if dtype == "bfloat16":
+            cast_params_for_serving(pipe)
+        r = out[dtype] = {}
+        for n_data, n_model in shapes:
+            devs = [cards[i % len(cards)] for i in range(n_data * n_model)]
+            mesh = make_mesh(n_data=n_data, n_model=n_model, devices=devs)
+            key = f"data{n_data}_model{n_model}"
+            for mode in ("fused", "staged"):
+                torch.cuda.synchronize()
+                for c in cards:
+                    torch.cuda.reset_peak_memory_stats(c)
+                got, stats = pool_run(pipe, wavs, controls, starved=POOL_STARVED, mode=mode, mesh=mesh)
+                stats["peak_mem_bytes"] = {str(c): int(torch.cuda.max_memory_allocated(c)) for c in cards}
+                if dtype == "float32":
+                    same = [check_same(f"cross-card {key} float32 {mode} slot {k}", a, one["float32"][k],
+                                       CPU_TOL["emitted"]) for k, a in enumerate(got)]
+                    stats["vs_one_device"] = same
+                    verdict = f"max {max(e for _, e in same):.2e} of max|audio| (bound {CPU_TOL['emitted']})"
+                else:
+                    par = pool_parity(f"cross-card {key} bfloat16 {mode}", torch.stack(got), one["bfloat16"],
+                                      one["float32"])
+                    stats["parity"] = par
+                    verdict = "off the float32 one-device pool " + ", ".join(f"{e:.4f}" for e in par["rel"])
+                if mode == "fused":
+                    stats["trace"] = trace_copies(pipe, wavs, controls, mesh=mesh)
+                r[f"{key}_{mode}"] = stats
+                tr = stats.get("trace")
+                log("mesh", f"{dtype} StreamPool({POOL_B}, {mode}) on data={n_data} x model={n_model} over "
+                            f"{[str(d) for d in devs]}: tick p50 {stats['tick_p50_ms']:.2f} ms, p95 "
+                            f"{stats['tick_p95_ms']:.2f}; capture {stats['capture_s']:.2f} s; peak memory "
+                            + ", ".join(f"{c} {b / 2**20:.0f} MiB" for c, b in stats["peak_mem_bytes"].items())
+                            + f"; each slot against the one-device pool: {verdict}"
+                            + (f"; a trace of 5 ticks: busy ms a tick by card {tr['busy_ms_per_tick']}, peer "
+                               f"copies {tr['peer_copy_ms_per_tick']:.3f} ms a tick "
+                               f"({tr['peer_copy_ms_per_tick'] / max(tr['all_busy_ms_per_tick'], 1e-9):.1%} of the "
+                               f"busy time), copies within a card {tr['card_copy_ms_per_tick']:.3f}" if tr else "")
+                            + f" [{smi}]")
+        if dtype == "float32":
+            # 3. ContentVec alone split over two cards, and on one, beside the unsharded network
+            cv = pipe.contentvec
+            wav16 = torch.from_numpy(np.random.default_rng(SEED + 70).standard_normal((1, 16000))
+                                     .astype(np.float32) * 0.1).to(cards[0])
+            ms = {}
+            with torch.no_grad():
+                want = cv(wav16)
+                for label, devs in (("two_cards", cards[:2]), ("one_card", [cards[0]] * 2)):
+                    tp = shard_contentvec(cv, devs)
+                    check_close(f"ContentVec model=2 over {label}", tp(wav16), want, MESH_TP_TOL, 1e-4)
+                    ms[label] = cuda_ms(lambda: tp(wav16))
+                ms["unsharded"] = cuda_ms(lambda: cv(wav16))
+            out["contentvec_tp_ms"] = ms
+            log("mesh", f"ContentVec split at model=2, 1 s of audio, eager, CUDA events: over two cards "
+                        f"{ms['two_cards']:.3f} ms, on one card named twice {ms['one_card']:.3f}, unsharded "
+                        f"{ms['unsharded']:.3f} [{smi}]")
+        del pipe
+        torch.cuda.empty_cache()
+
+    # 4. the exact blend split over two cards (as segments) beside the unsharded one (a graph)
+    params = RetrievalIndex.make_params(table)
+    whole = RetrievalIndex().load(params, cards[0])
+    split = RetrievalIndex(mesh=make_mesh(n_data=1, n_model=2, devices=cards[:2])).load(params)
+    blend = {}
+    for B in (1, POOL_B):
+        q = torch.from_numpy(queries[:B]).to(cards[0])
+        rate = torch.full((B,), RETRIEVAL_RATE, device=cards[0])
+        seg = SegmentedFunction(lambda q, r, run=run_inline: split.blend(q, r, run), (q, rate), device=cards[0],
+                                name="split_blend")
+        one_graph = GraphedFunction(lambda q, r: whole.blend(q, r), (q, rate), device=cards[0], name="blend")
+        err = check_close(f"cross-card blend B={B}", seg(q, rate), one_graph(q, rate), RETRIEVAL_TOL, 0.0)
+        blend[B] = {"max_abs_err": err, "ms": cuda_ms(lambda: seg.run(q, rate)),
+                    "unsharded_ms": cuda_ms(lambda: one_graph.run(q, rate)), "segments": len(seg.segments)}
+    out["split_blend"] = blend
+    log("mesh", f"the exact blend over {len(table)} x {RETRIEVAL_C} float32 rows split over {cards[0]} and "
+                f"{cards[1]} (segments: each shard's search on its card, the merge on the first) against the "
+                "unsharded one (one graph): " + "; ".join(
+                    f"B={B} max abs err {b['max_abs_err']:.2e}, {b['ms']:.4f} ms against {b['unsharded_ms']:.4f}"
+                    for B, b in blend.items()) + f" (CUDA events around a call, copy-in included) [{smi}]")
+    del whole, split, params
+    torch.cuda.empty_cache()
+
+    # 5. the server on a pool whose rows span cards
+    spec = f"data={len(cards) // 2},model=2"
+    host = "127.0.0.1"
+    with Server(server_argv(host, ["--pool", str(POOL_B), "--mesh", spec])) as srv:
+        url = f"http://{host}:{srv.bound['health']}/metrics"
+        wav = voiced_signal((POOL_SERVE_CHUNKS + 2) * n, cfg.sample_rate, seed=SEED + 72)
+        streamed = duplex_session(host, srv.bound["duplex"], wav, POOL_SERVE_CHUNKS, n, cfg.sample_rate)
+        metrics = wait_metrics_settled(url)
+        if metrics["errors"] != 0 or metrics["chunks"] < POOL_SERVE_CHUNKS:
+            raise AssertionError(f"cross-card mesh server: /metrics {metrics}")
+        out["server"] = {"mesh": spec, "startup_s": srv.startup_s, "metrics": metrics}
+    log("mesh", f"server --pool {POOL_B} --mesh {spec} over {len(cards)} cards (bfloat16, staged): a duplex "
+                f"session, {streamed.size} samples back; /metrics {metrics}")
+    torch.cuda.empty_cache()
+
+
 def phase_mesh(report, smi, table=None, queries=None):
     """The mesh (``obs_rvc_tpu_torch/parallel/``) at full width with RMVPE,
     TF32 off, every mesh the one card named more than once: a data=2 x
@@ -2883,7 +3141,7 @@ def phase_mesh(report, smi, table=None, queries=None):
     network; the exact blend over the retrieval phase's table split at
     model=2 against the unsharded blend, both timed; ``dryrun_multichip``
     over the card named 8 times; a server with ``--pool 8 --mesh
-    data=1,model=1`` and ``--mesh data=2`` refused; two processes of
+    data=1,model=1`` and ``--mesh data=<cards + 1>`` refused; two processes of
     ``tests/torch_distributed_worker.py`` at full width over gloo against one
     process, and NCCL at world size 1."""
     import torch
@@ -2939,6 +3197,15 @@ def phase_mesh(report, smi, table=None, queries=None):
                     f"{LAUNCHES_PER_STEP['rmvpe']} a tick)")
         if launches != {k: 2 * v for k, v in per_tick.items()}:
             raise AssertionError(f"mesh {dtype}: launches {launches} over 2 ticks, want {per_tick} a tick")
+        (bit, rel), n_segments = segmented_vs_eager(f"mesh {dtype} segmented graphs vs eager rows", rows, mesh, cfg,
+                                                    chunks[:3], stacked, dev)
+        r["segmented_vs_eager"] = {"bit_identical": bit, "rel_max_err": rel, "segments": n_segments}
+        log("mesh", f"{dtype}: each row's jit_step_batch as {n_segments} per-device graph segments against the "
+                    f"eager row step, 3 chunks from zeroed states: "
+                    + ("bit-identical" if bit else f"within {rel:.2e} of max|audio| (bound {CPU_TOL['emitted']})"))
+        if dtype == "bfloat16" and not bit:
+            raise AssertionError(f"mesh bfloat16: the segmented graphs are {rel:.2e} off the eager row step, "
+                                 "not bit-identical")
         for mode in ("fused", "staged"):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3032,16 +3299,20 @@ def phase_mesh(report, smi, table=None, queries=None):
         if metrics["errors"] != 0 or metrics["chunks"] < POOL_SERVE_CHUNKS:
             raise AssertionError(f"mesh server: /metrics {metrics}")
         out["server"] = {"startup_s": srv.startup_s, "metrics": metrics}
+    # a spec one row wider than the visible cards: data=2 on one card
+    n_cards = torch.cuda.device_count()
     try:
-        server.main(["--mesh", "data=2", "--port", "0"])
+        server.main(["--mesh", f"data={n_cards + 1}", "--port", "0"])
         refused = None
     except SystemExit as e:
         refused = str(e)
-    out["server"]["data2_refused"] = refused
+    out["server"]["wider_refused"] = refused
     log("mesh", f"server --pool {POOL_B} --mesh data=1,model=1 (bfloat16, staged): a duplex session, "
-                f"{streamed.size} samples back; /metrics {metrics}; --mesh data=2 on one card: {refused!r}")
-    if not refused or "need 2 devices, have 1" not in refused:
-        raise AssertionError(f"mesh: --mesh data=2 on one card was not refused naming the count: {refused!r}")
+                f"{streamed.size} samples back; /metrics {metrics}; --mesh data={n_cards + 1} on {n_cards} "
+                f"card(s): {refused!r}")
+    if not refused or f"need {n_cards + 1} devices, have {n_cards}" not in refused:
+        raise AssertionError(f"mesh: --mesh data={n_cards + 1} on {n_cards} card(s) was not refused naming the "
+                             f"count: {refused!r}")
 
     # 6. two processes over gloo on the card at full width, against one process; NCCL at world size 1
     worker = pathlib.Path(__file__).resolve().parent / "tests" / "torch_distributed_worker.py"
@@ -3089,6 +3360,31 @@ def phase_mesh(report, smi, table=None, queries=None):
                 + f" one process's batched step; {out['distributed']['nccl']} ({nccl_s:.1f} s)")
     del pipe
     torch.cuda.empty_cache()
+
+    # 7. across cards, where two or more are visible
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    parts = ["three kernels on the second card", "pools of data=1 x model=2 and data=2 x model=2 spanning cards",
+             "ContentVec and the exact blend split over two cards", "server --pool 8 --mesh data=N/2,model=2",
+             "two processes over NCCL, one card each"]
+    if len(cards) >= 2:
+        phase_mesh_cards(report, smi, cards, one, wavs, controls, table, queries)
+        nccl2_s, nccl2 = run_workers(2, ["--device", "cuda:{rank}", "--full-width", "--backend", "nccl"])
+        got2 = torch.from_numpy(np.load(OUT_DIR / "dist_out.npy"))
+        for f in ("dist_out.npy", "dist_buf16.npy"):
+            (OUT_DIR / f).unlink()
+        same2 = check_same("mesh two processes over nccl vs one", got2, want.cpu(), CPU_TOL["emitted"])
+        out["cross_card"]["nccl_two_process"] = {"s": nccl2_s, "bit_identical": same2[0], "rel_max_err": same2[1],
+                                                 "workers": [t.strip().splitlines()[-1] for t in nccl2]}
+        log("mesh", f"two processes over NCCL (cuda:0 and cuda:1, {tdw.LOCAL} rows each, full width float32) in "
+                    f"{nccl2_s:.1f} s: the gathered {B} streams "
+                    + ("bit-identical to" if same2[0] else f"within {same2[1]:.2e} of") + " one process's batched step")
+        ran, not_run = parts, []
+    else:
+        ran, not_run = [], parts
+    out["cards_seen"], out["cross_card_ran"], out["cross_card_not_run"] = len(cards), ran, not_run
+    out["cards_line"] = (f"{len(cards)} card(s) visible; cross-card parts run: {'; '.join(ran) or 'none'}; not run"
+                         + (f" (one card): {'; '.join(not_run)}" if not_run else ": none"))
+    log("mesh", out["cards_line"])
     out["phase_s"] = time.perf_counter() - t_phase
     log("mesh", f"the mesh phase ran {out['phase_s']:.1f} s")
 
@@ -3204,6 +3500,8 @@ def main(argv=None) -> int:
             phases[name]()
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+        if "mesh" in report:
+            log("mesh", report["mesh"]["cards_line"])
         log("done", f"chip_smoke --only {args.only} ran {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3264,6 +3562,7 @@ def main(argv=None) -> int:
                       f"{g['staged']['peak_mem_bytes'] / 2**20:.1f} staged")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log("mesh", report["mesh"]["cards_line"])
     log("done", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernel_line(report)))
     print(smi)

@@ -12,6 +12,11 @@
 // warp's m16 tiles against every n8 tile; each conv launch is a programmatic
 // dependent of the one before (griddepcontrol).
 //
+// A kernel's dynamic shared-memory cap is an attribute of the device it is
+// set on (cudaFuncSetAttribute acts on the calling thread's current device),
+// so smem_cap_once keeps a flag per device: the first launch on each card
+// sets it there.
+//
 // The build hashes this header with each source that includes it
 // (ops/_cuda.py), so an edit here rebuilds both kernels.
 
@@ -24,6 +29,20 @@
 #include <cstdint>
 
 namespace {
+
+constexpr int MAX_DEVICES = 64;
+
+// `kernel`'s dynamic shared-memory cap set to `cap` on the current device,
+// once per device (`done` is the kernel's own flag array); a CUDA error code.
+inline cudaError_t smem_cap_once(const void* kernel, bool (&done)[MAX_DEVICES], int cap) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+  if (e == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return e;
+}
 
 __device__ __forceinline__ void load2(const float* p, size_t i, float& a, float& b) {
   const float2 v = *reinterpret_cast<const float2*>(p + i);

@@ -344,13 +344,9 @@ cudaLaunchConfig_t pdl_config(cudaLaunchAttribute* attr, int blocks, int threads
 
 template <typename T, int C, int WM, bool LAST>
 cudaError_t launch(const Launch& p, int warps, int blocks, size_t smem, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(resblock_bank_kernel<T, C, WM, LAST>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool done[MAX_DEVICES] = {};
+  const cudaError_t e = smem_cap_once((const void*)resblock_bank_kernel<T, C, WM, LAST>, done, SMEM_CAP);
+  if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = pdl_config(attr, blocks, warps * 32, smem, stream);
   return cudaLaunchKernelEx(&cfg, resblock_bank_kernel<T, C, WM, LAST>, p);
@@ -416,8 +412,9 @@ bool valid(int C, int dtype, int warps, int wm, int ring, int kmax, int dmax) {
 // programmatic dependent of the kernel before it; where sums is not null,
 // the last step's blocks take one bank each, like the others, and write its
 // float32 output to sums, and one more kernel adds them (for a grid too
-// small to fill the card with a block a tile). Returns a CUDA error code (0
-// on success).
+// small to fill the card with a block a tile), on the calling thread's
+// current device, which must be `stream`'s. Returns a CUDA error code (0 on
+// success).
 extern "C" int rvc_resblock_bank(const void* x, void* out, void* tmp, float* sums, const void* const* params,
                                  int nbanks, int S, const int* ks, const int* dils, int B, int L, int C, int dtype,
                                  int warps, int wm, int ring, void* stream) {

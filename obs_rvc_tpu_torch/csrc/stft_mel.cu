@@ -186,7 +186,8 @@ log_mel_kernel(const float* __restrict__ signal, const float* __restrict__ windo
 // [n_mels + 1] int32, where each row's weights start in `weights`; weights
 // float32; pieces [n_pieces + 1] int32, the rows that start each piece of at
 // most 2048 weights, then n_mels. out: [B, n_mels, T] float32 with
-// T = 1 + L / hop. Returns a CUDA error code (0 on success).
+// T = 1 + L / hop. Launches on the calling thread's current device, which
+// must be `stream`'s. Returns a CUDA error code (0 on success).
 extern "C" int rvc_log_mel(const float* signal, const float* window, const float* cos_table,
                            const int* row_start, const int* row_off, const float* weights, const int* pieces,
                            int n_pieces, float* out, int B, int L, int stride, int T, int hop, int n_mels,

@@ -239,14 +239,8 @@ struct Tiling {
 
 template <typename T, int C, int WM>
 cudaError_t set_smem_cap() {
-  static bool done = false;
-  if (!done) {
-    cudaError_t e = cudaFuncSetAttribute(conv3x3_kernel<T, C, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_CAP);
-    if (e != cudaSuccess) return e;
-    done = true;
-  }
-  return cudaSuccess;
+  static bool done[MAX_DEVICES] = {};
+  return smem_cap_once((const void*)conv3x3_kernel<T, C, WM>, done, SMEM_CAP);
 }
 
 template <typename T, int C, int WM>
@@ -344,8 +338,9 @@ size_t level_smem(int dtype, int C, int cin, const Tiling& tl) {
 // for dtype 1), the biases float32, Wsc and bsc null for an identity
 // shortcut. The tiling: th x tw output pixels a block (tw a multiple of 16),
 // wm m16 tiles a warp. Launches two kernels per block of the chain on
-// `stream`, each a programmatic dependent of the kernel before it. Returns a
-// CUDA error code (0 on success).
+// `stream`, each a programmatic dependent of the kernel before it, on the
+// calling thread's current device, which must be `stream`'s. Returns a CUDA
+// error code (0 on success).
 extern "C" int rvc_conv_block_res_chain(const void* x, void* out, void* scratch, const void* const* params,
                                         int n_blocks, int B, int H, int W, int cin, int C, int dtype, int th, int tw,
                                         int wm, void* stream) {

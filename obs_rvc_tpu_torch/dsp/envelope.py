@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.dsp.scan import cumsum_rows
 from obs_rvc_tpu_torch.dsp.streams import per_stream
 
 
@@ -21,7 +22,7 @@ def rms_envelope(y: torch.Tensor, frame_length: int, hop_length: int) -> torch.T
     padding = frame_length // 2
     y2 = F.pad(y * y, (padding, padding))
     n_frames = (y2.shape[-1] - frame_length) // hop_length + 1
-    csum = torch.cumsum(F.pad(y2, (1, 0)), dim=-1)
+    csum = cumsum_rows(F.pad(y2, (1, 0)), dim=-1)
     starts = torch.arange(n_frames, device=y.device) * hop_length
     sums = csum[..., starts + frame_length] - csum[..., starts]
     return torch.sqrt(sums / frame_length)

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.dsp.scan import cumsum_rows
+
 
 def sola_offset(
     output_wav: torch.Tensor,
@@ -32,7 +34,7 @@ def sola_offset(
     fx = torch.fft.rfft(conv_input, n_fft)
     fs = torch.fft.rfft(sola_buffer, n_fft)
     cor_nom = torch.fft.irfft(fx * torch.conj(fs), n_fft)[..., :n_offsets].float()
-    csum = torch.cumsum(F.pad(conv_input * conv_input, (1, 0)), dim=-1)
+    csum = cumsum_rows(F.pad(conv_input * conv_input, (1, 0)), dim=-1)
     energy = csum[..., buffer_frame_size:] - csum[..., :n_offsets]
     return torch.argmax(cor_nom / torch.sqrt(energy + 1e-8), dim=-1)
 

@@ -155,8 +155,9 @@ class ContentVec(nn.Module):
         self.final_proj = nn.Linear(cfg.dim, cfg.out_dim) if cfg.final_proj else None
         self._gelu = gelu
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+    def embed(self, wav: torch.Tensor) -> torch.Tensor:
+        """The conv frontend, the projection and the positional conv: the
+        first transformer layer's input ``[B, T, dim]`` in the compute dtype."""
         x = wav[:, None, :].to(self.post_extract_proj.weight.dtype)
         for layer in self.feature_extractor.conv_layers:
             x = layer(x)
@@ -167,19 +168,27 @@ class ContentVec(nn.Module):
         conv = self.encoder.pos_conv[0]
         pos = conv_rounded(F.conv1d, x.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding,
                            groups=conv.groups)
-        if cfg.conv_pos_kernel % 2 == 0:
+        if self.cfg.conv_pos_kernel % 2 == 0:
             pos = pos[:, :, :-1]
-        x = self.encoder.layer_norm(x + F.gelu(pos, approximate=self._gelu).transpose(1, 2))
-        out = None
-        for i, layer in enumerate(self.encoder.layers):
-            x = layer(x)
-            if i + 1 == cfg.tap_layer:
-                out = x
-                break
-        assert out is not None, "tap_layer exceeds num_layers"
+        return self.encoder.layer_norm(x + F.gelu(pos, approximate=self._gelu).transpose(1, 2))
+
+    def tapped_layers(self):
+        """The transformer layers up to ``tap_layer``, whose last output is the features'."""
+        if self.cfg.tap_layer > len(self.encoder.layers):
+            raise ValueError("tap_layer exceeds num_layers")
+        return self.encoder.layers[: self.cfg.tap_layer]
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The tapped layer's output → the features, in float32 (v1: through ``final_proj``)."""
         if self.final_proj is not None:
-            out = self.final_proj(out)
-        return out.float()
+            x = self.final_proj(x)
+        return x.float()
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        x = self.embed(wav)
+        for layer in self.tapped_layers():
+            x = layer(x)
+        return self.head(x)
 
 
 def extract_feature(features_50hz: torch.Tensor) -> torch.Tensor:

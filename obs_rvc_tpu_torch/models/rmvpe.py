@@ -95,6 +95,11 @@ class _Chain(nn.ModuleList):
         #: pack with blocks of another weight version
         self._fold = None
 
+    def __getstate__(self):
+        # the fold is derived from the weights, and a pack holds ctypes pointers into them: a copy
+        # (a mesh row's on another card, parallel/sharding.py) folds and packs its own
+        return {**self.__dict__, "_fold": None}
+
     def _folded(self) -> tuple:
         key = tuple((p.data_ptr(), p._version) for p in self.parameters()) + tuple(
             (b.data_ptr(), b._version) for b in self.buffers()

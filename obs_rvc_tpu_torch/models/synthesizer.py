@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.dsp.scan import cumsum_rows
 from obs_rvc_tpu_torch.models.layers import LRELU_SLOPE, VitsLayerNorm
 from obs_rvc_tpu_torch.ops.resblock import PackedBank, pack_bank, resblock_bank
 
@@ -292,7 +293,7 @@ def sine_source(
     drawn only when a ``generator`` is given."""
     B, T = f0.shape
     rad = (f0 / sample_rate) % 1.0
-    cum_frame = torch.cumsum(rad, dim=1) * upp
+    cum_frame = cumsum_rows(rad, dim=1) * upp
     size = T * upp
     pos = torch.arange(size, dtype=torch.float32, device=f0.device) * float(
         torch.tensor((T - 1) / (size - 1), dtype=torch.float32))
@@ -303,7 +304,7 @@ def sine_source(
     rad_s = torch.repeat_interleave(rad, upp, dim=1)
     wrap = (over_one[:, 1:] - over_one[:, :-1]) < 0
     shift = F.pad(wrap.to(rad_s.dtype) * -1.0, (1, 0))
-    sine = torch.sin(2.0 * math.pi * torch.cumsum(rad_s + shift, dim=1)) * sine_amp
+    sine = torch.sin(2.0 * math.pi * cumsum_rows(rad_s + shift, dim=1)) * sine_amp
     uv = torch.repeat_interleave((f0 > voiced_threshold).to(rad_s.dtype), upp, dim=1)
     out = sine * uv
     if generator is not None:
@@ -384,6 +385,11 @@ class GeneratorNSF(nn.Module):
         #: their packs by dtype), replaced as one object when a weight changed,
         #: so threads sharing the module never pair a pack with other weights
         self._bank_cache = [None] * len(cfg.upsample_rates)
+
+    def __getstate__(self):
+        # the cache is derived from the weights, and a pack holds ctypes pointers into them: a copy
+        # (a mesh row's on another card, parallel/sharding.py) stacks and packs its own
+        return {**self.__dict__, "_bank_cache": [None] * len(self._bank_cache)}
 
     def uses_bank_kernel(self, ch: int) -> bool:
         return self.shared_dilations and ch <= BANK_MAX_CH

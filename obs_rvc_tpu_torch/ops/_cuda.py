@@ -7,10 +7,18 @@ into ``obs_rvc_tpu_torch/_build/``, named by a hash of the source, the
 headers (``csrc/*.cuh``) and the flags, so a changed source or header is
 rebuilt. Nothing here runs at import time: the module imports on a machine
 without a CUDA toolchain.
+
+**The launch device.** A C entry launches on the calling thread's current
+device, into the stream it is handed. So every wrapper makes its input's
+card current around the C call (:func:`on_device_of`), after checking that
+every tensor it passes lies on that card, and hands the C entry that card's
+current stream (:func:`stream_of`). A kernel whose shared-memory cap must be
+raised sets it once per device (``csrc/mma.cuh:smem_cap_once``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -122,6 +130,19 @@ def check(rc: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def on_device_of(t, *others, what: str = "kernel"):
+    """The context every wrapper makes its C call in: ``t``'s card current.
+    Raises when one of ``others`` (tensors, or ``None``) lies on another device."""
+    import torch
+
+    for o in others:
+        if o is not None and o.device != t.device:
+            raise ValueError(f"{what}: a tensor on {o.device} beside the input on {t.device}")
+    # the wrappers send a CPU tensor to the plain version; one reaches here only from the
+    # tests' stand-in C entry, which launches nothing
+    return torch.cuda.device(t.device) if t.device.type == "cuda" else contextlib.nullcontext()
 
 
 def stream_of(t) -> ctypes.c_void_p:

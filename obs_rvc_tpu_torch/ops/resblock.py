@@ -276,9 +276,12 @@ def _resblock_bank_cuda(x, packed: PackedBank, kernel_sizes, dilations, tile: Op
     # each bank's activation between its steps, in two buffers taken in turns; a split last step's outputs
     tmp = torch.empty((min(S - 1, 2), nbanks, B, L, C), dtype=x.dtype, device=x.device) if S > 1 else None
     sums = torch.empty((nbanks, B, L, C), dtype=torch.float32, device=x.device) if tl.split else None
-    rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(tmp), _cuda.ptr(sums), ctypes.cast(packed.params, ctypes.c_void_p),
-            nbanks, S, ctypes.cast(packed.ks, ctypes.c_void_p), ctypes.cast(packed.dils, ctypes.c_void_p),
-            B, L, C, 0 if x.dtype == torch.float32 else 1, tl.warps, tl.wm, tl.ring, _cuda.stream_of(x))
+    # the packed params lie on packed.device, checked above
+    with _cuda.on_device_of(x, out, tmp, sums, what="resblock_bank"):
+        rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(tmp), _cuda.ptr(sums),
+                ctypes.cast(packed.params, ctypes.c_void_p), nbanks, S, ctypes.cast(packed.ks, ctypes.c_void_p),
+                ctypes.cast(packed.dils, ctypes.c_void_p), B, L, C, 0 if x.dtype == torch.float32 else 1, tl.warps,
+                tl.wm, tl.ring, _cuda.stream_of(x))
     _cuda.check(rc, f"resblock_bank (C={C}, k={kernel_sizes}, d={dilations}, {tl})")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1

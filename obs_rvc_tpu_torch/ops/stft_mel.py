@@ -176,10 +176,12 @@ def _log_mel_cuda(signal, packed: PackedMelBasis, window, hop_length, clamp) -> 
     win = window.contiguous()
     table = _cos_table(CUDA_FFT_SIZE, signal.device)
     out = torch.empty((B, n_mels, T), dtype=torch.float32, device=signal.device)
-    rc = fn(_cuda.ptr(signal), _cuda.ptr(win), _cuda.ptr(table), _cuda.ptr(packed.row_start),
-            _cuda.ptr(packed.row_off), _cuda.ptr(packed.weights), _cuda.ptr(packed.pieces),
-            packed.pieces.shape[0] - 1, _cuda.ptr(out), B, L, signal.stride(0), T, hop_length, n_mels,
-            ctypes.c_float(clamp), _cuda.stream_of(signal))
+    with _cuda.on_device_of(signal, win, table, packed.row_start, packed.row_off, packed.weights, packed.pieces,
+                            out, what="log_mel"):
+        rc = fn(_cuda.ptr(signal), _cuda.ptr(win), _cuda.ptr(table), _cuda.ptr(packed.row_start),
+                _cuda.ptr(packed.row_off), _cuda.ptr(packed.weights), _cuda.ptr(packed.pieces),
+                packed.pieces.shape[0] - 1, _cuda.ptr(out), B, L, signal.stride(0), T, hop_length, n_mels,
+                ctypes.c_float(clamp), _cuda.stream_of(signal))
     _cuda.check(rc, f"log_mel (B={B}, L={L}, T={T})")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1

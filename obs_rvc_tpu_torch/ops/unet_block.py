@@ -231,9 +231,11 @@ def _chain_cuda(x, packed: PackedChain, tile: Optional[tuple] = None) -> torch.T
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     scratch = torch.empty((3, B, H, W, C), dtype=x.dtype, device=x.device)
-    rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
-            len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
-            _cuda.stream_of(x))
+    # the packed weights lie on packed.device, checked above
+    with _cuda.on_device_of(x, out, scratch, what="conv_block_res_chain"):
+        rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
+                len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
+                _cuda.stream_of(x))
     _cuda.check(rc, f"conv_block_res_chain ({cin}->{C}, {len(packed.blocks)} blocks)")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1

@@ -33,7 +33,10 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     ``coordinator_address`` (``host:port``). The defaults are torchrun's:
     ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``. A no-op
     when the group is up already or there is one process. The backend is
-    ``nccl`` with a card and ``gloo`` without one, unless named."""
+    ``nccl`` with a card and ``gloo`` without one, unless named. Under
+    ``nccl`` each process makes its own card current first: ``LOCAL_RANK``
+    (torchrun's; default the rank) modulo the visible cards, so two ranks on
+    a host of two cards take one each."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -45,6 +48,8 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
         coordinator_address = f"{env.get('MASTER_ADDR', 'localhost')}:{env.get('MASTER_PORT', '29500')}"
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num, rank=rank)
 
 

@@ -8,7 +8,9 @@ real sharding rules: ContentVec (768-d, 12 heads, 3072 FFN) split along
 along ``model``, streams along ``data``, the full RMVPE and the 40 kHz
 synthesizer on each row's first device. The time geometry is the JAX dry
 run's shortened one (0.10 s chunks, 0.50 s of extra context). At model=2 a
-fused ``StreamPool`` on the mesh also ticks once with every slot fed.
+fused ``StreamPool`` on the mesh also ticks once with every slot fed, each
+row's tick as per-device graph segments (``stream/graphs.py:
+SegmentedFunction``), its shards' segments on the row's own devices.
 """
 
 from __future__ import annotations
@@ -81,6 +83,12 @@ def _dryrun_mesh(devices: list, n_model: int) -> None:
                 raise AssertionError(f"pool slot {s} returned no chunk")
         if len(pool._rows) != n_data:
             raise AssertionError(f"the pool runs {len(pool._rows)} rows, want {n_data}")
+        # each row's tick ran as per-device segments, its shards' on the devices the row names
+        for row, devs in zip(pool._rows, mesh.rows()):
+            segments = getattr(row.fused_step, "segments", {})
+            placed = [segments[f"features/layer0/attn{i}"].device for i in range(n_model)]
+            if placed != [torch.device(d) for d in devs]:
+                raise AssertionError(f"pool row {devs}: the first layer's attention shards ran on {placed}")
         pool.stop()
         print(f"dryrun_multichip pool tick ok: mesh data={n_data} model={n_model}", flush=True)
 

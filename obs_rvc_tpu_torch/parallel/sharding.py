@@ -23,6 +23,13 @@ rounded to bfloat16 once more. Heads split with ``tensor_split`` semantics
 (12 heads over 8 devices: 2, 2, 2, 2, 1, 1, 1, 1), as GSPMD pads them; a
 device given no head holds no shard.
 
+Each layer's work is a sequence of segments, each on one device
+(:class:`ParallelTransformerLayer`), as is the split table's search
+(``retrieval.index._sharded_blend``): eagerly the segments run one after
+the other, and a row pipeline's graphed forms replay a CUDA graph of each
+on its own card (``stream/graphs.py:SegmentedFunction``), whether the row's
+devices are distinct cards or one card named several times.
+
 Rows whose devices are the same hold the same module objects (the sharded
 ContentVec, the replicated networks), so a mesh that names one card several
 times holds each weight once per distinct row. Each row pipeline has graphs
@@ -51,6 +58,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from obs_rvc_tpu_torch.device import run_inline
 from obs_rvc_tpu_torch.parallel.mesh import Mesh
 from obs_rvc_tpu_torch.stream.graphs import WeightsVersion, leaves, tree_map
 
@@ -122,88 +130,109 @@ def _row_sum(parts: list[torch.Tensor], bias: torch.Tensor, like: torch.Tensor) 
     return (acc + bias.float()).to(like.dtype)
 
 
+class _AttnShard(nn.Module):
+    """One model device's heads: q/k/v, their attention and their slice of
+    ``out_proj`` (no bias), computed on :attr:`device` from ``x`` there."""
+
+    def __init__(self, attn: nn.Module, piece: tuple[int, int], device: torch.device, prefix: str, head_dim: int):
+        super().__init__()
+        self.device, self.head_dim = device, head_dim
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin = getattr(attn, name)
+            w = _take(lin.weight, param_partition_spec(f"{prefix}.{name}.weight", 2), piece, device)
+            self.register_parameter(f"{name}_weight", w)
+            if name != "out_proj":
+                self.register_parameter(f"{name}_bias", _take(
+                    lin.bias, param_partition_spec(f"{prefix}.{name}.bias", 1), piece, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, E]
+        B, T, _ = x.shape
+        D = self.head_dim
+
+        def split(t):
+            return t.view(B, T, -1, D).transpose(1, 2)  # [B, H_s, T, D]
+
+        q = split(F.linear(x, self.q_proj_weight, self.q_proj_bias)) / math.sqrt(D)
+        k = split(F.linear(x, self.k_proj_weight, self.k_proj_bias))
+        v = split(F.linear(x, self.v_proj_weight, self.v_proj_bias))
+        w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        return F.linear((w @ v).transpose(1, 2).reshape(B, T, -1), self.out_proj_weight)
+
+
+class _FFNShard(nn.Module):
+    """One model device's slice of the FFN's hidden width: ``fc1``, gelu, and
+    its slice of ``fc2`` (no bias)."""
+
+    def __init__(self, fc1: nn.Linear, fc2: nn.Linear, gelu: str, piece: tuple[int, int], device: torch.device,
+                 prefix: str):
+        super().__init__()
+        self.device, self.gelu = device, gelu
+        self.fc1_weight = _take(fc1.weight, param_partition_spec(f"{prefix}.fc1.weight", 2), piece, device)
+        self.fc1_bias = _take(fc1.bias, param_partition_spec(f"{prefix}.fc1.bias", 1), piece, device)
+        self.fc2_weight = _take(fc2.weight, param_partition_spec(f"{prefix}.fc2.weight", 2), piece, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(F.gelu(F.linear(x, self.fc1_weight, self.fc1_bias), approximate=self.gelu), self.fc2_weight)
+
+
 class ParallelSelfAttention(nn.Module):
     """``models.contentvec._SelfAttention`` with its heads split over
-    ``devices``: each shard computes its heads' attention and its slice of
-    ``out_proj``; the partials are summed by :func:`_row_sum`."""
+    ``devices``: a shard (:class:`_AttnShard`) per device given a head; the
+    partials are summed by :func:`_row_sum` with :attr:`out_bias`."""
 
     def __init__(self, attn: nn.Module, devices: list[torch.device], prefix: str):
         super().__init__()
         E = attn.q_proj.weight.shape[0]
         self.head_dim = E // attn.heads
-        self.shards = nn.ModuleList()
-        pieces = _split_ranges(E, len(devices), unit=self.head_dim)
-        for piece, dev in zip(pieces, devices):
-            if piece[1] == 0:
-                continue
-            s = nn.Module()
-            s.device = dev
-            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                lin = getattr(attn, name)
-                w = _take(lin.weight, param_partition_spec(f"{prefix}.{name}.weight", 2), piece, dev)
-                s.register_parameter(f"{name}_weight", w)
-                if name != "out_proj":
-                    s.register_parameter(f"{name}_bias", _take(
-                        lin.bias, param_partition_spec(f"{prefix}.{name}.bias", 1), piece, dev))
-            self.shards.append(s)
+        self.shards = nn.ModuleList(_AttnShard(attn, piece, dev, prefix, self.head_dim)
+                                    for piece, dev in zip(_split_ranges(E, len(devices), unit=self.head_dim), devices)
+                                    if piece[1])
         self.out_bias = nn.Parameter(attn.out_proj.bias.detach().to(devices[0], copy=True), requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, E]
-        B, T, _ = x.shape
-        D = self.head_dim
-        parts = []
-        for s in self.shards:
-            xs = x.to(s.device)
-
-            def split(t):
-                return t.view(B, T, -1, D).transpose(1, 2)  # [B, H_s, T, D]
-
-            q = split(F.linear(xs, s.q_proj_weight, s.q_proj_bias)) / math.sqrt(D)
-            k = split(F.linear(xs, s.k_proj_weight, s.k_proj_bias))
-            v = split(F.linear(xs, s.v_proj_weight, s.v_proj_bias))
-            w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-            parts.append(F.linear((w @ v).transpose(1, 2).reshape(B, T, -1), s.out_proj_weight))
-        return _row_sum(parts, self.out_bias, x)
 
 
 class ParallelFFN(nn.Module):
-    """``fc2(gelu(fc1(x)))`` with the hidden width split over ``devices``."""
+    """``fc2(gelu(fc1(x)))`` with the hidden width split over ``devices``
+    (:class:`_FFNShard`); the partials summed with :attr:`fc2_bias`."""
 
     def __init__(self, fc1: nn.Linear, fc2: nn.Linear, gelu: str, devices: list[torch.device], prefix: str):
         super().__init__()
-        self.gelu = gelu
-        self.shards = nn.ModuleList()
-        for piece, dev in zip(_split_ranges(fc1.weight.shape[0], len(devices)), devices):
-            if piece[1] == 0:
-                continue
-            s = nn.Module()
-            s.device = dev
-            s.fc1_weight = _take(fc1.weight, param_partition_spec(f"{prefix}.fc1.weight", 2), piece, dev)
-            s.fc1_bias = _take(fc1.bias, param_partition_spec(f"{prefix}.fc1.bias", 1), piece, dev)
-            s.fc2_weight = _take(fc2.weight, param_partition_spec(f"{prefix}.fc2.weight", 2), piece, dev)
-            self.shards.append(s)
+        self.shards = nn.ModuleList(_FFNShard(fc1, fc2, gelu, piece, dev, prefix)
+                                    for piece, dev in zip(_split_ranges(fc1.weight.shape[0], len(devices)), devices)
+                                    if piece[1])
         self.fc2_bias = nn.Parameter(fc2.bias.detach().to(devices[0], copy=True), requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        parts = [F.linear(F.gelu(F.linear(x.to(s.device), s.fc1_weight, s.fc1_bias), approximate=self.gelu),
-                          s.fc2_weight) for s in self.shards]
-        return _row_sum(parts, self.fc2_bias, x)
 
 
 class ParallelTransformerLayer(nn.Module):
     """``models.contentvec._TransformerLayer`` over the shards above, its
-    norms on the row's first device."""
+    sums and norms on the row's first device.
+
+    A layer is four kinds of segment, each given to ``run`` (see
+    :func:`~obs_rvc_tpu_torch.device.run_inline`; a graphed step replays a
+    graph of each): a shard's attention on its device, then on the first
+    device the sum of the partials, the residual and the first LayerNorm;
+    a shard's FFN on its device, then the sum, the residual and the final
+    LayerNorm. Each segment's input is copied to its device. The arithmetic
+    and the order of the sums are the same however ``run`` runs them."""
 
     def __init__(self, layer: nn.Module, devices: list[torch.device], prefix: str):
         super().__init__()
+        self.device = devices[0]
         self.self_attn = ParallelSelfAttention(layer.self_attn, devices, f"{prefix}.self_attn")
         self.self_attn_layer_norm = _to(layer.self_attn_layer_norm, devices[0])
         self.ffn = ParallelFFN(layer.fc1, layer.fc2, layer.gelu, devices, prefix)
         self.final_layer_norm = _to(layer.final_layer_norm, devices[0])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.self_attn_layer_norm(x + self.self_attn(x))
-        return self.final_layer_norm(x + self.ffn(x))
+    def attn_sum(self, x: torch.Tensor, *parts: torch.Tensor) -> torch.Tensor:
+        return self.self_attn_layer_norm(x + _row_sum(list(parts), self.self_attn.out_bias, x))
+
+    def ffn_sum(self, x: torch.Tensor, *parts: torch.Tensor) -> torch.Tensor:
+        return self.final_layer_norm(x + _row_sum(list(parts), self.ffn.fc2_bias, x))
+
+    def forward(self, x: torch.Tensor, run=run_inline, name: str = "layer") -> torch.Tensor:
+        parts = [run(f"{name}/attn{i}", s, x, device=s.device) for i, s in enumerate(self.self_attn.shards)]
+        x = run(f"{name}/attn_sum", self.attn_sum, x, *parts, device=self.device)
+        parts = [run(f"{name}/ffn{i}", s, x, device=s.device) for i, s in enumerate(self.ffn.shards)]
+        return run(f"{name}/ffn_sum", self.ffn_sum, x, *parts, device=self.device)
 
 
 def shard_contentvec(contentvec: nn.Module, devices, name: str = "contentvec") -> nn.Module:
@@ -222,6 +251,8 @@ def shard_contentvec(contentvec: nn.Module, devices, name: str = "contentvec") -
     enc.layers = nn.ModuleList(ParallelTransformerLayer(layer, devices, f"{name}.encoder.layers.{i}")
                                for i, layer in enumerate(contentvec.encoder.layers))
     tp.encoder = enc
+    #: the model devices its layers are split over
+    tp.model_devices = devices
     return tp
 
 

@@ -53,13 +53,14 @@ and ``index_rate``.
 
 from __future__ import annotations
 
+import functools
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from obs_rvc_tpu_torch.device import resolve_device
+from obs_rvc_tpu_torch.device import resolve_device, run_inline
 from obs_rvc_tpu_torch.retrieval.build import balance_lists
 
 #: rows of a bfloat16 table widened at once on the CPU
@@ -204,23 +205,41 @@ def _row_shards(vectors, norms, devices) -> list[tuple[torch.Tensor, torch.Tenso
     return [(v.to(d), n.to(d)) for v, n, d in zip(vectors, norms, devices)]
 
 
-def _sharded_blend(shards, phone: torch.Tensor, index_rate, k: int) -> torch.Tensor:
-    """The exact search over table shards ``[(vectors, norms), ...]`` and the blend, on ``phone``'s device."""
+def _shard_search(vectors: torch.Tensor, norms: torch.Tensor, phone: torch.Tensor, k: int):
+    """One table shard's local top-``k`` of ``2 q·v − |v|²`` for the queries
+    of ``phone [B, T, C]``, on the shard's device: ``(scores [Q, k'],
+    candidate rows [Q, k', C])``, ``k' = min(k, rows)``."""
+    q = phone.reshape(-1, phone.shape[-1]).to(torch.float32)
+    neg = table_products(q, vectors).mul_(2.0).sub_(norms)
+    local, idx = torch.topk(neg, min(k, vectors.shape[0]), dim=-1)
+    return local, vectors[idx]
+
+
+def _merge_blend(phone: torch.Tensor, index_rate, *found: torch.Tensor, k: int) -> torch.Tensor:
+    """The shards' candidates (``found``: each shard's scores, then each
+    shard's rows, in shard order) merged to a global top-``k`` and blended
+    into ``phone``, on its device."""
     B, T, C = phone.shape
     q = phone.reshape(B * T, C).to(torch.float32)
-    negs, cands = [], []
-    for v, n in shards:
-        qs = q.to(v.device)
-        neg = table_products(qs, v).mul_(2.0).sub_(n)
-        local, idx = torch.topk(neg, min(k, v.shape[0]), dim=-1)
-        negs.append(local.to(q.device))
-        cands.append(v[idx].to(q.device))
+    half = len(found) // 2
     # the candidates in shard order, as a tiled all_gather lays them out; a stable sort
     # keeps lax.top_k's lower-position-first among equal scores (duplicate rows across shards)
-    all_neg, all_vecs = torch.cat(negs, dim=1), torch.cat(cands, dim=1)
+    all_neg, all_vecs = torch.cat(found[:half], dim=1), torch.cat(found[half:], dim=1)
     order = torch.sort(all_neg, dim=-1, descending=True, stable=True).indices[:, :k]
     chosen = torch.gather(all_vecs, 1, order[..., None].expand(-1, -1, C))
     return _blend(q, chosen, torch.gather(all_neg, 1, order), phone, index_rate)
+
+
+def _sharded_blend(shards, phone: torch.Tensor, index_rate, k: int, run=run_inline) -> torch.Tensor:
+    """The exact search over table shards ``[(vectors, norms), ...]`` and the
+    blend, on ``phone``'s device: each shard's search a segment on its own
+    device, then the merge and the blend one on ``phone``'s (``run`` as
+    :func:`~obs_rvc_tpu_torch.device.run_inline` runs them, or a graphed
+    step's runner)."""
+    found = [run(f"index/shard{i}", functools.partial(_shard_search, v, n, k=k), phone, device=v.device)
+             for i, (v, n) in enumerate(shards)]
+    return run("index/merge", functools.partial(_merge_blend, k=k), phone, index_rate,
+               *(f[0] for f in found), *(f[1] for f in found), device=phone.device)
 
 
 def sharded_knn_blend(vectors, norms, phone: torch.Tensor, index_rate, mesh, k: int = 8) -> torch.Tensor:
@@ -407,12 +426,13 @@ class RetrievalIndex(nn.Module):
                 setattr(row, name, None if t is None else t.to(devices[0]))
         return row
 
-    def blend(self, phone: torch.Tensor, index_rate) -> torch.Tensor:
+    def blend(self, phone: torch.Tensor, index_rate, run=run_inline) -> torch.Tensor:
         """Retrieve and blend each of ``B`` streams' features ``phone [B, T,
         C]`` with its ``index_rate`` (one value, or ``[B]``); ``phone``
-        unchanged while no table is loaded."""
+        unchanged while no table is loaded. A split table's search runs as
+        segments through ``run`` (:func:`_sharded_blend`)."""
         if self.shards is not None:
-            return _sharded_blend([(s.vectors, s.norms) for s in self.shards], phone, index_rate, self.k)
+            return _sharded_blend([(s.vectors, s.norms) for s in self.shards], phone, index_rate, self.k, run)
         if self.vectors is None:
             return phone
         if self.mode == "exact":

@@ -49,7 +49,9 @@ networks are sharded once, before any front door is built
 (``parallel.shard_params``: ContentVec and an exact table split along
 ``model``), and every session and the RPC engine step the first data row's
 pipeline; ``data`` > 1 needs ``--pool``, whose slots split along ``data``,
-a row per group. A spec the devices cannot hold exits naming their count.
+a row per group. A row of ``model`` > 1 steps through per-device graph
+segments (``stream/pipeline.py``), so its shards may sit on different
+cards. A spec the devices cannot hold exits naming their count.
 """
 
 from __future__ import annotations

@@ -18,6 +18,13 @@ The graph bakes in the address of every weight it reads. A
 :class:`WeightsVersion` watches the networks' parameters and buffers (their
 storage and in-place version, and which modules they are), and a graph
 captured over older weights is captured again at its next call.
+
+A CUDA graph is one card's work. A function whose work spans cards (a mesh
+row's split ContentVec and exact table, ``parallel/sharding.py``) is a
+:class:`SegmentedFunction`: an ordered list of :class:`GraphedFunction`
+segments, each on its own device, which the function's Python body names as
+it runs (``run(name, fn, *args, device=)``, the calls that
+:func:`~obs_rvc_tpu_torch.device.run_inline` runs eagerly).
 """
 
 from __future__ import annotations
@@ -212,12 +219,19 @@ class GraphedFunction:
                 self.fn(*self.static_args)
             side.synchronize()
             warmup = time.perf_counter() - t0
+            # cuBLAS's workspace is PyTorch's, one per (handle, stream): every capture here has the
+            # one handle of this thread, and its side streams come round again from PyTorch's pool,
+            # so without this two graphs could bake in one workspace and race when they replay at
+            # once (two mesh rows on one card). Dropped, the capture allocates a workspace of its
+            # own from its memory pool, shared only with the graphs that replay in turn with it.
+            torch._C._cuda_clearCublasWorkspaces()
             # thread_local: the sessions' worker threads go on replaying other graphs meanwhile
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
                 out = self.fn(*self.static_args)
             finally:
                 graph.capture_end()
+                torch._C._cuda_clearCublasWorkspaces()
         caller.wait_stream(side)
         return graph, out, warmup
 
@@ -259,22 +273,126 @@ def graph_pool(device):
     return torch.cuda.graph_pool_handle() if torch.device(device).type == "cuda" else None
 
 
-def stage_runner(graphs: dict, device, pool, stage_times: Optional[dict] = None):
-    """``run(name, fn, *args)`` for the stage-by-stage step: each stage's
-    graph, captured at its first call from these args (``graphs`` keeps
-    them by name), replayed; with ``stage_times``, each replay ends in a
-    synchronize and its wall ms is written under the stage's name."""
+def _card(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
-    def run(name: str, fn: Callable, *args) -> Any:
+
+def stage_runner(graphs: dict, device, pools: dict, stage_times: Optional[dict] = None):
+    """``run(name, fn, *args, device=None)`` for the stage-by-stage step: each
+    stage's graph, captured at its first call from these args on ``device``
+    (by default the step's; ``graphs`` keeps them by name, ``pools`` one
+    memory pool per card), replayed; with ``stage_times``, each replay ends
+    in a synchronize and its wall ms is written under the stage's name (a
+    segment's, ``"features/..."``, added to its stage's)."""
+    device = _card(device)
+
+    def run(name: str, fn: Callable, *args, device=device) -> Any:
         graph = graphs.get(name)
         if graph is None:
-            graph = graphs[name] = GraphedFunction(fn, args, device=device, name=f"stage_{name}", pool=pool)
+            dev = _card(device)
+            if dev not in pools:
+                pools[dev] = graph_pool(dev)
+            graph = graphs[name] = GraphedFunction(fn, args, device=dev, name=f"stage_{name}", pool=pools[dev])
         t0 = time.perf_counter()
         out = graph.run(*args)
         if stage_times is not None:
             if graph.device.type == "cuda":
                 torch.cuda.synchronize(graph.device)
-            stage_times[name] = (time.perf_counter() - t0) * 1e3
+            stage, _, segment = name.partition("/")
+            stage_times[stage] = (stage_times.get(stage, 0.0) if segment else 0.0) + (time.perf_counter() - t0) * 1e3
         return out
 
     return run
+
+
+class SegmentedFunction:
+    """``fn(*args, run=...)`` as per-device graph segments: the same surface
+    as :class:`GraphedFunction` (``run``, ``__call__``, ``capture``,
+    ``static_args``, ``weights``, ``lock``, ``captures``) for a function
+    whose work spans cards.
+
+    ``fn``'s body passes each piece of device work to ``run(name, piece,
+    *args, device=None)``. The first call of a name makes its segment: a
+    :class:`GraphedFunction` of ``piece`` on ``device`` (default this
+    function's), captured on that card's side stream over static copies of
+    ``args``, in one memory pool per card (the segments replay in the order
+    they were captured, every call). Later calls replay it: the arguments,
+    another segment's outputs, are ``copy_``'d into its static inputs on its
+    card, and PyTorch orders a copy between cards by events on the current
+    stream of each (the caller makes a stream of its own current on each
+    card, or they run on the cards' default streams). ``fn``'s body does no
+    device work of its own. Its outputs are the last segments' own tensors,
+    valid until the next call, as :meth:`GraphedFunction.run`'s are.
+
+    ``weights`` covers every segment's modules: when they change, every
+    segment is dropped and captured again at its next call. On the CPU each
+    segment calls its piece eagerly over its static copies. A capture that
+    fails raises; nothing falls back to eager."""
+
+    def __init__(self, fn: Callable, example_args: tuple, *, device, name: str,
+                 weights: Optional[Callable[[], Iterable[torch.nn.Module]]] = None):
+        self.fn = weakly(fn)
+        self.name = name
+        self.device = _card(device)
+        #: the example arguments' static copies: :meth:`capture` steps them
+        self.static_args = tree_map(lambda leaf: _static_leaf(leaf, self.device), tuple(example_args))
+        self.weights = weakly(weights) if weights is not None else None
+        self._version = WeightsVersion(weights) if weights is not None else None
+        self._weights_key = None
+        self.lock = threading.RLock()
+        #: the segments by name, in the order of their first call
+        self.segments: dict[str, GraphedFunction] = {}
+        self._pools: dict = {}
+        self._dropped_captures = 0
+
+    @property
+    def captures(self) -> int:
+        """Captures of every segment so far, dropped ones included."""
+        return self._dropped_captures + sum(g.captures for g in self.segments.values())
+
+    def _drop_if_weights_changed(self) -> None:
+        key = self._version.key() if self._version is not None else None
+        if key != self._weights_key:
+            self._dropped_captures += sum(g.captures for g in self.segments.values())
+            self.segments.clear()
+            self._pools.clear()
+            self._weights_key = key
+
+    def _segment(self, name: str, piece: Callable, *args, device=None):
+        graph = self.segments.get(name)
+        if graph is None:
+            dev = self.device if device is None else _card(device)
+            if dev not in self._pools:
+                self._pools[dev] = graph_pool(dev)
+            graph = self.segments[name] = GraphedFunction(piece, args, device=dev, name=f"{self.name}/{name}",
+                                                          pool=self._pools[dev])
+        return graph.run(*args)
+
+    def capture(self) -> bool:
+        """Capture every segment now, by a call on the example arguments,
+        unless segments of the current weights are held (or this runs on
+        the CPU). Returns whether it captured."""
+        with self.lock:
+            if self.device.type != "cuda":
+                return False
+            self._drop_if_weights_changed()
+            if self.segments:
+                return False
+            self.run(*self.static_args)
+            return True
+
+    def run(self, *args):
+        """``fn(*args)`` through the segments; its outputs, valid until the
+        next call (hold :attr:`lock` until they are read)."""
+        with self.lock:
+            self._drop_if_weights_changed()
+            return self.fn(*args, run=self._segment)
+
+    def __call__(self, *args):
+        """:meth:`run`, with the outputs copied out of the segments' memory."""
+        with self.lock:
+            return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, self.run(*args))

@@ -40,6 +40,23 @@ Three ways to run the step, the JAX package's names:
 ``jit_convert_scan`` converts a whole clip, chunked on the host, as one
 CUDA graph of every chunk's step (a graph per chunk count).
 
+**A mesh row split along ``model``** (``parallel.shard_params`` with more
+than one model entry: ContentVec split over the row's devices, an exact
+retrieval table split by rows) is :attr:`RvcPipeline.segmented`. Its
+features stage runs as per-device segments (``features/embed``, each
+layer's shard attentions, their sum, its shard FFNs and their sum, the
+head, each table shard's search and the merge with the blend), named
+through the ``run(name, fn, *args, device=)`` calls that every form of the
+step makes (``device.run_inline`` eagerly, a graph per name otherwise). On
+such a row every graphed form is a ``stream/graphs.py:SegmentedFunction``,
+and **fused** means the stages before the features as one graph (``pre``),
+the features' segments, and the stages after them as one graph
+(``after_features``: pitch, synthesizer, post; ``pitch_synth`` for
+``jit_infer``); ``jit_convert_scan`` replays those for each chunk, and
+``staged_step`` runs the features' segments in place of the features
+graph. It is the same path whether the row's entries are distinct cards or
+one card named several times, and the same arithmetic as the eager step.
+
 The live controls reach every path as float32 tensors (the speaker id
 int64), 0-d for one stream and ``[B]`` for a batch (:meth:`StepControls.stack`),
 so they are graph inputs: a new pitch shift or mix rate is written before
@@ -80,7 +97,7 @@ import torch
 import torch.nn as nn
 
 from obs_rvc_tpu_torch.config import ChunkConfig, RMVPE_HOP, ZC_16K, RvcModelVersion
-from obs_rvc_tpu_torch.device import resolve_device
+from obs_rvc_tpu_torch.device import deterministic_cudnn, resolve_device, run_inline
 from obs_rvc_tpu_torch.dsp import (
     MelSpectrogram,
     apply_pitch_shift,
@@ -111,7 +128,12 @@ from obs_rvc_tpu_torch.models.contentvec import extract_feature, feature_frames
 from obs_rvc_tpu_torch.models.layers import VitsLayerNorm
 from obs_rvc_tpu_torch.models.weights import load_state_dict
 from obs_rvc_tpu_torch.retrieval.index import RetrievalIndex
-from obs_rvc_tpu_torch.stream.graphs import GraphedFunction, WeightsVersion, graph_pool, stage_runner
+from obs_rvc_tpu_torch.stream.graphs import (
+    GraphedFunction,
+    SegmentedFunction,
+    WeightsVersion,
+    stage_runner,
+)
 from obs_rvc_tpu_torch.stream.state import StreamState
 
 
@@ -166,10 +188,6 @@ class StepControls:
     def map(self, fn) -> "StepControls":
         """``fn`` applied to each control."""
         return StepControls(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
-
-
-def _untimed(name: str, fn, *args):
-    return fn(*args)
 
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, VitsLayerNorm)
@@ -233,6 +251,8 @@ class RvcPipeline:
             raise ValueError("resonance shift (mel keyshift) requires pitch_algorithm='rmvpe'")
         self.pitch_algorithm = pitch_algorithm
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            deterministic_cudnn()
         self.compute_dtype = compute_dtype
         self.version = version
         self.f0_median_radius = f0_median_radius
@@ -319,6 +339,12 @@ class RvcPipeline:
             f"device={self.device}",
         ])
 
+    @property
+    def segmented(self) -> bool:
+        """Whether the features stage runs as per-device segments: ContentVec
+        split along a mesh row's ``model`` entries (``parallel.shard_params``)."""
+        return hasattr(self.contentvec, "model_devices")
+
     def modules(self) -> dict[str, nn.Module]:
         """The networks by name: ``"contentvec"``, the pitch network under its
         algorithm's name, ``"synthesizer"`` (none for the passthrough geometry)."""
@@ -359,10 +385,44 @@ class RvcPipeline:
     def stage_features(self, buf16: torch.Tensor, index_rate=None) -> torch.Tensor:
         """ContentVec features at 100 Hz, sliced to the returned frames ``[B, T, C]``
         and, with a retrieval index, blended at each stream's ``index_rate`` (``[B]``)."""
-        cfg = self.cfg
-        phone = extract_feature(self.contentvec(buf16))[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
+        phone = self._slice_features(self.contentvec(buf16))
         if self.retrieval_index is not None:
             phone = self.retrieval_index.blend(phone, index_rate)
+        return phone
+
+    def _slice_features(self, feats: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return extract_feature(feats)[:, cfg.skip_head : cfg.skip_head + cfg.return_length]
+
+    def _features_head(self, x: torch.Tensor, index_rate) -> torch.Tensor:
+        """A segmented row's last features segment on its first device: the
+        tapped layer's output to the sliced features, blended by an index
+        that is not split (a split one searches in segments of its own)."""
+        phone = self._slice_features(self.contentvec.head(x))
+        index = self.retrieval_index
+        if index is not None and index.shards is None:
+            phone = index.blend(phone, index_rate)
+        return phone
+
+    def _features(self, buf16: torch.Tensor, index_rate, run):
+        """The features stage through ``run``: one piece, or on a
+        :attr:`segmented` row its segments (see the module docstring); None
+        for the passthrough geometry."""
+        if self.contentvec is None:
+            return None
+        if not self.segmented:
+            return run("features", self.stage_features, buf16, index_rate)
+
+        def seg(name, fn, *args, device=self.device):
+            return run(f"features/{name}", fn, *args, device=device)
+
+        x = seg("embed", self.contentvec.embed, buf16)
+        for i, layer in enumerate(self.contentvec.tapped_layers()):
+            x = layer(x, seg, f"layer{i}")
+        phone = seg("head", self._features_head, x, index_rate)
+        index = self.retrieval_index
+        if index is not None and index.shards is not None:
+            phone = index.blend(phone, index_rate, seg)
         return phone
 
     def stage_mel(self, buf16: torch.Tensor) -> torch.Tensor:
@@ -444,38 +504,50 @@ class RvcPipeline:
         return self._run_steps(state, chunk.to(self.device, torch.float32), controls, rnd,
                                self._stage_runner(stage_times))
 
-    def _run_steps(self, state, chunk, controls, rnd, run):
+    def _run_steps(self, state, chunk, controls, rnd, run, grouped=False):
         """The step of ``B`` streams (a chunk ``[B, N]``), or of one (``[N]``)
         as the B=1 case of the same code."""
         controls = controls.on(self.device)
         if chunk.dim() == 1:
-            return _one_stream(lambda *a: self._run_step(*a, None if rnd is None else rnd[None], run),
+            return _one_stream(lambda *a: self._run_step(*a, None if rnd is None else rnd[None], run, grouped),
                                state, chunk, controls)
-        return self._run_step(state, chunk, _for_streams(controls, chunk.shape[0]), rnd, run)
+        return self._run_step(state, chunk, _for_streams(controls, chunk.shape[0]), rnd, run, grouped)
 
-    def _run_step(self, state, chunk, controls, rnd, run):
-        cfg = self.cfg
+    def _run_step(self, state, chunk, controls, rnd, run, grouped):
+        """The step through ``run``: stage by stage, or ``grouped`` as a
+        fused form's pieces (``pre``, the features, ``after_features``)."""
         buf, buf16 = run("pre", self.stage_pre, state, chunk)
+        phone = self._features(buf16, controls.index_rate, run)
+        if grouped:
+            return run("after_features", self._after_features, state, buf, buf16, phone, controls, rnd)
+        return self._after_features(state, buf, buf16, phone, controls, rnd, run)
+
+    def _after_features(self, state, buf, buf16, phone, controls, rnd=None, run=run_inline):
+        """The stages after the features: ``(new state, emitted audio)``."""
+        cfg = self.cfg
         if cfg.skip_inference:
             model_out, new_cache = buf16[:, -cfg.model_return_size :], state.cache_pitchf
         else:
-            model_out, new_cache = self._infer(state.cache_pitchf, buf16, controls, rnd, run)
+            model_out, new_cache = self._pitch_synth(state.cache_pitchf, buf16, phone, controls, rnd, run)
         emitted, new_sola = run("post", self.stage_post, buf, model_out, state.sola_buffer,
                                 controls.rms_mix_rate)
         return StreamState(buf, buf16, new_sola, new_cache), emitted
 
     def _stage_runner(self, stage_times: Optional[dict]):
-        """``run(name, fn, *args)``: calls ``fn``; with ``stage_times``, also
-        synchronizes the device and records the stage's wall ms."""
+        """``run(name, fn, *args, device=None)``: :func:`run_inline`; with
+        ``stage_times``, also synchronizes the device and records the
+        stage's wall ms (a features segment's added to the stage's)."""
         if stage_times is None:
-            return _untimed
+            return run_inline
 
-        def run(name, fn, *args):
+        def run(name, fn, *args, device=None):
             t0 = time.perf_counter()
-            out = fn(*args)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            stage_times[name] = (time.perf_counter() - t0) * 1e3
+            out = run_inline(name, fn, *args, device=device)
+            dev = self.device if device is None else torch.device(device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            stage, _, segment = name.partition("/")
+            stage_times[stage] = (stage_times.get(stage, 0.0) if segment else 0.0) + (time.perf_counter() - t0) * 1e3
             return out
 
         return run
@@ -529,34 +601,45 @@ class RvcPipeline:
         return self.staged_batch_graphs(chunk.shape[0] if batched else 1)(state, chunk, controls, stage_times)
 
     @property
-    def jit_infer(self) -> GraphedFunction:
+    def jit_infer(self):
         """``(cache, buf16, controls) → (model-rate audio, new f0 cache)`` by one
         CUDA graph of one stream's :meth:`_infer` at this geometry: the engine's step."""
         def make():
             cfg = self.cfg
             example = (torch.zeros(cfg.pitch_cache_len), torch.zeros(cfg.input_buffer_16k_size),
                        StepControls.default())
-            return GraphedFunction(self._infer_single, example, device=self.device, name="engine_infer",
-                                   weights=self._weight_modules)
+            return self._graphed(self._infer_single, example, "engine_infer")
         return self._graph("jit_infer", make)
+
+    def _graphed(self, fn, example: tuple, name: str):
+        """The graphed form of ``fn(*args, run=...)`` on this pipeline's
+        weights: one graph, or per-device segments on a :attr:`segmented` row."""
+        cls = SegmentedFunction if self.segmented else GraphedFunction
+        return cls(fn, example, device=self.device, name=name, weights=self._weight_modules)
 
     def _weight_modules(self):
         """What the graphs read besides their arguments: the networks and the retrieval index."""
         mods = list(self.modules().values())
         return mods if self.retrieval_index is None else mods + [self.retrieval_index]
 
-    def _infer(self, cache, buf16, controls, rnd=None, run=None):
+    def _infer(self, cache, buf16, controls, rnd=None, run=run_inline, grouped=False):
         """The networks' part of the step of ``B`` streams: ``(model-rate
-        audio, new f0 cache)``."""
-        run = run or _untimed
-        phone = run("features", self.stage_features, buf16, controls.index_rate)
+        audio, new f0 cache)``; ``grouped``, the stages after the features
+        as one piece (``pitch_synth``)."""
+        phone = self._features(buf16, controls.index_rate, run)
+        if grouped:
+            return run("pitch_synth", self._pitch_synth, cache, buf16, phone, controls, rnd)
+        return self._pitch_synth(cache, buf16, phone, controls, rnd, run)
+
+    def _pitch_synth(self, cache, buf16, phone, controls, rnd=None, run=run_inline):
         mel = run("mel", self.stage_mel, buf16)
         salience = run("salience", self.stage_salience, mel)
         new_cache, pitch, pitchf = run("pitch_post", self.stage_pitch_post, cache, salience, controls)
         return run("synth", self.stage_synth, phone, pitch, pitchf, controls.sid, rnd), new_cache
 
-    def _infer_single(self, cache, buf16, controls):
-        audio, new_cache = self._infer(cache[None], buf16[None], _for_streams(controls.on(self.device), 1))
+    def _infer_single(self, cache, buf16, controls, run=run_inline):
+        audio, new_cache = self._infer(cache[None], buf16[None], _for_streams(controls.on(self.device), 1), run=run,
+                                       grouped=True)
         return audio[0], new_cache[0]
 
     def _pitch_cache_update(self, cache, buf16, controls):
@@ -595,20 +678,21 @@ class RvcPipeline:
             graph = held.get(n)
             if graph is None:
                 example = (torch.zeros(n, self.cfg.sample_frame_size), StepControls.default())
-                graph = held[n] = GraphedFunction(self._convert_scan, example, device=self.device,
-                                                  name=f"jit_convert_scan[{n}]", weights=self._weight_modules)
+                graph = held[n] = self._graphed(self._convert_scan, example, f"jit_convert_scan[{n}]")
                 while len(held) > SCAN_GRAPHS:
                     held.popitem(last=False)
             held.move_to_end(n)
         return graph(wav_chunks.to(self.device, torch.float32),
                      controls if controls is not None else StepControls.default())
 
-    def _convert_scan(self, wav_chunks, controls):
+    def _convert_scan(self, wav_chunks, controls, run=run_inline):
+        """Every chunk's step from a zeroed state (on a :attr:`segmented` row
+        the fused pieces once a chunk; each chunk's audio copied out of them)."""
         state = StreamState.init(self.cfg, device=self.device)
         outs = []
         for chunk in wav_chunks:
-            state, out = self._run_steps(state, chunk, controls, None, _untimed)
-            outs.append(out)
+            state, out = self._run_steps(state, chunk, controls, None, run, grouped=True)
+            outs.append(out.clone())
         return torch.cat(outs)
 
 
@@ -643,25 +727,22 @@ def _write_state(dst: StreamState, src: StreamState) -> None:
 
 class GraphedStep:
     """The graph of :meth:`RvcPipeline.jit_step_batch` at ``batch`` streams:
-    the whole step as one CUDA graph (:attr:`RvcPipeline.jit_step` is the
-    one at one stream, called with one stream's state and an ``[N]`` chunk).
-    Its static state is written in place inside the graph, and after the
-    replay copied into the caller's state tensors, which the call returns
-    (the counterpart of ``donate_argnums=(1,)``: the caller's old state is
-    consumed). Host work per call: copy in, replay, copy out, under a lock,
-    so sessions on several threads may share it."""
+    the whole step as one CUDA graph, or on a :attr:`~RvcPipeline.segmented`
+    row its fused pieces (:attr:`RvcPipeline.jit_step` is the one at one
+    stream, called with one stream's state and an ``[N]`` chunk). The new
+    state the graph returns is copied into the caller's state tensors, which
+    the call returns (the counterpart of ``donate_argnums=(1,)``: the
+    caller's old state is consumed). Host work per call: copy in, replay,
+    copy out, under a lock, so sessions on several threads may share it."""
 
     def __init__(self, pipe: RvcPipeline, batch: int):
         self._pipe = weakref.ref(pipe)  # the pipeline owns this graph: no cycle back to it
         self.batch = batch
-        self.graph = GraphedFunction(self._step, _example(pipe, batch), device=pipe.device,
-                                     name=f"jit_step_batch[{batch}]", weights=pipe._weight_modules)
+        self.graph = pipe._graphed(self._step, _example(pipe, batch), f"jit_step_batch[{batch}]")
         self.weights = self.graph.weights
 
-    def _step(self, state, chunk, controls):
-        new, emitted = self._pipe()._run_steps(state, chunk, controls, None, _untimed)
-        _write_state(state, new)
-        return emitted
+    def _step(self, state, chunk, controls, run=run_inline):
+        return self._pipe()._run_steps(state, chunk, controls, None, run, grouped=True)
 
     def capture(self) -> bool:
         return self.graph.capture()
@@ -675,8 +756,8 @@ class GraphedStep:
         if chunk.dim() == 1:  # written into the views of the caller's tensors: its state is the new one
             return state, _one_stream(self, state, chunk, controls.on(self.graph.device))[1]
         with self.graph.lock:
-            emitted = self.graph.run(state, chunk, controls)
-            _write_state(state, self.graph.static_args[0])
+            new, emitted = self.graph.run(state, chunk, controls)
+            _write_state(state, new)
             return state, emitted.clone()
 
 
@@ -692,14 +773,16 @@ class StagedGraphs:
     """:meth:`RvcPipeline.staged_step`'s graphs, one per stage, at ``batch``
     streams (at one, called with one stream's state and an ``[N]`` chunk),
     in one memory pool (they replay in the order they were captured, under
-    one lock). When the weights changed, every stage is captured again."""
+    one lock; on a :attr:`~RvcPipeline.segmented` row the features' segments
+    among them, in a pool per card). When the weights changed, every stage
+    is captured again."""
 
     def __init__(self, pipe: RvcPipeline, batch: int):
         self._pipe = weakref.ref(pipe)  # the pipeline owns these graphs: no cycle back to it
         self.batch = batch
         self.graphs: dict[str, GraphedFunction] = {}
         self.lock = threading.RLock()
-        self._pool = None  # made with the first graphs
+        self._pools: dict = {}  # a memory pool per card, made with the first graphs
         self._version = WeightsVersion(pipe._weight_modules)
         self._weights_key = None
         self._dropped_captures = 0
@@ -729,7 +812,7 @@ class StagedGraphs:
             self._dropped_captures += sum(g.captures for g in self.graphs.values())
             self.graphs.clear()
             # a pool whose graphs are all gone is released by the allocator: new graphs take a new one
-            self._pool = graph_pool(self._pipe().device)
+            self._pools = {}
             self._weights_key = key
 
     def __call__(self, state, chunk, controls, stage_times=None):
@@ -739,7 +822,7 @@ class StagedGraphs:
         with self.lock:
             if pipe.device.type == "cuda":
                 self._drop_if_weights_changed()
-            run = stage_runner(self.graphs, pipe.device, self._pool, stage_times)
+            run = stage_runner(self.graphs, pipe.device, self._pools, stage_times)
             new, emitted = pipe._run_steps(state, chunk, controls, None, run)
             _write_state(state, new)
             return state, emitted.clone()

@@ -21,7 +21,8 @@ again after the tick. A slot whose resident state is still zeros is not
 written on attach (``_slot_dirty``).
 
 On a card every device operation of the pool goes on the pool's own CUDA
-stream (each row's own, on a mesh), in order: the chunks' upload, the
+stream (each row's own, on a mesh; a row that spans cards has one on each),
+in order: the chunks' upload, the
 replay, the copy of the output into pinned host memory, a slot's clear and
 the stale-epoch fixup (both issued under the pool's lock). A clear issued while a tick is in flight is
 thereby ordered after the replay that reads the same rows. With
@@ -49,15 +50,22 @@ the pool is one such row over the pipeline itself. The rows follow the
 pipeline's weights: when they change, the next tick steps rows sharded
 afresh (and captures their graphs again).
 
-A CUDA graph is captured on one card, so a row whose model shards sit on
-different cards cannot be one graph; the pool refuses such a mesh (its
-``step`` runs eagerly across cards, but nothing here falls back to it).
+A row with more than one ``model`` entry is ``segmented`` (``stream/
+pipeline.py``): its features run as per-device graph segments, whether its
+entries are distinct cards or one card named several times, and its fused
+tick is three pieces (the PCM cast and ``pre``; the features' segments; the
+stages after them with the merge and the cast back), its staged tick the
+stage graphs with the segments in place of the features graph. The row
+keeps a CUDA stream on each card it spans, all current while it
+dispatches, so a copy between its cards is ordered by events on those
+streams. A row whose devices another process owns is refused.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -66,8 +74,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from obs_rvc_tpu_torch.device import run_inline
 from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
-from obs_rvc_tpu_torch.stream.graphs import GraphedFunction
 from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
 from obs_rvc_tpu_torch.stream.ringbuf import make_ring_buffer
 from obs_rvc_tpu_torch.stream.state import StreamState
@@ -80,48 +88,73 @@ class PoolFullError(RuntimeError):
     """:meth:`StreamPool.attach` on a pool whose every slot is taken."""
 
 
-def _merge(mask: torch.Tensor, new: StreamState, cur: StreamState) -> None:
-    """``cur = where(mask, new, cur)`` row by row, in place."""
+def _merged(mask: torch.Tensor, new: StreamState, cur: StreamState) -> StreamState:
+    """``where(mask, new, cur)`` row by row."""
+    return StreamState(**{f.name: torch.where(mask[:, None], getattr(new, f.name), getattr(cur, f.name))
+                          for f in dataclasses.fields(StreamState)})
+
+
+def _write(dst: StreamState, src: StreamState) -> None:
     for f in dataclasses.fields(StreamState):
-        c = getattr(cur, f.name)
-        c.copy_(torch.where(mask[:, None], getattr(new, f.name), c))
+        getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+def _tick_pre(pipe: RvcPipeline, pcm16: bool, states, chunks):
+    if pcm16:
+        chunks = chunks.float() * (1.0 / 32768.0)
+    return pipe.stage_pre(states, chunks)
+
+
+def _tick_after(pipe: RvcPipeline, pcm16: bool, states, buf, buf16, phone, controls, mask):
+    new, out = pipe._after_features(states, buf, buf16, phone, controls)
+    if pcm16:
+        out = torch.clamp(torch.round(out * 32768.0), -32768.0, 32767.0).to(torch.int16)
+    return _merged(mask, new, states), out
 
 
 def _step_and_merge(pipe: RvcPipeline, pcm16: bool):
-    """The fused tick: the batched step, the frozen-slot merge written into
-    ``states`` in place, and the int16 casts with ``pcm16``; returns the
-    emitted audio ``[B, chunk]``."""
+    """The fused tick: the int16 cast in with ``pcm16``, the batched step,
+    the frozen-slot merge and the cast out, as the step's fused pieces;
+    returns ``(merged state, emitted audio [B, chunk])``."""
+    before = functools.partial(_tick_pre, pipe, pcm16)
+    after = functools.partial(_tick_after, pipe, pcm16)
 
-    def step_and_merge(states, chunks, controls, mask):
-        if pcm16:
-            chunks = chunks.float() * (1.0 / 32768.0)
-        new, out = pipe.step(states, chunks, controls, batched=True)
-        _merge(mask, new, states)
-        if pcm16:
-            out = torch.clamp(torch.round(out * 32768.0), -32768.0, 32767.0).to(torch.int16)
-        return out
+    def step_and_merge(states, chunks, controls, mask, run=run_inline):
+        buf, buf16 = run("pre", before, states, chunks)
+        phone = pipe._features(buf16, controls.index_rate, run)
+        return run("after_features", after, states, buf, buf16, phone, controls, mask)
 
     return step_and_merge
 
 
 class _Row:
     """One data row of a pool: slots ``lo:hi``, the pipeline that steps them,
-    its device and CUDA stream, the slots' resident state, the fused tick's
-    graph and the slots' controls on the device."""
+    its first device and CUDA stream (and one on each other card the row
+    spans), the slots' resident state, the fused tick's graph and the slots'
+    controls on the device."""
 
-    def __init__(self, pipeline: RvcPipeline, lo: int, hi: int):
+    def __init__(self, pipeline: RvcPipeline, lo: int, hi: int, devices: list):
         self.pipeline, self.lo, self.hi = pipeline, lo, hi
         self.device = pipeline.device
         #: the row's CUDA stream (None on the CPU), where all its device work goes in order
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        #: a stream on each other card the row spans, current beside :attr:`stream` while it dispatches
+        self.other_streams = [torch.cuda.Stream(d) for d in dict.fromkeys(devices)
+                              if d.type == "cuda" and d != self.device]
         with self.on_stream():
             self.states = StreamState.init_batch(pipeline.cfg, hi - lo, device=self.device)
-        self.fused_step: Optional[GraphedFunction] = None
+        self.fused_step = None
         self.controls_dev: Optional[StepControls] = None
         self.controls_ver = -1
 
     def on_stream(self):
-        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+        """Every stream of the row current on its card, the first card current last."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        for s in (*self.other_streams, self.stream):
+            stack.enter_context(torch.cuda.stream(s))
+        return stack
 
 
 class StreamPool:
@@ -159,10 +192,6 @@ class StreamPool:
             for r, row in enumerate(mesh.rows()):
                 if not mesh.row_is_local(r):
                     raise ValueError(f"data row {r} of the mesh is another process's: a pool steps its own rows")
-                if len(set(row)) > 1 and any(d.type == "cuda" for d in row):
-                    raise NotImplementedError(
-                        f"data row {r} spans the cards {sorted({str(d) for d in row})}: a CUDA graph is captured on "
-                        "one card, so the pool needs each row's model shards on one card")
         self.pipeline = pipeline
         self.capacity = capacity
         #: the ('data', 'model') mesh the slots are split over (None: one row, the pipeline itself)
@@ -189,7 +218,8 @@ class StreamPool:
         pipes = self._row_pipelines()
         per = capacity // len(pipes)
         #: the data rows, each stepping its own contiguous group of slots
-        self._rows = [_Row(p, r * per, (r + 1) * per) for r, p in enumerate(pipes)]
+        devices = mesh.rows() if mesh is not None else [[pipeline.device]]
+        self._rows = [_Row(p, r * per, (r + 1) * per, devices[r]) for r, p in enumerate(pipes)]
         #: bumped by a change of any slot's controls; each row restacks its own on the device
         self._controls_version = 0
         #: wall ms of the last tick's phases: controls, drain, dispatch, d2h, merge
@@ -345,8 +375,9 @@ class StreamPool:
             row.controls_ver = version
         return row.controls_dev
 
-    def _fused(self, row: Optional[_Row] = None) -> GraphedFunction:
-        """A row's fused tick graph (the first row's by default), captured on its stream at first use."""
+    def _fused(self, row: Optional[_Row] = None):
+        """A row's fused tick graph (the first row's by default; per-device
+        segments on a segmented row), captured on its streams at first use."""
         row = row or self._rows[0]
         if row.fused_step is None:
             n, pipe = row.hi - row.lo, row.pipeline
@@ -355,8 +386,7 @@ class StreamPool:
                        torch.zeros(n, self._chunk, dtype=torch.int16 if pcm16 else torch.float32),
                        StepControls.stack([StepControls.default()] * n, row.device),
                        torch.zeros(n, dtype=torch.bool))
-            graph = GraphedFunction(_step_and_merge(pipe, pcm16), example, device=row.device,
-                                    name=f"pool_fused_merge[{n}]", weights=pipe._weight_modules)
+            graph = pipe._graphed(_step_and_merge(pipe, pcm16), example, f"pool_fused_merge[{n}]")
             with row.on_stream():
                 if self.exec_cache:
                     graph, _ = cached_capture(graph, example, semantic_key=pipe.fingerprint()
@@ -391,13 +421,12 @@ class StreamPool:
         if self.mode == "staged":
             work = row.states.map(torch.clone)  # the merge reads the pre-step state
             _, out = row.pipeline.staged_step(work, chunks_dev, controls, batched=True)
-            _merge(mask_dev, work, row.states)
+            _write(row.states, _merged(mask_dev, work, row.states))
         else:
             graph = self._fused(row)
-            with graph.lock:  # the graph's output and static state are read before anyone replays it again
-                out = graph.run(row.states, chunks_dev, controls, mask_dev)
-                for f in dataclasses.fields(StreamState):
-                    getattr(row.states, f.name).copy_(getattr(graph.static_args[0], f.name))
+            with graph.lock:  # the graph's outputs are read before anyone replays it again
+                merged, out = graph.run(row.states, chunks_dev, controls, mask_dev)
+                _write(row.states, merged)
                 return self._to_host(out, row)
         return self._to_host(out, row)
 

@@ -511,6 +511,30 @@ def test_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, dtype):
         assert holder.captures == captures
 
 
+def test_one_row_cumsum_takes_the_batched_rows_bits(cuda):
+    """A one-stream scan on a card runs as PyTorch's row-by-row kernel: the
+    bits of that stream's row in a batched scan, at every call."""
+    from obs_rvc_tpu_torch.dsp.scan import cumsum_rows
+
+    x = torch.rand(3, 140_000, generator=torch.Generator().manual_seed(0)).to(cuda)
+    want = torch.cumsum(x, dim=1)[0]
+    for _ in range(20):
+        assert torch.equal(cumsum_rows(x[:1], dim=1)[0], want)
+        assert torch.equal(cumsum_rows(x[0], dim=-1), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_pipeline_on_a_card_repeats_its_eager_step_bit_for_bit(cuda, dtype):
+    """Building a pipeline on a card holds cuDNN to its deterministic
+    engines, so the eager step gives the same bits at every run."""
+    torch.backends.cudnn.deterministic = False
+    pipe = _graph_pipe(cuda, dtype)
+    assert torch.backends.cudnn.deterministic
+    chunks = _chunks(pipe, 4)
+    controls = [(0.0, 1.0), (12.0, 0.5)]
+    assert torch.equal(_stream(pipe.step, pipe, chunks, controls), _stream(pipe.step, pipe, chunks, controls))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("algo", ["crepe", "fcpe"])
 def test_pitch_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, algo, dtype):
@@ -902,3 +926,110 @@ def test_loading_a_second_index_recaptures(cuda, deterministic_cudnn):
     assert torch.equal(run(pipe.jit_step), want)
     assert pipe.jit_step.captures == captures + 1
     assert not torch.equal(want, before)
+
+
+# --- the mesh: a row's features as per-device graph segments ---
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a row that spans cards, a launch on the second card")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _kernel_on(kernel, device, rng):
+    """``(kernel output, plain output, bounds)`` of one wrapper call on ``device``, at a main-path shape."""
+    if kernel == "log_mel":
+        mel = MelSpectrogram(device=device)
+        sig = torch.from_numpy(_voiced_16k(10080)).to(device)
+        return stft_mel.log_mel(sig, mel.log_mel_basis, mel.window), stft_mel.log_mel_plain(
+            sig, mel.mel_basis, mel.window), BOUNDS["mel"]
+    if kernel == "chain":
+        x, blocks = _chain(rng, 1, 32, 64, 16, 32, 4, device)
+        return (unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, torch.float32)),
+                unet_block.conv_block_res_chain_plain(x, blocks), BOUNDS["chain"][torch.float32])
+    ks, dil = (3, 7, 11), (1, 3, 5)
+    x, params = _bank(rng, 1, 7000, 64, ks, device, S=3)
+    return (resblock.resblock_bank(x, resblock.pack_bank(params, ks, dil, torch.float32), ks, dil),
+            resblock.resblock_bank_plain(x, params, ks, dil), BOUNDS["bank"][torch.float32])
+
+
+@pytest.mark.parametrize("kernel", ["log_mel", "chain", "bank"])
+def test_kernels_launch_on_their_tensors_card(two_cards, kernel):
+    """Each wrapper on tensors of ``cuda:1`` while ``cuda:0`` is current
+    (after a launch on ``cuda:0``, so the chain's and the bank's shared
+    memory cap is set on the second card by its own first launch there):
+    launched on ``cuda:1``, against its plain version there, and
+    ``cuda:0`` current again after the call."""
+    c0, c1 = two_cards
+    with torch.cuda.device(c0):
+        for dev in (c0, c1):
+            got, want, (atol, rtol) = _kernel_on(kernel, dev, np.random.default_rng(7))
+            torch.cuda.synchronize(dev)
+            assert got.device == dev and torch.cuda.current_device() == 0
+            _close(got, want, atol, rtol)
+
+
+def _one_card_row(device, dtype):
+    from obs_rvc_tpu_torch.parallel import make_mesh, shard_params
+
+    pipe = _graph_pipe(device, dtype)
+    row = shard_params(pipe, make_mesh(n_data=1, n_model=2, devices=[device, device]))[0]
+    assert row.segmented and not pipe.segmented
+    return pipe, row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segmented_row_on_one_card_equals_its_eager_step(cuda, deterministic_cudnn, dtype):
+    """``cuda:0`` named twice along ``model``: the row's graphed forms, its
+    features as per-device segments (``jit_step``, the stage graphs,
+    ``jit_convert_scan``), bit for bit with the row's eager step, with the
+    controls changed mid-stream and no capture after the first."""
+    from obs_rvc_tpu_torch.stream import StepControls
+    from obs_rvc_tpu_torch.stream.graphs import SegmentedFunction
+
+    dev = torch.device("cuda", 0)
+    _, row = _one_card_row(dev, dtype)
+    chunks = _chunks(row, 5)
+    controls = [(0.0, 1.0), (0.0, 1.0), (12.0, 1.0), (12.0, 0.5), (-5.0, 0.5)]
+    want = _stream(row.step, row, chunks, controls)
+    assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
+    for step, holder in ((row.jit_step, row.jit_step), (row.staged_step, row.staged_graphs)):
+        assert torch.equal(_stream(step, row, chunks, controls), want)
+        captures = holder.captures
+        assert torch.equal(_stream(step, row, chunks, controls[::-1]), _stream(row.step, row, chunks, controls[::-1]))
+        assert holder.captures == captures
+    assert isinstance(row.jit_step.graph, SegmentedFunction)
+    wav = torch.cat(chunks[:4]).to(dev)
+    scan_controls = StepControls.default(pitch_shift=3.0, rms_mix_rate=0.5)
+    assert torch.equal(row.jit_convert_scan(wav.reshape(4, -1), scan_controls),
+                       _stream(row.step, row, chunks[:4], [(3.0, 0.5)]))
+
+
+@pytest.mark.parametrize("mode", ["fused", "staged"])
+def test_spanning_pool_matches_one_card(two_cards, deterministic_cudnn, mode):
+    """A pool of three on a data=1 x model=2 row over ``cuda:0`` and
+    ``cuda:1``, bfloat16, a slot starved mid-stream: bit for bit with the
+    same row named on ``cuda:0`` twice (the same kernels and sums) and with
+    the row over ``cuda:1`` and ``cuda:0`` (its networks copied to the
+    second card), and in float32 within 1e-3 of max|audio| of the
+    one-device pool."""
+    from obs_rvc_tpu_torch.parallel import make_mesh
+
+    c0, c1 = two_cards
+    n = 4
+    for dtype in (torch.bfloat16, torch.float32):
+        pipe = _graph_pipe(c0, dtype)
+        wavs = [torch.cat(_chunks(pipe, n, seed=s)).numpy() for s in range(3)]
+        spanning = _pool_run(pipe, wavs, n, mode=mode, mesh=make_mesh(n_data=1, n_model=2, devices=[c0, c1]))
+        if dtype == torch.bfloat16:
+            twice = _pool_run(pipe, wavs, n, mode=mode, mesh=make_mesh(n_data=1, n_model=2, devices=[c0, c0]))
+            # the row's first card the second: its networks copied there after their packs were made
+            swapped = _pool_run(pipe, wavs, n, mode=mode, mesh=make_mesh(n_data=1, n_model=2, devices=[c1, c0]))
+            for k, (a, b, c) in enumerate(zip(spanning, twice, swapped)):
+                assert np.abs(a).max() > 1e-3 and np.array_equal(a, b), (k, float(np.abs(a - b).max()))
+                assert np.array_equal(c, b), (k, float(np.abs(c - b).max()))
+        else:
+            one = _pool_run(pipe, wavs, n, mode=mode)
+            for k, (a, b) in enumerate(zip(spanning, one)):
+                assert float(np.abs(a - b).max()) <= 1e-3 * float(np.abs(b).max()), k

@@ -60,17 +60,36 @@ def test_parse_mesh_spec():
         make_mesh(n_model=3, devices=CPU8)
 
 
-def test_pool_mesh_validation():
+def test_pool_mesh_validation(mesh_pipes):
     pipe = RvcPipeline(small_cfg(skip_inference=True), device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         StreamPool(pipe, capacity=3, mesh=make_mesh(n_data=4, n_model=2, devices=CPU8))
     with pytest.raises(ValueError, match="axes"):
         StreamPool(pipe, capacity=4, mesh=Mesh(np.array(["cpu"] * 4), ("rows",)))
-    # a row whose model shards sit on two cards cannot be one CUDA graph: refused, naming the cards
-    with pytest.raises(NotImplementedError, match="cuda:0.*cuda:1"):
-        StreamPool(pipe, capacity=2, mesh=make_mesh(n_data=1, n_model=2, devices=["cuda:0", "cuda:1"]))
     pool = StreamPool(pipe, capacity=8, mesh=make_mesh(n_data=4, n_model=2, devices=CPU8))
     assert [(r.lo, r.hi) for r in pool._rows] == [(0, 2), (2, 4), (4, 6), (6, 8)]
+    # a row with more than one model entry is planned as per-device segments on the devices it
+    # names (on a card, whether they are distinct cards or one named twice); here the CPU's
+    _, _, tpipe = mesh_pipes
+    mesh = make_mesh(n_data=1, n_model=2, devices=CPU8)
+    pool = StreamPool(tpipe, capacity=2, mesh=mesh, mode="fused")
+    row = pool._rows[0]
+    assert row.pipeline.segmented and not tpipe.segmented and row.other_streams == []
+    s = pool.attach()
+    pool.push_audio(s, np.zeros(tpipe.cfg.sample_frame_size, np.float32))
+    with torch.no_grad():
+        assert pool.process_pending() == 1
+    segments = row.fused_step.segments
+    layers = tpipe.contentvec_cfg.tap_layer
+    want = ["pre", "features/embed"]
+    for i in range(layers):
+        want += [f"features/layer{i}/attn0", f"features/layer{i}/attn1", f"features/layer{i}/attn_sum",
+                 f"features/layer{i}/ffn0", f"features/layer{i}/ffn1", f"features/layer{i}/ffn_sum"]
+    want += ["features/head", "after_features"]
+    assert list(segments) == want
+    shard = row.pipeline.contentvec.encoder.layers[0].self_attn.shards
+    assert [segments[f"features/layer0/attn{i}"].device for i in range(2)] == [d for d in mesh.rows()[0]] \
+        == [sh.device for sh in shard]
 
 
 def _drive_pool(pool, wavs, n_chunks, starve=None):

@@ -287,3 +287,189 @@ def test_ivf_index_stays_whole_on_each_row(mesh_pipes):
     exact = T.RetrievalIndex().load(T.RetrievalIndex.make_params(table), device="cpu")
     assert len(exact.on_row(["cpu", "cpu", "cpu"]).shards) == 3
     assert exact.on_row(["cpu"]).vectors is exact.vectors
+
+
+@pytest.fixture(scope="module")
+def mesh_steps(mesh_pipes):
+    """Three chunks of four streams on a 4x2 mesh of the CPU: the inputs, the
+    JAX ``jit_step_batch`` on its 4x2 mesh, and the port's eager rows
+    (``step_rows``), each chunk's emitted audio joined ``[B, N]``."""
+    jpipe, params, tpipe = mesh_pipes
+    cfg = tpipe.cfg
+    B, n = len(STREAMS), cfg.sample_frame_size
+    wavs = np.stack([voiced(3 * n, cfg.sample_rate, f0, seed=k) for k, f0 in enumerate((160.0, 190.0, 220.0, 260.0))])
+    chunks = np.ascontiguousarray(wavs.reshape(B, 3, n).transpose(1, 0, 2))
+    kw = [dict(pitch_shift=p, rms_mix_rate=m, sid=s) for p, m, s in STREAMS]
+    jmesh = j_make_mesh(n_data=4, n_model=2)
+    jcontrols = j_shard_controls(jax.tree.map(lambda *xs: jnp.stack(xs), *[JControls.default(**k) for k in kw]),
+                                 jmesh)
+    jstate = j_shard_state(jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * B), JState.init(jpipe.cfg)), jmesh)
+    jparams = j_shard_params(params, jmesh)
+    mesh = make_mesh(n_data=4, n_model=2, devices=CPU8)
+    rows = shard_params(tpipe, mesh)
+    controls = StepControls.stack([StepControls.default(**k) for k in kw], "cpu")
+    states = shard_state(StreamState.init_batch(cfg, B, device="cpu"), mesh)
+    jouts, eager = [], []
+    for i in range(3):
+        jstate, jout = jpipe.jit_step_batch(jparams, jstate, j_shard_state(jnp.asarray(chunks[i]), jmesh), jcontrols)
+        jouts.append(np.asarray(jout))
+        with torch.no_grad():
+            states, outs = step_rows(rows, states, shard_state(torch.from_numpy(chunks[i]), mesh),
+                                     shard_controls(controls, mesh))
+        eager.append(gather_rows(outs))
+    return dict(mesh=mesh, rows=rows, chunks=chunks, controls=controls, kw=kw, jax=jouts, eager=eager)
+
+
+def _segmented_rows_step(form, tpipe, ms):
+    """Each chunk's joined output of the steps' segmented ``form`` on the mesh."""
+    from obs_rvc_tpu_torch.stream import StreamPool
+
+    mesh, rows, chunks, controls = ms["mesh"], ms["rows"], ms["chunks"], ms["controls"]
+    cfg, B = tpipe.cfg, chunks.shape[1]
+    outs = []
+    if form.endswith("pool"):
+        pool = StreamPool(tpipe, capacity=B, mesh=mesh, mode=form.split("_")[0])
+        slots = [pool.attach(StepControls.default(**k)) for k in ms["kw"]]
+        for i in range(len(chunks)):
+            for k, s in enumerate(slots):
+                pool.push_audio(s, chunks[i, k])
+            with torch.no_grad():
+                assert pool.process_pending() == B
+            outs.append(torch.from_numpy(np.stack([pool.pull_audio(s, cfg.sample_frame_size) for s in slots])))
+        assert all(r.pipeline.segmented for r in pool._rows)
+        return outs
+    states = shard_state(StreamState.init_batch(cfg, B, device="cpu"), mesh)
+    for i in range(len(chunks)):
+        parts = shard_state(torch.from_numpy(chunks[i]), mesh)
+        ctls = shard_controls(controls, mesh)
+        with torch.no_grad():
+            if form == "fused":
+                states, got = step_rows(rows, states, parts, ctls, graphed=True)
+            else:
+                got = []
+                for row, state, part, ctl in zip(rows, states, parts, ctls):
+                    got.append(row.staged_step(state, part, ctl, batched=True)[1])
+        outs.append(gather_rows(got))
+    return outs
+
+
+@pytest.mark.parametrize("form", ["fused", "staged", "fused_pool", "staged_pool"])
+def test_segmented_forms_match_eager_rows_and_jax_mesh(mesh_pipes, mesh_steps, form):
+    """Each graphed form of the step on a 4x2 mesh, its rows' features run as
+    per-device segments (``stream/graphs.py:SegmentedFunction``; on the CPU
+    each segment is called eagerly over its static copies and the copies
+    between them run as on a card): bit for bit with the eager rows
+    (``step_rows``), and within the step's 2e-3 of the JAX mesh's
+    ``jit_step_batch``, over three chunks of four streams with their own
+    controls, the state carried."""
+    from obs_rvc_tpu_torch.stream.graphs import SegmentedFunction
+
+    _, _, tpipe = mesh_pipes
+    got = _segmented_rows_step(form, tpipe, mesh_steps)
+    for i, (g, want, jout) in enumerate(zip(got, mesh_steps["eager"], mesh_steps["jax"])):
+        assert torch.equal(g, want), f"{form} chunk {i}: off the eager rows by {(g - want).abs().max():.3e}"
+        np.testing.assert_allclose(g.numpy(), jout, atol=2e-3, err_msg=f"{form} vs JAX mesh, chunk {i}")
+    assert max(np.abs(j).max() for j in mesh_steps["jax"]) > 1e-3
+    row = mesh_steps["rows"][0]
+    if form == "fused":
+        graph = row.batch_graph(1).graph
+        assert isinstance(graph, SegmentedFunction) and "features/layer0/ffn_sum" in graph.segments
+    if form == "staged":
+        names = list(row.staged_batch_graphs(1).graphs)
+        assert names[:2] == ["pre", "features/embed"] and "features" not in names and "after_features" not in names
+
+
+@pytest.mark.parametrize("form", ["jit_infer", "jit_step", "jit_convert_scan"])
+def test_segmented_one_stream_forms_match_eager(mesh_pipes, form):
+    """The one-stream graphed forms on a data=1 x model=2 row (the engine's
+    ``jit_infer``, the sessions' ``jit_step``, the CLI's whole-clip
+    ``jit_convert_scan``), as segments: bit for bit with the row's eager step."""
+    from obs_rvc_tpu_torch.stream.graphs import SegmentedFunction
+
+    _, _, tpipe = mesh_pipes
+    row = shard_params(tpipe, make_mesh(n_data=1, n_model=2, devices=CPU8))[0]
+    cfg = row.cfg
+    n = cfg.sample_frame_size
+    wav = torch.from_numpy(voiced(3 * n, cfg.sample_rate, 200.0, seed=3))
+    controls = StepControls.default(pitch_shift=2.0, rms_mix_rate=0.6, sid=1)
+    with torch.no_grad():
+        state = row.new_state()
+        eager = []
+        for i in range(3):
+            state, out = row.step(state, wav[i * n : (i + 1) * n], controls)
+            eager.append(out)
+        if form == "jit_infer":
+            cache = torch.from_numpy(np.random.default_rng(4).uniform(0, 300, cfg.pitch_cache_len).astype(np.float32))
+            graph = row.jit_infer
+            got, want = graph(cache, state.input_buffer_16k, controls), row._infer_single(cache, state.input_buffer_16k,
+                                                                                          controls.on("cpu"))
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        elif form == "jit_step":
+            graph = row.jit_step.graph
+            state = row.new_state()
+            for i in range(3):
+                state, out = row.jit_step(state, wav[i * n : (i + 1) * n], controls)
+                assert torch.equal(out, eager[i]), f"chunk {i}"
+        else:
+            got = row.jit_convert_scan(wav.reshape(3, n), controls)
+            graph = row._graphs["jit_convert_scan"][3]
+            assert torch.equal(got, torch.cat(eager))
+    assert isinstance(graph, SegmentedFunction)
+    assert {g.device for g in graph.segments.values()} == {torch.device("cpu")}
+    assert sum(name.endswith("/attn_sum") for name in graph.segments) == tpipe.contentvec_cfg.tap_layer
+
+
+def test_segmented_function_recaptures_every_segment_on_new_weights(mesh_pipes):
+    """A weight change under a segmented graph (here a load into the row's
+    split ContentVec) drops every segment: the next call makes them anew,
+    and computes with the new weights."""
+    _, _, tpipe = mesh_pipes
+    row = shard_params(tpipe, make_mesh(n_data=1, n_model=2, devices=CPU8))[0]
+    n = row.cfg.sample_frame_size
+    chunk = torch.from_numpy(voiced(n, row.cfg.sample_rate, 180.0, seed=5))
+    step = row.jit_step
+    with torch.no_grad():
+        step(row.new_state(), chunk, StepControls.default())
+        before = dict(step.graph.segments)
+        shard = row.contentvec.encoder.layers[0].ffn.shards[1]
+        saved = shard.fc1_weight.clone()
+        try:
+            shard.fc1_weight.mul_(0.5)
+            _, out = step(row.new_state(), chunk, StepControls.default())
+            after = step.graph.segments
+            assert list(after) == list(before) and all(after[k] is not before[k] for k in before)
+            _, want = row.step(row.new_state(), chunk, StepControls.default())
+            assert torch.equal(out, want)
+        finally:
+            shard.fc1_weight.copy_(saved)
+
+
+def test_networks_copied_to_another_card_drop_their_kernel_packs(mesh_pipes):
+    """A mesh row on another card deep-copies the pipeline's networks
+    (``sharding._to``). The RMVPE chain levels and the NSF bank levels cache
+    their packs for the kernels, which hold ctypes pointer arrays no copy
+    can take: the copies start without them (and pack their own at their
+    first launch), and the originals keep theirs."""
+    import copy
+
+    from obs_rvc_tpu_torch.models.rmvpe import _Chain
+    from obs_rvc_tpu_torch.models.synthesizer import GeneratorNSF
+
+    _, _, tpipe = mesh_pipes
+    chains = [m for m in tpipe.rmvpe.modules() if isinstance(m, _Chain) and m.fused]
+    gen = next(m for m in tpipe.synthesizer.modules() if isinstance(m, GeneratorNSF))
+    for chain in chains:
+        chain._packed(torch.float32)
+    packed = []
+    for i in range(len(gen._bank_cache)):
+        try:
+            gen.packed_bank(i, torch.float32)
+            packed.append(i)
+        except (NotImplementedError, ValueError):  # a level the kernel is not built for
+            pass
+    assert chains and packed
+    rmvpe, synth = copy.deepcopy(tpipe.rmvpe), copy.deepcopy(tpipe.synthesizer)
+    assert all(c._fold is None for c in rmvpe.modules() if isinstance(c, _Chain))
+    assert all(level is None for m in synth.modules() if isinstance(m, GeneratorNSF) for level in m._bank_cache)
+    assert all(torch.float32 in c._fold[2] for c in chains) and all(torch.float32 in gen._bank_cache[i][2]
+                                                                      for i in packed)

@@ -12,10 +12,13 @@ so the parent can step the same streams in one process and compare.
 
 With one process, ``initialize`` is a no-op; the worker then brings a group
 of one up itself over ``--backend`` (``nccl`` on a card) and all-gathers a
-tensor once, on the device, to show that the backend runs.
+tensor once, on the device, to show that the backend runs. ``--device``
+may name the rank (``cuda:{rank}``: one card a process, as two ranks over
+``nccl`` on a host of two cards run); under ``nccl`` the gathers go through
+the card.
 
     python tests/torch_distributed_worker.py <rank> <nprocs> <port> <outdir> \\
-        [--device cuda:0] [--full-width] [--backend gloo|nccl]
+        [--device cuda:0|cuda:{rank}] [--full-width] [--backend gloo|nccl]
 """
 
 import argparse
@@ -59,6 +62,7 @@ def main(argv=None) -> None:
     ap.add_argument("--full-width", action="store_true", help="the default geometry and full-width networks")
     ap.add_argument("--backend", default="gloo")
     args = ap.parse_args(argv)
+    args.device = args.device.format(rank=args.rank)
     torch.set_num_threads(2)
     # float32 as the parent computes it: no TF32 in the convolutions and products
     torch.backends.cudnn.allow_tf32 = False
@@ -97,12 +101,14 @@ def main(argv=None) -> None:
     assert sum(r is not None for r in rows) == LOCAL
     with torch.no_grad():
         new, outs = step_rows(rows, shard_state(state, mesh), shard_state(chunks, mesh), shard_controls(controls, mesh))
-    mine = [gather_rows(outs), gather_rows([s and s.input_buffer_16k for s in new])]
+    # gloo gathers host tensors, nccl the card's
+    on = dev if args.backend == "nccl" else "cpu"
+    mine = [gather_rows(outs, on), gather_rows([s and s.input_buffer_16k for s in new], on)]
     full = []
     for t in mine:
         parts = [torch.empty_like(t) for _ in range(args.nprocs)]
         dist.all_gather(parts, t)
-        full.append(torch.cat(parts).numpy())
+        full.append(torch.cat(parts).cpu().numpy())
     if args.rank == 0:
         np.save(os.path.join(args.outdir, "dist_out.npy"), full[0])
         np.save(os.path.join(args.outdir, "dist_buf16.npy"), full[1])
