@@ -19,7 +19,16 @@ Phases, each printing its own lines:
            at the batched step's: the chain and the bank at 8 and 64
            streams, the log-mel on a stream axis (8 and 64 windows in one
            launch, a ragged length, silence), each row bit-identical to its
-           own launch
+           own launch; and at widths past the main path's, in both dtypes:
+           the chain 1->8, 8->8, 16->8 (its C=8 instance) and 12->24 (padded
+           to 32), the bank at C=8 (its C=8 instance) and C=48 (padded to
+           64), k=5 over d=(1, 2) and d=11 at k=11
+   widths  the step at the CPU tests' reduced widths (RMVPE levels of 8, 16
+           and 32 channels, generator levels of 64, 32, 16 and 8) in float32
+           and bfloat16: 8 chunks eagerly, the wrappers launched 1 / 6 / 4
+           times a step, jit_step against the eager step, two chunks' stages
+           against the CPU's (float32 by the main phase's bounds, bfloat16 by
+           its budget)
 4. main    RvcPipeline.step at the default geometry and full width (v2
            ContentVec, full RMVPE, 40 kHz synthesizer) on random weights,
            streaming a voiced test signal, in float32 and then in bfloat16
@@ -44,7 +53,7 @@ Phases, each printing its own lines:
            mid-stream (pitch 0 -> 12 -> -5, rms_mix_rate 1 -> 0.5) with no
            capture; on v1, new weights after the capture reach both graphs.
            Between the bfloat16 run and v1 ("stage_repeat"), a child process
-           with cuDNN's API log on captures the bfloat16 stage graphs 6 times
+           with cuDNN's API log on captures the bfloat16 stage graphs 4 times
            (each forced by loading the weights again), each stream within
            the float32 bound of the eager one (how many bit for bit is
            reported), every leaf module's output of an eager step on the
@@ -58,6 +67,16 @@ Phases, each printing its own lines:
            through jit_step_batch; each JSON line must hold every key, finite
            numbers, the seven stages' device times and a p50 under 300 ms,
            and is logged beside the main phase's bfloat16 jit_step
+   switch  RvcPipeline(pallas_resblocks=False) (the chain and bank levels on
+           cuDNN) beside the kernel step on the same weights and 12 chunks,
+           full width: one stream in float32 and bfloat16, eager and
+           jit_step, and 8 streams through jit_step_batch in bfloat16; the
+           wrappers launched 1 / 0 / 0 times a step, the eager step
+           repeating bit for bit, the audio within 1e-3 of the kernel step's
+           in float32 and in bfloat16 within twice the kernel step's error
+           off the float32 one plus 1e-3; step p50/p95 and each stage's
+           device time with and without the kernels; then serve.cli
+           --no-pallas-resblocks converts a WAV file
 6. serve   the port's server (serve.server.main, at its defaults: bfloat16,
            staged graphs captured before it listens) on a thread at the same
            geometry and width, listening on the duplex, WebSocket, RPC and
@@ -76,7 +95,7 @@ Phases, each printing its own lines:
            memory at one and two geometries
 7. pitch   the same for the CREPE (capacity "full") and FCPE (hidden 512, 6
            layers) pitch algorithms in place of RMVPE, at the same geometry
-           and widths, in float32 and in bfloat16, 12 chunks each: launches
+           and widths, in float32 and in bfloat16, 10 chunks each: launches
            (CREPE 0 log-mel, 0 chain, 2 bank calls a step; FCPE 1, 0, 2), the
            stages on the card against the CPU (bfloat16 by the budget, the
            pitch codes by its rule), eager, jit_step and staged_step against
@@ -175,8 +194,9 @@ Phases, each printing its own lines:
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
-the log-mel on FCPE's basis, and the three at the batched step's 8 streams,
-as entries of their own). The last line is
+the log-mel on FCPE's basis, the three at the batched step's 8 streams, and
+the chain and the bank at each width past the main path's, as entries of
+their own). The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. Details go to chiprun_out/chip_smoke.json.
 """
@@ -205,8 +225,9 @@ from obs_rvc_tpu_torch.utils.benchlib import (BF16_PEAK_FLOPS, F32_PEAK_FLOPS, H
 from obs_rvc_tpu_torch.utils.flops import chunk_gflops
 
 SEED = 0
-#: chunks streamed through the step on the card in each dtype (the first 4 are warm-up)
-N_CHUNKS = 24
+#: chunks streamed through the step on the card in each dtype (the first 4 are warm-up; at least the 12 of the
+#: stage breakdown and the controls' schedule, and few enough that the whole run stays within 700 s)
+N_CHUNKS = 16
 #: chunks of the v1 step (the first 4 are warm-up)
 V1_CHUNKS = 6
 #: chunks rerun stage by stage on the CPU, per dtype
@@ -217,7 +238,7 @@ SERVE_CHUNKS = 12
 WS_CHUNKS = 4
 #: the pitch phase: chunks streamed per algorithm and dtype (the first 4 are warm-up), and rerun stage by
 #: stage on the CPU
-PITCH_CHUNKS = 12
+PITCH_CHUNKS = 10
 PITCH_CPU_CHUNKS = {"float32": 2, "bfloat16": 1}
 #: chunks the FCPE server's duplex session streams, at least
 PITCH_SERVE_CHUNKS = 6
@@ -281,8 +302,8 @@ BANK_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, L, C) for label, _, L, C in 
 #: the bank at the pool phase's largest batch, 64 streams (gated and timed; its launches are the same C calls)
 BANK_B64 = 64
 BANK_SHAPES_B64 = [(f"{label}-b{BANK_B64}", BANK_B64, L, C) for label, _, L, C in BANK_SHAPES]
-#: the timing phase's CUDA graphs at 64 streams: 3 calls replayed 4 times (each call takes milliseconds)
-LARGE_DEPTH = (3, 4)
+#: the timing phase's CUDA graphs at 64 streams: 2 calls replayed 3 times (each call takes milliseconds)
+LARGE_DEPTH = (2, 3)
 #: the bank kernel against its plain version (abs, rel): the JAX package's own bounds, the CUDA tests' BOUNDS["bank"]
 BANK_BOUNDS = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 2e-2)}
 # (label, B, L, signal): the log-mel on a stream axis, one launch for B windows ("mixed": voiced, normal and
@@ -290,6 +311,23 @@ BANK_BOUNDS = {"float32": (1e-4, 1e-3), "bfloat16": (3e-2, 2e-2)}
 MEL_BATCH_SHAPES = [(f"batch-main-b{POOL_B}", POOL_B, 10080, "mixed"), ("batch-main-b64", 64, 10080, "mixed"),
                     ("batch-T63-b3", 3, 9920, "mixed"), (f"batch-silence-b{POOL_B}", POOL_B, 10080, "silence")]
 MEL_BATCH_MAIN = f"batch-main-b{POOL_B}"
+#: (label, B, H, W, Cin, C): the chain at widths past the main path's, each held to its plain version and
+#: timed as the main path's levels are: a reduced-width RMVPE's C=8 levels (the kernel's C=8 instance) at
+#: the main path's first level's 64 x 128 (the encoder's 1 -> 8, an identity block's 8 -> 8, the decoder's
+#: 2C concat 16 -> 8), and 12 -> 24 (C padded to the kernel's 32)
+CHAIN_WIDTH_SHAPES = [("c8-enc", 1, 64, 128, 1, 8), ("c8-id", 1, 64, 128, 8, 8), ("c8-dec", 1, 64, 128, 16, 8),
+                      ("c24-pad", 1, 32, 64, 12, 24)]
+#: (label, B, L, C, kernel sizes, dilations): the bank likewise: a reduced-width generator's C=8 level (T=35
+#: at 128 initial channels: L=14000; the kernel's C=8 instance), C=48 (padded to 64) at the C=64 level's
+#: length, k=5 over d=(1, 2), and d=11 at k=11 (conv1's halo of 110 rows)
+BANK_WIDTH_SHAPES = [("c8", 1, 14000, 8, BANK_KS, BANK_DILS), ("c48-pad", 1, 7000, 48, BANK_KS, BANK_DILS),
+                     ("c32-k5", 1, 14000, 32, (5,), (1, 2)), ("c32-k11-d11", 1, 14000, 32, (11,), (11,))]
+
+
+def bank_shape(shape):
+    """A bank shape as ``(label, B, L, C, kernel sizes, dilations)``: the main path's ``(label, B, L, C)``
+    at its (3, 7, 11) / (1, 3, 5)."""
+    return tuple(shape) if len(shape) == 6 else (*shape, BANK_KS, BANK_DILS)
 
 
 def chain_inputs(label, B, H, W, cin, C, device, rng):
@@ -349,45 +387,46 @@ def chain_flops_bytes(B, H, W, cin, C, elem=4, welem=4):
     return B * flops, B * H * W * (cin + C) * elem + wbytes
 
 
-def bank_inputs(label, B, L, C, device, rng):
+def bank_inputs(label, B, L, C, device, rng, ks=BANK_KS, dils=BANK_DILS):
     import torch
 
-    params = []
-    for k in BANK_KS:
+    params, S = [], len(dils)
+    for k in ks:
         s = 1.0 / np.sqrt(k * C)
         params.append(tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in (
-            rng.standard_normal((3, k, C, C)) * s, rng.standard_normal((3, C)) * 0.05,
-            rng.standard_normal((3, k, C, C)) * s, rng.standard_normal((3, C)) * 0.05)))
+            rng.standard_normal((S, k, C, C)) * s, rng.standard_normal((S, C)) * 0.05,
+            rng.standard_normal((S, k, C, C)) * s, rng.standard_normal((S, C)) * 0.05)))
     x = torch.from_numpy((rng.standard_normal((B, L, C)) * 0.5).astype(np.float32)).to(device)
     return x, params
 
 
-def bank_library(x, params):
+def bank_library(x, params, ks=BANK_KS, dils=BANK_DILS):
     """One PyTorch composite of the bank, timed beside the kernel: cuDNN's
     best (autotuned conv1d calls on [B, C, L]), its convs unfused."""
     import torch.nn.functional as F
 
     xt = x.transpose(1, 2).contiguous()
-    ws = [tuple((w[s].permute(2, 1, 0).contiguous(), b[s]) for s in range(len(BANK_DILS))
+    ws = [tuple((w[s].permute(2, 1, 0).contiguous(), b[s]) for s in range(len(dils))
                 for w, b in ((w1, b1), (w2, b2))) for w1, b1, w2, b2 in params]
 
     def run():
         total = None
-        for k, convs in zip(BANK_KS, ws):
+        for k, convs in zip(ks, ws):
             a = xt
-            for s, d in enumerate(BANK_DILS):
+            for s, d in enumerate(dils):
                 (w1, b1), (w2, b2) = convs[2 * s], convs[2 * s + 1]
                 t = F.leaky_relu(F.conv1d(F.leaky_relu(a, 0.1), w1, b1, padding=d * (k - 1) // 2, dilation=d), 0.1)
                 a = a + F.conv1d(t, w2, b2, padding=(k - 1) // 2)
             total = a if total is None else total + a
-        return total / len(BANK_KS)
+        return total / len(ks)
     return run
 
 
-def bank_flops_bytes(B, L, C, elem=4, welem=4):
-    """As :func:`chain_flops_bytes`."""
-    flops = B * sum(len(BANK_DILS) * 2 * 2 * k * C * C * L for k in BANK_KS)
-    wbytes = sum(len(BANK_DILS) * 2 * (welem * k * C * C + 4 * C) for k in BANK_KS)
+def bank_flops_bytes(B, L, C, elem=4, welem=4, ks=BANK_KS, dils=BANK_DILS):
+    """As :func:`chain_flops_bytes`; at the level's own C (a padded width's
+    zero channels are no work the function needs)."""
+    flops = B * sum(len(dils) * 2 * 2 * k * C * C * L for k in ks)
+    wbytes = sum(len(dils) * 2 * (welem * k * C * C + 4 * C) for k in ks)
     return flops, 2 * B * L * C * elem + wbytes
 
 
@@ -405,7 +444,7 @@ def chain_launch(B, H, W, cin, C, dtype):
     return dict(tl._asdict(), **info, waves=tl.tiles / (N_SMS * info["blocks_per_sm"]))
 
 
-def bank_grid(B, L, C, dtype):
+def bank_grid(B, L, C, dtype, ks=BANK_KS, dils=BANK_DILS):
     """The bank kernel's launches at one level: the wrapper's tiling, the
     card's occupancy at it (at the largest dilation, whose halo takes the
     most shared memory), the waves of the launches before the last (a block
@@ -416,12 +455,11 @@ def bank_grid(B, L, C, dtype):
 
     from obs_rvc_tpu_torch.ops import resblock
 
-    tl = resblock.bank_tiling(B, L, C, dtype, torch.cuda.get_device_properties(0).multi_processor_count,
-                              BANK_KS, BANK_DILS)
-    info = resblock.launch_info(C, dtype, tl, BANK_KS, BANK_DILS)
+    tl = resblock.bank_tiling(B, L, C, dtype, torch.cuda.get_device_properties(0).multi_processor_count, ks, dils)
+    info = resblock.launch_info(C, dtype, tl, ks, dils)
     return dict(tl._asdict(), **info, waves=tl.blocks / (N_SMS * max(1, info["blocks_per_sm"])),
-                waves_last=tl.blocks / len(BANK_KS) / (N_SMS * max(1, info["blocks_per_sm_last"])),
-                recomputed=1.0 - B * L * len(BANK_KS) / (tl.blocks * tl.rows))
+                waves_last=tl.blocks / len(ks) / (N_SMS * max(1, info["blocks_per_sm_last"])),
+                recomputed=1.0 - B * L * len(ks) / (tl.blocks * tl.rows), width=resblock.kernel_width(C))
 
 
 def mel_inputs(L, kind, device, rng, B=None):
@@ -508,30 +546,35 @@ def phase_parity(report):
         out["log_mel"][f"{label} float32"] = err
         log("parity", f"log_mel {label} [{B}, {L}] -> {list(got.shape)} {kind} float32, one launch: max abs err "
                       f"{err:.3e} (bound {MEL_BOUND[0]}/{MEL_BOUND[1]}); every row bit-identical to its own launch")
-    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64:
+    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
-            got = unet_block.conv_block_res_chain(xd, unet_block.pack_chain(blocks, dt))
+            packed = unet_block.pack_chain(blocks, dt)
+            got = unet_block.conv_block_res_chain(xd, packed)
             want = unet_block.conv_block_res_chain_plain(xd, blocks)
             torch.cuda.synchronize()
             atol, rtol = bounds["chain"][dt]
             err = check_close(f"chain {label} {dt}", got, want, atol, rtol)
             out["conv_block_res_chain"][f"{label} {str(dt)[6:]}"] = err
-            log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} {str(dt)[6:]}: "
+            log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} on the kernel's C={packed.width} "
+                          f"{str(dt)[6:]}: "
                           f"max abs err {err:.3e} (bound {atol}/{rtol}), |ref| max {float(want.float().abs().max()):.3g}")
-    for label, B, L, C in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH + BANK_SHAPES_B64:
-        x, params = bank_inputs(label, B, L, C, dev, rng)
+    for label, B, L, C, ks, dils in map(bank_shape, BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH
+                                         + BANK_SHAPES_B64 + BANK_WIDTH_SHAPES):
+        x, params = bank_inputs(label, B, L, C, dev, rng, ks, dils)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
-            got = resblock.resblock_bank(xd, resblock.pack_bank(params, BANK_KS, BANK_DILS, dt), BANK_KS, BANK_DILS)
-            want = resblock.resblock_bank_plain(xd, params, BANK_KS, BANK_DILS)
+            packed = resblock.pack_bank(params, ks, dils, dt)
+            got = resblock.resblock_bank(xd, packed, ks, dils)
+            want = resblock.resblock_bank_plain(xd, params, ks, dils)
             torch.cuda.synchronize()
             atol, rtol = bounds["bank"][dt]
             err = check_close(f"bank {label} {dt}", got, want, atol, rtol)
             out["resblock_bank"][f"{label} {str(dt)[6:]}"] = err
-            log("parity", f"resblock_bank {label} [{B},{L},{C}] {str(dt)[6:]}: max abs err {err:.3e} "
-                          f"(bound {atol}/{rtol}), |ref| max {float(want.float().abs().max()):.3g}")
+            log("parity", f"resblock_bank {label} [{B},{L},{C}] k={ks} d={dils} on the kernel's C={packed.width} "
+                          f"{str(dt)[6:]}: max abs err {err:.3e} (bound {atol}/{rtol}), "
+                          f"|ref| max {float(want.float().abs().max()):.3g}")
     report["parity"] = out
 
 
@@ -550,13 +593,16 @@ def voiced_signal(n, sr, seed=SEED, f0=180.0):
 
 
 def phase_main(report, key, n_chunks, dtype, version="v2", cpu_chunks=0, breakdown=False, reference=None,
-               pitch="rmvpe"):
+               pitch="rmvpe", nets=None, per_step=None):
     """Stream ``n_chunks`` through ``RvcPipeline.step`` at full width in
     ``dtype`` with the ``pitch`` algorithm's network; returns what later
     phases use: the pipeline, its last state, the chunks, the controls, the
     emitted audio, the pitch codes of the chunks after warm-up and the CPU
     pipeline of the stage comparison (``reference`` is the float32 one, for a
-    bfloat16 run)."""
+    bfloat16 run). ``nets``: the networks' configs (``contentvec_cfg``,
+    ``rmvpe_cfg``, ``synth_cfg``) in place of the full widths, whose step
+    launches the wrappers ``per_step`` times (default
+    :data:`LAUNCHES_PER_STEP`)."""
     import torch
 
     from obs_rvc_tpu_torch.config import ChunkConfig, RvcModelVersion
@@ -568,10 +614,12 @@ def phase_main(report, key, n_chunks, dtype, version="v2", cpu_chunks=0, breakdo
     # the card, full width: ContentVec (v2, or v1 with its final projection), the pitch network (full
     # RMVPE, CREPE "full" or FCPE at hidden 512, 6 layers), the 40 kHz synthesizer
     pipe = RvcPipeline(cfg, RvcModelVersion.from_str(version), compute_dtype=getattr(torch, dtype),
-                       pitch_algorithm=pitch)
+                       pitch_algorithm=pitch, **(nets or {}))
     pipe.init_params(SEED, std=None)
     if dtype == "bfloat16":
         cast_params_for_serving(pipe)
+    if nets:
+        log(key, f"reduced widths: {pipe.contentvec_cfg}, {pipe.synth_cfg}")
     log(key, f"{version} pipeline with {getattr(pipe, f'{pitch}_cfg')} on {pipe.device} in {dtype}, random "
              f"fan-in-scaled weights from seed {SEED} "
              f"({time.perf_counter() - t0:.1f} s); chunk {cfg.sample_frame_size} samples, "
@@ -604,7 +652,7 @@ def phase_main(report, key, n_chunks, dtype, version="v2", cpu_chunks=0, breakdo
     peak = torch.cuda.max_memory_allocated()
     audio = torch.cat(outs).cpu()
     log(key, f"streamed {n_chunks} chunks; kernel launches {launches}")
-    check_launches(key, launches, n_chunks, pitch)
+    check_launches(key, launches, n_chunks, pitch, per_step)
     if audio.shape != (n_chunks * cfg.sample_frame_size,) or not bool(torch.isfinite(audio).all()):
         raise AssertionError(f"{key}: output shape {tuple(audio.shape)} or non-finite values")
     tail = audio[4 * cfg.sample_frame_size :]
@@ -667,8 +715,8 @@ def read_launches():
     return {name: mod.LAUNCHES for name, mod in _counter_modules().items()}
 
 
-def check_launches(phase, launches, steps, pitch="rmvpe"):
-    want = {k: v * steps for k, v in LAUNCHES_PER_STEP[pitch].items()}
+def check_launches(phase, launches, steps, pitch="rmvpe", per_step=None):
+    want = {k: v * steps for k, v in (per_step or LAUNCHES_PER_STEP[pitch]).items()}
     if launches != want:
         raise AssertionError(f"{phase}: expected {want} launches for {steps} steps, got {launches}")
 
@@ -996,7 +1044,8 @@ def compare_with_cpu(report, key, pipe, saved, chunks, controls, reference=None)
     dtype = str(pipe.compute_dtype).removeprefix("torch.")
     cpu = RvcPipeline(pipe.cfg, pipe.version, device="cpu", compute_dtype=pipe.compute_dtype,
                       contentvec_cfg=pipe.contentvec_cfg, rmvpe_cfg=pipe.rmvpe_cfg, synth_cfg=pipe.synth_cfg,
-                      pitch_algorithm=pipe.pitch_algorithm, crepe_cfg=pipe.crepe_cfg, fcpe_cfg=pipe.fcpe_cfg)
+                      pitch_algorithm=pipe.pitch_algorithm, crepe_cfg=pipe.crepe_cfg, fcpe_cfg=pipe.fcpe_cfg,
+                      pallas_resblocks=pipe.synth_cfg.pallas_resblocks)
     for name, module in pipe.modules().items():
         cpu.modules()[name].load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
     worst = {k: 0.0 for k in CPU_TOL}
@@ -1079,6 +1128,266 @@ def compare_with_cpu(report, key, pipe, saved, chunks, controls, reference=None)
     if bad or not codes_ok:
         raise AssertionError(f"{key}: card and CPU disagree: {bad or 'f0 codes'} ({worst}, codes {same}/{frames})")
     return cpu
+
+
+# ---------------------------------------------------------------------------
+# the kernels at reduced widths, and the pallas_resblocks switch
+# ---------------------------------------------------------------------------
+
+#: the CPU tests' reduced widths (tests/test_torch_port_pipeline.py CV, RM, SY): RMVPE levels of 8, 16 and 32
+#: channels, the 40 kHz generator's upsample stack at 128 initial channels (bank levels of 64, 32, 16 and 8)
+WIDTHS_CV = dict(dim=64, num_layers=2, tap_layer=2, num_heads=4, ffn_dim=128, out_dim=64)
+WIDTHS_RM = dict(en_de_layers=3, inter_layers=1, n_blocks=2, en_out_channels=8, gru_hidden=32)
+WIDTHS_SY = dict(feature_dim=64, inter_channels=16, hidden_channels=16, filter_channels=32, n_layers=2,
+                 upsample_initial_channel=128, gin_channels=16, spk_embed_dim=4)
+#: its wrapper calls a step: the log-mel, the six chain levels of 8, 16 and 32 channels (encoder and
+#: decoder; the intermediate level's 64 runs its modules), the four bank levels of 64, 32, 16 and 8
+WIDTHS_LAUNCHES = {"log_mel": 1, "conv_block_res_chain": 6, "resblock_bank": 4}
+WIDTHS_CHUNKS = 8
+#: with pallas_resblocks=False the chain and bank levels run the networks' own convolutions (cuDNN): only the
+#: log-mel kernel is left, as in the JAX pipeline
+SWITCH_LAUNCHES = {"log_mel": 1, "conv_block_res_chain": 0, "resblock_bank": 0}
+SWITCH_CHUNKS = 12
+
+
+def phase_widths(report):
+    """The port at the CPU tests' reduced widths on the card, whose C=8
+    chain and bank levels run the kernels' C=8 instances: a few chunks
+    eagerly (the wrappers launched 1 / 6 / 4 times a step) and through
+    ``jit_step`` against the eager step, each stage held to the CPU's as the
+    main phase holds it (float32 by its bounds; bfloat16 by its budget
+    against the CPU float32 step). Returns the launches of each dtype's
+    eager run, for the kernel line's width entries."""
+    import torch
+
+    from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
+    from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
+    from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
+
+    nets = dict(contentvec_cfg=ContentVecConfig(**WIDTHS_CV), rmvpe_cfg=RMVPEConfig(**WIDTHS_RM),
+                synth_cfg=SynthesizerConfig(**WIDTHS_SY))
+    reference = None
+    for dtype in ("float32", "bfloat16"):
+        key = "widths" if dtype == "float32" else "widths_bf16"
+        run = phase_main(report, key, WIDTHS_CHUNKS, dtype, cpu_chunks=2, reference=reference, nets=nets,
+                         per_step=WIDTHS_LAUNCHES)
+        pipe = run["pipe"]
+        graphed, _ = stream(pipe.jit_step, pipe, run["chunks"], run["controls"])
+        bit, rel = check_same(f"{key} jit_step vs eager", graphed, run["audio"], CPU_TOL["emitted"],
+                              chunk=pipe.cfg.sample_frame_size)
+        report[key]["jit_step"] = {"bit_identical": bit, "rel_max_err": rel}
+        log(key, f"jit_step over {WIDTHS_CHUNKS} chunks: " + ("bit-identical to the eager step" if bit else
+                                                                f"within {rel:.3e} of max|eager|"))
+        reference = run["cpu"]
+        del run
+        torch.cuda.empty_cache()
+
+
+def stage_ms(pipe, batch, state, chunk, controls):
+    """Each stage graph's device ms at ``batch`` streams, as the bench
+    takes them (``scripts/torch_bench.py:stage_device_ms``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench", pathlib.Path(__file__).resolve().parent / "scripts" / "torch_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench.stage_device_ms(pipe, batch, state, chunk, controls)[0]
+
+
+SWITCH_STAGES = ("features", "salience", "synth_audio", "emitted")
+
+
+def switch_stages(key, ref, pipes, chunks, controls, at):
+    """The main phase's bfloat16 rule for the switch: at the chunks ``at``,
+    each bfloat16 pipeline of ``pipes`` (with and without the kernels) runs
+    the stages on the float32 kernel pipeline ``ref``'s inputs to them, and
+    the one without the kernels is held to the one with them: its error off
+    ``ref`` at most twice theirs plus the float32 bound (``CPU_TOL``), at
+    every chunk. ``chunks`` ``[n]`` (one stream) or ``[B, n]``."""
+    import torch
+
+    from obs_rvc_tpu_torch.stream import StepControls, StreamState
+
+    batched = chunks[0].dim() == 2
+    ctl = controls if batched else StepControls.stack([controls], ref.device)
+    state = StreamState.init_batch(ref.cfg, chunks[0].shape[0] if batched else 1, device=ref.device)
+    worst = {name: dict.fromkeys(SWITCH_STAGES, 0.0) for name in pipes}
+    slack = dict.fromkeys(SWITCH_STAGES, float("inf"))
+    with torch.no_grad():
+        for i, chunk in enumerate(chunks[: max(at) + 1]):
+            chunk = chunk if batched else chunk[None]
+            if i in at:
+                buf, buf16 = ref.stage_pre(state, chunk)
+                mel = ref.stage_mel(buf16)
+                phone, sal = ref.stage_features(buf16), ref.stage_salience(mel)
+                _, pitch, pitchf = ref.stage_pitch_post(state.cache_pitchf, sal, ctl)
+
+                def stages(p):
+                    audio = p.stage_synth(phone, pitch, pitchf, ctl.sid)
+                    return {"features": p.stage_features(buf16), "salience": p.stage_salience(mel),
+                            "synth_audio": audio,
+                            "emitted": p.stage_post(buf, audio, state.sola_buffer, ctl.rms_mix_rate)[0]}
+
+                want = stages(ref)
+                errs = {name: {k: rel_err(v.float(), want[k].float()) for k, v in stages(p).items()}
+                        for name, p in pipes.items()}
+                for k in SWITCH_STAGES:
+                    for name in pipes:
+                        worst[name][k] = max(worst[name][k], errs[name][k])
+                    slack[k] = min(slack[k], 2 * errs["kernels"][k] + CPU_TOL[k] - errs["no_kernels"][k])
+            state, _ = ref.step(state, chunk, ctl, batched=True)
+    log("switch", f"{key}: bfloat16 stages off the float32 kernel step's on its inputs, with / without the "
+                  "kernels: " + ", ".join(f"{k} {worst['kernels'][k]:.2e} / {worst['no_kernels'][k]:.2e}"
+                                          for k in SWITCH_STAGES)
+                  + "; least slack under 2 x with + the float32 bound: "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in slack.items()))
+    bad = [k for k, v in slack.items() if v < 0]
+    if bad:
+        raise AssertionError(f"switch {key}: without the kernels the stages {bad} are off the float32 kernel step "
+                             f"by more than twice the kernels' error plus the float32 bound ({worst})")
+    return {"rel_max_err": worst, "budget_slack": slack}
+
+
+def phase_switch(report):
+    """``RvcPipeline(pallas_resblocks=False)`` at full width, beside the
+    kernel step on the same weights and chunks, in one call: one stream in
+    float32 and bfloat16, eagerly and through ``jit_step``, and 8 streams
+    through ``jit_step_batch`` in bfloat16. The switch-off step launches the
+    wrappers 1 / 0 / 0 times a step and repeats bit for bit; its graphs
+    hold its eager step; its audio holds the kernel step's: float32 within
+    1e-3 of max|audio|, bfloat16 by the main phase's rule against the
+    float32 kernel step: stage by stage on the float32 kernel step's inputs
+    (:func:`switch_stages`), and the emitted stream end to end (its error
+    at most twice the bfloat16 kernel step's plus 1e-3). Step p50/p95 and the salience and synth stages'
+    device ms with and without the kernels. Then one ``serve.cli
+    --no-pallas-resblocks`` conversion."""
+    import torch
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
+    from obs_rvc_tpu_torch.serve import cli
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamState, pipeline
+    from obs_rvc_tpu_torch.utils import read_wav, write_wav
+
+    cfg = ChunkConfig.build()
+    n = cfg.sample_frame_size
+    dev = pipeline.resolve_device(None)  # the card, as every pipeline here takes it
+    wav = torch.from_numpy(voiced_signal(SWITCH_CHUNKS * n, cfg.sample_rate, seed=SEED + 7))
+    chunks = [wav[i * n : (i + 1) * n].to(dev) for i in range(SWITCH_CHUNKS)]
+    controls = StepControls.default(pitch_shift=0.0, rms_mix_rate=1.0)
+    _, chunks8, controls8 = pool_streams(cfg, POOL_B, SWITCH_CHUNKS // 2, dev)
+    stacked8 = StepControls.stack(controls8, dev)
+    out, ref = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        pipes = {}
+        for name, switch in (("kernels", None), ("no_kernels", False)):
+            pipe = RvcPipeline(cfg, compute_dtype=getattr(torch, dtype), pallas_resblocks=switch)
+            if "kernels" in pipes:  # the same weights: the kernel pipeline's, copied
+                for mod, other in zip(pipe.modules().values(), pipes["kernels"].modules().values()):
+                    mod.load_state_dict(other.state_dict())
+            else:
+                pipe.init_params(SEED, std=None)
+                if dtype == "bfloat16":
+                    cast_params_for_serving(pipe)
+            pipes[name] = pipe
+        r = out[dtype] = {}
+        for name, pipe in pipes.items():
+            reset_launches()
+            eager, times = stream(pipe.step, pipe, chunks, controls, timed=True)
+            launches = read_launches()
+            graphed, gtimes = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
+            g_bit, g_rel = check_same(f"switch {name} {dtype} jit_step vs eager", graphed, eager,
+                                      CPU_TOL["emitted"], chunk=n)
+            row = r[name] = {
+                "launches": launches, "eager_p50_ms": float(np.percentile(times[4:], 50)),
+                "eager_p95_ms": float(np.percentile(times[4:], 95)),
+                "jit_step_p50_ms": float(np.percentile(gtimes[4:], 50)),
+                "jit_step_p95_ms": float(np.percentile(gtimes[4:], 95)),
+                "jit_step_bit_identical": g_bit, "jit_step_rel": g_rel,
+                "stage_device_ms": stage_ms(pipe, 1, pipe.new_state(), chunks[5], controls)}
+            if name == "no_kernels":
+                check_launches(f"switch {dtype}", launches, SWITCH_CHUNKS, per_step=SWITCH_LAUNCHES)
+                again, _ = stream(pipe.step, pipe, chunks, controls)
+                if not torch.equal(again, eager):
+                    raise AssertionError(f"switch {dtype}: the eager step without the kernels did not repeat bit "
+                                         f"for bit ({rel_err(again, eager):.3e} of max|audio|)")
+                row["eager_repeat_bit_identical"] = True
+            row["audio"] = eager
+            log("switch", f"{dtype} one stream, {name}: launches {launches}; eager p50 / p95 {row['eager_p50_ms']:.2f}"
+                          f" / {row['eager_p95_ms']:.2f} ms, jit_step {row['jit_step_p50_ms']:.2f} / "
+                          f"{row['jit_step_p95_ms']:.2f} ms ("
+                          + ("bit-identical to eager" if g_bit else f"within {g_rel:.3e} of eager") + "); stage "
+                          "device ms " + ", ".join(f"{k} {v:.3f}" for k, v in row["stage_device_ms"].items()))
+        on, off = r["kernels"].pop("audio"), r["no_kernels"].pop("audio")
+        if dtype == "float32":
+            ref["one"] = on
+            _, rel = check_same("switch float32: no kernels vs kernels", off, on, CPU_TOL["emitted"], chunk=n)
+            r["rel_vs_kernels"] = rel
+            log("switch", f"float32: the step without the kernels within {rel:.3e} of max|audio| of the kernel "
+                          f"step (bound {CPU_TOL['emitted']})")
+            ref["eight"], _ = stream_batch(pipes["kernels"].jit_step_batch, pipes["kernels"], chunks8, stacked8)
+            ref["pipe"] = pipes["kernels"]
+        else:
+            e_on, e_off = rel_err(on, ref["one"]), rel_err(off, ref["one"])
+            r.update(rel_vs_f32_kernels=e_off, kernels_rel_vs_f32_kernels=e_on)
+            log("switch", f"bfloat16: off the float32 kernel step, without the kernels {e_off:.3e}, with them "
+                          f"{e_on:.3e} (bound 2 x {e_on:.3e} + {CPU_TOL['emitted']})")
+            if not e_off <= 2 * e_on + CPU_TOL["emitted"]:
+                raise AssertionError(f"switch bfloat16: {e_off:.3e} off the float32 kernel step, over 2 x {e_on:.3e} "
+                                     f"+ {CPU_TOL['emitted']}")
+            r["stages"] = switch_stages("one stream", ref["pipe"], pipes, chunks, controls, at=(6, 9))
+            b8 = r["batch8"] = {}
+            for name, pipe in pipes.items():
+                reset_launches()
+                state = StreamState.init_batch(cfg, POOL_B, device=pipe.device)
+                pipe.step(state, chunks8[0], stacked8, batched=True)
+                launches = read_launches()
+                check_launches(f"switch {name} batched", launches, 1,
+                               per_step=SWITCH_LAUNCHES if name == "no_kernels" else LAUNCHES_PER_STEP["rmvpe"])
+                audio, times = stream_batch(pipe.jit_step_batch, pipe, chunks8, stacked8, timed=True)
+                errs = [rel_err(audio[k], ref["eight"][k]) for k in range(POOL_B)]
+                b8[name] = {"launches_eager": launches, "p50_ms": float(np.percentile(times[1:], 50)),
+                            "p95_ms": float(np.percentile(times[1:], 95)), "rel_vs_f32_kernels": errs,
+                            "stage_device_ms": stage_ms(pipe, POOL_B, StreamState.init_batch(cfg, POOL_B, dev),
+                                                        chunks8[1], stacked8)}
+                log("switch", f"bfloat16 {POOL_B} streams (jit_step_batch), {name}: p50 / p95 "
+                              f"{b8[name]['p50_ms']:.2f} / {b8[name]['p95_ms']:.2f} ms; each stream off the float32 "
+                              f"kernel step {max(errs):.3e} at most; stage device ms "
+                              + ", ".join(f"{k} {v:.3f}" for k, v in b8[name]["stage_device_ms"].items()))
+            for k in range(POOL_B):
+                e_on, e_off = b8["kernels"]["rel_vs_f32_kernels"][k], b8["no_kernels"]["rel_vs_f32_kernels"][k]
+                if not e_off <= 2 * e_on + CPU_TOL["emitted"]:
+                    raise AssertionError(f"switch bfloat16 at {POOL_B} streams, stream {k}: {e_off:.3e} off the "
+                                         f"float32 kernel step, over 2 x {e_on:.3e} + {CPU_TOL['emitted']}")
+            b8["stages"] = switch_stages(f"{POOL_B} streams", ref["pipe"], pipes, chunks8, stacked8, at=(3,))
+        for name in ("salience", "synth"):
+            log("switch", f"{dtype} one stream, {name} stage: kernels {r['kernels']['stage_device_ms'][name]:.3f} ms, "
+                          f"without {r['no_kernels']['stage_device_ms'][name]:.3f} ms")
+        del pipes
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    src, dst = OUT_DIR / "switch_in.wav", OUT_DIR / "switch_out.wav"
+    write_wav(src, voiced_signal(5 * n, cfg.sample_rate, seed=SEED + 8), cfg.sample_rate)
+    reset_launches()
+    t0 = time.perf_counter()
+    cli.main([str(src), str(dst), "--no-pallas-resblocks", "--metrics-json"])
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    converted, sr = read_wav(dst)
+    for f in (src, dst):
+        f.unlink()
+    if sr != cfg.sample_rate or converted.shape != (1, 5 * n) or not np.isfinite(converted).all() or \
+            float(np.abs(converted).max()) < 1e-3:
+        raise AssertionError(f"serve.cli --no-pallas-resblocks wrote {converted.shape} at {sr} Hz, or silence")
+    if launches["conv_block_res_chain"] or launches["resblock_bank"] or not launches["log_mel"]:
+        raise AssertionError(f"serve.cli --no-pallas-resblocks launched {launches}")
+    out["cli"] = {"seconds": cli_s, "launches": launches}
+    log("switch", f"serve.cli --no-pallas-resblocks (float32): 5 chunks in {cli_s:.1f} s (set-up and capture "
+                  f"included), launches {launches}, max |y| {float(np.abs(converted).max()):.4f}")
+    report["switch"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -2128,7 +2437,7 @@ def phase_timing(report, trace=False):
     rates = {torch.float32: ("", TF32X3_PEAK_FLOPS, "3xTF32's 165", 4),
              torch.bfloat16: (" bfloat16", BF16_PEAK_FLOPS, "bf16's 989", 2)}
     chain_cases = [(shape, *chain_inputs(*shape, dev, rng))
-                   for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64]
+                   for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "conv_block_res_chain" + suffix
         for (label, B, H, W, cin, C), x32, blocks32 in chain_cases:
@@ -2146,7 +2455,7 @@ def phase_timing(report, trace=False):
                           f"tiles a warp, {ln['threads']} threads; {ln['tiles']} blocks, a tile each, "
                           f"{ln['waves']:.2f} waves over {N_SMS} SMs; {ln['smem_bytes']} B shared memory, "
                           f"{ln['registers']} registers, {ln['blocks_per_sm']} blocks an SM")
-            if trace and dt == torch.float32:
+            if trace and dt == torch.float32 and packed.width == C:  # a padded width adds the pad's copies
                 calls = kernel_trace(lambda: unet_block.conv_block_res_chain(x, packed), 2 * N_BLOCKS)
                 last = calls[-1]
                 rows[name][label]["trace_us"] = last
@@ -2167,36 +2476,38 @@ def phase_timing(report, trace=False):
                           f"{sum(r['library_ms'] for r in chain_rows):.4f} ms, bound "
                           f"{sum(r['bound_ms'] for r in chain_rows):.4f} ms ({rate} TFLOP/s) / "
                           f"{sum(r['bound_ms_f32_cuda_cores'] for r in chain_rows):.4f} ms (float32 CUDA cores)")
-    bank_cases = [(shape, *bank_inputs(*shape, dev, rng))
-                  for shape in BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH + BANK_SHAPES_B64]
+    bank_cases = [(shape, *bank_inputs(*shape[:4], dev, rng, *shape[4:]))
+                  for shape in map(bank_shape, BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH + BANK_SHAPES_B64
+                                   + BANK_WIDTH_SHAPES)]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "resblock_bank" + suffix
-        for (label, B, L, C), x32, params32 in bank_cases:
+        for (label, B, L, C, ks, dils), x32, params32 in bank_cases:
             x, params = x32.to(dt), [cast(p, dt) for p in params32]
-            packed = resblock.pack_bank(params, BANK_KS, BANK_DILS, dt)  # as GeneratorNSF caches it
-            flops, nbytes = bank_flops_bytes(B, L, C, elem, elem)
-            measure(name, label, lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS),
-                    lambda: resblock.resblock_bank_plain(x, params, BANK_KS, BANK_DILS),
-                    bank_library(x, params), flops, nbytes, peak=peak,
+            packed = resblock.pack_bank(params, ks, dils, dt)  # as GeneratorNSF caches it
+            flops, nbytes = bank_flops_bytes(B, L, C, elem, elem, ks, dils)
+            measure(name, label, lambda: resblock.resblock_bank(x, packed, ks, dils),
+                    lambda: resblock.resblock_bank_plain(x, params, ks, dils),
+                    bank_library(x, params, ks, dils), flops, nbytes, peak=peak,
                     depth=LARGE_DEPTH if B >= BANK_B64 else (10, 10))
             r = rows[name][label]
             r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
-            r["grid"] = gr = bank_grid(B, L, C, dt)
-            log("timing", f"bank {label}{suffix} launch: {gr['warps']} warps of {gr['wm']} m16 tiles, {gr['rows']} "
+            r["grid"] = gr = bank_grid(B, L, C, dt, ks, dils)
+            log("timing", f"bank {label}{suffix} launch (C={C} on the kernel's {gr['width']}, k={ks}, d={dils}): "
+                          f"{gr['warps']} warps of {gr['wm']} m16 tiles, {gr['rows']} "
                           f"conv rows and {gr['tile']} positions a block; {gr['blocks']} blocks a launch before the "
-                          f"last ({gr['waves']:.2f} waves over {N_SMS} SMs), {gr['blocks'] // len(BANK_KS)} in the "
+                          f"last ({gr['waves']:.2f} waves over {N_SMS} SMs), {gr['blocks'] // len(ks)} in the "
                           f"last ({gr['waves_last']:.2f}); {gr['smem_bytes']} B shared memory at "
-                          f"d={max(BANK_DILS)}; {gr['registers']} / {gr['registers_last']} registers, "
+                          f"d={max(dils)}; {gr['registers']} / {gr['registers_last']} registers, "
                           f"{gr['blocks_per_sm']} / {gr['blocks_per_sm_last']} blocks an SM; "
                           f"{gr['recomputed']:.1%} of the conv rows computed past the tiles")
-            if trace and dt == torch.float32:
-                calls = kernel_trace(lambda: resblock.resblock_bank(x, packed, BANK_KS, BANK_DILS), len(BANK_DILS))
+            if trace and dt == torch.float32 and packed.width == C:  # a padded width adds the pad's copies
+                calls = kernel_trace(lambda: resblock.resblock_bank(x, packed, ks, dils), len(dils))
                 last = calls[-1]
                 r["trace_us"] = last
                 log("profile", f"bank {label}: {len(last)} kernels per call, span "
                                f"{last[-1][2] + last[-1][1]:.1f} us (last of {len(calls)} calls); each kernel "
                                "(d) " + ", ".join(f"({d}) {dur:.1f} us at +{t:.1f}" for d, (_, dur, t)
-                                                  in zip(BANK_DILS, last)))
+                                                  in zip(dils, last)))
         bank_rows = rows[name]
         for label, r in bank_rows.items():
             log("timing", f"bank level {label}{suffix}: kernel {r['ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms "
@@ -2570,8 +2881,10 @@ def phase_retrieval(report, smi):
 # ---------------------------------------------------------------------------
 
 #: captures of the bfloat16 stage graphs, each forced by loading the weights again, and the chunks each streams
-STAGE_REPEATS = 6
-STAGE_REPEAT_CHUNKS = 12
+#: (few: with cuDNN's API log on, the eager steps' log runs to hundreds of MiB, and the whole run must stay within
+#: 700 s)
+STAGE_REPEATS = 4
+STAGE_REPEAT_CHUNKS = 8
 #: the cuDNN API log's lines kept in the output directory for reading, at most
 CUDNN_LOG_SAMPLE = 400
 
@@ -3396,26 +3709,40 @@ def kernel_line(report):
     on the FCPE path's Slaney basis (the FCPE float32 run's launches); and
     the three on the pool phase's batched step of ``POOL_B`` streams, in its
     bfloat16 (the pool phase's eager run's launches, times at ``POOL_B``
-    streams). The log-mel's ``max_abs_err`` is the largest over every shape
-    and both bases, the Slaney entry's over its own basis, the batched
-    entries' over their batched shapes."""
+    streams); and the chain and the bank at each width past the main path's
+    (``CHAIN_WIDTH_SHAPES``, ``BANK_WIDTH_SHAPES``) in both dtypes, whose
+    launches are the wrapper's calls in the reduced-width run of that dtype
+    (the widths phase, whose C=8 levels take the kernels' C=8 instances).
+    The log-mel's ``max_abs_err`` is the largest over every shape and both
+    bases, the Slaney entry's over its own basis, the batched entries' over
+    their batched shapes, a width's over its own shape; the main path's
+    entries leave the widths out."""
     srcs = {"log_mel": ("obs_rvc_tpu_torch/csrc/stft_mel.cu", "obs_rvc_tpu/ops/stft_mel.py:70"),
             "conv_block_res_chain": ("obs_rvc_tpu_torch/csrc/unet_block.cu", "obs_rvc_tpu/ops/unet_block.py:155"),
             "resblock_bank": ("obs_rvc_tpu_torch/csrc/resblock.cu", "obs_rvc_tpu/ops/resblock.py:298")}
     main_labels = {s[0] for s in CHAIN_SHAPES + BANK_SHAPES} | {MEL_MAIN}
     batch_labels = {s[0] for s in CHAIN_SHAPES_BATCH + BANK_SHAPES_BATCH} | {MEL_BATCH_MAIN}
+    width_labels = {s[0] for s in CHAIN_WIDTH_SHAPES + BANK_WIDTH_SHAPES}
 
     def batched(label):
         return label.startswith("batch-") or label.endswith(f"-b{POOL_B}")
 
-    entries = [(name, name, "float32", "main", main_labels, lambda label: True) for name in srcs] + [
-        (name, f"{name} bfloat16", "bfloat16", "main_bf16", main_labels, lambda label: True)
+    def not_width(label):
+        return label not in width_labels
+
+    entries = [(name, name, "float32", "main", main_labels, not_width) for name in srcs] + [
+        (name, f"{name} bfloat16", "bfloat16", "main_bf16", main_labels, not_width)
         for name in ("conv_block_res_chain", "resblock_bank")] + [
         ("log_mel", "log_mel fcpe-slaney", "float32", "fcpe", {FCPE_MEL_MAIN},
          lambda label: label.startswith(FCPE_MEL_MAIN)),
         ("log_mel", "log_mel batched", "float32", "pool", batch_labels, batched)] + [
         (name, f"{name} bfloat16 batched", "bfloat16", "pool", batch_labels, batched)
-        for name in ("conv_block_res_chain", "resblock_bank")]
+        for name in ("conv_block_res_chain", "resblock_bank")] + [
+        # each width past the main path's on its own, its launches the reduced-width run's in that dtype
+        (name, f"{name} {label}" + ("" if dtype == "float32" else " bfloat16"), dtype,
+         "widths" if dtype == "float32" else "widths_bf16", {label}, lambda parity, label=label: parity == label)
+        for name, shapes in (("conv_block_res_chain", CHAIN_WIDTH_SHAPES), ("resblock_bank", BANK_WIDTH_SHAPES))
+        for label, *_ in shapes for dtype in ("float32", "bfloat16")]
     kernels = []
     for name, entry, dtype, run, labels, parity_label in entries:
         src, replaces = srcs[name]
@@ -3441,8 +3768,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps with torch.profiler (device busy share, top operators)")
     ap.add_argument("--only", default="",
-                    help="run only these phases after the build, comma-separated (stage_repeat, mesh, bench), and print "
-                         "no kernel line: for iterating on one phase")
+                    help="run only these phases after the build, comma-separated (parity, widths, switch, "
+                         "stage_repeat, mesh, bench), and print no kernel line: for iterating on one phase")
     ap.add_argument("--stage-repeat-child", nargs=2, metavar=("OUT", "LOG"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3495,7 +3822,8 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi),
-                  "bench": lambda: phase_bench(report)}
+                  "bench": lambda: phase_bench(report), "parity": lambda: phase_parity(report),
+                  "widths": lambda: phase_widths(report), "switch": lambda: phase_switch(report)}
         for name in args.only.split(","):
             phases[name]()
         OUT_DIR.mkdir(exist_ok=True)
@@ -3507,7 +3835,18 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    clock = [time.perf_counter()]
+    spent = report["phase_seconds"] = {}
+
+    def mark(name):
+        """The seconds since the last mark, under ``name``: where the run's time goes."""
+        clock.append(time.perf_counter())
+        spent[name] = clock[-1] - clock[-2]
+
     phase_parity(report)
+    mark("parity")
+    phase_widths(report)
+    mark("widths")
     f32 = phase_main(report, "main", N_CHUNKS, "float32", cpu_chunks=CPU_CHUNKS["float32"], breakdown=True)
     if args.profile:
         phase_profile(report, "main", f32)
@@ -3520,13 +3859,19 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(report, "main_bf16", bf16)
     phase_graphs(report, "main_bf16", bf16)
+    mark("main")
     phase_stage_repeat(report)
+    mark("stage_repeat")
     phase_bench(report)
+    mark("bench")
+    phase_switch(report)
+    mark("switch")
     v1 = phase_main(report, "v1", V1_CHUNKS, "bfloat16", version="v1")
     phase_graphs(report, "v1", v1, reload_weights=True)
     del v1
     torch.cuda.empty_cache()
     phase_serve(report, bf16["pipe"])
+    mark("v1, serve")
     del f32, bf16
     torch.cuda.empty_cache()
     for algo in ("crepe", "fcpe"):
@@ -3542,14 +3887,19 @@ def main(argv=None) -> int:
         del pf, pb
         torch.cuda.empty_cache()
     phase_pitch_serve(report)
+    mark("pitch")
     phase_pool(report)
     phase_pool_serve(report)
+    mark("pool")
     table, queries = phase_retrieval(report, smi)
+    mark("retrieval")
     torch.cuda.empty_cache()
     phase_mesh(report, smi, table, queries)
+    mark("mesh")
     del table, queries
     torch.cuda.empty_cache()
     phase_timing(report, trace=args.profile)
+    mark("timing")
     for key in ("main", "main_bf16", "v1", "crepe", "crepe_bf16", "fcpe", "fcpe_bf16"):
         m = report[key]
         g = m["graphs"]
@@ -3563,7 +3913,8 @@ def main(argv=None) -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log("mesh", report["mesh"]["cards_line"])
-    log("done", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")
+    log("done", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s; by phase: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
     print(json.dumps(kernel_line(report)))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,16 @@
 //
 // Replaces: obs_rvc_tpu/ops/resblock.py:resblock_bank_tapdot (Pallas, TPU;
 // the C=32 and C=64 levels) and obs_rvc_tpu/ops/resblock.py:resblock_bank
-// (its im2col form, which the JAX package keeps for C<32; here C=16). Both
-// hold one stream's whole [C, L + 64] activation in VMEM, 1.8 MB at C=64,
-// L=7000 in float32, past a Hopper block's 227 KB of shared memory, so this
-// kernel tiles the time axis across blocks.
+// (its im2col form, which the JAX package keeps for C<32; here C=8 and 16).
+// Both hold one stream's whole [C, L + 64] activation in VMEM, 1.8 MB at
+// C=64, L=7000 in float32, past a Hopper block's 227 KB of shared memory,
+// so this kernel tiles the time axis across blocks.
+//
+// Widths: built for C in {8, 16, 32, 64}; the wrapper runs any other C up to
+// 64 on the next of them, its weights and input zero-padded
+// (ops/resblock.py). Any odd k (SAME padding is symmetric only there) and
+// any dilation, as far as the plane with conv1's halo, (k - 1) d rows, fits
+// beside the weight ring in shared memory; at most MAX_BANKS banks.
 //
 // What bounds it: at the main path's shapes (C=64 at L=7000, C=32 at
 // L=14000) the bank does 7.23 and 3.61 GFLOP a stream against ~2 MB of
@@ -67,7 +73,6 @@
 namespace {
 
 constexpr int MAX_BANKS = 4;
-constexpr int MAX_DIL = 5;
 constexpr int MAX_WARPS = 8;
 constexpr int MAX_RING = 8;       // tap slabs of weights in shared memory, at most
 constexpr int SMEM_CAP = 232448;  // what a block may use on Hopper
@@ -75,16 +80,21 @@ constexpr float SLOPE = 0.1f;
 
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
 
-// a staged row's bytes: C channels and 16 more, so the 8 rows of an ldmatrix
-// matrix fall in distinct banks
-__host__ __device__ constexpr int row_bytes(int C, int elem) { return C * elem + 16; }
+// the channels a staged row holds: C, or one K step (32 bytes) where C is
+// narrower (C=8 in bf16, whose k16 fragment spans 16 channels; the 8 past C
+// are staged as zeros and multiply the zero rows pack_taps pads the weights
+// with)
+__host__ __device__ constexpr int staged_channels(int C, int elem) { return C * elem < 32 ? 32 / elem : C; }
+// a staged row's bytes: its channels and 16 more, so the 8 rows of an
+// ldmatrix matrix fall in distinct banks
+__host__ __device__ constexpr int row_bytes(int C, int elem) { return staged_channels(C, elem) * elem + 16; }
 
-// Shared memory of one launch: the weight ring of `ring` tap slabs and one
-// plane of rows, which holds lrelu(x) over R rows and conv1's halo for
-// conv1, then conv1's R rows (and the kmax - 1 rows past them that conv2
-// reads for rows past the tile) for conv2.
+// Shared memory of one launch: the weight ring of `ring` tap slabs (one tap's
+// staged_channels x C) and one plane of rows, which holds lrelu(x) over R rows
+// and conv1's halo for conv1, then conv1's R rows (and the kmax - 1 rows past
+// them that conv2 reads for rows past the tile) for conv2.
 constexpr size_t smem_bytes(int C, int elem, int rows, int kmax, int d, int ring) {
-  return (size_t)ring * C * C * elem + (size_t)(rows + (kmax - 1) * d) * row_bytes(C, elem);
+  return (size_t)ring * staged_channels(C, elem) * C * elem + (size_t)(rows + (kmax - 1) * d) * row_bytes(C, elem);
 }
 
 // wait until at most n (0 <= n <= MAX_RING - 2) of this thread's cp.async groups are in flight
@@ -140,9 +150,10 @@ __device__ __forceinline__ void lrelu16(__nv_bfloat16* p) {
 template <typename T, int C, int WM, bool LAST>
 __global__ void __launch_bounds__(MAX_WARPS * 32) resblock_bank_kernel(const __grid_constant__ Launch p) {
   using Frag = typename Step<T>::Frag;
-  constexpr int NT = C / 8, KC = C / Step<T>::K, ELEM = sizeof(T), PB = row_bytes(C, ELEM);
+  constexpr int ELEM = sizeof(T), CS = staged_channels(C, ELEM);
+  constexpr int NT = C / 8, KC = CS / Step<T>::K, PB = row_bytes(C, ELEM);
   constexpr int SLAB = KC * NT * 32;  // fragments of one tap
-  constexpr int CHUNKS = C * ELEM / 16;  // 16-byte chunks of a row
+  constexpr int CHUNKS = CS * ELEM / 16, XCHUNKS = C * ELEM / 16;  // 16-byte chunks of a staged row, of x's row
   extern __shared__ __align__(16) unsigned char smem[];
   const int nthreads = blockDim.x, rows = 16 * WM * (nthreads >> 5);
   Frag* ring = reinterpret_cast<Frag*>(smem);
@@ -214,7 +225,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) resblock_bank_kernel(const __g
     const int j = LAST ? jj : jb, k = p.k[j], P2 = (k - 1) / 2, d = p.d;
     const T* xb = static_cast<const T*>(p.x[j]) + (size_t)b * p.L * C;
 
-    // Stage lrelu(x) at positions l0 - P2 - P1 + r for the rows r conv1 reads, zeros outside [0, L):
+    // Stage lrelu(x) at positions l0 - P2 - P1 + r for the rows r conv1 reads, zeros outside [0, L) and
+    // past x's channels:
     // each thread copies its chunks, waits for them and applies the leaky ReLU to them; the first
     // tap's barrier shows them to the block. In the last launch every warp must be through the bank
     // before's conv2 on the plane first.
@@ -223,7 +235,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) resblock_bank_kernel(const __g
       const int g0 = l0 - P2 - d * P2, n_in = (rows + (k - 1) * d) * CHUNKS;
       for (int i = threadIdx.x; i < n_in; i += nthreads) {
         const int r = i / CHUNKS, c = i - r * CHUNKS, gp = g0 + r;
-        const bool inside = gp >= 0 && gp < p.L;
+        const bool inside = c < XCHUNKS && gp >= 0 && gp < p.L;
         cp_async16(plane + r * PB + c * 16, inside ? xb + (size_t)gp * C + c * (16 / ELEM) : xb, inside ? 16 : 0);
       }
       cp_async_commit();
@@ -361,6 +373,8 @@ template <typename T>
 cudaError_t launch_c(int C, int wm, bool last, const Launch& p, int warps, int blocks, size_t smem,
                      cudaStream_t s) {
   switch (C * 10 + wm) {
+    case 81: return launch_last<T, 8, 1>(last, p, warps, blocks, smem, s);
+    case 82: return launch_last<T, 8, 2>(last, p, warps, blocks, smem, s);
     case 161: return launch_last<T, 16, 1>(last, p, warps, blocks, smem, s);
     case 162: return launch_last<T, 16, 2>(last, p, warps, blocks, smem, s);
     case 321: return launch_last<T, 32, 1>(last, p, warps, blocks, smem, s);
@@ -375,6 +389,10 @@ cudaError_t launch_c(int C, int wm, bool last, const Launch& p, int warps, int b
 template <typename T>
 const void* kernel_of(int C, int wm, bool last) {
   switch (C * 100 + wm * 10 + (last ? 1 : 0)) {
+    case 810: return (const void*)resblock_bank_kernel<T, 8, 1, false>;
+    case 811: return (const void*)resblock_bank_kernel<T, 8, 1, true>;
+    case 820: return (const void*)resblock_bank_kernel<T, 8, 2, false>;
+    case 821: return (const void*)resblock_bank_kernel<T, 8, 2, true>;
     case 1610: return (const void*)resblock_bank_kernel<T, 16, 1, false>;
     case 1611: return (const void*)resblock_bank_kernel<T, 16, 1, true>;
     case 1620: return (const void*)resblock_bank_kernel<T, 16, 2, false>;
@@ -393,9 +411,9 @@ const void* kernel_of(int C, int wm, bool last) {
 
 bool valid(int C, int dtype, int warps, int wm, int ring, int kmax, int dmax) {
   const int rows = 16 * wm * warps, elem = dtype == 0 ? 4 : 2;
-  return (C == 16 || C == 32 || C == 64) && (dtype == 0 || dtype == 1) && (wm == 1 || wm == 2) && warps >= 1 &&
-         warps <= MAX_WARPS && ring >= 2 && ring <= MAX_RING && rows > kmax - 1 &&
-         smem_bytes(C, elem, rows, kmax, dmax, ring) <= (size_t)SMEM_CAP;
+  return (C == 8 || C == 16 || C == 32 || C == 64) && (dtype == 0 || dtype == 1) && (wm == 1 || wm == 2) &&
+         warps >= 1 && warps <= MAX_WARPS && ring >= 2 && ring <= MAX_RING && kmax >= 1 && kmax % 2 == 1 &&
+         rows > kmax - 1 && dmax >= 1 && smem_bytes(C, elem, rows, kmax, dmax, ring) <= (size_t)SMEM_CAP;
 }
 
 }  // namespace
@@ -405,8 +423,9 @@ bool valid(int C, int dtype, int warps, int wm, int ring, int kmax, int dmax) {
 // nbanks B L C float32, or null. params: 4 pointers per bank and step,
 // bank-major, (W1, b1, W2, b2): the weights packed by ops/_mma.py:pack_taps
 // into mma fragments (float32 for dtype 0, bf16 for dtype 1), the biases
-// float32. ks: nbanks (at most 4) kernel sizes in {3, 7, 11}; dils: S
-// dilations in 1..5. The tiling: warps a block and wm m16 tiles a warp, so
+// float32. ks: nbanks (at most 4) odd kernel sizes; dils: S dilations of at
+// least 1, the largest one's plane within shared memory. C in {8, 16, 32,
+// 64}. The tiling: warps a block and wm m16 tiles a warp, so
 // 16 wm warps conv rows and 16 wm warps - (max k - 1) positions a block; a
 // ring of `ring` tap slabs of weights. Launches S kernels on `stream`, each a
 // programmatic dependent of the kernel before it; where sums is not null,
@@ -421,11 +440,11 @@ extern "C" int rvc_resblock_bank(const void* x, void* out, void* tmp, float* sum
   if (nbanks < 1 || nbanks > MAX_BANKS || S < 1 || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   int kmax = 1, dmax = 1;
   for (int j = 0; j < nbanks; ++j) {
-    if (ks[j] != 3 && ks[j] != 7 && ks[j] != 11) return (int)cudaErrorInvalidValue;
+    if (ks[j] < 1 || ks[j] % 2 == 0) return (int)cudaErrorInvalidValue;
     kmax = ks[j] > kmax ? ks[j] : kmax;
   }
   for (int i = 0; i < S; ++i) {
-    if (dils[i] < 1 || dils[i] > MAX_DIL) return (int)cudaErrorInvalidValue;
+    if (dils[i] < 1) return (int)cudaErrorInvalidValue;
     dmax = dils[i] > dmax ? dils[i] : dmax;
   }
   if (!valid(C, dtype, warps, wm, ring, kmax, dmax)) return (int)cudaErrorInvalidValue;
@@ -487,8 +506,7 @@ extern "C" int rvc_resblock_bank(const void* x, void* out, void* tmp, float* sum
 // a thread, blocks an SM holds at that shared memory). Returns a CUDA error
 // code.
 extern "C" int rvc_resblock_launch_info(int C, int dtype, int warps, int wm, int ring, int kmax, int d, int* out) {
-  if (d < 1 || d > MAX_DIL || (kmax != 3 && kmax != 7 && kmax != 11) || !valid(C, dtype, warps, wm, ring, kmax, d))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(C, dtype, warps, wm, ring, kmax, d)) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(C, dtype == 0 ? 4 : 2, 16 * wm * warps, kmax, d, ring);
   out[0] = warps * 32;
   out[1] = (int)smem;

@@ -13,6 +13,13 @@
 // 1x1 shortcut where the block has one; conv2 with the residual add), each
 // conv's output going through L2.
 //
+// Widths: built for C in {8, 16, 32} and any Cin from 1 to 64 (the decoder's
+// 2C concat included); the wrapper runs any other C up to 32 on the next of
+// them, its weights zero-padded (ops/unet_block.py). A conv stages its whole
+// weight in shared memory, so C=64 (the levels past pallas_unet_max_ch = 32,
+// Cin up to 128) is not built: 9 x 128 x 64 float32 weights are 295 KB, past
+// a block's 227 KB, without a ring of taps.
+//
 // What bounds it: the four C<=32 levels of the main path (enc0 1->16 and
 // dec4 32->16 at 64x128, enc1 16->32 and dec3 64->32 at 32x64) do 1.25 GFLOP
 // a stream against ~4 MB of activations and weights: bound by arithmetic.
@@ -293,6 +300,8 @@ cudaError_t chain(const T* x, T* out, T* scratch, const void* const* params, int
 template <typename T>
 const void* kernel_of(int C, int wm) {
   switch (C * 10 + wm) {
+    case 81: return (const void*)conv3x3_kernel<T, 8, 1>;
+    case 82: return (const void*)conv3x3_kernel<T, 8, 2>;
     case 161: return (const void*)conv3x3_kernel<T, 16, 1>;
     case 162: return (const void*)conv3x3_kernel<T, 16, 2>;
     case 321: return (const void*)conv3x3_kernel<T, 32, 1>;
@@ -308,6 +317,8 @@ cudaError_t chain_c(int C, const void* x, void* out, void* scratch, const void* 
   T* ot = static_cast<T*>(out);
   T* st = static_cast<T*>(scratch);
   switch (C * 10 + tl.wm) {
+    case 81: return chain<T, 8, 1>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
+    case 82: return chain<T, 8, 2>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
     case 161: return chain<T, 16, 1>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
     case 162: return chain<T, 16, 2>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
     case 321: return chain<T, 32, 1>(xt, ot, st, params, n_blocks, B, H, W, cin, tl, s);
@@ -332,7 +343,7 @@ size_t level_smem(int dtype, int C, int cin, const Tiling& tl) {
 }  // namespace
 
 // A whole level: x [B, H, W, cin] -> out [B, H, W, C] in the activation type
-// (dtype 0 float32, 1 bfloat16); scratch: 3 B H W C elements of it. params:
+// (dtype 0 float32, 1 bfloat16), C in {8, 16, 32}, cin in 1..64; scratch: 3 B H W C elements of it. params:
 // 6 pointers per block, (W1, b1, W2, b2, Wsc, bsc), the weights packed by
 // ops/unet_block.py:pack_chain into mma fragments (float32 for dtype 0, bf16
 // for dtype 1), the biases float32, Wsc and bsc null for an identity

@@ -7,11 +7,15 @@ levels, decoder levels with a transposed conv and skip concat) → 3-channel
 keeps) → Linear → sigmoid. Module names follow the published ``E2E`` so its
 state dict loads as is.
 
-The levels with at most ``CHAIN_MAX_CH`` channels (the C=16 and C=32 levels
-at the largest feature maps) run their ConvBlockRes chain through
+With ``RMVPEConfig.pallas_unet`` (on by default here, off in the JAX
+package, see the field), the levels with at most ``pallas_unet_max_ch``
+channels (the C=16 and C=32 levels at the largest feature maps) run their
+ConvBlockRes chain through
 :func:`~obs_rvc_tpu_torch.ops.unet_block.conv_block_res_chain` with the
 BatchNorms folded, as the JAX package sends them to its Pallas kernel; the
-wider levels are plain ``conv2d`` layers.
+wider levels, and every level with the switch off, run the ``ConvBlockRes``
+modules' own ``conv2d`` layers (cuDNN on a card), as the JAX package runs
+its flax blocks through XLA.
 
 The network computes in its weights' dtype, as the JAX module does in its
 ``dtype``: the float32 mel enters the first BatchNorm, which normalises it
@@ -37,9 +41,6 @@ from obs_rvc_tpu_torch.ops.unet_block import PackedChain, conv_block_res_chain, 
 
 N_MELS = 128
 N_CLASS = 360
-#: levels with at most this many channels run through the chain kernel, as
-#: the JAX package's ``pallas_unet_max_ch`` sends them to its Pallas kernel
-CHAIN_MAX_CH = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +51,16 @@ class RMVPEConfig:
     en_out_channels: int = 16
     gru_hidden: int = 256
     n_gru: int = 1
+    #: the JAX package's switch: the levels of at most ``pallas_unet_max_ch`` channels through the chain kernel
+    #: (its plain version on the CPU), else through the blocks' own convolutions. On by default, where the JAX
+    #: default is off: there the CPU path would be Pallas interpret mode (``models/synthesizer.py``'s
+    #: ``pallas_resblocks`` says why float32 was kept off the TPU's kernels)
+    pallas_unet: bool = True
+    pallas_unet_max_ch: int = 32
+
+    def fused(self, ch: int) -> bool:
+        """Whether a level of ``ch`` output channels runs through the chain kernel."""
+        return self.pallas_unet and ch <= self.pallas_unet_max_ch
 
 
 class ConvBlockRes(nn.Module):
@@ -182,8 +193,7 @@ class RMVPE(nn.Module):
         encoder.layers = nn.ModuleList()
         in_ch, out_ch = 1, cfg.en_out_channels
         for _ in range(cfg.en_de_layers):
-            encoder.layers.append(ResEncoderBlock(in_ch, out_ch, True, cfg.n_blocks,
-                                                  out_ch <= CHAIN_MAX_CH))
+            encoder.layers.append(ResEncoderBlock(in_ch, out_ch, True, cfg.n_blocks, cfg.fused(out_ch)))
             in_ch, out_ch = out_ch, out_ch * 2
         unet.encoder = encoder
         inter = nn.Module()
@@ -197,8 +207,7 @@ class RMVPE(nn.Module):
         decoder.layers = nn.ModuleList()
         ch = out_ch
         for _ in range(cfg.en_de_layers):
-            decoder.layers.append(ResDecoderBlock(ch, ch // 2, cfg.n_blocks,
-                                                  ch // 2 <= CHAIN_MAX_CH))
+            decoder.layers.append(ResDecoderBlock(ch, ch // 2, cfg.n_blocks, cfg.fused(ch // 2)))
             ch //= 2
         unet.decoder = decoder
         self.unet = unet

@@ -13,12 +13,16 @@
    per-level source injection and ResBlock1 banks; final leaky-ReLU at
    PyTorch's default slope 0.01.
 
-Module names follow upstream RVC so its state dicts load as is. The levels
-with C <= 64 channels and shared dilations run their resblock bank through
+Module names follow upstream RVC so its state dicts load as is. With
+``SynthesizerConfig.pallas_resblocks`` (the JAX package's switch; on by
+default here, see the field), the levels with C <= 64 channels and shared
+dilations run their resblock bank through
 :func:`~obs_rvc_tpu_torch.ops.resblock.resblock_bank`, as the JAX package
 sends C<=64 levels to its Pallas kernels, with their weights stacked (and,
-on a card, packed for the kernel) once per weight version; the other levels
-are plain ``conv1d`` layers.
+on a card, packed for the kernel) once per weight version; the other levels,
+and every level with the switch off, run the ``ResBlock1`` modules' own
+``conv1d`` layers (cuDNN on a card), as the JAX package runs its flax
+``ResBlock1`` through XLA.
 
 The network computes in its weights' dtype, where the JAX module computes
 in its ``dtype``, casting where it casts: the features at the phone
@@ -42,8 +46,8 @@ from obs_rvc_tpu_torch.dsp.scan import cumsum_rows
 from obs_rvc_tpu_torch.models.layers import LRELU_SLOPE, VitsLayerNorm
 from obs_rvc_tpu_torch.ops.resblock import PackedBank, pack_bank, resblock_bank
 
-#: the levels up to this width with shared dilations run their bank through
-#: the bank kernel, as the JAX package sends them to its Pallas kernels
+#: with ``pallas_resblocks``, the levels up to this width with shared dilations run their bank through the bank
+#: kernel, as the JAX package sends them to its Pallas kernels
 BANK_MAX_CH = 64
 
 
@@ -69,6 +73,10 @@ class SynthesizerConfig:
     flow_flows: int = 4
     flow_kernel: int = 5
     temperature: float = 0.66666
+    #: the JAX package's switch: the C <= 64 levels' banks through the bank kernel (its plain version on the
+    #: CPU), else through the ResBlock1 modules' own convolutions. On by default, where the JAX default is off:
+    #: there the CPU path would be Pallas interpret mode, and Mosaic's VMEM budget kept float32 off its kernels
+    pallas_resblocks: bool = True
 
     @property
     def upp(self) -> int:
@@ -392,7 +400,7 @@ class GeneratorNSF(nn.Module):
         return {**self.__dict__, "_bank_cache": [None] * len(self._bank_cache)}
 
     def uses_bank_kernel(self, ch: int) -> bool:
-        return self.shared_dilations and ch <= BANK_MAX_CH
+        return self.cfg.pallas_resblocks and self.shared_dilations and ch <= BANK_MAX_CH
 
     def _bank_level(self, i: int) -> tuple:
         banks = self.resblocks[i * self.num_kernels : (i + 1) * self.num_kernels]

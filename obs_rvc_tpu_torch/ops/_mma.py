@@ -2,12 +2,20 @@
 conv weight in the order of the ``mma.sync`` B fragments, ``m16n8k8``
 float32 (split into TF32 hi and lo in the kernel) or ``m16n8k16`` bfloat16,
 which ``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank``
-make once per weight version. Also the products of the chain's and the
-bank's plain versions, which round where the kernels round
+make once per weight version; the channel counts the two kernels are built
+for, and the zero padding that runs any narrower count on the next one up
+(:func:`built_width`, :func:`pad_to`). Also the products of the chain's and
+the bank's plain versions, which round where the kernels round
 (:func:`conv_rounded`).
+
+Zero-padded channels are exact: a padded channel's weights, bias and input
+are 0, so it stays 0 through every ReLU, leaky ReLU, conv and residual, and
+adds 0 to every real channel's sums.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +24,22 @@ import torch.nn.functional as F
 def k_step(dtype: torch.dtype) -> int:
     """Channels one mma K step takes: 16 bf16 (m16n8k16), 8 TF32 (m16n8k8)."""
     return 8 if dtype == torch.float32 else 16
+
+
+def built_width(C: int, widths: tuple) -> Optional[int]:
+    """The least of a kernel's built channel counts ``widths`` (ascending)
+    that holds ``C`` channels, or None past the widest."""
+    return next((w for w in widths if C <= w), None)
+
+
+def pad_to(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``t`` zero-padded at the end of each axis to ``shape`` (``t`` itself
+    where it has that shape)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

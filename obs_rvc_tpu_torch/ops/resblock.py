@@ -18,6 +18,13 @@ mma fragments' order), which ``models/synthesizer.py:GeneratorNSF`` makes
 once per weight version, and a tile that :func:`bank_tiling` chooses from
 the batch and the level's size (plain arithmetic, so the CPU tests check
 it).
+
+Widths: the kernel is built for C in :data:`CUDA_CHANNELS`; any other C up to
+64 runs on the next of them, :func:`pack_bank` zero-padding the weights and
+the wrapper the input (exact: a padded channel stays 0, ``ops/_mma.py``).
+Any odd k and any dilation whose halo fits shared memory at every tile the
+wrapper picks (:func:`halo_fits`), up to :data:`CUDA_MAX_BANKS` banks. What
+lies outside raises ``NotImplementedError`` naming its limit.
 """
 
 from __future__ import annotations
@@ -29,13 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import conv_rounded, pack_taps
+from obs_rvc_tpu_torch.ops._mma import built_width, conv_rounded, k_step, pack_taps, pad_to
 
 LRELU_SLOPE = 0.1
-#: channel counts the CUDA kernel is built for
-CUDA_CHANNELS = (16, 32, 64)
-CUDA_KERNEL_SIZES = (3, 7, 11)
-CUDA_MAX_DILATION = 5
+#: channel counts the CUDA kernel is built for (its template instances); a narrower C runs on the next one up
+CUDA_CHANNELS = (8, 16, 32, 64)
+#: banks a launch takes at most (csrc/resblock.cu:MAX_BANKS: its per-bank pointers are one kernel parameter)
 CUDA_MAX_BANKS = 4
 
 #: wrapper calls that launched the CUDA kernel
@@ -92,6 +98,8 @@ class PackedBank(NamedTuple):
     dtype: torch.dtype
     device: torch.device
     C: int
+    #: the kernel's channel count: C, or the next built one up (the weights zero-padded to it)
+    width: int
     kernel_sizes: tuple
     dilations: tuple
     #: per bank and step ``(W1, b1, W2, b2)``, weights as mma fragments, biases float32
@@ -102,27 +110,56 @@ class PackedBank(NamedTuple):
     dils: ctypes.Array
 
 
+def kernel_width(C: int) -> int:
+    """The kernel's channel count for a level of ``C``: the least of
+    :data:`CUDA_CHANNELS` that holds it. Past C=64 none: a warp keeps its
+    rows' sums for every n8 tile of C in registers (in the last launch every
+    bank's sum beside them), which C=128 would take past a thread's 255."""
+    width = built_width(C, CUDA_CHANNELS)
+    if width is None:
+        raise NotImplementedError(f"resblock_bank: the CUDA kernel takes C up to {CUDA_CHANNELS[-1]}, got {C} "
+                                  "(registers: a warp holds its sums for every n8 tile of C)")
+    return width
+
+
+def halo_fits(C: int, dtype: torch.dtype, kmax: int, dmax: int) -> bool:
+    """Whether a launch at the largest dilation fits a block's shared memory
+    at every tile of :data:`TILES` (the ring, and the plane with conv1's
+    halo of ``(kmax - 1) dmax`` rows), so the wrapper's tile always fits."""
+    width = kernel_width(C)
+    return all(level_smem(width, dtype, 16 * wm * warps, kmax, dmax, ring) <= SMEM_CAP
+               for warps, wm, ring in TILES)
+
+
 def pack_bank(bank_params, kernel_sizes, dilations, dtype: torch.dtype) -> PackedBank:
     """Check a level's bank params and pack them for the kernel in the
-    activation ``dtype``: each step's ``[k, C, C]`` conv weights as ``k``
-    slabs of one tap's ``C`` in the order of the mma B fragments
+    activation ``dtype``: each step's ``[k, C, C]`` conv weights, zero-padded
+    to the kernel's width (:func:`kernel_width`), as ``k`` slabs of one tap
+    in the order of the mma B fragments
     (:func:`~obs_rvc_tpu_torch.ops._mma.pack_taps`: m16n8k8 float32, m16n8k16
     bfloat16); the biases rounded to ``dtype`` as the plain version rounds
-    them, and kept in float32."""
+    them, and kept in float32. Raises ``NotImplementedError`` on a level no
+    kernel takes: more than :data:`CUDA_MAX_BANKS` banks, C past 64, an even
+    k, a halo past shared memory."""
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
     if len(bank_params) != len(kernel_sizes) or not kernel_sizes or not dilations:
         raise ValueError("resblock_bank: one parameter tuple per kernel size, and at least one dilation")
     S, C = len(dilations), bank_params[0][0].shape[-1]
     if len(kernel_sizes) > CUDA_MAX_BANKS:
-        raise NotImplementedError(f"resblock_bank: the CUDA kernel takes at most {CUDA_MAX_BANKS} banks")
-    if C not in CUDA_CHANNELS:
-        raise NotImplementedError(f"resblock_bank: the CUDA kernel takes C in {CUDA_CHANNELS}, got {C}")
+        raise NotImplementedError(f"resblock_bank: the CUDA kernel takes at most {CUDA_MAX_BANKS} banks "
+                                  "(their pointers are one kernel parameter)")
+    width = kernel_width(C)
     for k in kernel_sizes:
-        if k not in CUDA_KERNEL_SIZES:
-            raise NotImplementedError(f"resblock_bank: kernel size {k} not built")
-    for d in dilations:
-        if not 1 <= d <= CUDA_MAX_DILATION:
-            raise NotImplementedError(f"resblock_bank: dilation {d} outside 1..{CUDA_MAX_DILATION}")
+        if k < 1 or k % 2 == 0:
+            raise NotImplementedError(f"resblock_bank: kernel size {k}: the CUDA kernel takes odd k, whose SAME "
+                                      "padding is symmetric")
+    if min(dilations) < 1:
+        raise ValueError(f"resblock_bank: dilations {dilations} must be at least 1")
+    if not halo_fits(C, dtype, max(kernel_sizes), max(dilations)):
+        raise NotImplementedError(
+            f"resblock_bank: dilation {max(dilations)} at k={max(kernel_sizes)}, C={C}: conv1's halo of "
+            f"{(max(kernel_sizes) - 1) * max(dilations)} rows and the weight ring do not fit a block's "
+            f"{SMEM_CAP} bytes of shared memory")
     device = bank_params[0][0].device
     steps, ptrs = [], []
     for j, ((w1, b1, w2, b2), k) in enumerate(zip(bank_params, kernel_sizes)):
@@ -133,12 +170,17 @@ def pack_bank(bank_params, kernel_sizes, dilations, dtype: torch.dtype) -> Packe
         if any(t.device != device for t in (w1, b1, w2, b2)):
             raise ValueError(f"resblock_bank: bank {j} weights on more than one device")
         for s in range(S):
-            step = (pack_taps(w1[s], dtype), b1[s].to(dtype).float().contiguous(),
-                    pack_taps(w2[s], dtype), b2[s].to(dtype).float().contiguous())
+            step = (pack_taps(pad_to(w1[s], (k, width, width)), dtype), _bias(b1[s], width, dtype),
+                    pack_taps(pad_to(w2[s], (k, width, width)), dtype), _bias(b2[s], width, dtype))
             steps.append(step)
             ptrs += [t.data_ptr() for t in step]
-    return PackedBank(dtype, device, C, kernel_sizes, dilations, steps, (ctypes.c_void_p * len(ptrs))(*ptrs),
-                      (ctypes.c_int * len(kernel_sizes))(*kernel_sizes), (ctypes.c_int * S)(*dilations))
+    return PackedBank(dtype, device, C, width, kernel_sizes, dilations, steps,
+                      (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(kernel_sizes))(*kernel_sizes),
+                      (ctypes.c_int * S)(*dilations))
+
+
+def _bias(b, width, dtype):
+    return pad_to(b.to(dtype).float(), (width,)).contiguous()
 
 
 class BankTiling(NamedTuple):
@@ -164,22 +206,25 @@ class BankTiling(NamedTuple):
 
 def level_smem(C: int, dtype: torch.dtype, rows: int, kmax: int, d: int, ring: int) -> int:
     """Shared memory of a launch at dilation ``d`` (``csrc/resblock.cu:
-    smem_bytes``): the ring of ``ring`` tap slabs of ``C x C`` weights, and
-    one plane of rows of ``C`` channels and 16 bytes of padding, lrelu(x)
-    over the block's rows and conv1's halo, ``rows + (kmax - 1) d``, which
-    then holds conv1's output."""
+    smem_bytes``) of the kernel's width ``C``: the ring of ``ring`` tap
+    slabs of ``Cs x C`` weights, and one plane of rows of ``Cs`` channels
+    and 16 bytes of padding, lrelu(x) over the block's rows and conv1's
+    halo, ``rows + (kmax - 1) d``, which then holds conv1's output. ``Cs``
+    is C, or one mma K step where C is narrower (C=8 in bfloat16: 16)."""
     elem = 4 if dtype == torch.float32 else 2
-    return ring * C * C * elem + (rows + (kmax - 1) * d) * (C * elem + 16)
+    cs = max(C, k_step(dtype))
+    return ring * cs * C * elem + (rows + (kmax - 1) * d) * (cs * elem + 16)
 
 
 def bank_tiling(B: int, L: int, C: int, dtype: torch.dtype, n_sms: int = N_SMS, kernel_sizes=(3, 7, 11),
                 dilations=(1, 3, 5), tile: Optional[tuple] = None) -> BankTiling:
-    """The launch shape of a level ``[B, L, C]``: the tile of :data:`TILES`
-    for its positions an SM, or ``tile``, a ``(warps, wm)``, optionally with
-    the ring's depth (default :data:`RING`) and ``split`` after them; the
-    last step splits where a block a tile would leave fewer than
-    :data:`SPLIT_BLOCKS_PER_SM` blocks an SM."""
-    if C not in CUDA_CHANNELS:
+    """The launch shape of a level ``[B, L, C]`` (on the kernel's width for
+    C): the tile of :data:`TILES` for its positions an SM, or ``tile``, a
+    ``(warps, wm)``, optionally with the ring's depth (default :data:`RING`)
+    and ``split`` after them; the last step splits where a block a tile
+    would leave fewer than :data:`SPLIT_BLOCKS_PER_SM` blocks an SM."""
+    width = built_width(C, CUDA_CHANNELS)
+    if width is None:
         raise ValueError(f"bank_tiling: no kernel for C={C}")
     if B < 1 or L < 1:
         raise ValueError(f"bank_tiling: empty level [{B}, {L}, {C}]")
@@ -191,7 +236,7 @@ def bank_tiling(B: int, L: int, C: int, dtype: torch.dtype, n_sms: int = N_SMS, 
     ring = rest[0] if rest else RING
     if wm not in CUDA_WM or not 1 <= warps <= CUDA_MAX_WARPS or rows <= kmax - 1 or not 2 <= ring <= MAX_RING:
         raise ValueError(f"bank_tiling: no kernel for tile {tuple(tile)}")
-    smem = level_smem(C, dtype, rows, kmax, dmax, ring)
+    smem = level_smem(width, dtype, rows, kmax, dmax, ring)
     if smem > SMEM_CAP:
         raise ValueError(f"bank_tiling: tile {tuple(tile)} takes {smem} bytes of shared memory")
     tl = rows - (kmax - 1)
@@ -233,11 +278,12 @@ def launch_info(C: int, dtype: torch.dtype, tiling: BankTiling, kernel_sizes=(3,
     """The level's launches on the card at its largest dilation: threads,
     shared memory, and for the launches before the last and the last (a
     block a tile, every bank), registers a thread and the blocks an SM holds
-    (CUDA's occupancy query)."""
+    (CUDA's occupancy query), on the kernel's width for ``C``."""
     fn = _cuda.function("resblock", "rvc_resblock_launch_info", [ctypes.c_int] * 7 + [ctypes.c_void_p])
     out = (ctypes.c_int * 6)()
-    _cuda.check(fn(C, 0 if dtype == torch.float32 else 1, tiling.warps, tiling.wm, tiling.ring, max(kernel_sizes),
-                   max(dilations), ctypes.cast(out, ctypes.c_void_p)), f"resblock launch info (C={C}, {tiling})")
+    _cuda.check(fn(kernel_width(C), 0 if dtype == torch.float32 else 1, tiling.warps, tiling.wm, tiling.ring,
+                   max(kernel_sizes), max(dilations), ctypes.cast(out, ctypes.c_void_p)),
+                f"resblock launch info (C={C}, {tiling})")
     return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm", "registers_last", "blocks_per_sm_last"),
                     out))
 
@@ -253,8 +299,7 @@ def _resblock_bank_cuda(x, packed: PackedBank, kernel_sizes, dilations, tile: Op
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"resblock_bank: unsupported dtype {x.dtype}")
     B, L, C = x.shape
-    if C not in CUDA_CHANNELS:
-        raise NotImplementedError(f"resblock_bank: the CUDA kernel takes C in {CUDA_CHANNELS}, got {C}")
+    width = kernel_width(C)
     if not isinstance(packed, PackedBank):
         raise ValueError("resblock_bank: on a card the bank params must be packed by pack_bank")
     if packed.dtype != x.dtype or packed.C != C:
@@ -271,18 +316,20 @@ def _resblock_bank_cuda(x, packed: PackedBank, kernel_sizes, dilations, tile: Op
     fn = _cuda.function("resblock", "rvc_resblock_bank",
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p])
+    if width != C:  # a C the kernel is not built for: its channels zero-padded to the next width, cut after
+        x = F.pad(x, (0, width - C))
     out = torch.empty_like(x)
     S, nbanks = len(dilations), len(kernel_sizes)
     # each bank's activation between its steps, in two buffers taken in turns; a split last step's outputs
-    tmp = torch.empty((min(S - 1, 2), nbanks, B, L, C), dtype=x.dtype, device=x.device) if S > 1 else None
-    sums = torch.empty((nbanks, B, L, C), dtype=torch.float32, device=x.device) if tl.split else None
+    tmp = torch.empty((min(S - 1, 2), nbanks, B, L, width), dtype=x.dtype, device=x.device) if S > 1 else None
+    sums = torch.empty((nbanks, B, L, width), dtype=torch.float32, device=x.device) if tl.split else None
     # the packed params lie on packed.device, checked above
     with _cuda.on_device_of(x, out, tmp, sums, what="resblock_bank"):
         rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(tmp), _cuda.ptr(sums),
                 ctypes.cast(packed.params, ctypes.c_void_p), nbanks, S, ctypes.cast(packed.ks, ctypes.c_void_p),
-                ctypes.cast(packed.dils, ctypes.c_void_p), B, L, C, 0 if x.dtype == torch.float32 else 1, tl.warps,
-                tl.wm, tl.ring, _cuda.stream_of(x))
-    _cuda.check(rc, f"resblock_bank (C={C}, k={kernel_sizes}, d={dilations}, {tl})")
+                ctypes.cast(packed.dils, ctypes.c_void_p), B, L, width, 0 if x.dtype == torch.float32 else 1,
+                tl.warps, tl.wm, tl.ring, _cuda.stream_of(x))
+    _cuda.check(rc, f"resblock_bank (C={C} on the kernel's {width}, k={kernel_sizes}, d={dilations}, {tl})")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1
-    return out
+    return out if width == C else out[..., :C].contiguous()

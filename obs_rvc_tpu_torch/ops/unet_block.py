@@ -18,6 +18,12 @@ takes only their :func:`pack_chain` (the weights in its mma fragments'
 order), which ``models/rmvpe.py:_Chain`` makes once per weight version, and
 a tile shape that :func:`chain_tiling` chooses from the batch and the
 level's size (plain arithmetic, so the CPU tests check it).
+
+Widths: the kernel is built for C in :data:`CUDA_CHANNELS` and any Cin up to
+:data:`CUDA_MAX_CIN`; any other C up to 32 runs on the next built one,
+:func:`pack_chain` zero-padding the weights (and the wrapper the input of a
+level whose first block keeps its channels), exact as ``ops/_mma.py`` says.
+What lies outside raises ``NotImplementedError`` naming its limit.
 """
 
 from __future__ import annotations
@@ -29,10 +35,13 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import conv_rounded, k_step, pack_taps
+from obs_rvc_tpu_torch.ops._mma import built_width, conv_rounded, k_step, pack_taps, pad_to
 
-#: output channel counts the CUDA kernel is built for
-CUDA_CHANNELS = (16, 32)
+#: output channel counts the CUDA kernel is built for (its template instances); a narrower C runs on the next
+#: one up. Past 32 none: a conv stages its whole weight in shared memory, and the C=64 levels' (Cin up to
+#: 128: 9 x 128 x 64 float32, 295 KB) would not fit a block's 227 KB without a ring of taps
+CUDA_CHANNELS = (8, 16, 32)
+#: input channels the kernel takes at most (its stage of the input tile, the weights beside it)
 CUDA_MAX_CIN = 64
 #: wrapper calls that launched the CUDA kernel
 LAUNCHES = 0
@@ -83,18 +92,41 @@ class PackedChain(NamedTuple):
     device: torch.device
     C: int
     cin: int
+    #: the kernel's output channels: C, or the next built count up (the weights zero-padded to it)
+    width: int
+    #: the first block's input channels as the kernel reads them: cin, or ``width`` where that block keeps
+    #: its channels (no shortcut) and C is padded, the input then padded too
+    cin_kernel: int
     #: per block ``(W1, b1, W2, b2, Wsc | None, bsc | None)``, weights as mma fragments
     blocks: list
     #: the blocks' pointers, six per block, as the C entry point takes them
     params: ctypes.Array
 
 
+def kernel_width(C: int, cin: int) -> int:
+    """The kernel's output channels for a level ``cin → C``: the least of
+    :data:`CUDA_CHANNELS` that holds C. Raises ``NotImplementedError`` past
+    them or past :data:`CUDA_MAX_CIN`."""
+    width = built_width(C, CUDA_CHANNELS)
+    if width is None:
+        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes C up to {CUDA_CHANNELS[-1]}, got "
+                                  f"{C} (shared memory: a conv stages its whole weight)")
+    if not 1 <= cin <= CUDA_MAX_CIN:
+        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes Cin 1..{CUDA_MAX_CIN}, got {cin} "
+                                  "(shared memory: the input tile and the weights)")
+    return width
+
+
 def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
     """Check a level's folded blocks and pack them for the kernel in the
-    activation ``dtype`` (:func:`pack_taps`); the biases are rounded to
-    ``dtype`` as the plain version rounds them, and kept in float32."""
+    activation ``dtype`` (:func:`pack_taps`), zero-padded to the kernel's
+    width (:func:`kernel_width`); the biases are rounded to ``dtype`` as the
+    plain version rounds them, and kept in float32."""
     C = blocks[0][0].shape[-1]
     cin = cin0 = blocks[0][0].shape[2]
+    width = kernel_width(C, cin0)
+    # a first block without a shortcut adds its input: that input is padded to the width too
+    cin_kernel = cin0 if blocks[0][4] is not None else width
     out, ptrs = [], []
     for i, (w1, b1, w2, b2, wsc, bsc) in enumerate(blocks):
         if w1.shape != (3, 3, cin, C) or w2.shape != (3, 3, C, C):
@@ -107,14 +139,16 @@ def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
             raise ValueError(f"conv_block_res_chain: block {i} shortcut bias shape")
         if any(t is not None and t.device != blocks[0][0].device for t in (w1, b1, w2, b2, wsc, bsc)):
             raise ValueError(f"conv_block_res_chain: block {i} weights on more than one device")
-        packed = (pack_taps(w1.reshape(9, cin, C), dtype), _kernel_weight(b1, dtype),
-                  pack_taps(w2.reshape(9, C, C), dtype), _kernel_weight(b2, dtype),
-                  None if wsc is None else pack_taps(wsc.reshape(1, cin, C), dtype),
-                  None if wsc is None else _kernel_weight(bsc, dtype))
+        ci = cin_kernel if i == 0 else width
+        packed = (pack_taps(pad_to(w1.reshape(9, cin, C), (9, ci, width)), dtype), _kernel_weight(b1, dtype, width),
+                  pack_taps(pad_to(w2.reshape(9, C, C), (9, width, width)), dtype), _kernel_weight(b2, dtype, width),
+                  None if wsc is None else pack_taps(pad_to(wsc.reshape(1, cin, C), (1, ci, width)), dtype),
+                  _kernel_weight(bsc, dtype, width))
         out.append(packed)
         ptrs += [0 if t is None else t.data_ptr() for t in packed]
         cin = C
-    return PackedChain(dtype, blocks[0][0].device, C, cin0, out, (ctypes.c_void_p * len(ptrs))(*ptrs))
+    return PackedChain(dtype, blocks[0][0].device, C, cin0, width, cin_kernel, out,
+                       (ctypes.c_void_p * len(ptrs))(*ptrs))
 
 
 class ChainTiling(NamedTuple):
@@ -149,15 +183,19 @@ def level_smem(cin: int, C: int, dtype: torch.dtype, th: int, tw: int) -> int:
 
 def chain_tiling(B: int, H: int, W: int, cin: int, C: int, dtype: torch.dtype, n_sms: int = N_SMS,
                  tile: Optional[tuple] = None) -> ChainTiling:
-    """The launch shape of a level ``[B, H, W, Cin] → C``: the tile of
-    :data:`TILES` for its pixels an SM, or ``tile``, a ``(th, tw, wm)``."""
+    """The launch shape of a level ``[B, H, W, Cin] → C`` (on the kernel's
+    width for C): the tile of :data:`TILES` for its pixels an SM, or
+    ``tile``, a ``(th, tw, wm)``."""
+    width = built_width(C, CUDA_CHANNELS)
+    if width is None:
+        raise ValueError(f"chain_tiling: no kernel for C={C}")
     if tile is None:
         tile = TILES[sum(B * H * W >= step * n_sms for step in TILE_STEPS)]
     th, tw, wm = tile
     warps = th * tw // (16 * wm)
     if tw % 16 or wm not in CUDA_WM or warps * 16 * wm != th * tw or not 1 <= warps <= CUDA_MAX_WARPS:
         raise ValueError(f"chain_tiling: no kernel for tile {tuple(tile)}")
-    smem = level_smem(cin, C, dtype, th, tw)
+    smem = level_smem(cin, width, dtype, th, tw)
     if smem > SMEM_CAP:
         raise ValueError(f"chain_tiling: tile {tuple(tile)} takes {smem} bytes of shared memory")
     return ChainTiling(th, tw, wm, warps, B * -(-H // th) * -(-W // tw), smem)
@@ -178,10 +216,10 @@ def chain_tiles(tiling: ChainTiling, B: int, H: int, W: int):
 def launch_info(cin: int, C: int, dtype: torch.dtype, tiling: ChainTiling) -> dict:
     """The level's launch on the card: threads, the largest launch's shared
     memory, registers a thread and the blocks an SM holds at it (CUDA's
-    occupancy query)."""
+    occupancy query), on the kernel's width for ``C``."""
     fn = _cuda.function("unet_block", "rvc_chain_launch_info", [ctypes.c_int] * 6 + [ctypes.c_void_p])
     out = (ctypes.c_int * 4)()
-    _cuda.check(fn(C, 0 if dtype == torch.float32 else 1, cin, tiling.th, tiling.tw, tiling.wm,
+    _cuda.check(fn(kernel_width(C, cin), 0 if dtype == torch.float32 else 1, cin, tiling.th, tiling.tw, tiling.wm,
                    ctypes.cast(out, ctypes.c_void_p)), f"chain launch info ({cin}->{C}, {tiling})")
     return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm"), out))
 
@@ -200,8 +238,8 @@ def conv_block_res_chain(x, blocks: Union[list, PackedChain], tile: Optional[tup
     return _chain_cuda(x, blocks, tile)
 
 
-def _kernel_weight(w, dt):
-    return None if w is None else w.to(dt).float().contiguous()
+def _kernel_weight(w, dt, width):
+    return None if w is None else pad_to(w.to(dt).float(), (width,)).contiguous()
 
 
 def _sms(device: torch.device) -> int:
@@ -218,25 +256,25 @@ def _chain_cuda(x, packed: PackedChain, tile: Optional[tuple] = None) -> torch.T
         raise ValueError("conv_block_res_chain: on a card the blocks must be packed by pack_chain")
     B, H, W, cin = x.shape
     C = packed.C
-    if C not in CUDA_CHANNELS:
-        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes C in {CUDA_CHANNELS}, got {C}")
-    if cin > CUDA_MAX_CIN:
-        raise NotImplementedError(f"conv_block_res_chain: Cin {cin} > {CUDA_MAX_CIN}")
+    width = kernel_width(C, cin)
     if packed.dtype != x.dtype or packed.cin != cin:
         raise ValueError("conv_block_res_chain: the packed weights do not match x's dtype or channels")
     if packed.device != x.device:
         raise ValueError("conv_block_res_chain: weights must be on the activation's device")
-    tl = chain_tiling(B, H, W, cin, C, x.dtype, _sms(x.device), tile)
+    cink = packed.cin_kernel
+    tl = chain_tiling(B, H, W, cink, width, x.dtype, _sms(x.device), tile)
     fn = _cuda.function("unet_block", "rvc_conv_block_res_chain",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
-    scratch = torch.empty((3, B, H, W, C), dtype=x.dtype, device=x.device)
+    if cink != cin:  # the first block adds its input to C channels padded to the width: the input padded too
+        x = F.pad(x, (0, cink - cin))
+    out = torch.empty((B, H, W, width), dtype=x.dtype, device=x.device)
+    scratch = torch.empty((3, B, H, W, width), dtype=x.dtype, device=x.device)
     # the packed weights lie on packed.device, checked above
     with _cuda.on_device_of(x, out, scratch, what="conv_block_res_chain"):
         rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
-                len(packed.blocks), B, H, W, cin, C, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
+                len(packed.blocks), B, H, W, cink, width, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
                 _cuda.stream_of(x))
-    _cuda.check(rc, f"conv_block_res_chain ({cin}->{C}, {len(packed.blocks)} blocks)")
+    _cuda.check(rc, f"conv_block_res_chain ({cin}->{C} on the kernel's {cink}->{width}, {len(packed.blocks)} blocks)")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1
-    return out
+    return out if width == C else out[..., :C].contiguous()

@@ -12,7 +12,7 @@ Typical launch, one process per host::
 
     from obs_rvc_tpu_torch.parallel import distributed
     distributed.initialize()                   # torchrun's MASTER_ADDR/PORT, RANK, WORLD_SIZE
-    mesh = distributed.global_mesh(n_model=1)  # every card of every process along data
+    mesh = distributed.global_mesh(n_model=1)  # each process's card (NCCL: one a rank) along data
     slots = distributed.local_stream_slots(mesh)
 """
 
@@ -53,11 +53,21 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num, rank=rank)
 
 
+def rank_devices() -> list[torch.device]:
+    """This process's devices, as ``global_mesh`` takes them by default:
+    under an NCCL group, the one card the rank drives (the current one,
+    which ``initialize`` set), so each card belongs to one process as each
+    JAX device does; otherwise every visible card."""
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return visible_devices()
+
+
 def global_mesh(n_model: int = 1, local_devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh over every process's devices (``local_devices``, default every
-    visible card), in rank order along ``data``; ``model`` stays inside a
-    process, so each process must hold a whole number of rows."""
-    local = [torch.device(d) for d in (local_devices if local_devices is not None else visible_devices())]
+    """A mesh over every process's devices (``local_devices``, default
+    :func:`rank_devices`), in rank order along ``data``; ``model`` stays
+    inside a process, so each process must hold a whole number of rows."""
+    local = [torch.device(d) for d in (local_devices if local_devices is not None else rank_devices())]
     if len(local) % n_model:
         raise ValueError(f"{len(local)} local devices do not hold whole rows of n_model={n_model}")
     if dist.is_initialized():

@@ -75,15 +75,9 @@ def add_model_flags(p: argparse.ArgumentParser, loudness_default: float, dtype_d
     p.add_argument("--dtype", default=dtype_default, choices=["float32", "bfloat16"],
                    help=f"the networks' compute dtype (default {dtype_default})")
     p.add_argument("--no-pallas-resblocks", action="store_true",
-                   help="refused: on the card it would put the plain versions on the main path")
+                   help="run the U-Net chain and resblock bank levels on the networks' own convolutions "
+                        "(cuDNN on a card) instead of the hand kernels, as the JAX flag does")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
-
-
-def check_ported(args) -> None:
-    """Exit on a flag the port refuses."""
-    if getattr(args, "no_pallas_resblocks", False):
-        raise SystemExit("--no-pallas-resblocks is refused: on the card it would run the kernels' "
-                         "plain versions on the main path")
 
 
 def mesh_from_args(args, default_data=None):
@@ -133,7 +127,6 @@ def pipeline_from_args(args, sample_rate: int):
     from obs_rvc_tpu_torch.retrieval import RetrievalIndex
     from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls
 
-    check_ported(args)
     settings = settings_from_args(args)
     pipe = RvcPipeline(
         settings.chunk_config(sample_rate),
@@ -146,6 +139,7 @@ def pipeline_from_args(args, sample_rate: int):
         pitch_algorithm=str(settings.pitch_algorithm),
         retrieval_index=RetrievalIndex(mode=args.index_mode, probes=args.index_probes or None,
                                        lcap=args.index_lcap or None) if args.index else None,
+        pallas_resblocks=False if args.no_pallas_resblocks else None,
     )
     if not pipe.cfg.skip_inference:
         load_pipeline_params(pipe, contentvec_path=args.contentvec, rmvpe_path=args.rmvpe,
@@ -160,7 +154,6 @@ def pipeline_from_args(args, sample_rate: int):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     # default_data=1: conversion is one stream, so "--mesh model=2" means tensor parallelism alone
     mesh = mesh_from_args(args, default_data=1)
     if mesh is not None and mesh.shape["data"] != 1:

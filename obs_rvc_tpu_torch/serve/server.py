@@ -62,7 +62,7 @@ import sys
 import threading
 from typing import Callable, Optional
 
-from obs_rvc_tpu_torch.serve.cli import add_model_flags, check_ported, mesh_from_args, pipeline_from_args
+from obs_rvc_tpu_torch.serve.cli import add_model_flags, mesh_from_args, pipeline_from_args
 
 logger = logging.getLogger(__name__)
 
@@ -114,7 +114,6 @@ def main(argv=None, *, ready: Optional[Callable[[dict], None]] = None,
     receives ``{"duplex"|"ws"|"rpc"|"health": bound port}`` once every
     front door that is on listens."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     mesh = mesh_from_args(args)
     if mesh is not None:
         print(f"serving on mesh {mesh.shape}", file=sys.stderr)

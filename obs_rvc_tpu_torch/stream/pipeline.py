@@ -74,6 +74,15 @@ resampling, envelope mixing and SOLA stay float32, as in the JAX step.
 graphs' weights check, ``init_params`` and ``cast_params_for_serving``
 follow it.
 
+``pallas_resblocks`` is the JAX pipeline's switch for the chain and bank
+kernels: ``None`` (the default) keeps them on every device and in both
+dtypes (their plain versions on the CPU); ``False`` sets
+``RMVPEConfig.pallas_unet`` and ``SynthesizerConfig.pallas_resblocks`` off,
+as the JAX pipeline does, so those levels run the networks' own convolution
+modules (cuDNN on a card). The log-mel kernel stays on: the JAX switch gates
+only those two. The configs carry it, so ``with_config``, the engine's
+geometries, a mesh's rows and ``fingerprint()`` keep it.
+
 ``retrieval_index`` (a :class:`~obs_rvc_tpu_torch.retrieval.RetrievalIndex`)
 blends each stream's features with its nearest table rows at the stream's
 ``index_rate``, right after the feature slice, in every form of the step.
@@ -242,6 +251,7 @@ class RvcPipeline:
         crepe_cfg: Optional[CrepeConfig] = None,
         fcpe_cfg: Optional[FcpeConfig] = None,
         retrieval_index: Optional[RetrievalIndex] = None,
+        pallas_resblocks: Optional[bool] = None,
     ):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
@@ -264,7 +274,13 @@ class RvcPipeline:
                 ContentVecConfig.v1() if version is RvcModelVersion.V1 else ContentVecConfig.v2()
             )
         self.contentvec_cfg = contentvec_cfg
-        self.rmvpe_cfg = rmvpe_cfg if rmvpe_cfg is not None else RMVPEConfig()
+        if pallas_resblocks is None:
+            # the kernels on every device and in both dtypes (their plain versions on the CPU), where the JAX
+            # default keeps its Pallas kernels to bf16 on a TPU (Pallas interpret mode on its CPU, Mosaic's VMEM)
+            pallas_resblocks = True
+        # one switch gates the chain and the bank, as in the JAX pipeline
+        self.rmvpe_cfg = dataclasses.replace(rmvpe_cfg if rmvpe_cfg is not None else RMVPEConfig(),
+                                             pallas_unet=pallas_resblocks)
         self.crepe_cfg = crepe_cfg if crepe_cfg is not None else CrepeConfig()
         self.fcpe_cfg = fcpe_cfg if fcpe_cfg is not None else FcpeConfig()
         if synth_cfg is None:
@@ -272,7 +288,7 @@ class RvcPipeline:
                 cfg.model_sample_rate if not cfg.skip_inference else 40000,
                 feature_dim=contentvec_cfg.out_dim,
             )
-        self.synth_cfg = synth_cfg
+        self.synth_cfg = dataclasses.replace(synth_cfg, pallas_resblocks=pallas_resblocks)
 
         # the passthrough geometry (skip_inference) runs no network, so it builds none;
         # of the pitch networks, only the chosen one is built

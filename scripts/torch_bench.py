@@ -16,6 +16,9 @@ against the card's peak (989 TFLOP/s bfloat16, 67 float32), each stage's
 device time (CUDA events around back-to-back replays of that stage's own
 graph, ``stage_device_ms``), the card's name and power limit, and PyTorch's
 TF32 settings. The numbers are unrounded but ``vs_baseline``.
+``--no-pallas-resblocks`` runs the U-Net chain and resblock bank levels on
+the networks' own convolutions (cuDNN) in place of the hand kernels, as
+``bench.py``'s flag does, and the line says so (``extra.pallas_resblocks``).
 
 TF32 stays at PyTorch's defaults, as a server runs it (``chip_smoke.py``
 turns it off). ``--profile DIR`` writes a ``torch.profiler`` trace of the
@@ -60,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pitch-algorithm", default="rmvpe", choices=["rmvpe", "crepe", "fcpe"])
     p.add_argument("--crepe-capacity", default="full", choices=["full", "tiny"])
     p.add_argument("--no-pallas-resblocks", action="store_true",
-                   help="refused: on the card it would put the plain versions on the main path")
+                   help="the U-Net chain and resblock bank levels on the networks' own convolutions (cuDNN) "
+                        "instead of the hand kernels, as bench.py's flag")
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     return p
 
@@ -112,12 +116,10 @@ def main(argv=None) -> int:
     from obs_rvc_tpu_torch.device import resolve_device
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
     from obs_rvc_tpu_torch.models.crepe import CrepeConfig
-    from obs_rvc_tpu_torch.serve.cli import check_ported
     from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamState
     from obs_rvc_tpu_torch.utils import benchlib
     from obs_rvc_tpu_torch.utils.flops import chunk_gflops
 
-    check_ported(args)
     if args.steps < 2 or args.warmup < 1:
         raise SystemExit("--steps must be at least 2 (the sustained rate is a difference of two chains) and "
                          "--warmup at least 1 (its first step captures the graphs)")
@@ -128,7 +130,7 @@ def main(argv=None) -> int:
     cfg = StreamSettings().chunk_config(48000)
     pipe = RvcPipeline(cfg, compute_dtype=getattr(torch, args.dtype), pitch_algorithm=args.pitch_algorithm,
                        crepe_cfg=CrepeConfig(args.crepe_capacity) if args.pitch_algorithm == "crepe" else None,
-                       device=device)
+                       device=device, pallas_resblocks=False if args.no_pallas_resblocks else None)
     pipe.init_params(0)
     if args.dtype == "bfloat16":
         cast_params_for_serving(pipe)
@@ -254,6 +256,7 @@ def main(argv=None) -> int:
         "mode": mode,
         "pitch_algorithm": args.pitch_algorithm,
         **({"crepe_capacity": args.crepe_capacity} if args.pitch_algorithm == "crepe" else {}),
+        "pallas_resblocks": not args.no_pallas_resblocks,
         "dtype": args.dtype,
         "chunk_ms": chunk_s * 1e3,
         "backend": pipe.device.type,

@@ -40,7 +40,8 @@ _spec.loader.exec_module(torch_bench)
 FCPE_SMALL = dict(hidden=64, n_layers=2)
 STAGES = ["pre", "features", "mel", "salience", "pitch_post", "synth", "post"]
 EXTRA_KEYS = {"p95_ms", "sustained_ms_per_chunk", "rtf", "audio_seconds_per_second", "mfu",
-              "model_gflops_per_chunk", "batch", "mode", "pitch_algorithm", "dtype", "chunk_ms", "backend",
+              "model_gflops_per_chunk", "batch", "mode", "pitch_algorithm", "pallas_resblocks", "dtype", "chunk_ms",
+              "backend",
               "device_name", "power_limit_w", "cudnn_tf32", "matmul_tf32", "stage_device_ms", "stage_device_ms_sum"}
 
 
@@ -79,6 +80,7 @@ def test_bench_line_on_the_cpu(small, capsys, argv, batch, mode, pitch):
     assert line["vs_baseline"] == round(80.0 / p50, 3)
     assert EXTRA_KEYS <= set(x), EXTRA_KEYS - set(x)
     assert (x["batch"], x["mode"], x["pitch_algorithm"], x["dtype"]) == (batch, mode, pitch, "bfloat16")
+    assert x["pallas_resblocks"] is True  # bench.py's key: the hand kernels on (tests/test_torch_port_switch.py: off)
     assert (x["backend"], x["device_name"], x["power_limit_w"]) == ("cpu", "cpu", None)
     assert (x["cudnn_tf32"], x["matmul_tf32"]) == (torch.backends.cudnn.allow_tf32,
                                                    torch.backends.cuda.matmul.allow_tf32)
@@ -104,9 +106,10 @@ def test_bench_line_on_the_cpu(small, capsys, argv, batch, mode, pitch):
 
 
 def test_bench_refuses_what_it_cannot_measure(capsys):
-    """The flag the port refuses for good, and a trace of the card's kernels without a card."""
-    with pytest.raises(SystemExit, match="refused"):
-        torch_bench.main(["--device", "cpu", "--no-pallas-resblocks"])
+    """A trace of the card's kernels without a card. ``--no-pallas-resblocks``
+    is no longer refused: it is bench.py's switch (its run on the CPU is in
+    ``tests/test_torch_port_switch.py``)."""
+    assert torch_bench.build_parser().parse_args(["--no-pallas-resblocks"]).no_pallas_resblocks
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         torch_bench.main(["--device", "cpu", "--profile", "trace"])
     assert '"metric"' not in capsys.readouterr().out

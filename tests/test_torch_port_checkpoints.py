@@ -55,7 +55,10 @@ def test_synthesizer_config_from_meta_matches_field_by_field(release_pth):
     for m in (meta, {"sr": "48k", "version": "v1"}, {"sr": 32000}, {**meta, "config": CONFIG[:-1]}):
         got, want = C.synthesizer_config_from_meta(m), j_config_from_meta(m)
         for f in dataclasses.fields(got):
-            assert getattr(got, f.name) == getattr(want, f.name), (m, f.name)
+            if f.name != "pallas_resblocks":
+                assert getattr(got, f.name) == getattr(want, f.name), (m, f.name)
+        # the kernel switch: on by default in the port, off in the JAX package (ROADMAP.md, recorded differences)
+        assert got.pallas_resblocks and not want.pallas_resblocks
 
 
 def test_release_checkpoint_loads_into_both_packages_alike(release_pth):

@@ -4,8 +4,9 @@ These run only where a CUDA card is present; elsewhere each test skips with
 the reason (the kernels have no CPU mode, and their plain versions are held
 against the JAX package's Pallas kernels in ``test_torch_port_kernels.py``).
 They cover what ``chip_smoke.py``'s main-path shapes do not: batches, ragged
-tile edges, every channel count the kernels are built for, and the launch
-counters; the log-mel kernel on FCPE's Slaney basis; and, at reduced
+tile edges, every channel count the kernels are built for and widths padded
+to one, other kernel sizes and dilations, what is still refused, and the
+launch counters; the log-mel kernel on FCPE's Slaney basis; and, at reduced
 widths, the step's CUDA graphs against the eager step (with each pitch
 algorithm), replayed from two threads, captured again after a weight
 reload, and a capture that fails; retrieval's edge cases on the card (a
@@ -175,6 +176,38 @@ def test_resblock_bank_kernel_matches_plain(cuda, C, L, B, dil, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,L,B,ks,dil", [
+    (8, 700, 2, (3, 7, 11), (1, 3, 5)),      # the C=8 instance (bf16: the plane's rows padded to 16 channels)
+    (8, 28000, 1, (3, 7, 11), (1, 3, 5)),    # a reduced-width generator's C=8 level
+    (48, 1000, 2, (3, 7, 11), (1, 3, 5)),    # padded to C=64
+    (12, 333, 3, (3, 7, 11), (1, 2, 4)),     # padded to 16
+    (1, 300, 2, (3,), (1,)),                 # one channel, padded to 8
+    (40, 500, 1, (3, 7, 11), (1, 3, 5)),     # padded to 64, one stream
+    (32, 700, 2, (5,), (1, 2)),              # k=5
+    (24, 400, 2, (5,), (1, 2)),
+    (32, 1000, 2, (11,), (11,)),             # d=11 at k=11: conv1's halo of 110 rows
+    (64, 1000, 1, (3, 7, 11), (1, 11)),
+    (16, 500, 2, (1, 9), (2,)),              # k=1 and k=9
+    (32, 800, 2, (3, 5, 7, 9), (1, 3)),      # four banks
+])
+def test_resblock_bank_kernel_at_every_width(cuda, C, L, B, ks, dil, dtype):
+    """Widths, kernel sizes and dilations past the main path's: C=8 on its
+    own instance, other C zero-padded to the next one (exact), any odd k,
+    a dilation as far as its halo fits shared memory, four banks."""
+    x, params = _bank(np.random.default_rng(C * 7 + L), B, L, C, ks, cuda, S=len(dil))
+    x = x.to(dtype)
+    packed = resblock.pack_bank(params, ks, dil, dtype)
+    assert packed.width == min(w for w in resblock.CUDA_CHANNELS if w >= C)
+    before = resblock.LAUNCHES
+    got = resblock.resblock_bank(x, packed, ks, dil)
+    assert resblock.LAUNCHES == before + 1
+    want = resblock.resblock_bank_plain(x, params, ks, dil)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, L, C) and got.dtype == dtype and got.is_contiguous()
+    _close(got, want, *BOUNDS["bank"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tile", [*resblock.SWEEP_TILES, (4, 2, 2, True), (4, 2, 8, False), (8, 2, 3, True)])
 def test_resblock_bank_kernel_at_every_tile(cuda, tile, dtype):
     """Each tile the kernel takes, at its own edges (TL-1 and TL+1) on a
@@ -236,6 +269,15 @@ def _chain(rng, B, H, W, cin, C, n_blocks, device):
     (16, 32, 4, 16, 3),    # channel doubling
     (64, 32, 7, 50, 2),    # the widest input the kernel takes, ragged edges
     (3, 32, 1, 1, 1),      # one pixel, an input width off the float4 grid
+    (1, 8, 16, 40, 2),     # the C=8 instance: a reduced-width RMVPE's first level
+    (8, 8, 9, 33, 2),      # identity shortcut at C=8
+    (16, 8, 16, 40, 2),    # its decoder level (the 2C concat)
+    (64, 8, 10, 20, 2),
+    (12, 24, 7, 30, 2),    # C=24 padded to 32
+    (24, 24, 5, 20, 1),    # identity shortcut on a padded width: the input padded too
+    (5, 12, 8, 16, 3),     # C=12 padded to 16, Cin off the 16-byte grid
+    (2, 1, 4, 16, 1),      # one channel, padded to 8
+    (48, 20, 6, 18, 2),
 ])
 def test_unet_chain_kernel_matches_plain(cuda, cin, C, H, W, B, dtype):
     x, blocks = _chain(np.random.default_rng(cin * 100 + C), B, H, W, cin, C, 3, cuda)
@@ -243,7 +285,7 @@ def test_unet_chain_kernel_matches_plain(cuda, cin, C, H, W, B, dtype):
     got = unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, dtype))
     want = unet_block.conv_block_res_chain_plain(x, blocks)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype
+    assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype and got.is_contiguous()
     _close(got, want, *BOUNDS["chain"][dtype])
 
 
@@ -308,16 +350,30 @@ def test_wrappers_count_one_launch_per_call(cuda):
 
 
 def test_wrappers_refuse_what_no_kernel_is_built_for(cuda):
+    """Past the kernels' coverage each wrapper raises, naming the limit; it
+    never falls back to cuDNN or to the plain version."""
     rng = np.random.default_rng(1)
-    x, params = _bank(rng, 1, 64, 8, (3, 7, 11), cuda)
-    with pytest.raises(NotImplementedError):
+    x, params = _bank(rng, 1, 64, 72, (3, 7, 11), cuda)
+    with pytest.raises(NotImplementedError, match="C up to 64.*registers"):
         resblock.pack_bank(params, (3, 7, 11), (1, 3, 5), x.dtype)
+    with pytest.raises(NotImplementedError, match="C up to 64"):
+        resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
+    x, params = _bank(rng, 1, 64, 16, (4,), cuda)
+    with pytest.raises(NotImplementedError, match="odd"):
+        resblock.pack_bank(params, (4,), (1, 3, 5), x.dtype)
+    x, params = _bank(rng, 1, 64, 64, (11,), cuda, S=1)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        resblock.pack_bank(params, (11,), (30,), torch.float32)
     x, params = _bank(rng, 1, 64, 16, (3, 7, 11), cuda)
     with pytest.raises(ValueError, match="pack_bank"):  # on a card the kernel takes only the pack
         resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
     x, blocks = _chain(rng, 1, 8, 16, 8, 64, 1, cuda)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="C up to 32.*shared memory"):
         unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, x.dtype))
+    x, blocks = _chain(rng, 1, 8, 16, 72, 32, 1, cuda)
+    with pytest.raises(NotImplementedError, match="Cin 1..64"):
+        unet_block.pack_chain(blocks, x.dtype)
+    x, blocks = _chain(rng, 1, 8, 16, 8, 16, 1, cuda)
     with pytest.raises(ValueError, match="pack_chain"):  # on a card the kernel takes only the pack
         unet_block.conv_block_res_chain(x, blocks)
 
@@ -433,13 +489,13 @@ def test_log_mel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 # --- the compiled step: CUDA graphs of the whole step and of each stage ---
 
-#: reduced widths that keep every hand kernel on the path: RMVPE levels of 16 and 32 channels (the
-#: chain), generator levels of 64, 32 and 16 (the bank; its C=8 is not built)
+#: reduced widths that keep every hand kernel on the path, the CPU tests' (tests/test_torch_port_pipeline.py):
+#: RMVPE levels of 8, 16 and 32 channels (the chain), generator levels of 64, 32, 16 and 8 (the bank)
 GRAPH_WIDTHS = dict(
     contentvec=dict(dim=64, num_layers=2, tap_layer=2, num_heads=4, ffn_dim=128, out_dim=64),
-    rmvpe=dict(en_de_layers=3, inter_layers=1, n_blocks=2, en_out_channels=16, gru_hidden=32),
+    rmvpe=dict(en_de_layers=3, inter_layers=1, n_blocks=2, en_out_channels=8, gru_hidden=32),
     synth=dict(feature_dim=64, inter_channels=16, hidden_channels=16, filter_channels=32, n_layers=2,
-               upsample_initial_channel=256, gin_channels=16, spk_embed_dim=4))
+               upsample_initial_channel=128, gin_channels=16, spk_embed_dim=4))
 
 
 @pytest.fixture
@@ -454,7 +510,8 @@ def deterministic_cudnn():
     torch.backends.cudnn.deterministic = saved
 
 
-def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", retrieval_index=None):
+def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", retrieval_index=None,
+                pallas_resblocks=None):
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
     from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
@@ -469,7 +526,8 @@ def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", re
                        rmvpe_cfg=RMVPEConfig(**GRAPH_WIDTHS["rmvpe"]),
                        synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype,
                        pitch_algorithm=pitch_algorithm, crepe_cfg=CrepeConfig("tiny"),
-                       fcpe_cfg=FcpeConfig(hidden=64, n_layers=2), retrieval_index=retrieval_index)
+                       fcpe_cfg=FcpeConfig(hidden=64, n_layers=2), retrieval_index=retrieval_index,
+                       pallas_resblocks=pallas_resblocks)
     pipe.init_params(seed, std=None)
     if dtype == torch.bfloat16:
         cast_params_for_serving(pipe)
@@ -509,6 +567,29 @@ def test_graphed_steps_equal_the_eager_step(cuda, deterministic_cudnn, dtype):
         captures = holder.captures
         assert torch.equal(_stream(step, pipe, chunks, controls[::-1]), _stream(pipe.step, pipe, chunks, controls[::-1]))
         assert holder.captures == captures
+
+
+def test_the_kernels_at_reduced_widths_and_the_switch_off(cuda, deterministic_cudnn):
+    """At the CPU tests' reduced widths (chain levels of 8, 16 and 32
+    channels, bank levels of 64, 32, 16 and 8) every chain and bank level
+    runs on the kernels: 6 and 4 wrapper calls a step. With
+    ``pallas_resblocks=False`` none does (the log-mel kernel stays), the
+    levels run on cuDNN, and the audio holds the kernel step's within 1e-3
+    of max|audio| (float32, TF32 off)."""
+    on, off = _graph_pipe(cuda), _graph_pipe(cuda, pallas_resblocks=False)
+    chunks = _chunks(on, 5)
+    controls = [(0.0, 1.0), (12.0, 0.5)]
+    audio, launches = {}, {}
+    for name, pipe in (("on", on), ("off", off)):
+        before = (stft_mel.LAUNCHES, unet_block.LAUNCHES, resblock.LAUNCHES)
+        audio[name] = _stream(pipe.step, pipe, chunks, controls)
+        launches[name] = (stft_mel.LAUNCHES - before[0], unet_block.LAUNCHES - before[1],
+                          resblock.LAUNCHES - before[2])
+    assert launches == {"on": (5, 30, 20), "off": (5, 0, 0)}
+    want = audio["on"]
+    assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
+    assert float((audio["off"] - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(_stream(off.jit_step, off, chunks, controls), audio["off"])
 
 
 def test_one_row_cumsum_takes_the_batched_rows_bits(cuda):

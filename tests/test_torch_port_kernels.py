@@ -166,14 +166,20 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     """The checks a CUDA launch runs first, exercised without a card."""
-    x = torch.zeros((1, 64, 8))
-    with pytest.raises(NotImplementedError, match="C in"):
+    x = torch.zeros((1, 64, 128))
+    with pytest.raises(NotImplementedError, match="C up to 64"):
         t_resblock._resblock_bank_cuda(x, [], (3, 7, 11), (1, 3, 5))
     with pytest.raises(ValueError, match="contiguous"):
         t_resblock._resblock_bank_cuda(torch.zeros((1, 32, 64)).transpose(1, 2), [], (3,), (1,))
     with pytest.raises(ValueError, match="dtype"):
         t_resblock._resblock_bank_cuda(torch.zeros((1, 64, 32), dtype=torch.float16), [], (3,), (1,))
-    w = torch.zeros((3, 3, 8, 8))
-    with pytest.raises(NotImplementedError, match="C in"):
-        t_unet._chain_cuda(torch.zeros((1, 4, 8, 8)),
-                           t_unet.pack_chain([(w, torch.zeros(8), w, torch.zeros(8), None, None)], torch.float32))
+    w = torch.zeros((3, 3, 64, 64))
+    with pytest.raises(NotImplementedError, match="C up to 32"):
+        t_unet.pack_chain([(w, torch.zeros(64), w, torch.zeros(64), None, None)], torch.float32)
+    with pytest.raises(NotImplementedError, match="C up to 32"):
+        t_unet._chain_cuda(torch.zeros((1, 4, 8, 64)), t_unet.PackedChain(
+            torch.float32, torch.device("cpu"), 64, 64, 64, 64, [], None))
+    w1 = torch.zeros((3, 3, 72, 16))
+    with pytest.raises(NotImplementedError, match="Cin 1..64"):
+        t_unet.pack_chain([(w1, torch.zeros(16), torch.zeros((3, 3, 16, 16)), torch.zeros(16),
+                            torch.zeros((72, 16)), torch.zeros(16))], torch.float32)

@@ -185,8 +185,10 @@ def test_synthesizer_geometry_for_sample_rate(sr):
     jcfg = JSynthesizerConfig.for_sample_rate(sr)
     tcfg = SynthesizerConfig.for_sample_rate(sr)
     for f in dataclasses.fields(tcfg):
-        if hasattr(jcfg, f.name):
+        if hasattr(jcfg, f.name) and f.name != "pallas_resblocks":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    # the kernel switch: on by default in the port, off in the JAX package (ROADMAP.md, recorded differences)
+    assert tcfg.pallas_resblocks and not jcfg.pallas_resblocks
     assert tcfg.upp == jcfg.upp == sr // 100
     gen = Synthesizer(tcfg).dec
     chans = [up.out_channels for up in gen.ups]

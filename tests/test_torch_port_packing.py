@@ -377,9 +377,16 @@ def test_bank_cuda_wrapper_checks_the_packed_params():
         R.pack_bank(params, (3, 3, 11), dils, torch.float32)
     with pytest.raises(ValueError, match="one parameter tuple"):
         R.pack_bank(params[:2], ks, dils, torch.float32)
-    with pytest.raises(NotImplementedError, match="C in"):
-        R.pack_bank(_bank_params(rng, 8, ks), ks, dils, torch.float32)
-    with pytest.raises(NotImplementedError, match="kernel size"):
-        R.pack_bank(_bank_params(rng, 16, (5,)), (5,), dils, torch.float32)
-    with pytest.raises(NotImplementedError, match="dilation"):
-        R.pack_bank(_bank_params(rng, 16, (3,), S=1), (3,), (6,), torch.float32)
+    with pytest.raises(NotImplementedError, match="C up to 64"):
+        R.pack_bank(_bank_params(rng, 72, ks), ks, dils, torch.float32)
+    with pytest.raises(NotImplementedError, match="kernel size 4.*odd"):
+        R.pack_bank(_bank_params(rng, 16, (4,)), (4,), dils, torch.float32)
+    with pytest.raises(NotImplementedError, match="dilation 30.*shared memory"):
+        R.pack_bank(_bank_params(rng, 64, (11,), S=1), (11,), (30,), torch.float32)
+    with pytest.raises(NotImplementedError, match="at most 4 banks"):
+        R.pack_bank(_bank_params(rng, 16, (3, 5, 7, 9, 11)), (3, 5, 7, 9, 11), dils, torch.float32)
+    # what was refused before is packed now: C=8 on its own instance, k=5, d=6 and d=11
+    assert R.pack_bank(_bank_params(rng, 8, ks), ks, dils, torch.float32).width == 8
+    assert R.pack_bank(_bank_params(rng, 16, (5,)), (5,), dils, torch.float32).kernel_sizes == (5,)
+    assert R.pack_bank(_bank_params(rng, 16, (3,), S=1), (3,), (6,), torch.float32).dilations == (6,)
+    assert R.pack_bank(_bank_params(rng, 32, (11,), S=1), (11,), (11,), torch.bfloat16).width == 32
