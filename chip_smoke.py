@@ -22,7 +22,10 @@ Phases, each printing its own lines:
            own launch; and at widths past the main path's, in both dtypes:
            the chain 1->8, 8->8, 16->8 (its C=8 instance) and 12->24 (padded
            to 32), the bank at C=8 (its C=8 instance) and C=48 (padded to
-           64), k=5 over d=(1, 2) and d=11 at k=11
+           64), k=5 over d=(1, 2) and d=11 at k=11; and the chain's ring
+           kernel at the six levels past C=32 (enc2 32->64, dec2 128->64,
+           enc3 64->128, dec1 256->128, enc4 128->256, dec0 512->256) at 1,
+           8 and 64 streams, and 24->48 and 96->96 (padded widths)
    widths  the step at the CPU tests' reduced widths (RMVPE levels of 8, 16
            and 32 channels, generator levels of 64, 32, 16 and 8) in float32
            and bfloat16: 8 chunks eagerly, the wrappers launched 1 / 6 / 4
@@ -75,8 +78,21 @@ Phases, each printing its own lines:
            repeating bit for bit, the audio within 1e-3 of the kernel step's
            in float32 and in bfloat16 within twice the kernel step's error
            off the float32 one plus 1e-3; step p50/p95 and each stage's
-           device time with and without the kernels; then serve.cli
-           --no-pallas-resblocks converts a WAV file
+           device time with and without the kernels. Beside them, on the same
+           weights and chunks, RMVPEConfig(pallas_unet_max_ch=256) (every
+           encoder and decoder level on the chain, the six past C=32 on its
+           ring kernel) in both dtypes and 64 in bfloat16: at 256 the
+           wrappers launched 1 / 10 / 2 times
+           a step and the chain's 32 resident and 48 ring kernels counted in
+           a trace, the eager step repeating bit for bit, jit_step against
+           it, the audio against the default step's (float32 1e-3, bfloat16
+           by the same rule), two of the main phase's chunks' float32 stages
+           against the CPU's (its bounds; and, reported, both steps'
+           salience against the CPU's at two switch chunks, where the default
+           step's own error reaches the bound), 8 streams through jit_step_batch in
+           bfloat16; the salience stage's device ms and jit_step's p50 at
+           max_ch 32, 64 and 256; then serve.cli --no-pallas-resblocks
+           converts a WAV file
 6. serve   the port's server (serve.server.main, at its defaults: bfloat16,
            staged graphs captured before it listens) on a thread at the same
            geometry and width, listening on the duplex, WebSocket, RPC and
@@ -190,13 +206,16 @@ Phases, each printing its own lines:
            registers, blocks an SM; the bank's ring, split last step and
            the share of its conv rows computed past the tiles), and the
            chain's four levels and the bank's two summed at 1, 8 and 64
-           streams
+           streams; the chain's ring kernel at its six levels (1, 8, 64
+           streams) and two padded widths, beside its bound and cuDNN's
+           composite, the six summed
 
 The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
-the log-mel on FCPE's basis, the three at the batched step's 8 streams, and
-the chain and the bank at each width past the main path's, as entries of
-their own). The last line is
+the log-mel on FCPE's basis, the three at the batched step's 8 streams, the
+chain and the bank at each width past the main path's, and the chain's ring
+kernel at each of its six levels and padded widths in both dtypes and at 8
+streams, as entries of their own). The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. Details go to chiprun_out/chip_smoke.json.
 """
@@ -317,6 +336,17 @@ MEL_BATCH_MAIN = f"batch-main-b{POOL_B}"
 #: 2C concat 16 -> 8), and 12 -> 24 (C padded to the kernel's 32)
 CHAIN_WIDTH_SHAPES = [("c8-enc", 1, 64, 128, 1, 8), ("c8-id", 1, 64, 128, 8, 8), ("c8-dec", 1, 64, 128, 16, 8),
                       ("c24-pad", 1, 32, 64, 12, 24)]
+#: (label, B, H, W, Cin, C): the six levels of the full RMVPE past C=32 (its decoder's 2C concat beside each
+#: encoder level), which RvcPipeline(rmvpe_cfg=RMVPEConfig(pallas_unet_max_ch=256)) sends to the chain's ring
+#: kernel, at one stream, the batched step's 8 and 64; then two padded widths: C=48 on 64 and an identity
+#: first block on 96 (three groups of 32, no 64-channel tile)
+CHAIN_WIDE_LEVELS = [("enc2", 16, 32, 32, 64), ("dec2", 16, 32, 128, 64), ("enc3", 8, 16, 64, 128),
+                     ("dec1", 8, 16, 256, 128), ("enc4", 4, 8, 128, 256), ("dec0", 4, 8, 512, 256)]
+CHAIN_WIDE_SHAPES = [(label, 1, H, W, cin, C) for label, H, W, cin, C in CHAIN_WIDE_LEVELS]
+CHAIN_WIDE_SHAPES_BATCH = [(f"{label}-b{POOL_B}", POOL_B, H, W, cin, C) for label, H, W, cin, C in CHAIN_WIDE_LEVELS]
+CHAIN_WIDE_SHAPES_B64 = [(f"{label}-b{CHAIN_B64}", CHAIN_B64, H, W, cin, C) for label, H, W, cin, C in CHAIN_WIDE_LEVELS]
+CHAIN_WIDE_PAD_SHAPES = [("c48-pad", 1, 16, 32, 24, 48), ("c96-id", 1, 8, 16, 96, 96)]
+CHAIN_WIDE_ALL = CHAIN_WIDE_SHAPES + CHAIN_WIDE_SHAPES_BATCH + CHAIN_WIDE_SHAPES_B64 + CHAIN_WIDE_PAD_SHAPES
 #: (label, B, L, C, kernel sizes, dilations): the bank likewise: a reduced-width generator's C=8 level (T=35
 #: at 128 initial channels: L=14000; the kernel's C=8 instance), C=48 (padded to 64) at the C=64 level's
 #: length, k=5 over d=(1, 2), and d=11 at k=11 (conv1's halo of 110 rows)
@@ -441,7 +471,8 @@ def chain_launch(B, H, W, cin, C, dtype):
     tl = unet_block.chain_tiling(B, H, W, cin, C, dtype,
                                  torch.cuda.get_device_properties(0).multi_processor_count)
     info = unet_block.launch_info(cin, C, dtype, tl)
-    return dict(tl._asdict(), **info, waves=tl.tiles / (N_SMS * info["blocks_per_sm"]))
+    blocks = tl.tiles * max(tl.splits)  # the ring kernel's split launches: a block a tile and slice of K
+    return dict(tl._asdict(), **info, blocks=blocks, waves=blocks / (N_SMS * max(1, info["blocks_per_sm"])))
 
 
 def bank_grid(B, L, C, dtype, ks=BANK_KS, dils=BANK_DILS):
@@ -546,7 +577,8 @@ def phase_parity(report):
         out["log_mel"][f"{label} float32"] = err
         log("parity", f"log_mel {label} [{B}, {L}] -> {list(got.shape)} {kind} float32, one launch: max abs err "
                       f"{err:.3e} (bound {MEL_BOUND[0]}/{MEL_BOUND[1]}); every row bit-identical to its own launch")
-    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES:
+    for label, B, H, W, cin, C in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES \
+            + CHAIN_WIDE_ALL:
         x, blocks = chain_inputs(label, B, H, W, cin, C, dev, rng)
         for dt in (torch.float32, torch.bfloat16):
             xd = x.to(dt)
@@ -557,8 +589,8 @@ def phase_parity(report):
             atol, rtol = bounds["chain"][dt]
             err = check_close(f"chain {label} {dt}", got, want, atol, rtol)
             out["conv_block_res_chain"][f"{label} {str(dt)[6:]}"] = err
-            log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} on the kernel's C={packed.width} "
-                          f"{str(dt)[6:]}: "
+            log("parity", f"conv_block_res_chain {label} [{B},{H},{W},{cin}]->{C} on the "
+                          f"{'ring' if packed.ring else 'resident'} kernel's C={packed.width} {str(dt)[6:]}: "
                           f"max abs err {err:.3e} (bound {atol}/{rtol}), |ref| max {float(want.float().abs().max()):.3g}")
     for label, B, L, C, ks, dils in map(bank_shape, BANK_SHAPES + BANK_EXTRA_SHAPES + BANK_SHAPES_BATCH
                                          + BANK_SHAPES_B64 + BANK_WIDTH_SHAPES):
@@ -1249,6 +1281,203 @@ def switch_stages(key, ref, pipes, chunks, controls, at):
     return {"rel_max_err": worst, "budget_slack": slack}
 
 
+#: the pallas_unet_max_ch settings stepped beside the default 32 (the JAX package's, whose levels of 16 and 32
+#: channels run on the resident chain kernel), by dtype: 64 adds enc2 and dec2, 256 every encoder and decoder
+#: level (the six past C=32 on the ring kernel); the intermediate levels run their modules at every setting
+MAX_CH = {"float32": (256,), "bfloat16": (64, 256)}
+#: their steps' wrapper calls: the log-mel, 6 or 10 chain levels, the two bank levels
+MAX_CH_LAUNCHES = {64: {"log_mel": 1, "conv_block_res_chain": 6, "resblock_bank": 2},
+                   256: {"log_mel": 1, "conv_block_res_chain": 10, "resblock_bank": 2}}
+#: the device kernels of one max_ch=256 step's chain calls, 8 a level: the resident kernel at the four C <= 32
+#: levels, the ring kernel at the six wider (the profiler's names; "conv3x3_kernel" is in both)
+MAX_CH_KERNELS = {"resident": 32, "ring": 48}
+#: the report keys of the max_ch=256 eager runs whose launches the kernel line gives the wide chain entries,
+#: by (dtype, streams)
+MAX_CH_RUNS = {("float32", 1): "max_ch_256", ("bfloat16", 1): "max_ch_256_bf16",
+               ("bfloat16", POOL_B): "max_ch_256_b8"}
+#: chunks of the max_ch=256 float32 step rerun stage by stage on the CPU and held to the main phase's bounds:
+#: the main phase's chunks (its voiced signal, the chunks its own comparison starts at)
+MAX_CH_CPU_CHUNKS = (N_CHUNKS // 2, N_CHUNKS // 2 + 1)
+#: the switch phase's chunks at which the salience of the max_ch=256 and the default float32 steps is put
+#: beside the CPU's and reported: on these the default step's own error reaches the bound (PERF.md)
+MAX_CH_SALIENCE_CHUNKS = (6, 7)
+
+
+def chain_kernel_launches(pipe, chunk, controls):
+    """The chain's device kernels in one eager step, by kernel (a trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state, _ = pipe.step(pipe.new_state(), chunk, controls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe.step(state, chunk, controls)  # the tracer can miss a call's first kernels right after it starts
+        torch.cuda.synchronize()
+        mark_trace()
+        pipe.step(state, chunk, controls)
+        torch.cuda.synchronize()
+    events = events_after_mark(prof)
+    ring = sum(1 for e in events if "ring_conv3x3_kernel" in e.name)
+    return {"resident": sum(1 for e in events if "conv3x3_kernel" in e.name) - ring, "ring": ring}
+
+
+def salience_vs_cpu(base, pipe, cpu, chunks, controls, at):
+    """The float32 salience stage of ``pipe`` (max_ch 256) and of ``base``
+    (the default 32), each on its own step's mel at the chunks of ``at``
+    (``pipe``'s states before them), against the CPU pipeline's ``cpu`` on
+    the same mel, relative to max|CPU|: reported beside the main phase's
+    bound, which the default step reaches on some chunks."""
+    import torch
+
+    states, state = {}, base.new_state()
+    for i, chunk in enumerate(chunks[: max(at) + 1]):
+        if i in at:
+            states[i] = state
+        state, _ = base.step(state, chunk, controls)
+    out = {}
+    with torch.no_grad():
+        for name, p, sts in (("max_ch_32", base, states), ("max_ch_256", pipe, at)):
+            errs = []
+            for i in sorted(at):
+                _, buf16 = p.stage_pre(sts[i].map(lambda t: t[None]), chunks[i][None])
+                mel = p.stage_mel(buf16)
+                want = cpu.stage_salience(mel.cpu())
+                errs.append(float((p.stage_salience(mel).cpu() - want).abs().max()) / float(want.abs().max()))
+            out[name] = errs
+    log("switch", "float32 salience off the CPU's at the switch phase's chunks " + str(sorted(at)) + ": max_ch 32 "
+                  + ", ".join(f"{e:.3e}" for e in out["max_ch_32"]) + "; max_ch 256 "
+                  + ", ".join(f"{e:.3e}" for e in out["max_ch_256"]) + f" (the main phase's bound {CPU_TOL['salience']}, "
+                  "held on its own chunks above)")
+    return out
+
+
+def max_ch_runs(report, dtype, base, base_row, on, ref, chunks, controls, chunks8=None, stacked8=None,
+                base8=None):
+    """``RvcPipeline(rmvpe_cfg=RMVPEConfig(pallas_unet_max_ch=mc))`` for
+    ``mc`` in :data:`MAX_CH` of ``dtype`` on the switch phase's kernel pipeline's weights
+    (``base``, at the default 32) and chunks, in ``dtype``. At 256 (every
+    encoder and decoder level on the chain, the six past C=32 on its ring
+    kernel): the wrappers launched 1 / 10 / 2 times a step and the chain's
+    device kernels counted in a trace; the eager step repeating bit for
+    bit; ``jit_step`` against it; the audio against the default step's
+    (``on``): float32 within 1e-3 of max|audio|, bfloat16 by the main
+    phase's rule against the float32 default step (``ref``); in float32 two
+    of the main phase's chunks' stages against the CPU's under its bounds
+    (and, reported, the salience of this and the default step against the
+    CPU's at two of the switch phase's chunks, :func:`salience_vs_cpu`); in
+    bfloat16 also 8 streams through ``jit_step_batch`` against the float32
+    default step's (``base8``: the bfloat16 default's errors). At 64: the
+    launches and ``jit_step`` against the default's audio. At each, the
+    salience stage's device ms and ``jit_step``'s p50 beside the default's
+    (``base_row``)."""
+    import torch
+
+    from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
+    from obs_rvc_tpu_torch.stream import RvcPipeline, StreamState
+
+    n = base.cfg.sample_frame_size
+    out = report.setdefault("max_ch", {}).setdefault(dtype, {})
+    out[32] = {k: base_row[k] for k in ("jit_step_p50_ms", "jit_step_p95_ms", "stage_device_ms")}
+    for mc in MAX_CH[dtype]:
+        t0 = time.perf_counter()
+        pipe = RvcPipeline(base.cfg, compute_dtype=base.compute_dtype, rmvpe_cfg=RMVPEConfig(pallas_unet_max_ch=mc))
+        for mod, other in zip(pipe.modules().values(), base.modules().values()):
+            mod.load_state_dict(other.state_dict())
+        row = out[mc] = {}
+        reset_launches()
+        if mc == 256:
+            state, outs, at = pipe.new_state(), [], {}
+            for i, chunk in enumerate(chunks):
+                if i in MAX_CH_SALIENCE_CHUNKS:
+                    at[i] = state
+                state, o = pipe.step(state, chunk, controls)
+                outs.append(o)
+            eager = torch.cat(outs).cpu()
+            launches = read_launches()
+            check_launches(f"max_ch 256 {dtype}", launches, len(chunks), per_step=MAX_CH_LAUNCHES[mc])
+            again, _ = stream(pipe.step, pipe, chunks, controls)
+            if not torch.equal(again, eager):
+                raise AssertionError(f"max_ch 256 {dtype}: the eager step did not repeat bit for bit "
+                                     f"({rel_err(again, eager):.3e} of max|audio|)")
+            kernels = chain_kernel_launches(pipe, chunks[5], controls)
+            if kernels != MAX_CH_KERNELS:
+                raise AssertionError(f"max_ch 256 {dtype}: chain kernels a step {kernels}, expected {MAX_CH_KERNELS}")
+            key = MAX_CH_RUNS[(dtype, 1)]
+            report[key] = {"launches": launches, "chain_kernels_per_step": kernels}
+            row.update(launches=launches, eager_repeat_bit_identical=True, chain_kernels_per_step=kernels)
+            if dtype == "float32":
+                _, rel = check_same("max_ch 256 float32 vs max_ch 32", eager, on, CPU_TOL["emitted"], chunk=n)
+                row["rel_vs_max_ch_32"] = rel
+                # stage by stage against the CPU on the main phase's chunks, under its bounds
+                main = voiced_signal((max(MAX_CH_CPU_CHUNKS) + 1) * n, base.cfg.sample_rate)
+                state, saved = pipe.new_state(), {}
+                main_chunks = [torch.from_numpy(main[i * n : (i + 1) * n]).to(pipe.device)
+                               for i in range(max(MAX_CH_CPU_CHUNKS) + 1)]
+                for i, chunk in enumerate(main_chunks):
+                    if i in MAX_CH_CPU_CHUNKS:
+                        saved[i] = state
+                    state, _ = pipe.step(state, chunk, controls)
+                cpu = compare_with_cpu(report, key, pipe, saved, main_chunks, controls)
+                row["cpu_compare"] = report[key]["cpu_compare"]
+                row["salience_vs_cpu"] = salience_vs_cpu(base, pipe, cpu, chunks, controls, at)
+            else:
+                e_wide, e_32 = rel_err(eager, ref["one"]), rel_err(on, ref["one"])
+                row.update(rel_vs_f32_max_ch_32=e_wide, max_ch_32_rel_vs_f32=e_32)
+                if not e_wide <= 2 * e_32 + CPU_TOL["emitted"]:
+                    raise AssertionError(f"max_ch 256 bfloat16: {e_wide:.3e} off the float32 default step, over "
+                                         f"2 x {e_32:.3e} + {CPU_TOL['emitted']}")
+                rel = e_wide
+            log("switch", f"max_ch 256 {dtype} one stream: launches {launches} ({MAX_CH_LAUNCHES[mc]} a step), "
+                          f"chain device kernels a step {kernels}; the eager step repeats bit for bit; audio "
+                          + (f"within {rel:.3e} of max|audio| of the max_ch 32 step (bound {CPU_TOL['emitted']})"
+                             if dtype == "float32" else
+                             f"{rel:.3e} off the float32 max_ch 32 step, the bfloat16 max_ch 32 step's "
+                             f"{row['max_ch_32_rel_vs_f32']:.3e} (bound 2 x that + {CPU_TOL['emitted']})"))
+        else:
+            pipe.step(pipe.new_state(), chunks[0], controls)
+            launches = read_launches()
+            check_launches(f"max_ch {mc} {dtype}", launches, 1, per_step=MAX_CH_LAUNCHES[mc])
+            eager = on
+            row["launches_one_step"] = launches
+        graphed, gtimes = stream(pipe.jit_step, pipe, chunks, controls, timed=True)
+        if mc == 256 or dtype == "float32":  # against its eager step, or (64) the default's audio
+            g_bit, g_rel = check_same(f"max_ch {mc} {dtype} jit_step vs " + ("eager" if mc == 256 else "max_ch 32"),
+                                      graphed, eager, CPU_TOL["emitted"], chunk=n)
+        else:  # bfloat16 at 64: the main phase's rule against the float32 default step
+            g_bit, g_rel, e_32 = False, rel_err(graphed, ref["one"]), rel_err(on, ref["one"])
+            if not g_rel <= 2 * e_32 + CPU_TOL["emitted"]:
+                raise AssertionError(f"max_ch {mc} bfloat16: {g_rel:.3e} off the float32 default step, over "
+                                     f"2 x {e_32:.3e} + {CPU_TOL['emitted']}")
+        row.update(jit_step_p50_ms=float(np.percentile(gtimes[4:], 50)),
+                   jit_step_p95_ms=float(np.percentile(gtimes[4:], 95)), jit_step_bit_identical=g_bit,
+                   jit_step_rel=g_rel, stage_device_ms=stage_ms(pipe, 1, pipe.new_state(), chunks[5], controls))
+        if mc == 256 and chunks8 is not None:
+            reset_launches()
+            pipe.step(StreamState.init_batch(pipe.cfg, POOL_B, device=pipe.device), chunks8[0], stacked8,
+                      batched=True)
+            launches = read_launches()
+            check_launches(f"max_ch 256 {dtype} batched", launches, 1, per_step=MAX_CH_LAUNCHES[mc])
+            report[MAX_CH_RUNS[(dtype, POOL_B)]] = {"launches": launches}
+            audio, times = stream_batch(pipe.jit_step_batch, pipe, chunks8, stacked8, timed=True)
+            errs = [rel_err(audio[k], ref["eight"][k]) for k in range(POOL_B)]
+            for k, (e, e_32) in enumerate(zip(errs, base8)):
+                if not e <= 2 * e_32 + CPU_TOL["emitted"]:
+                    raise AssertionError(f"max_ch 256 bfloat16 at {POOL_B} streams, stream {k}: {e:.3e} off the "
+                                         f"float32 default step, over 2 x {e_32:.3e} + {CPU_TOL['emitted']}")
+            row["batch8"] = {"launches_eager": launches, "p50_ms": float(np.percentile(times[1:], 50)),
+                             "p95_ms": float(np.percentile(times[1:], 95)), "rel_vs_f32_max_ch_32": errs}
+            log("switch", f"max_ch 256 {dtype} {POOL_B} streams (jit_step_batch): launches {launches} a step; p50 / "
+                          f"p95 {row['batch8']['p50_ms']:.2f} / {row['batch8']['p95_ms']:.2f} ms; each stream off "
+                          f"the float32 default step {max(errs):.3e} at most (the default's {max(base8):.3e})")
+        del pipe
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t0
+    runs_s = ", ".join(f"{out[mc]['seconds']:.1f}" for mc in MAX_CH[dtype])
+    log("switch", f"{dtype} one stream by pallas_unet_max_ch (the runs of {MAX_CH[dtype]}: {runs_s} s): " + "; ".join(
+        f"{mc}: salience stage {r['stage_device_ms']['salience']:.3f} ms, jit_step p50 / p95 "
+        f"{r['jit_step_p50_ms']:.2f} / {r['jit_step_p95_ms']:.2f} ms" for mc, r in sorted(out.items())))
+
+
 def phase_switch(report):
     """``RvcPipeline(pallas_resblocks=False)`` at full width, beside the
     kernel step on the same weights and chunks, in one call: one stream in
@@ -1321,6 +1550,7 @@ def phase_switch(report):
                           "device ms " + ", ".join(f"{k} {v:.3f}" for k, v in row["stage_device_ms"].items()))
         on, off = r["kernels"].pop("audio"), r["no_kernels"].pop("audio")
         if dtype == "float32":
+            max_ch_runs(report, dtype, pipes["kernels"], r["kernels"], on, None, chunks, controls)
             ref["one"] = on
             _, rel = check_same("switch float32: no kernels vs kernels", off, on, CPU_TOL["emitted"], chunk=n)
             r["rel_vs_kernels"] = rel
@@ -1361,6 +1591,8 @@ def phase_switch(report):
                     raise AssertionError(f"switch bfloat16 at {POOL_B} streams, stream {k}: {e_off:.3e} off the "
                                          f"float32 kernel step, over 2 x {e_on:.3e} + {CPU_TOL['emitted']}")
             b8["stages"] = switch_stages(f"{POOL_B} streams", ref["pipe"], pipes, chunks8, stacked8, at=(3,))
+            max_ch_runs(report, dtype, pipes["kernels"], r["kernels"], on, ref, chunks, controls, chunks8, stacked8,
+                        b8["kernels"]["rel_vs_f32_kernels"])
         for name in ("salience", "synth"):
             log("switch", f"{dtype} one stream, {name} stage: kernels {r['kernels']['stage_device_ms'][name]:.3f} ms, "
                           f"without {r['no_kernels']['stage_device_ms'][name]:.3f} ms")
@@ -2437,7 +2669,7 @@ def phase_timing(report, trace=False):
     rates = {torch.float32: ("", TF32X3_PEAK_FLOPS, "3xTF32's 165", 4),
              torch.bfloat16: (" bfloat16", BF16_PEAK_FLOPS, "bf16's 989", 2)}
     chain_cases = [(shape, *chain_inputs(*shape, dev, rng))
-                   for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES]
+                   for shape in CHAIN_SHAPES + CHAIN_SHAPES_BATCH + CHAIN_SHAPES_B64 + CHAIN_WIDTH_SHAPES + CHAIN_WIDE_ALL]
     for dt, (suffix, peak, rate, elem) in rates.items():
         name = "conv_block_res_chain" + suffix
         for (label, B, H, W, cin, C), x32, blocks32 in chain_cases:
@@ -2451,12 +2683,15 @@ def phase_timing(report, trace=False):
             r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
             r["launch"] = chain_launch(B, H, W, cin, C, dt)
             ln = r["launch"]
-            log("timing", f"chain {label}{suffix} launch: tiles of {ln['th']}x{ln['tw']} pixels, {ln['wm']} m16 "
-                          f"tiles a warp, {ln['threads']} threads; {ln['tiles']} blocks, a tile each, "
-                          f"{ln['waves']:.2f} waves over {N_SMS} SMs; {ln['smem_bytes']} B shared memory, "
-                          f"{ln['registers']} registers, {ln['blocks_per_sm']} blocks an SM")
+            log("timing", f"chain {label}{suffix} launch ({'ring' if ln['ring'] else 'resident'} kernel): tiles of "
+                          f"{ln['th']}x{ln['tw']} pixels and {ln['bn']} channels, {ln['wm']} m16 tiles a warp, "
+                          f"{ln['threads']} threads; {ln['tiles']} tiles, K split {ln['splits']}, {ln['blocks']} "
+                          f"blocks at most a launch, {ln['waves']:.2f} waves over {N_SMS} SMs; {ln['smem_bytes']} B "
+                          f"shared memory, {ln['registers']} registers, {ln['blocks_per_sm']} blocks an SM")
             if trace and dt == torch.float32 and packed.width == C:  # a padded width adds the pad's copies
-                calls = kernel_trace(lambda: unet_block.conv_block_res_chain(x, packed), 2 * N_BLOCKS)
+                # and a split K the zeroing of its counters
+                calls = kernel_trace(lambda: unet_block.conv_block_res_chain(x, packed),
+                                     2 * N_BLOCKS + (1 if ln["partial"] else 0))
                 last = calls[-1]
                 rows[name][label]["trace_us"] = last
                 log("profile", f"chain {label}: {len(last)} kernels per call, span "
@@ -2468,9 +2703,11 @@ def phase_timing(report, trace=False):
                           f"{r['eager_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms at {rate} TFLOP/s, "
                           f"{r['bound_ms_f32_cuda_cores']:.4f} ms at float32's 67 TFLOP/s")
         for tag, shapes in (("", CHAIN_SHAPES), (f" at {POOL_B} streams", CHAIN_SHAPES_BATCH),
-                            (f" at {CHAIN_B64} streams", CHAIN_SHAPES_B64)):
+                            (f" at {CHAIN_B64} streams", CHAIN_SHAPES_B64), (" wide", CHAIN_WIDE_SHAPES),
+                            (f" wide at {POOL_B} streams", CHAIN_WIDE_SHAPES_BATCH),
+                            (f" wide at {CHAIN_B64} streams", CHAIN_WIDE_SHAPES_B64)):
             chain_rows = [rows[name][sh[0]] for sh in shapes]
-            log("timing", f"chain{suffix} per step{tag} (4 levels): kernel "
+            log("timing", f"chain{suffix} per step{tag} ({len(shapes)} levels): kernel "
                           f"{sum(r['ms'] for r in chain_rows):.4f} ms, eager "
                           f"{sum(r['eager_ms'] for r in chain_rows):.4f} ms, cuDNN "
                           f"{sum(r['library_ms'] for r in chain_rows):.4f} ms, bound "
@@ -3712,20 +3949,24 @@ def kernel_line(report):
     streams); and the chain and the bank at each width past the main path's
     (``CHAIN_WIDTH_SHAPES``, ``BANK_WIDTH_SHAPES``) in both dtypes, whose
     launches are the wrapper's calls in the reduced-width run of that dtype
-    (the widths phase, whose C=8 levels take the kernels' C=8 instances).
-    The log-mel's ``max_abs_err`` is the largest over every shape and both
-    bases, the Slaney entry's over its own basis, the batched entries' over
-    their batched shapes, a width's over its own shape; the main path's
+    (the widths phase, whose C=8 levels take the kernels' C=8 instances);
+    and the chain at each of the six levels past C=32 (``CHAIN_WIDE_SHAPES``,
+    the ring kernel) and its padded widths in both dtypes, and at the batched
+    step's 8 streams in bfloat16, whose launches are the wrapper's calls in the
+    ``pallas_unet_max_ch=256`` step of that dtype and batch (the switch
+    phase). The log-mel's ``max_abs_err`` is the largest over every shape and
+    both bases, the Slaney entry's over its own basis, the batched entries'
+    over their batched shapes, a width's over its own shape; the main path's
     entries leave the widths out."""
     srcs = {"log_mel": ("obs_rvc_tpu_torch/csrc/stft_mel.cu", "obs_rvc_tpu/ops/stft_mel.py:70"),
             "conv_block_res_chain": ("obs_rvc_tpu_torch/csrc/unet_block.cu", "obs_rvc_tpu/ops/unet_block.py:155"),
             "resblock_bank": ("obs_rvc_tpu_torch/csrc/resblock.cu", "obs_rvc_tpu/ops/resblock.py:298")}
     main_labels = {s[0] for s in CHAIN_SHAPES + BANK_SHAPES} | {MEL_MAIN}
     batch_labels = {s[0] for s in CHAIN_SHAPES_BATCH + BANK_SHAPES_BATCH} | {MEL_BATCH_MAIN}
-    width_labels = {s[0] for s in CHAIN_WIDTH_SHAPES + BANK_WIDTH_SHAPES}
+    width_labels = {s[0] for s in CHAIN_WIDTH_SHAPES + BANK_WIDTH_SHAPES + CHAIN_WIDE_ALL}
 
     def batched(label):
-        return label.startswith("batch-") or label.endswith(f"-b{POOL_B}")
+        return (label.startswith("batch-") or label.endswith(f"-b{POOL_B}")) and label not in width_labels
 
     def not_width(label):
         return label not in width_labels
@@ -3742,7 +3983,14 @@ def kernel_line(report):
         (name, f"{name} {label}" + ("" if dtype == "float32" else " bfloat16"), dtype,
          "widths" if dtype == "float32" else "widths_bf16", {label}, lambda parity, label=label: parity == label)
         for name, shapes in (("conv_block_res_chain", CHAIN_WIDTH_SHAPES), ("resblock_bank", BANK_WIDTH_SHAPES))
-        for label, *_ in shapes for dtype in ("float32", "bfloat16")]
+        for label, *_ in shapes for dtype in ("float32", "bfloat16")] + [
+        # the ring kernel's levels and padded widths, their launches the pallas_unet_max_ch=256 step's
+        ("conv_block_res_chain", f"conv_block_res_chain {label}" + ("" if dtype == "float32" else " bfloat16"),
+         dtype, run, {label}, lambda parity, label=label: parity == label)
+        for shapes, dtypes in ((CHAIN_WIDE_SHAPES + CHAIN_WIDE_PAD_SHAPES, ("float32", "bfloat16")),
+                               (CHAIN_WIDE_SHAPES_BATCH, ("bfloat16",)))
+        for label, B, *_ in shapes for dtype in dtypes
+        for run in [MAX_CH_RUNS[(dtype, B)]]]
     kernels = []
     for name, entry, dtype, run, labels, parity_label in entries:
         src, replaces = srcs[name]
@@ -3769,7 +4017,7 @@ def main(argv=None) -> int:
                     help="also trace a few steps with torch.profiler (device busy share, top operators)")
     ap.add_argument("--only", default="",
                     help="run only these phases after the build, comma-separated (parity, widths, switch, "
-                         "stage_repeat, mesh, bench), and print no kernel line: for iterating on one phase")
+                         "stage_repeat, mesh, bench, timing), and print no kernel line: for iterating on one phase")
     ap.add_argument("--stage-repeat-child", nargs=2, metavar=("OUT", "LOG"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3823,7 +4071,8 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi),
                   "bench": lambda: phase_bench(report), "parity": lambda: phase_parity(report),
-                  "widths": lambda: phase_widths(report), "switch": lambda: phase_switch(report)}
+                  "widths": lambda: phase_widths(report), "switch": lambda: phase_switch(report),
+                  "timing": lambda: phase_timing(report, trace=args.profile)}
         for name in args.only.split(","):
             phases[name]()
         OUT_DIR.mkdir(exist_ok=True)

@@ -87,6 +87,17 @@ __device__ __forceinline__ void tf32_cut(uint32_t x, uint32_t& hi, uint32_t& lo)
   lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
 }
 
+// The same split rounded to nearest, as CUTLASS's 3xTF32 makes it: hi = x
+// rounded to TF32, lo = x - hi (exact) rounded to TF32, so |lo| <= 2^-11 |x|
+// and hi + lo is x within 2^-22 of it. Two conversions for tf32_cut's one
+// mask, four times less error: the chain's ring kernel, whose levels sum up
+// to 4608 products an output, takes it.
+__device__ __forceinline__ void tf32_split_rn(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(__uint_as_float(x)));
+  const float rest = __uint_as_float(x) - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
 // A 16-byte copy from device to shared memory that bypasses the registers;
 // src_bytes 0 writes zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -154,8 +165,9 @@ __device__ __forceinline__ void mma_k(float (&acc)[4], const uint32_t (&ah)[4], 
 // bytes) against every n8 tile n of the tap's B fragments wt (in shared
 // memory, this lane's of K step 0 and n8 tile 0; kc * NT * 32 fragments a
 // tap). Each A fragment feeds NT products, each B fragment WM. Float32
-// splits both into TF32 hi and lo as it goes.
-template <typename T, int NT, int WM>
+// splits both into TF32 hi and lo as it goes: cut (tf32_cut), or rounded to
+// nearest with RN (tf32_split_rn).
+template <typename T, int NT, int WM, bool RN = false>
 __device__ __forceinline__ void mma_tap(float (&acc)[WM][NT][4], const unsigned char* tb, const int (&arow)[WM],
                                         const typename Step<T>::Frag* wt, int kc) {
   using Frag = typename Step<T>::Frag;
@@ -176,15 +188,25 @@ __device__ __forceinline__ void mma_tap(float (&acc)[WM][NT][4], const unsigned 
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        tf32_cut(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
-        tf32_cut(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
+        if constexpr (RN) {
+          tf32_split_rn(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
+          tf32_split_rn(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
+        } else {
+          tf32_cut(__float_as_uint(b[n].x), bh[n][0], bl[n][0]);
+          tf32_cut(__float_as_uint(b[n].y), bh[n][1], bl[n][1]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < WM; ++j) {
         uint32_t a[4], ah[4], al[4];
         ldmatrix_x4(a, tb + arow[j] + cc * 32);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) tf32_cut(a[i], ah[i], al[i]);
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (RN)
+            tf32_split_rn(a[i], ah[i], al[i]);
+          else
+            tf32_cut(a[i], ah[i], al[i]);
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) mma_k(acc[j][n], ah, al, bh[n], bl[n]);
       }

@@ -13,14 +13,18 @@
 // 1x1 shortcut where the block has one; conv2 with the residual add), each
 // conv's output going through L2.
 //
-// Widths: built for C in {8, 16, 32} and any Cin from 1 to 64 (the decoder's
-// 2C concat included); the wrapper runs any other C up to 32 on the next of
-// them, its weights zero-padded (ops/unet_block.py). A conv stages its whole
-// weight in shared memory, so C=64 (the levels past pallas_unet_max_ch = 32,
-// Cin up to 128) is not built: 9 x 128 x 64 float32 weights are 295 KB, past
-// a block's 227 KB, without a ring of taps.
+// Two kernels. The resident kernel (conv3x3_kernel) takes C in {8, 16, 32}
+// and any Cin from 1 to 64 (the decoder's 2C concat included); the wrapper
+// runs any other C up to 32 on the next of them, its weights zero-padded
+// (ops/unet_block.py). It stages a conv's whole weight in shared memory,
+// which past C=32 does not fit: decoder level 0's first conv is 9 x 512 x
+// 256 weights, 2.36 MB in bf16 against a block's 227 KB. The ring kernel
+// (ring_conv3x3_kernel, below) takes every level past it, C up to 256 and
+// Cin up to 512 (the widest levels any pallas_unet_max_ch routes), C padded
+// to a multiple of 32 and Cin to one stage's slab: it streams the weights
+// through shared memory and tiles C across warps and blocks.
 //
-// What bounds it: the four C<=32 levels of the main path (enc0 1->16 and
+// What bounds the resident kernel: the four C<=32 levels of the main path (enc0 1->16 and
 // dec4 32->16 at 64x128, enc1 16->32 and dec3 64->32 at 32x64) do 1.25 GFLOP
 // a stream against ~4 MB of activations and weights: bound by arithmetic.
 // In float32 the kernel runs each product as three TF32 tensor core
@@ -67,7 +71,7 @@
 
 namespace {
 
-constexpr int MAX_CIN = 64;
+constexpr int MAX_CIN = 64;  // the resident kernel's
 constexpr int MAX_WARPS = 8;
 constexpr int SMEM_CAP = 232448;  // what a block may use on Hopper
 constexpr int FRAG_STEP_BYTES = 32 * 8;  // one K step's B fragments of one n8 tile: 32 lanes x 8 bytes
@@ -340,6 +344,415 @@ size_t level_smem(int dtype, int C, int cin, const Tiling& tl) {
   return a > b ? a : b;
 }
 
+
+// ---------------------------------------------------------------------------
+// The ring kernel: the levels past the resident kernel (C > 32 or Cin > 64)
+// ---------------------------------------------------------------------------
+//
+// What bounds it: the six wider levels of the full RMVPE (enc2 32->64 and
+// dec2 128->64 at 16x32, enc3 64->128 and dec1 256->128 at 8x16, enc4
+// 128->256 and dec0 512->256 at 4x8) do 1.90 GFLOP a stream against 26 MB of
+// bf16 weights (52 MB in float32): at one stream bound by streaming the
+// weights (7.8 us in bf16), from 8 streams by arithmetic (0.123 ms at 64
+// streams in bf16). Few pixels, many channels: enc4 and dec0 have 32 output
+// pixels a stream.
+//
+// Design: the same implicit GEMM (M = output pixels, N = C, K = 9 Cin) on
+// mma.sync, tiled three ways:
+// - M: a block takes TH x TW output pixels (TW 8 or 16; an m16 tile is 16
+//   consecutive pixels of the tile, so at TW = 8 it spans two rows, each
+//   lane giving ldmatrix its own pixel's address), MW warps along M, each
+//   WM m16 tiles.
+// - N: a block takes NW groups of 32 output channels (blockIdx.y), one warp
+//   a group, so a warp keeps WM x 4 n8 tiles of accumulators (16 or 32
+//   floats, twice that with the shortcut's) whatever C is.
+// - K: a stage is one slab of 64 bytes of every input pixel's channels (32
+//   bf16 or 16 float32: two K steps) over the tile's halo, with its 9 taps'
+//   weights for the block's groups (ops/_mma.py:pack_ring packs each group
+//   and slab contiguously). Stages stream through a ring of RING_STAGES
+//   slots in shared memory by cp.async, the next stages loading while the
+//   warps multiply the current one; the first stages' weights load before
+//   the programmatic wait, while the kernel before still runs. KW warps
+//   along K share each stage's 9 taps (3 each at KW = 3) and hand their
+//   sums to the first in shared memory, added in a fixed order: a small
+//   block's chain of dependent products is a third as long, and the SM has
+//   three times the warps to hide its latency.
+// Where the output tiles are few (one stream's levels) or the convs long,
+// the K stages also split across blockIdx.z: each block writes its partial
+// sums to a scratch the wrapper allocates, and the last block of a tile to
+// arrive (an integer counter, no float atomics) sums the partials in split
+// order and runs the epilogue, so the result is the same bit for bit on
+// every run. The wrapper chooses the block shape, KW and the splits
+// (ops/unet_block.py:chain_tiling) from a sweep at 1, 8 and 64 streams.
+// conv1 computes the 1x1 shortcut from the centre tap of the same stages;
+// conv2 adds the residual in its epilogue, as in the resident kernel. In
+// float32 its convs sum up to 4608 products an output, so it keeps two
+// errors of the tensor cores short: its 3xTF32 split rounds hi and lo to
+// nearest (mma.cuh:tf32_split_rn), and each stage's sums start from zero
+// in the tensor cores and are added to the conv's by the CUDA cores, since
+// the tensor cores' fp32 accumulator is not rounded to nearest. Two
+// launches a block of the chain, each a programmatic dependent of the one
+// before.
+
+constexpr int RING_GROUP = 32;                     // output channels of a weight group: one warp's N tile
+constexpr int RING_NT = RING_GROUP / 8;            // its n8 tiles
+constexpr int SLAB_BYTES = 64;                     // a stage's bytes of each pixel's channels
+constexpr int RING_KC = SLAB_BYTES / 32;           // K steps of one tap in a stage
+constexpr int RING_STAGES = 3;                     // slots of the ring
+constexpr int RING_MAX_WARPS = 16;
+constexpr int RING_PB = SLAB_BYTES + 16;           // a staged pixel's bytes, padded as pixel_bytes pads
+constexpr int TAP_FRAGS = RING_KC * RING_NT * 32;  // B fragments of one tap of one group in a stage
+constexpr int TAP_BYTES = TAP_FRAGS * 8;
+constexpr int RING_FLAG_BYTES = 16;                // the last-block flag, after the ring
+
+// one slot of the ring: the block's groups' 9 taps (10 with the shortcut's)
+// and the halo tile of one slab
+__host__ __device__ constexpr size_t ring_stage_bytes(int nw, bool shortcut, int th, int tw) {
+  return (size_t)nw * (shortcut ? 10 : 9) * TAP_BYTES + (size_t)(th + 2) * (tw + 2) * RING_PB;
+}
+__host__ constexpr size_t ring_smem(int nw, bool shortcut, int th, int tw) {
+  return RING_STAGES * ring_stage_bytes(nw, shortcut, th, tw) + RING_FLAG_BYTES;
+}
+
+template <typename T>
+struct RingConv {
+  const T* in;        // [B, H, W, cin], cin a multiple of the slab
+  const void* w;      // pack_ring'ed [C / 32][cin / slab][9 taps] fragments
+  const float* bias;  // [C]
+  const void* wsc;    // the 1x1 shortcut, pack_ring'ed [C / 32][cin / slab][1 tap], or null
+  const float* bsc;
+  T* sc_out;          // the shortcut's output where wsc is set
+  const T* res;       // added after the ReLU where set (may be out: read and written by one thread)
+  T* out;
+  float* partial;     // split K: the blocks' partial sums, splits x tiles x BM x BN (x 2 with the shortcut)
+  int* counters;      // split K: one a tile, 0 on entry and on exit
+  int cin, C, H, W, th, tw, splits;
+  int kw;             // warps along K: each takes 9 / kw of the taps of every stage
+};
+
+template <typename T, int NW, int WM>
+__global__ void __launch_bounds__(RING_MAX_WARPS * 32)
+ring_conv3x3_kernel(const RingConv<T> a) {
+  using Frag = typename Step<T>::Frag;
+  constexpr int ELEM = sizeof(T), SLAB = SLAB_BYTES / ELEM, NACC = WM * RING_NT * 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool sc = a.wsc != nullptr;
+  const int nthreads = blockDim.x, mw = a.th * a.tw / (16 * WM);
+  const int nres = mw * NW * 32;  // the threads of the warps that hold the block's sums at the end (wk = 0)
+  const int xw = a.tw + 2, npix = (a.th + 2) * xw;
+  const int wbytes = NW * (sc ? 10 : 9) * TAP_BYTES;
+  const size_t stage = ring_stage_bytes(NW, sc, a.th, a.tw);
+  const int tiles_w = (a.W + a.tw - 1) / a.tw, tiles_h = (a.H + a.th - 1) / a.th;
+  const int tx = blockIdx.x % tiles_w, ty = blockIdx.x / tiles_w % tiles_h, b = blockIdx.x / (tiles_w * tiles_h);
+  const int nst = a.cin / SLAB;  // the conv's K stages, of which this block takes [s0, s0 + ns)
+  const int s0 = blockIdx.z * nst / a.splits, ns = (blockIdx.z + 1) * nst / a.splits - s0;
+  const int g0 = blockIdx.y * NW;  // the block's first group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the warp's group, its place along M, and along K: its taps [tap0, tap1) of each stage
+  const int wn = warp % NW, wmi = warp / NW % mw, wk = warp / (NW * mw);
+  const int tap0 = wk * 9 / a.kw, tap1 = (wk + 1) * 9 / a.kw;
+  const bool centre = sc && tap0 <= 4 && 4 < tap1;  // the warp that takes the shortcut, from the centre tap
+
+  // stage k's weights (and the shortcut's) into slot k % RING_STAGES
+  auto load_weights = [&](int k) {
+    unsigned char* slot = smem + (k % RING_STAGES) * stage;
+    const int s = s0 + k;
+    for (int gl = 0; gl < NW; ++gl) {
+      const int4* src = reinterpret_cast<const int4*>(static_cast<const Frag*>(a.w) +
+                                                      ((size_t)(g0 + gl) * nst + s) * 9 * TAP_FRAGS);
+      int4* dst = reinterpret_cast<int4*>(slot + gl * 9 * TAP_BYTES);
+      for (int i = threadIdx.x; i < 9 * TAP_BYTES / 16; i += nthreads) cp_async16(dst + i, src + i, 16);
+      if (sc) {
+        src = reinterpret_cast<const int4*>(static_cast<const Frag*>(a.wsc) + ((size_t)(g0 + gl) * nst + s) * TAP_FRAGS);
+        dst = reinterpret_cast<int4*>(slot + (NW * 9 + gl) * TAP_BYTES);
+        for (int i = threadIdx.x; i < TAP_BYTES / 16; i += nthreads) cp_async16(dst + i, src + i, 16);
+      }
+    }
+  };
+  // stage k's slab of the input tile with its halo, zeros outside the image
+  const int h0 = ty * a.th - 1, w0 = tx * a.tw - 1;
+  const T* img = a.in + (size_t)b * a.H * a.W * a.cin;
+  auto load_tile = [&](int k) {
+    unsigned char* tile = smem + (k % RING_STAGES) * stage + wbytes;
+    const int c0 = (s0 + k) * SLAB;
+    for (int i = threadIdx.x; i < npix * (SLAB_BYTES / 16); i += nthreads) {
+      const int p = i / (SLAB_BYTES / 16), q = i % (SLAB_BYTES / 16), r = p / xw;
+      const int gh = h0 + r, gw = w0 + p - r * xw;
+      const bool inside = gh >= 0 && gh < a.H && gw >= 0 && gw < a.W;
+      cp_async16(tile + p * RING_PB + q * 16,
+                 inside ? img + ((size_t)gh * a.W + gw) * a.cin + c0 + q * (16 / ELEM) : img, inside ? 16 : 0);
+    }
+  };
+
+  int arow[WM];  // the lane's ldmatrix address in a staged tile, m16 tile j at tap (0, 0)
+#pragma unroll
+  for (int j = 0; j < WM; ++j) {
+    const int p = (wmi * WM + j) * 16 + (lane & 15), r = p / a.tw;
+    arow[j] = (r * xw + p - r * a.tw) * RING_PB + (lane >> 4) * 16;
+  }
+  // the first stages' weights while the kernel before finishes; then (programmatic dependent launch)
+  // everything it writes is read, and everything this one writes is written, after the wait
+  for (int k = 0; k < RING_STAGES - 1 && k < ns; ++k) load_weights(k);
+  grid_dependency_wait();
+  grid_dependents_launch();
+  for (int k = 0; k < RING_STAGES - 1; ++k) {
+    if (k < ns) load_tile(k);
+    cp_async_commit();  // stage k's group (the first also holds the weights above)
+  }
+
+  // float32: the tensor cores' sums of a stage are added to tot by the CUDA cores (FADD, rounded to nearest)
+  // and acc starts the next stage at zero, so no tensor-core accumulator runs longer than one stage's products
+  constexpr bool FLUSH = sizeof(T) == 4;
+  float acc[WM][RING_NT][4], accs[WM][RING_NT][4], tot[WM][RING_NT][4];
+#pragma unroll
+  for (int j = 0; j < WM; ++j)
+#pragma unroll
+    for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][n][i] = accs[j][n][i] = tot[j][n][i] = 0.f;
+  for (int k = 0; k < ns; ++k) {
+    const int ahead = k + RING_STAGES - 1;  // into the slot stage k - 1 used, which every warp is done with
+    if (ahead < ns) {
+      load_weights(ahead);
+      load_tile(ahead);
+    }
+    cp_async_commit();
+    cp_async_wait<RING_STAGES - 1>();  // stage k's group has landed
+    __syncthreads();
+    const unsigned char* slot = smem + (k % RING_STAGES) * stage;
+    const unsigned char* tile = slot + wbytes;
+    const Frag* w = reinterpret_cast<const Frag*>(slot) + wn * 9 * TAP_FRAGS + lane;
+    for (int tap = tap0; tap < tap1; ++tap)
+      mma_tap<T, RING_NT, WM, true>(acc, tile + ((tap / 3) * xw + tap % 3) * RING_PB, arow, w + tap * TAP_FRAGS,
+                                    RING_KC);
+    if (centre)
+      mma_tap<T, RING_NT, WM, true>(accs, tile + (xw + 1) * RING_PB, arow,
+                              reinterpret_cast<const Frag*>(slot + NW * 9 * TAP_BYTES) + wn * TAP_FRAGS + lane,
+                              RING_KC);
+    if constexpr (FLUSH) {
+#pragma unroll
+      for (int j = 0; j < WM; ++j)
+#pragma unroll
+        for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            tot[j][n][i] += acc[j][n][i];
+            acc[j][n][i] = 0.f;
+          }
+    }
+    __syncthreads();
+  }
+  if constexpr (FLUSH) {
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][n][i] = tot[j][n][i];
+  }
+
+  const int nacc = sc ? 2 * NACC : NACC, rt = threadIdx.x - wk * nres;
+  if (a.kw > 1) {
+    // the warps along K: those of wk > 0 hand their sums over in the ring's memory (free after the loop's last
+    // sync), and those of wk = 0 add them in wk order
+    float* red = reinterpret_cast<float*>(smem);
+    if (wk > 0) {
+#pragma unroll
+      for (int j = 0; j < WM; ++j)
+#pragma unroll
+        for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = (j * RING_NT + n) * 4 + i;
+            red[((size_t)(wk - 1) * nacc + e) * nres + rt] = acc[j][n][i];
+            if (sc) red[((size_t)(wk - 1) * nacc + NACC + e) * nres + rt] = accs[j][n][i];
+          }
+    }
+    __syncthreads();
+    if (wk == 0) {
+      for (int w = 1; w < a.kw; ++w)
+#pragma unroll
+        for (int j = 0; j < WM; ++j)
+#pragma unroll
+          for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = (j * RING_NT + n) * 4 + i;
+              acc[j][n][i] += red[((size_t)(w - 1) * nacc + e) * nres + rt];
+              if (sc) accs[j][n][i] += red[((size_t)(w - 1) * nacc + NACC + e) * nres + rt];
+            }
+    }
+  }
+
+  if (a.splits > 1) {
+    // split K: this block's partial sums out, coalesced (element e of every thread together); the tile's last
+    // block to arrive sums the splits' in split order
+    const int tile_id = blockIdx.y * gridDim.x + blockIdx.x;
+    float* part = a.partial + ((size_t)tile_id * a.splits + blockIdx.z) * nacc * nres + rt;
+    if (wk == 0) {
+#pragma unroll
+      for (int j = 0; j < WM; ++j)
+#pragma unroll
+        for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = (j * RING_NT + n) * 4 + i;
+            __stcg(part + (size_t)e * nres, acc[j][n][i]);
+            if (sc) __stcg(part + (size_t)(NACC + e) * nres, accs[j][n][i]);
+          }
+    }
+    int* last = reinterpret_cast<int*>(smem + RING_STAGES * stage);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(a.counters + tile_id, 1) == a.splits - 1;
+    __syncthreads();
+    if (!*last) return;
+    if (threadIdx.x == 0) a.counters[tile_id] = 0;  // for the next conv of the level
+    if (wk != 0) return;
+    __threadfence();
+    // split by split, each split's values loaded together before they are added
+    const float* base = a.partial + (size_t)tile_id * a.splits * nacc * nres + rt;
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][n][i] = accs[j][n][i] = 0.f;
+    for (int s = 0; s < a.splits; ++s) {
+      const float* src = base + (size_t)s * nacc * nres;
+      float v[NACC], vs[NACC];
+#pragma unroll
+      for (int e = 0; e < NACC; ++e) {
+        v[e] = __ldcg(src + (size_t)e * nres);
+        vs[e] = sc ? __ldcg(src + (size_t)(NACC + e) * nres) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < WM; ++j)
+#pragma unroll
+        for (int n = 0; n < RING_NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[j][n][i] += v[(j * RING_NT + n) * 4 + i];
+            accs[j][n][i] += vs[(j * RING_NT + n) * 4 + i];
+          }
+    }
+  }
+  if (wk != 0) return;
+
+  // the epilogue at this warp's pixels inside the image: the shortcut, then relu(conv + bias) (+ res)
+#pragma unroll
+  for (int n = 0; n < RING_NT; ++n) {
+    const int c = (g0 + wn) * RING_GROUP + n * 8 + 2 * t;
+    const float b0 = __ldg(a.bias + c), b1 = __ldg(a.bias + c + 1);
+    const float s0b = sc ? __ldg(a.bsc + c) : 0.f, s1b = sc ? __ldg(a.bsc + c + 1) : 0.f;
+#pragma unroll
+    for (int j = 0; j < WM; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = (wmi * WM + j) * 16 + g + 8 * half, r = p / a.tw;
+        const int oh = ty * a.th + r, ow = tx * a.tw + p - r * a.tw;
+        if (oh >= a.H || ow >= a.W) continue;
+        const size_t o = (((size_t)b * a.H + oh) * a.W + ow) * a.C + c;
+        if (sc) store2(a.sc_out, o, accs[j][n][2 * half] + s0b, accs[j][n][2 * half + 1] + s1b);
+        float v0 = fmaxf(acc[j][n][2 * half] + b0, 0.f), v1 = fmaxf(acc[j][n][2 * half + 1] + b1, 0.f);
+        if (a.res != nullptr) {
+          float r0, r1;
+          load2(a.res, o, r0, r1);
+          v0 += r0;
+          v1 += r1;
+        }
+        store2(a.out, o, v0, v1);
+      }
+  }
+}
+
+struct RingTiling {
+  int th, tw, wm, nw, kw, split_in, split_c;
+  int mw() const { return th * tw / (16 * wm); }
+  int warps() const { return mw() * nw * kw; }
+};
+
+// the ring's memory must also hold the sums the warps along K hand over: (kw - 1) x th tw x 32 nw floats,
+// twice that with the shortcut
+bool valid_ring_tiling(const RingTiling& tl) {
+  return tl.th >= 1 && tl.tw >= 1 && (tl.wm == 1 || tl.wm == 2) && (tl.nw == 1 || tl.nw == 2) && tl.kw >= 1 &&
+         tl.kw <= 9 && (tl.th * tl.tw) % (16 * tl.wm) == 0 && tl.warps() >= 1 && tl.warps() <= RING_MAX_WARPS &&
+         ring_smem(tl.nw, true, tl.th, tl.tw) <= (size_t)SMEM_CAP &&
+         (size_t)(tl.kw - 1) * 2 * tl.th * tl.tw * RING_GROUP * tl.nw * 4 <=
+             RING_STAGES * ring_stage_bytes(tl.nw, false, tl.th, tl.tw);
+}
+
+template <typename T, int NW, int WM>
+cudaError_t ring_conv(const RingConv<T>& a, int B, const RingTiling& tl, cudaStream_t stream) {
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t e = smem_cap_once((const void*)ring_conv3x3_kernel<T, NW, WM>, done, SMEM_CAP);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * ((a.H + tl.th - 1) / tl.th) * ((a.W + tl.tw - 1) / tl.tw), a.C / (RING_GROUP * NW), a.splits);
+  cfg.blockDim = dim3(tl.warps() * 32);
+  cfg.dynamicSmemBytes = ring_smem(NW, a.wsc != nullptr, tl.th, tl.tw);
+  cfg.stream = stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, ring_conv3x3_kernel<T, NW, WM>, a);
+}
+
+// the level's blocks in turn, two launches each, as chain() runs them
+template <typename T, int NW, int WM>
+cudaError_t ring_chain(const T* x, T* out, T* scratch, float* partial, int* counters, const void* const* params,
+                       int n_blocks, int B, int H, int W, int cin, int C, const RingTiling& tl, cudaStream_t stream) {
+  const size_t act = (size_t)B * H * W * C;
+  T* y1 = scratch;
+  T* ping[2] = {scratch + act, scratch + 2 * act};
+  const T* src = x;
+  for (int i = 0; i < n_blocks; ++i) {
+    const void* const* p = params + 6 * i;
+    T* dst = i + 1 == n_blocks ? out : ping[i % 2];
+    const bool sc = p[4] != nullptr;
+    const RingConv<T> c1{src, p[0], static_cast<const float*>(p[1]), p[4], static_cast<const float*>(p[5]),
+                         sc ? dst : nullptr, nullptr, y1, partial, counters, cin, C, H, W, tl.th, tl.tw,
+                         i == 0 ? tl.split_in : tl.split_c, tl.kw};
+    cudaError_t e = ring_conv<T, NW, WM>(c1, B, tl, stream);
+    if (e != cudaSuccess) return e;
+    const RingConv<T> c2{y1, p[2], static_cast<const float*>(p[3]), nullptr, nullptr, nullptr, sc ? dst : src, dst,
+                         partial, counters, C, C, H, W, tl.th, tl.tw, tl.split_c, tl.kw};
+    e = ring_conv<T, NW, WM>(c2, B, tl, stream);
+    if (e != cudaSuccess) return e;
+    src = dst;
+    cin = C;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+const void* ring_kernel_of(int nw, int wm) {
+  switch (nw * 10 + wm) {
+    case 11: return (const void*)ring_conv3x3_kernel<T, 1, 1>;
+    case 12: return (const void*)ring_conv3x3_kernel<T, 1, 2>;
+    case 21: return (const void*)ring_conv3x3_kernel<T, 2, 1>;
+    case 22: return (const void*)ring_conv3x3_kernel<T, 2, 2>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+cudaError_t ring_chain_c(const void* x, void* out, void* scratch, float* partial, int* counters,
+                         const void* const* params, int n_blocks, int B, int H, int W, int cin, int C,
+                         const RingTiling& tl, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  T* st = static_cast<T*>(scratch);
+  switch (tl.nw * 10 + tl.wm) {
+    case 11: return ring_chain<T, 1, 1>(xt, ot, st, partial, counters, params, n_blocks, B, H, W, cin, C, tl, s);
+    case 12: return ring_chain<T, 1, 2>(xt, ot, st, partial, counters, params, n_blocks, B, H, W, cin, C, tl, s);
+    case 21: return ring_chain<T, 2, 1>(xt, ot, st, partial, counters, params, n_blocks, B, H, W, cin, C, tl, s);
+    case 22: return ring_chain<T, 2, 2>(xt, ot, st, partial, counters, params, n_blocks, B, H, W, cin, C, tl, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 }  // namespace
 
 // A whole level: x [B, H, W, cin] -> out [B, H, W, C] in the activation type
@@ -381,6 +794,68 @@ extern "C" int rvc_chain_launch_info(int C, int dtype, int cin, int th, int tw, 
   e = cudaFuncGetAttributes(&attr, k);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = level_smem(dtype, C, cin, tl);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, tl.warps() * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = tl.warps() * 32;
+  out[1] = (int)smem;
+  out[2] = attr.numRegs;
+  out[3] = blocks;
+  return 0;
+}
+
+// A whole level on the ring kernel: x [B, H, W, cin] -> out [B, H, W, C] in
+// the activation type (dtype 0 float32, 1 bfloat16), cin a multiple of a
+// stage's slab (16 float32, 32 bf16), C of 32 nw; scratch: 3 B H W C
+// elements of it. params: 6 pointers per block as for
+// rvc_conv_block_res_chain, the weights packed by ops/_mma.py:pack_ring.
+// The tiling: th x tw output pixels (th tw a multiple of 16 wm), wm m16
+// tiles a warp, nw groups of 32 channels a block (a warp each), kw warps
+// along K (each 9 / kw taps of a stage); the K stages of the first conv
+// (over cin) split split_in ways across blocks, of every other (over C)
+// split_c ways. Where either is past 1, partial holds tiles x
+// max(2 split_in, split_c) x th tw x 32 nw floats (tiles: the launch's
+// output tiles, pixel tiles x C / (32 nw)) and counters tiles int32 zeros,
+// which the call leaves zero. Launches two kernels per block of the chain
+// on `stream`, each a programmatic dependent of the kernel before it, on the
+// calling thread's current device. Returns a CUDA error code.
+extern "C" int rvc_conv_block_res_chain_ring(const void* x, void* out, void* scratch, void* partial, void* counters,
+                                             const void* const* params, int n_blocks, int B, int H, int W, int cin,
+                                             int C, int dtype, int th, int tw, int wm, int nw, int kw,
+                                             int split_in, int split_c, void* stream) {
+  const RingTiling tl{th, tw, wm, nw, kw, split_in, split_c};
+  const int slab = dtype == 0 ? SLAB_BYTES / 4 : SLAB_BYTES / 2;
+  if (n_blocks < 1 || B < 1 || H < 1 || W < 1 || cin < slab || cin % slab || C < RING_GROUP * nw ||
+      !valid_ring_tiling(tl) || C % (RING_GROUP * nw) || split_in < 1 || split_in > cin / slab || split_c < 1 ||
+      split_c > C / slab || ((split_in > 1 || split_c > 1) && (partial == nullptr || counters == nullptr)) ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_blocks; ++i)
+    if (params[6 * i + 4] == nullptr && (i == 0 ? cin : C) != C) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(partial);
+  int* ct = static_cast<int*>(counters);
+  cudaError_t e = dtype == 0 ? ring_chain_c<float>(x, out, scratch, pt, ct, params, n_blocks, B, H, W, cin, C, tl, s)
+                  : dtype == 1
+                      ? ring_chain_c<__nv_bfloat16>(x, out, scratch, pt, ct, params, n_blocks, B, H, W, cin, C, tl, s)
+                      : cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The ring kernel's launch at a tiling on this card: out = (threads, shared
+// memory bytes of its largest launch (conv1 with the shortcut), registers a
+// thread, blocks an SM holds at that shared memory). Returns a CUDA error
+// code.
+extern "C" int rvc_chain_ring_launch_info(int dtype, int th, int tw, int wm, int nw, int kw, int* out) {
+  const RingTiling tl{th, tw, wm, nw, kw, 1, 1};
+  if ((dtype != 0 && dtype != 1) || !valid_ring_tiling(tl)) return (int)cudaErrorInvalidValue;
+  const void* k = dtype == 0 ? ring_kernel_of<float>(nw, wm) : ring_kernel_of<__nv_bfloat16>(nw, wm);
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, k);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = ring_smem(nw, true, th, tw);
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, tl.warps() * 32, smem);
   if (e != cudaSuccess) return (int)e;

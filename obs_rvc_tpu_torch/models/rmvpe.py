@@ -8,14 +8,17 @@ keeps) → Linear → sigmoid. Module names follow the published ``E2E`` so its
 state dict loads as is.
 
 With ``RMVPEConfig.pallas_unet`` (on by default here, off in the JAX
-package, see the field), the levels with at most ``pallas_unet_max_ch``
-channels (the C=16 and C=32 levels at the largest feature maps) run their
-ConvBlockRes chain through
-:func:`~obs_rvc_tpu_torch.ops.unet_block.conv_block_res_chain` with the
-BatchNorms folded, as the JAX package sends them to its Pallas kernel; the
-wider levels, and every level with the switch off, run the ``ConvBlockRes``
-modules' own ``conv2d`` layers (cuDNN on a card), as the JAX package runs
-its flax blocks through XLA.
+package, see the field), the encoder and decoder levels with at most
+``pallas_unet_max_ch`` channels (by default 32: the C=16 and C=32 levels at
+the largest feature maps; 256 takes all ten) run their ConvBlockRes chain
+through :func:`~obs_rvc_tpu_torch.ops.unet_block.conv_block_res_chain` with
+the BatchNorms folded, as the JAX package sends them to its Pallas kernel.
+On a card every such level runs on the chain kernel: the C <= 32 levels on
+its resident kernel, the wider ones (C = 64, 128, 256, their decoder levels
+reading 2C) on its ring kernel. The wider levels, the intermediate levels
+at every ``max_ch``, and every level with the switch off run the
+``ConvBlockRes`` modules' own ``conv2d`` layers (cuDNN on a card), as the
+JAX package runs its flax blocks through XLA.
 
 The network computes in its weights' dtype, as the JAX module does in its
 ``dtype``: the float32 mel enters the first BatchNorm, which normalises it
@@ -95,7 +98,9 @@ class ConvBlockRes(nn.Module):
 
 
 class _Chain(nn.ModuleList):
-    """A level's ConvBlockRes blocks; through the chain kernel when ``fused``."""
+    """A level's ConvBlockRes blocks; through the chain kernel when ``fused``
+    (at any width the kernel takes: C up to 256, Cin up to 512, every
+    encoder and decoder level of the published RMVPE)."""
 
     def __init__(self, in_ch: int, out_ch: int, n_blocks: int, fused: bool):
         super().__init__([ConvBlockRes(in_ch, out_ch)]

@@ -4,7 +4,8 @@ PyTorch version (counterpart of ``obs_rvc_tpu.ops``).
 - :mod:`stft_mel` — the RMVPE log-mel frontend, framing to log
   (``csrc/stft_mel.cu``), at keyshift 0.
 - :mod:`unet_block` — one RMVPE U-Net level's ConvBlockRes chain
-  (``csrc/unet_block.cu``), for the C<=32 levels.
+  (``csrc/unet_block.cu``), for every level ``pallas_unet_max_ch`` routes
+  (C up to 256, Cin up to 512).
 - :mod:`resblock` — one NSF upsample level's resblock bank
   (``csrc/resblock.cu``), for the 16<=C<=64 levels.
 

@@ -4,8 +4,10 @@ float32 (split into TF32 hi and lo in the kernel) or ``m16n8k16`` bfloat16,
 which ``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank``
 make once per weight version; the channel counts the two kernels are built
 for, and the zero padding that runs any narrower count on the next one up
-(:func:`built_width`, :func:`pad_to`). Also the products of the chain's and
-the bank's plain versions, which round where the kernels round
+(:func:`built_width`, :func:`pad_to`); the same fragments in the order of
+the chain's ring kernel, which streams them through shared memory a slab of
+input channels at a time (:func:`pack_ring`). Also the products of the
+chain's and the bank's plain versions, which round where the kernels round
 (:func:`conv_rounded`).
 
 Zero-padded channels are exact: a padded channel's weights, bias and input
@@ -62,6 +64,33 @@ def pack_taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     # k = 8 h + 2 t + i: the lane's registers (h = 0, i = 0, 1) and (h = 1, i = 0, 1)
     return w.to(dtype).reshape(nk, 2, 4, 2, C // 8, 8).permute(0, 4, 5, 2, 1, 3).reshape(
         nk, C // 8, 32, 4).contiguous()
+
+
+#: bytes of each pixel's channels in one stage of the chain's ring kernel (``csrc/unet_block.cu``): two K steps
+RING_SLAB_BYTES = 64
+#: output channels of one weight group of the ring kernel: the N tile of one warp, four n8 tiles
+RING_GROUP = 32
+
+
+def slab_channels(dtype: torch.dtype) -> int:
+    """Input channels of one stage of the ring kernel: 32 bf16 or 16 float32."""
+    return RING_SLAB_BYTES // (4 if dtype == torch.float32 else 2)
+
+
+def pack_ring(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv weight ``[taps, Cin, C]`` in the order the ring kernel streams
+    it: Cin a multiple of :func:`slab_channels` ``sl`` and C of
+    :data:`RING_GROUP`, one contiguous block for each group of 32 output
+    channels and slab of ``sl`` input channels, ``[C / 32, Cin / sl, taps,
+    ...]``, each block :func:`pack_taps` of ``[taps, sl, 32]`` (its ``taps
+    * sl / ks`` K steps of 4 n8 tiles). A stage of the ring is one such
+    block a group."""
+    taps, cin, C = w.shape
+    sl = slab_channels(dtype)
+    if cin % sl or C % RING_GROUP:
+        raise ValueError(f"pack_ring: Cin {cin} must be a multiple of {sl} and C {C} of {RING_GROUP}")
+    w = w.reshape(taps, cin // sl, sl, C // RING_GROUP, RING_GROUP).permute(3, 1, 0, 2, 4)
+    return pack_taps(w.reshape(-1, sl, RING_GROUP), dtype)
 
 
 def conv_rounded(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:

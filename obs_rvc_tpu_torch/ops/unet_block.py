@@ -16,14 +16,21 @@ level, two launches per block) for a tensor on a card; it never falls back
 from one to the other. The plain version takes the folded blocks; the kernel
 takes only their :func:`pack_chain` (the weights in its mma fragments'
 order), which ``models/rmvpe.py:_Chain`` makes once per weight version, and
-a tile shape that :func:`chain_tiling` chooses from the batch and the
-level's size (plain arithmetic, so the CPU tests check it).
+a tiling that :func:`chain_tiling` chooses from the batch and the level's
+size (plain arithmetic, so the CPU tests check it).
 
-Widths: the kernel is built for C in :data:`CUDA_CHANNELS` and any Cin up to
-:data:`CUDA_MAX_CIN`; any other C up to 32 runs on the next built one,
-:func:`pack_chain` zero-padding the weights (and the wrapper the input of a
-level whose first block keeps its channels), exact as ``ops/_mma.py`` says.
-What lies outside raises ``NotImplementedError`` naming its limit.
+Widths: two kernels in one source. The resident kernel stages a conv's whole
+weight in shared memory; it is built for C in :data:`CUDA_CHANNELS` and any
+Cin up to :data:`RESIDENT_MAX_CIN`, and any other C up to 32 runs on the
+next built one. Every other level, up to :data:`CUDA_MAX_C` output and
+:data:`CUDA_MAX_CIN` input channels (the widest levels any
+``pallas_unet_max_ch`` routes), runs on the ring kernel, which streams the
+weights through shared memory a slab of input channels at a time and tiles
+C across warps and blocks (:func:`is_ring`), C padded to a multiple of 32
+and the first block's Cin to a slab. :func:`pack_chain` zero-pads the
+weights (and the wrapper the input where the kernel reads more channels
+than it has), exact as ``ops/_mma.py`` says. What lies outside raises
+``NotImplementedError`` naming its limit.
 """
 
 from __future__ import annotations
@@ -35,15 +42,21 @@ import torch
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.ops import _cuda
-from obs_rvc_tpu_torch.ops._mma import built_width, conv_rounded, k_step, pack_taps, pad_to
+from obs_rvc_tpu_torch.ops._mma import (RING_GROUP, built_width, conv_rounded, k_step, pack_ring, pack_taps, pad_to,
+                                        slab_channels)
 
-#: output channel counts the CUDA kernel is built for (its template instances); a narrower C runs on the next
-#: one up. Past 32 none: a conv stages its whole weight in shared memory, and the C=64 levels' (Cin up to
-#: 128: 9 x 128 x 64 float32, 295 KB) would not fit a block's 227 KB without a ring of taps
+#: output channel counts the resident kernel is built for (its template instances); a narrower C runs on the
+#: next one up. Past 32 it would not fit: it stages a conv's whole weight in shared memory, and the C=64
+#: levels' (Cin up to 128: 9 x 128 x 64 float32, 295 KB) pass a block's 227 KB
 CUDA_CHANNELS = (8, 16, 32)
-#: input channels the kernel takes at most (its stage of the input tile, the weights beside it)
-CUDA_MAX_CIN = 64
-#: wrapper calls that launched the CUDA kernel
+#: input channels the resident kernel takes at most (its stage of the input tile, the weights beside it)
+RESIDENT_MAX_CIN = 64
+#: output and input channels the ring kernel takes at most: the full RMVPE's widest routable levels (dec0,
+#: 512 -> 256; its intermediate levels, 256 -> 512, run their modules at every pallas_unet_max_ch, as in the
+#: JAX package), and the widest the card tests hold the kernel to
+CUDA_MAX_C = 256
+CUDA_MAX_CIN = 512
+#: wrapper calls that launched a CUDA kernel (either)
 LAUNCHES = 0
 
 #: the kernel's m16 tiles a warp (its template instances), and warps a block at most
@@ -59,6 +72,24 @@ N_SMS = 132
 #: every tile the kernel takes at 1, 8 and 64 streams (scripts/torch_chain_probe.py --sweep, PERF.md)
 TILES = ((4, 16, 1), (8, 16, 1), (8, 16, 2))
 TILE_STEPS = (128, 1024)
+#: the ring kernel's block shapes, (output pixels, groups of 32 channels (a warp each along N), m16 tiles a
+#: warp), largest first, 16 pixels a row from 128 pixels (where the map is 16 wide) and 8 below; a block of
+#: at most RING_KW_WARPS warps along M and N takes 3 warps along K; in float32 a warp takes one m16 tile (its
+#: sums of each stage are kept apart from the conv's, twice the registers). :func:`chain_tiling` takes the
+#: first whose tiles fill RING_FILL of the SMs, unless the convs over C have more than RING_SPLIT_STAGES K
+#: stages; then, or where none fills them, the first that does with K split across blocks (up to
+#: RING_MAX_SPLIT ways, half a conv's stages, and the SMs over the tiles), else the first of the least pixels
+#: with that split. Chosen from a sweep of every tile, warps along K and split at 1, 8 and 64 streams
+#: (scripts/torch_chain_probe.py --levels wide --sweep, PERF.md)
+RING_TILES = ((128, 2, 2), (64, 2, 2), (32, 2, 1), (32, 1, 1), (16, 2, 1), (16, 1, 1))
+RING_KW_WARPS = 4
+RING_FILL = 0.9
+RING_SPLIT_STAGES = 4
+RING_MAX_SPLIT = 4
+#: the ring kernel's slots of shared memory
+RING_STAGES = 3
+#: the ring kernel's warps a block at most
+RING_MAX_WARPS = 16
 
 
 def fold_bn(kernel, scale, bias, mean, var, eps: float = 1e-5):
@@ -101,20 +132,45 @@ class PackedChain(NamedTuple):
     blocks: list
     #: the blocks' pointers, six per block, as the C entry point takes them
     params: ctypes.Array
+    #: packed for the ring kernel (:func:`is_ring`), by ``ops/_mma.py:pack_ring``; else for the resident one
+    ring: bool = False
+
+
+def is_ring(C: int, cin: int) -> bool:
+    """Whether a level ``cin → C`` runs on the ring kernel: past the
+    resident kernel's C of 32 or Cin of :data:`RESIDENT_MAX_CIN`."""
+    return C > CUDA_CHANNELS[-1] or cin > RESIDENT_MAX_CIN
 
 
 def kernel_width(C: int, cin: int) -> int:
-    """The kernel's output channels for a level ``cin → C``: the least of
-    :data:`CUDA_CHANNELS` that holds C. Raises ``NotImplementedError`` past
-    them or past :data:`CUDA_MAX_CIN`."""
-    width = built_width(C, CUDA_CHANNELS)
-    if width is None:
-        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes C up to {CUDA_CHANNELS[-1]}, got "
-                                  f"{C} (shared memory: a conv stages its whole weight)")
+    """The kernel's output channels for a level ``cin → C``: on the resident
+    kernel the least of :data:`CUDA_CHANNELS` that holds C, on the ring
+    kernel C rounded up to a multiple of 32. Raises ``NotImplementedError``
+    past :data:`CUDA_MAX_C` or :data:`CUDA_MAX_CIN`."""
+    if not 1 <= C <= CUDA_MAX_C:
+        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernels take C up to {CUDA_MAX_C}, got {C} "
+                                  "(the widest level RMVPE routes to the chain; the card tests stop there)")
     if not 1 <= cin <= CUDA_MAX_CIN:
-        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernel takes Cin 1..{CUDA_MAX_CIN}, got {cin} "
-                                  "(shared memory: the input tile and the weights)")
-    return width
+        raise NotImplementedError(f"conv_block_res_chain: the CUDA kernels take Cin 1..{CUDA_MAX_CIN}, got {cin} "
+                                  "(the widest level RMVPE routes to the chain; the card tests stop there)")
+    if is_ring(C, cin):
+        return -(-C // RING_GROUP) * RING_GROUP
+    return built_width(C, CUDA_CHANNELS)
+
+
+def kernel_cin(cin: int, C: int, dtype: torch.dtype, shortcut: Optional[bool] = None) -> int:
+    """The first block's input channels as the kernel reads them: on the
+    resident kernel ``cin``, on the ring kernel ``cin`` rounded up to a
+    slab (``ops/_mma.py:slab_channels``); either way the kernel's width
+    where the block adds its input (no shortcut: ``shortcut`` false, by
+    default where ``cin == C``), since that input is padded to the width."""
+    width = kernel_width(C, cin)
+    if not (cin != C if shortcut is None else shortcut):
+        return width
+    if not is_ring(C, cin):
+        return cin
+    sl = slab_channels(dtype)
+    return -(-cin // sl) * sl
 
 
 def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
@@ -124,9 +180,10 @@ def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
     plain version rounds them, and kept in float32."""
     C = blocks[0][0].shape[-1]
     cin = cin0 = blocks[0][0].shape[2]
-    width = kernel_width(C, cin0)
+    width, ring = kernel_width(C, cin0), is_ring(C, cin0)
     # a first block without a shortcut adds its input: that input is padded to the width too
-    cin_kernel = cin0 if blocks[0][4] is not None else width
+    cin_kernel = kernel_cin(cin0, C, dtype, blocks[0][4] is not None)
+    pack = pack_ring if ring else pack_taps
     out, ptrs = [], []
     for i, (w1, b1, w2, b2, wsc, bsc) in enumerate(blocks):
         if w1.shape != (3, 3, cin, C) or w2.shape != (3, 3, C, C):
@@ -140,22 +197,28 @@ def pack_chain(blocks, dtype: torch.dtype) -> PackedChain:
         if any(t is not None and t.device != blocks[0][0].device for t in (w1, b1, w2, b2, wsc, bsc)):
             raise ValueError(f"conv_block_res_chain: block {i} weights on more than one device")
         ci = cin_kernel if i == 0 else width
-        packed = (pack_taps(pad_to(w1.reshape(9, cin, C), (9, ci, width)), dtype), _kernel_weight(b1, dtype, width),
-                  pack_taps(pad_to(w2.reshape(9, C, C), (9, width, width)), dtype), _kernel_weight(b2, dtype, width),
-                  None if wsc is None else pack_taps(pad_to(wsc.reshape(1, cin, C), (1, ci, width)), dtype),
+        packed = (pack(pad_to(w1.reshape(9, cin, C), (9, ci, width)), dtype), _kernel_weight(b1, dtype, width),
+                  pack(pad_to(w2.reshape(9, C, C), (9, width, width)), dtype), _kernel_weight(b2, dtype, width),
+                  None if wsc is None else pack(pad_to(wsc.reshape(1, cin, C), (1, ci, width)), dtype),
                   _kernel_weight(bsc, dtype, width))
         out.append(packed)
         ptrs += [0 if t is None else t.data_ptr() for t in packed]
         cin = C
     return PackedChain(dtype, blocks[0][0].device, C, cin0, width, cin_kernel, out,
-                       (ctypes.c_void_p * len(ptrs))(*ptrs))
+                       (ctypes.c_void_p * len(ptrs))(*ptrs), ring)
 
 
 class ChainTiling(NamedTuple):
-    """A level's launch shape: one block a tile of ``th`` x ``tw`` output
-    pixels, ``warps`` warps of ``wm`` m16 tiles (16 pixels of a row) each,
-    ``tiles`` blocks in all; the shared memory of the level's largest
-    launch."""
+    """A level's launch shape: a tile of ``th`` x ``tw`` output pixels and
+    ``bn`` channels a block, ``warps`` warps of ``wm`` m16 tiles (16
+    consecutive pixels of the tile) each, ``tiles`` such tiles in all; the
+    shared memory of the level's largest launch. On the resident kernel
+    ``bn`` is the whole width and a block takes a tile. On the ring kernel
+    (``ring``) ``bn`` is 32 or 64 channels, a warp each 32, ``kw`` warps
+    along K share each stage's taps, and the K stages of the first conv
+    (over Cin) and of the others (over C) split ``splits`` ways across
+    blocks, a block a tile and split, with ``partial`` float32 of scratch
+    for the splits' partial sums (0 where nothing splits)."""
 
     th: int
     tw: int
@@ -163,6 +226,12 @@ class ChainTiling(NamedTuple):
     warps: int
     tiles: int
     smem_bytes: int
+    ring: bool = False
+    bn: int = 0
+    splits: tuple = (1, 1)
+    partial: int = 0
+    #: the ring kernel's warps along K, each taking 9 / kw of the taps of a stage (``warps`` counts them)
+    kw: int = 1
 
 
 def level_smem(cin: int, C: int, dtype: torch.dtype, th: int, tw: int) -> int:
@@ -181,14 +250,77 @@ def level_smem(cin: int, C: int, dtype: torch.dtype, th: int, tw: int) -> int:
     return max(conv(cin, True), conv(C, False))
 
 
+def ring_smem(th: int, tw: int, nw: int) -> int:
+    """Shared memory of the ring kernel's largest launch (``csrc/unet_block.cu:
+    ring_smem``, conv1 with the shortcut): :data:`RING_STAGES` slots, each
+    the block's ``nw`` groups' 10 taps (2 K steps x 4 n8 tiles x 32 lanes x
+    8 bytes a tap) and the halo tile of one 64-byte slab (and 16 bytes of
+    padding) a pixel, and 16 bytes for the last block's flag. The same in
+    both dtypes: a slab is 64 bytes either way."""
+    return RING_STAGES * (nw * 10 * 2048 + (th + 2) * (tw + 2) * 80) + 16
+
+
+def _ring_tiling(B, H, W, cin, C, width, dtype, n_sms, tile) -> ChainTiling:
+    cink = kernel_cin(cin, C, dtype)
+    sl = slab_channels(dtype)
+    stages = (cink // sl, width // sl)
+
+    def tiles(th, tw, nw):
+        return B * -(-H // th) * -(-W // tw) * (width // (RING_GROUP * nw))
+
+    def split(th, tw, nw):
+        """K split across blocks: up to RING_MAX_SPLIT ways, half the conv's stages, the SMs over the tiles."""
+        cap = max(1, min(RING_MAX_SPLIT, n_sms // tiles(th, tw, nw)))
+        return tuple(max(1, min(cap, n // 2)) for n in stages)
+
+    if tile is None:
+        options = []
+        for px, nw, wm in RING_TILES:
+            tw = 16 if px >= 128 and W >= 16 else 8
+            wm = 1 if dtype == torch.float32 else wm  # float32 keeps a second set of sums a stage: one m16 tile
+            if width % (RING_GROUP * nw) == 0:
+                options.append((px // tw, tw, wm, nw, 3 if px // (16 * wm) * nw <= RING_KW_WARPS else 1))
+        options = [o for o in options if o[0] <= H] or options[-1:]  # no tile taller than the map, but the least
+        fill = RING_FILL * n_sms
+        whole = next((o for o in options if tiles(o[0], o[1], o[3]) >= fill), None)
+        if whole is not None and stages[1] <= RING_SPLIT_STAGES:
+            tile = (*whole, 1, 1)
+        else:
+            least = next(o for o in options if o[0] * o[1] == options[-1][0] * options[-1][1])
+            tile = next((o for o in options if tiles(o[0], o[1], o[3]) * max(split(o[0], o[1], o[3])) >= fill),
+                        least)
+            tile = (*tile, *split(tile[0], tile[1], tile[3]))
+    th, tw, wm, nw, kw, *forced = tile
+    warps = th * tw // (16 * wm) * nw * kw
+    if wm not in CUDA_WM or nw not in (1, 2) or th * tw % (16 * wm) or not 1 <= kw <= 9 or \
+            not 1 <= warps <= RING_MAX_WARPS or width % (RING_GROUP * nw) or len(forced) not in (0, 2) or \
+            not all(1 <= f <= n for f, n in zip(forced, stages)):
+        raise ValueError(f"chain_tiling: no ring kernel for tile {tuple(tile)} at C={width}")
+    smem = ring_smem(th, tw, nw)
+    # the ring also holds the sums the warps along K hand over: (kw - 1) x th tw x 32 nw floats, x 2 with the
+    # shortcut, within its slots as a conv without the shortcut sizes them
+    if smem > SMEM_CAP or (kw - 1) * 2 * th * tw * RING_GROUP * nw * 4 > \
+            RING_STAGES * (nw * 9 * 2048 + (th + 2) * (tw + 2) * 80):
+        raise ValueError(f"chain_tiling: tile {tuple(tile)} takes {smem} bytes of shared memory")
+    n = tiles(th, tw, nw)
+    splits = tuple(forced) or split(th, tw, nw)
+    bm, bn = th * tw, RING_GROUP * nw
+    partial = n * bm * bn * max(2 * splits[0], splits[1]) if max(splits) > 1 else 0
+    return ChainTiling(th, tw, wm, warps, n, smem, True, bn, splits, partial, kw)
+
+
 def chain_tiling(B: int, H: int, W: int, cin: int, C: int, dtype: torch.dtype, n_sms: int = N_SMS,
                  tile: Optional[tuple] = None) -> ChainTiling:
     """The launch shape of a level ``[B, H, W, Cin] → C`` (on the kernel's
-    width for C): the tile of :data:`TILES` for its pixels an SM, or
-    ``tile``, a ``(th, tw, wm)``."""
-    width = built_width(C, CUDA_CHANNELS)
-    if width is None:
-        raise ValueError(f"chain_tiling: no kernel for C={C}")
+    width for C and input channels for Cin). On the resident kernel the tile
+    of :data:`TILES` for its pixels an SM, or ``tile``, a ``(th, tw, wm)``.
+    On the ring kernel (:func:`is_ring`) the tile of :data:`RING_TILES`
+    that the rule there picks; or ``tile``, a ``(th, tw, wm, nw, kw)`` (K
+    split where its tiles leave SMs idle), or ``(th, tw, wm, nw, kw,
+    split_in, split_c)`` to set the splits too."""
+    width = kernel_width(C, cin)
+    if is_ring(C, cin):
+        return _ring_tiling(B, H, W, cin, C, width, dtype, n_sms, tile)
     if tile is None:
         tile = TILES[sum(B * H * W >= step * n_sms for step in TILE_STEPS)]
     th, tw, wm = tile
@@ -198,37 +330,54 @@ def chain_tiling(B: int, H: int, W: int, cin: int, C: int, dtype: torch.dtype, n
     smem = level_smem(cin, width, dtype, th, tw)
     if smem > SMEM_CAP:
         raise ValueError(f"chain_tiling: tile {tuple(tile)} takes {smem} bytes of shared memory")
-    return ChainTiling(th, tw, wm, warps, B * -(-H // th) * -(-W // tw), smem)
+    return ChainTiling(th, tw, wm, warps, B * -(-H // th) * -(-W // tw), smem, False, width)
 
 
-def chain_tiles(tiling: ChainTiling, B: int, H: int, W: int):
-    """The output pixels each block computes, in the kernel's order: block
-    ``(b * ceil(H/th) + ty) * ceil(W/tw) + tx`` takes tile ``(b, ty, tx)``,
-    its rows and columns cut at the image's edge. Yields ``(block, b, rows,
-    cols)`` with ``rows`` and ``cols`` ranges."""
+def chain_tiles(tiling: ChainTiling, B: int, H: int, W: int, C: Optional[int] = None):
+    """The output tiles, in the kernel's order: tile ``blk = y *
+    pixel_tiles + x``, pixel tile ``x = (b * ceil(H/th) + ty) * ceil(W/tw)
+    + tx`` (a block's ``blockIdx.x``) and channel tile ``y`` (its
+    ``blockIdx.y``, ``bn`` channels from ``y * bn``; the resident kernel has
+    one), rows, columns and channels cut at the level's edge. Yields
+    ``(blk, b, rows, cols)`` with ``rows`` and ``cols`` ranges, and with
+    ``C`` (the level's channels) ``(blk, b, rows, cols, chans)``. On the
+    ring kernel a tile is ``splits`` blocks, one a slice of K."""
     tiles_w, tiles_h = -(-W // tiling.tw), -(-H // tiling.th)
+    n_px = B * tiles_h * tiles_w
     for blk in range(tiling.tiles):
-        tx, ty, b = blk % tiles_w, blk // tiles_w % tiles_h, blk // (tiles_w * tiles_h)
-        yield (blk, b, range(ty * tiling.th, min(H, (ty + 1) * tiling.th)),
-               range(tx * tiling.tw, min(W, (tx + 1) * tiling.tw)))
+        x, y = blk % n_px, blk // n_px
+        tx, ty, b = x % tiles_w, x // tiles_w % tiles_h, x // (tiles_w * tiles_h)
+        rows = range(ty * tiling.th, min(H, (ty + 1) * tiling.th))
+        cols = range(tx * tiling.tw, min(W, (tx + 1) * tiling.tw))
+        if C is None:
+            yield blk, b, rows, cols
+        else:
+            yield blk, b, rows, cols, range(y * tiling.bn, min(C, (y + 1) * tiling.bn))
 
 
 def launch_info(cin: int, C: int, dtype: torch.dtype, tiling: ChainTiling) -> dict:
     """The level's launch on the card: threads, the largest launch's shared
     memory, registers a thread and the blocks an SM holds at it (CUDA's
     occupancy query), on the kernel's width for ``C``."""
-    fn = _cuda.function("unet_block", "rvc_chain_launch_info", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    dt = 0 if dtype == torch.float32 else 1
     out = (ctypes.c_int * 4)()
-    _cuda.check(fn(kernel_width(C, cin), 0 if dtype == torch.float32 else 1, cin, tiling.th, tiling.tw, tiling.wm,
-                   ctypes.cast(out, ctypes.c_void_p)), f"chain launch info ({cin}->{C}, {tiling})")
+    if tiling.ring:
+        fn = _cuda.function("unet_block", "rvc_chain_ring_launch_info", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        rc = fn(dt, tiling.th, tiling.tw, tiling.wm, tiling.bn // RING_GROUP, tiling.kw,
+                ctypes.cast(out, ctypes.c_void_p))
+    else:
+        fn = _cuda.function("unet_block", "rvc_chain_launch_info", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        rc = fn(kernel_width(C, cin), dt, cin, tiling.th, tiling.tw, tiling.wm, ctypes.cast(out, ctypes.c_void_p))
+    _cuda.check(rc, f"chain launch info ({cin}->{C}, {tiling})")
     return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm"), out))
 
 
 def conv_block_res_chain(x, blocks: Union[list, PackedChain], tile: Optional[tuple] = None) -> torch.Tensor:
     """Fused ConvBlockRes chain, ``[B, H, W, Cin] → [B, H, W, C]``.
     ``blocks`` is the folded blocks for ``x`` on the CPU, and their
-    :func:`pack_chain` in ``x.dtype`` for ``x`` on a card; there ``tile``,
-    a ``(th, tw, wm)``, overrides :func:`chain_tiling`'s choice."""
+    :func:`pack_chain` in ``x.dtype`` for ``x`` on a card; there ``tile``
+    (``(th, tw, wm)``, on the ring kernel ``(th, tw, wm, nw, kw)`` and
+    optionally the splits) overrides :func:`chain_tiling`'s choice."""
     if x.device.type == "cpu":
         if isinstance(blocks, PackedChain):
             raise ValueError("conv_block_res_chain: on the CPU blocks are the folded blocks, not their pack")
@@ -257,23 +406,37 @@ def _chain_cuda(x, packed: PackedChain, tile: Optional[tuple] = None) -> torch.T
     B, H, W, cin = x.shape
     C = packed.C
     width = kernel_width(C, cin)
-    if packed.dtype != x.dtype or packed.cin != cin:
+    if packed.dtype != x.dtype or packed.cin != cin or packed.ring != is_ring(C, cin):
         raise ValueError("conv_block_res_chain: the packed weights do not match x's dtype or channels")
     if packed.device != x.device:
         raise ValueError("conv_block_res_chain: weights must be on the activation's device")
     cink = packed.cin_kernel
     tl = chain_tiling(B, H, W, cink, width, x.dtype, _sms(x.device), tile)
-    fn = _cuda.function("unet_block", "rvc_conv_block_res_chain",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    if cink != cin:  # the first block adds its input to C channels padded to the width: the input padded too
+    if cink != cin:  # the kernel reads more channels than x has (a slab, or the width it adds x to): zeros
         x = F.pad(x, (0, cink - cin))
+    elif tl.ring and x.data_ptr() % 16:  # the ring kernel stages its input by 16-byte copies
+        x = x.clone()
     out = torch.empty((B, H, W, width), dtype=x.dtype, device=x.device)
     scratch = torch.empty((3, B, H, W, width), dtype=x.dtype, device=x.device)
+    dt = 0 if x.dtype == torch.float32 else 1
+    params = ctypes.cast(packed.params, ctypes.c_void_p)
     # the packed weights lie on packed.device, checked above
-    with _cuda.on_device_of(x, out, scratch, what="conv_block_res_chain"):
-        rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), ctypes.cast(packed.params, ctypes.c_void_p),
-                len(packed.blocks), B, H, W, cink, width, 0 if x.dtype == torch.float32 else 1, tl.th, tl.tw, tl.wm,
-                _cuda.stream_of(x))
+    if tl.ring:
+        fn = _cuda.function("unet_block", "rvc_conv_block_res_chain_ring",
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        # split K: the partial sums, and a counter a tile that the kernel leaves at zero
+        partial = torch.empty(tl.partial, dtype=torch.float32, device=x.device) if tl.partial else None
+        counters = torch.zeros(tl.tiles, dtype=torch.int32, device=x.device) if tl.partial else None
+        with _cuda.on_device_of(x, out, scratch, partial, counters, what="conv_block_res_chain"):
+            rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), _cuda.ptr(partial), _cuda.ptr(counters),
+                    params, len(packed.blocks), B, H, W, cink, width, dt, tl.th, tl.tw, tl.wm, tl.bn // RING_GROUP,
+                    tl.kw, *tl.splits, _cuda.stream_of(x))
+    else:
+        fn = _cuda.function("unet_block", "rvc_conv_block_res_chain",
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        with _cuda.on_device_of(x, out, scratch, what="conv_block_res_chain"):
+            rc = fn(_cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(scratch), params, len(packed.blocks), B, H, W, cink,
+                    width, dt, tl.th, tl.tw, tl.wm, _cuda.stream_of(x))
     _cuda.check(rc, f"conv_block_res_chain ({cin}->{C} on the kernel's {cink}->{width}, {len(packed.blocks)} blocks)")
     with _cuda.COUNT_LOCK:
         LAUNCHES += 1

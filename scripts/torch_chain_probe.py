@@ -3,11 +3,15 @@
 the card, beside cuDNN, at 1, 8 and 64 streams.
 
     python3 scripts/torch_chain_probe.py                       # this checkout's kernel
-    python3 scripts/torch_chain_probe.py --root _archive/parent --label parent
+    python3 scripts/torch_chain_probe.py --root _archive/parent --label parent --levels main
     python3 scripts/torch_chain_probe.py --sweep --batches 1,8,64   # every tile shape at each level
+    python3 scripts/torch_chain_probe.py --levels wide --sweep      # the ring kernel's levels and block shapes
 
-For each of the main path's four levels (``chip_smoke.CHAIN_SHAPES``) at each
-batch and dtype: the kernel against its plain version within
+For each of the main path's four levels (``chip_smoke.CHAIN_SHAPES``, the
+resident kernel) and, with ``--levels wide`` (both by default), the six
+levels past C=32 that ``pallas_unet_max_ch`` 64 and above route to the ring
+kernel (``chip_smoke.CHAIN_WIDE_SHAPES``) at each batch and dtype: the
+kernel against its plain version within
 ``chip_smoke.CHAIN_BOUNDS``, its device time (CUDA events around replays of
 a CUDA graph of its calls, ``utils/benchlib.py:graph_ms``), cuDNN's
 (``chip_smoke.chain_library``, autotuned) and the bound
@@ -16,7 +20,8 @@ a CUDA graph of its calls, ``utils/benchlib.py:graph_ms``), cuDNN's
 another checkout (an earlier version of the kernel, unpacked in a
 git-ignored directory), so two versions are timed by one script in one
 call, in turns. ``--sweep`` also times the kernel at every tile shape it
-takes (``unet_block.TILES`` and more; a checkout with ``chain_tiling``).
+takes (``unet_block.TILES`` and more, or the ring kernel's ``(th, tw, wm,
+nw, kw)`` block shapes with its K splits; a checkout with ``chain_tiling``).
 Prints a line per level and a JSON line of every row last; ``--out`` writes
 the rows to a file too. Needs a card.
 """
@@ -44,12 +49,31 @@ def sweep_tiles(unet_block):
     return out
 
 
+def sweep_ring_tiles(unet_block, W, H, B):
+    """Every (th, tw, wm, nw, kw) block shape of the ring kernel at 8 and 16
+    pixels a row and 1 to 8 rows (no wider or taller than the map but the
+    least), kw 1 or 3 warps along K, each with K split 1, 2, 4 and 8 ways
+    below 64 streams, as ``(th, tw, wm, nw, kw, split_in, split_c)``."""
+    out = []
+    for tw in [t for t in (8, 16) if t <= max(W, 8)]:
+        for th in [t for t in (1, 2, 4, 8) if t <= max(H, 1)]:
+            for wm in unet_block.CUDA_WM:
+                for nw in (1, 2):
+                    for kw in (1, 3):
+                        mw = th * tw // (16 * wm)
+                        if mw * 16 * wm == th * tw and 1 <= mw * nw * kw <= unet_block.RING_MAX_WARPS:
+                            out += [(th, tw, wm, nw, kw, sp, sp) for sp in ((1, 2, 4, 8) if B < 64 else (1,))]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None, help="import obs_rvc_tpu_torch from this checkout")
     ap.add_argument("--label", default="this", help="the version's name in the output")
     ap.add_argument("--batches", default="1,8,64")
     ap.add_argument("--dtypes", default="float32,bfloat16")
+    ap.add_argument("--levels", default="main,wide", help="main (the resident kernel's four levels), wide "
+                                                             "(the ring kernel's six), or both")
     ap.add_argument("--sweep", action="store_true", help="time every tile shape too")
     ap.add_argument("--no-library", action="store_true", help="skip cuDNN's time")
     ap.add_argument("--out", default=None, help="also write the rows to this JSON file")
@@ -80,8 +104,10 @@ def main(argv=None) -> int:
     dtypes = {"float32": (torch.float32, TF32X3_PEAK_FLOPS, 4), "bfloat16": (torch.bfloat16, BF16_PEAK_FLOPS, 2)}
     tiled = hasattr(unet_block, "chain_tiling")
     rows = []
+    levels = {"main": cs.CHAIN_SHAPES, "wide": getattr(cs, "CHAIN_WIDE_SHAPES", [])}
+    shapes = [s for name in args.levels.split(",") for s in levels[name]]
     for B in [int(b) for b in args.batches.split(",")]:
-        for label, _, H, W, cin, C in cs.CHAIN_SHAPES:
+        for label, _, H, W, cin, C in shapes:
             rng = np.random.default_rng(cs.SEED + 2)
             x32, blocks32 = cs.chain_inputs(label, B, H, W, cin, C, dev, rng)
             for dname in args.dtypes.split(","):
@@ -103,6 +129,7 @@ def main(argv=None) -> int:
                     torch.backends.cudnn.benchmark = False
                 ms2 = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed))
                 row = {"version": args.label, "level": label, "B": B, "dtype": dname, "ms": min(ms, ms2),
+                       "set": next(name for name in levels if any(sh[0] == label for sh in levels[name])),
                        "runs_ms": [ms, ms2], "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
                        "max_abs_err": err}
                 if tiled:
@@ -111,13 +138,21 @@ def main(argv=None) -> int:
                     row["tiling"] = tl._asdict()
                     row["launch"] = unet_block.launch_info(cin, C, dt, tl)
                 lib = "" if lib_ms is None else f", cuDNN {lib_ms:.4f} ms ({row['ms'] / lib_ms:.2f}x)"
+                tl = row.get("tiling", {})
                 print(f"[chain] {args.label} {label} B={B} {dname}: kernel {row['ms']:.4f} ms (runs {ms:.4f}, "
                       f"{ms2:.4f}){lib}, bound {bound:.4f} ms ({by}); max abs err {err:.3e}"
-                      + (f"; tile {row['tiling']['th']}x{row['tiling']['tw']} wm {row['tiling']['wm']}, "
-                         f"{row['tiling']['tiles']} blocks, {row['launch']}" if tiled else ""), flush=True)
+                      + (f"; tile {tl['th']}x{tl['tw']} wm {tl['wm']} bn {tl.get('bn')} kw {tl.get('kw')}, splits "
+                         f"{tl.get('splits')}, {tl['tiles']} tiles, {row['launch']}" if tiled else ""), flush=True)
                 if args.sweep and tiled:
                     sweep = {}
-                    for tile in sweep_tiles(unet_block):
+                    ring = row["tiling"].get("ring", False)
+                    for tile in (sweep_ring_tiles(unet_block, W, H, B) if ring else sweep_tiles(unet_block)):
+                        if ring:  # each split as many ways as the conv's stages (64-byte slabs) allow
+                            sl = 64 // x.element_size()
+                            tile = (*tile[:5], min(tile[5], packed.cin_kernel // sl), min(tile[6], packed.width // sl))
+                        key = ("%dx%d/%d/%d/%d/%d/%d" if ring else "%dx%d/%d") % tile
+                        if key in sweep:
+                            continue
                         try:
                             unet_block.chain_tiling(B, H, W, cin, C, dt, tile=tile)
                         except ValueError:
@@ -126,19 +161,20 @@ def main(argv=None) -> int:
                         torch.cuda.synchronize()
                         cs.check_close(f"chain {label} B={B} {dname} tile {tile}", got, want,
                                        *cs.CHAIN_BOUNDS[dname])
-                        sweep["%dx%d/%d" % tile] = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed,
-                                                                                                    tile=tile))
+                        sweep[key] = graph_ms(lambda: unet_block.conv_block_res_chain(x, packed, tile=tile))
                     row["sweep_ms"] = sweep
                     best = sorted(sweep.items(), key=lambda kv: kv[1])[:5]
                     print(f"[sweep] {label} B={B} {dname}: best " + ", ".join(f"{k} {v:.4f}" for k, v in best)
                           + "; all " + " ".join(f"{k}={v:.4f}" for k, v in sweep.items()), flush=True)
                 rows.append(row)
-    for B in sorted({r["B"] for r in rows}):
-        for dname in args.dtypes.split(","):
-            sel = [r for r in rows if r["B"] == B and r["dtype"] == dname]
-            lib = sum(r["library_ms"] or 0.0 for r in sel)
-            print(f"[chain] {args.label} B={B} {dname}, 4 levels: kernel {sum(r['ms'] for r in sel):.4f} ms, "
-                  f"cuDNN {lib:.4f} ms, bound {sum(r['bound_ms'] for r in sel):.4f} ms", flush=True)
+    for name in args.levels.split(","):
+        for B in sorted({r["B"] for r in rows}):
+            for dname in args.dtypes.split(","):
+                sel = [r for r in rows if r["B"] == B and r["dtype"] == dname and r["set"] == name]
+                lib = sum(r["library_ms"] or 0.0 for r in sel)
+                print(f"[chain] {args.label} B={B} {dname}, {len(sel)} {name} levels: kernel "
+                      f"{sum(r['ms'] for r in sel):.4f} ms, cuDNN {lib:.4f} ms, bound "
+                      f"{sum(r['bound_ms'] for r in sel):.4f} ms", flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps({"device": smi, "rows": rows}, indent=1))

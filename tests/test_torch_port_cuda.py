@@ -337,6 +337,81 @@ def test_unet_chain_kernel_at_every_tile(cuda, tile, dtype):
         _close(got, want, *BOUNDS["chain"][dtype])
 
 
+#: the six levels of the full RMVPE past the resident kernel (C = 64, 128, 256; the decoder's 2C concat),
+#: which run on the ring kernel at pallas_unet_max_ch 64 and above: (cin, C, H, W)
+WIDE_LEVELS = [(32, 64, 16, 32), (128, 64, 16, 32), (64, 128, 8, 16), (256, 128, 8, 16), (128, 256, 4, 8),
+               (512, 256, 4, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,C,H,W,B,n", [
+    # one stream (K split across blocks), the batched step's 8 streams and 64 (one block a tile)
+    *[(cin, C, H, W, B, 4) for cin, C, H, W in WIDE_LEVELS for B in (1, 8, 64)],
+    (24, 48, 16, 32, 1, 2),   # C padded to 64, Cin to a slab
+    (96, 96, 8, 16, 2, 2),    # identity first block on a width of three groups (no 64-channel tile)
+    (100, 16, 6, 20, 2, 2),   # C <= 32 with Cin past the resident kernel's 64
+    (3, 40, 5, 11, 3, 2),     # Cin under a slab, ragged in both directions
+    (64, 64, 7, 9, 2, 2),     # identity first block, ragged
+    (512, 256, 1, 8, 1, 1),   # one row: tiles taller than the map
+    (256, 256, 3, 5, 1, 2),   # W under 8
+])
+def test_unet_chain_ring_kernel_matches_plain(cuda, cin, C, H, W, B, n, dtype):
+    x, blocks = _chain(np.random.default_rng(cin * 7 + C + B), B, H, W, cin, C, n, cuda)
+    x = x.to(dtype)
+    packed = unet_block.pack_chain(blocks, dtype)
+    assert packed.ring and packed.width == -(-C // 32) * 32
+    before = unet_block.LAUNCHES
+    got = unet_block.conv_block_res_chain(x, packed)
+    assert unet_block.LAUNCHES == before + 1  # one C call runs the whole level
+    want = unet_block.conv_block_res_chain_plain(x, blocks)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, H, W, C) and got.dtype == dtype and got.is_contiguous()
+    _close(got, want, *BOUNDS["chain"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [(px // 8, 8, wm, nw, kw) for px, nw, wm in unet_block.RING_TILES for kw in (1, 3)
+                                  if px // (16 * wm) * nw * kw <= unet_block.RING_MAX_WARPS]
+                         + [(8, 16, 2, 2, 1), (4, 16, 1, 1, 1), (16, 8, 2, 2, 1), (1, 32, 2, 1, 9), (4, 8, 2, 2, 2),
+                            (4, 8, 1, 2, 3, 3, 2), (2, 16, 1, 1, 1, 3, 1)])
+def test_unet_chain_ring_kernel_at_every_tile(cuda, tile, dtype):
+    """Each block shape of the ring kernel, with 1 to 9 warps along K, on a
+    ragged batched level with a shortcut and one without, with K split
+    across blocks by the rule and as the tile sets it."""
+    for cin, C, H, W, B in [(96, 64, 11, 21, 3), (128, 128, 5, 9, 1)]:
+        x, blocks = _chain(np.random.default_rng(cin + H), B, H, W, cin, C, 2, cuda)
+        x = x.to(dtype)
+        got = unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, dtype), tile=tile)
+        want = unet_block.conv_block_res_chain_plain(x, blocks)
+        torch.cuda.synchronize()
+        _close(got, want, *BOUNDS["chain"][dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_chain_ring_kernel_repeats_bit_for_bit(cuda, dtype):
+    """The split K sums its partials in split order, with no float atomics:
+    the same bits at every call, captured in a graph too."""
+    x, blocks = _chain(np.random.default_rng(3), 1, 4, 8, 512, 256, 4, cuda)
+    x = x.to(dtype)
+    packed = unet_block.pack_chain(blocks, dtype)
+    assert max(unet_block.chain_tiling(1, 4, 8, 512, 256, dtype, unet_block._sms(x.device)).splits) > 1
+    first = unet_block.conv_block_res_chain(x, packed)
+    for _ in range(5):
+        assert torch.equal(unet_block.conv_block_res_chain(x, packed), first)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        unet_block.conv_block_res_chain(x, packed)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = unet_block.conv_block_res_chain(x, packed)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
 def test_wrappers_count_one_launch_per_call(cuda):
     rng = np.random.default_rng(0)
     x, params = _bank(rng, 1, 64, 32, (3, 7, 11), cuda)
@@ -367,11 +442,14 @@ def test_wrappers_refuse_what_no_kernel_is_built_for(cuda):
     x, params = _bank(rng, 1, 64, 16, (3, 7, 11), cuda)
     with pytest.raises(ValueError, match="pack_bank"):  # on a card the kernel takes only the pack
         resblock.resblock_bank(x, params, (3, 7, 11), (1, 3, 5))
-    x, blocks = _chain(rng, 1, 8, 16, 8, 64, 1, cuda)
-    with pytest.raises(NotImplementedError, match="C up to 32.*shared memory"):
-        unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, x.dtype))
-    x, blocks = _chain(rng, 1, 8, 16, 72, 32, 1, cuda)
-    with pytest.raises(NotImplementedError, match="Cin 1..64"):
+    x, blocks = _chain(rng, 1, 8, 16, 8, 288, 1, cuda)
+    with pytest.raises(NotImplementedError, match="C up to 256.*widest level"):
+        unet_block.pack_chain(blocks, x.dtype)
+    with pytest.raises(NotImplementedError, match="C up to 256"):
+        unet_block.conv_block_res_chain(x, unet_block.PackedChain(
+            x.dtype, x.device, 288, 8, 288, 8, [], None, True))
+    x, blocks = _chain(rng, 1, 8, 16, 520, 32, 1, cuda)
+    with pytest.raises(NotImplementedError, match="Cin 1..512"):
         unet_block.pack_chain(blocks, x.dtype)
     x, blocks = _chain(rng, 1, 8, 16, 8, 16, 1, cuda)
     with pytest.raises(ValueError, match="pack_chain"):  # on a card the kernel takes only the pack
@@ -511,7 +589,7 @@ def deterministic_cudnn():
 
 
 def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", retrieval_index=None,
-                pallas_resblocks=None):
+                pallas_resblocks=None, rmvpe=None):
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
     from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
@@ -523,7 +601,7 @@ def _graph_pipe(device, dtype=torch.float32, seed=0, pitch_algorithm="rmvpe", re
 
     pipe = RvcPipeline(ChunkConfig.build(sample_length=0.10, extra_inference_time=0.50),
                        contentvec_cfg=ContentVecConfig(**GRAPH_WIDTHS["contentvec"]),
-                       rmvpe_cfg=RMVPEConfig(**GRAPH_WIDTHS["rmvpe"]),
+                       rmvpe_cfg=RMVPEConfig(**{**GRAPH_WIDTHS["rmvpe"], **(rmvpe or {})}),
                        synth_cfg=SynthesizerConfig(**GRAPH_WIDTHS["synth"]), device=device, compute_dtype=dtype,
                        pitch_algorithm=pitch_algorithm, crepe_cfg=CrepeConfig("tiny"),
                        fcpe_cfg=FcpeConfig(hidden=64, n_layers=2), retrieval_index=retrieval_index,
@@ -590,6 +668,32 @@ def test_the_kernels_at_reduced_widths_and_the_switch_off(cuda, deterministic_cu
     assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
     assert float((audio["off"] - want).abs().max()) <= 1e-3 * float(want.abs().max())
     assert torch.equal(_stream(off.jit_step, off, chunks, controls), audio["off"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_unet_level_on_the_chain_kernel_at_reduced_widths(cuda, deterministic_cudnn, dtype):
+    """``pallas_unet_max_ch=64`` on a four-level RMVPE (levels of 8, 16, 32
+    and 64 channels, the decoder's C=64 level reading 128): all 8 encoder
+    and decoder levels on the chain kernel, the C=64 ones on its ring
+    kernel, 8 wrapper calls a step; the eager step repeats and ``jit_step``
+    equals it bit for bit; in float32 the audio holds the default
+    ``max_ch=32`` step's (6 calls a step) within 1e-3 of max|audio|."""
+    wide = dict(en_de_layers=4, pallas_unet_max_ch=64)
+    pipe = _graph_pipe(cuda, dtype, rmvpe=wide)
+    chunks = _chunks(pipe, 5)
+    controls = [(0.0, 1.0), (12.0, 0.5)]
+    before = unet_block.LAUNCHES
+    want = _stream(pipe.step, pipe, chunks, controls)
+    assert unet_block.LAUNCHES - before == 8 * len(chunks)
+    assert torch.isfinite(want).all() and float(want.abs().max()) > 1e-3
+    assert torch.equal(_stream(pipe.step, pipe, chunks, controls), want)
+    assert torch.equal(_stream(pipe.jit_step, pipe, chunks, controls), want)
+    if dtype == torch.float32:
+        narrow = _graph_pipe(cuda, dtype, rmvpe=dict(en_de_layers=4))
+        before = unet_block.LAUNCHES
+        other = _stream(narrow.step, narrow, chunks, controls)
+        assert unet_block.LAUNCHES - before == 6 * len(chunks)
+        assert float((other - want).abs().max()) <= 1e-3 * float(want.abs().max())
 
 
 def test_one_row_cumsum_takes_the_batched_rows_bits(cuda):

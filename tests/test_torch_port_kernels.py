@@ -173,13 +173,21 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         t_resblock._resblock_bank_cuda(torch.zeros((1, 32, 64)).transpose(1, 2), [], (3,), (1,))
     with pytest.raises(ValueError, match="dtype"):
         t_resblock._resblock_bank_cuda(torch.zeros((1, 64, 32), dtype=torch.float16), [], (3,), (1,))
+    # C=64 and Cin=72, past the resident kernel, now pack for the ring kernel; its limits are C 256, Cin 512
     w = torch.zeros((3, 3, 64, 64))
-    with pytest.raises(NotImplementedError, match="C up to 32"):
-        t_unet.pack_chain([(w, torch.zeros(64), w, torch.zeros(64), None, None)], torch.float32)
-    with pytest.raises(NotImplementedError, match="C up to 32"):
-        t_unet._chain_cuda(torch.zeros((1, 4, 8, 64)), t_unet.PackedChain(
-            torch.float32, torch.device("cpu"), 64, 64, 64, 64, [], None))
+    packed = t_unet.pack_chain([(w, torch.zeros(64), w, torch.zeros(64), None, None)], torch.float32)
+    assert packed.ring and (packed.width, packed.cin_kernel) == (64, 64) and t_unet.kernel_width(64, 64) == 64
+    w = torch.zeros((3, 3, 288, 288))
+    with pytest.raises(NotImplementedError, match="C up to 256"):
+        t_unet.pack_chain([(w, torch.zeros(288), w, torch.zeros(288), None, None)], torch.float32)
+    with pytest.raises(NotImplementedError, match="C up to 256"):
+        t_unet._chain_cuda(torch.zeros((1, 4, 8, 288)), t_unet.PackedChain(
+            torch.float32, torch.device("cpu"), 288, 288, 288, 288, [], None, True))
     w1 = torch.zeros((3, 3, 72, 16))
-    with pytest.raises(NotImplementedError, match="Cin 1..64"):
+    packed = t_unet.pack_chain([(w1, torch.zeros(16), torch.zeros((3, 3, 16, 16)), torch.zeros(16),
+                                 torch.zeros((72, 16)), torch.zeros(16))], torch.float32)
+    assert packed.ring and (packed.width, packed.cin_kernel) == (32, 80) and t_unet.kernel_width(16, 72) == 32
+    w1 = torch.zeros((3, 3, 520, 16))
+    with pytest.raises(NotImplementedError, match="Cin 1..512"):
         t_unet.pack_chain([(w1, torch.zeros(16), torch.zeros((3, 3, 16, 16)), torch.zeros(16),
-                            torch.zeros((72, 16)), torch.zeros(16))], torch.float32)
+                            torch.zeros((520, 16)), torch.zeros(16))], torch.float32)
