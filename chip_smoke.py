@@ -89,8 +89,10 @@ Phases, each printing its own lines:
            by the same rule), two of the main phase's chunks' float32 stages
            against the CPU's (its bounds; and, reported, both steps'
            salience against the CPU's at two switch chunks, where the default
-           step's own error reaches the bound), 8 streams through jit_step_batch in
-           bfloat16; the salience stage's device ms and jit_step's p50 at
+           step's own error reaches the bound), 8 and 64 streams through
+           jit_step_batch in bfloat16 (64 timed beside the default's; enc4
+           and dec0 there on the ring's batch kernel); the salience stage's
+           device ms and jit_step's p50 at
            max_ch 32, 64 and 256; then serve.cli --no-pallas-resblocks
            converts a WAV file
 6. serve   the port's server (serve.server.main, at its defaults: bfloat16,
@@ -202,7 +204,8 @@ Phases, each printing its own lines:
            on FCPE's basis; the chain, the bank and the log-mel also at the
            batched step's 8 streams, the chain and the bank at 64 streams
            too; each chain and bank level's launch shape (the wrapper's
-           tile, the blocks and their waves over the SMs, shared memory,
+           tile, on the ring kernel its streams a tile and wgmma or
+           mma.sync, the blocks and their waves over the SMs, shared memory,
            registers, blocks an SM; the bank's ring, split last step and
            the share of its conv rows computed past the tiles), and the
            chain's four levels and the bank's two summed at 1, 8 and 64
@@ -214,8 +217,8 @@ The line before the last is the card's name and power limit; before that a
 JSON line describes every kernel (the chain's and the bank's bfloat16 paths,
 the log-mel on FCPE's basis, the three at the batched step's 8 streams, the
 chain and the bank at each width past the main path's, and the chain's ring
-kernel at each of its six levels and padded widths in both dtypes and at 8
-streams, as entries of their own). The last line is
+kernels at each of its six levels and padded widths in both dtypes and at 8
+and 64 streams, as entries of their own). The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. Details go to chiprun_out/chip_smoke.json.
 """
@@ -461,9 +464,10 @@ def bank_flops_bytes(B, L, C, elem=4, welem=4, ks=BANK_KS, dils=BANK_DILS):
 
 
 def chain_launch(B, H, W, cin, C, dtype):
-    """The chain kernel's launch at one level: the wrapper's tiling, the
-    card's occupancy at it, and the waves of its blocks (a tile each) over
-    the blocks the card holds at once."""
+    """The chain kernel's launch at one level: the wrapper's tiling (on the
+    ring kernel its streams a tile and its instruction path, ``wgmma`` or
+    ``mma.sync``), the card's occupancy at it, and the waves of its blocks
+    (a tile each) over the blocks the card holds at once."""
     import torch
 
     from obs_rvc_tpu_torch.ops import unet_block
@@ -1294,7 +1298,7 @@ MAX_CH_KERNELS = {"resident": 32, "ring": 48}
 #: the report keys of the max_ch=256 eager runs whose launches the kernel line gives the wide chain entries,
 #: by (dtype, streams)
 MAX_CH_RUNS = {("float32", 1): "max_ch_256", ("bfloat16", 1): "max_ch_256_bf16",
-               ("bfloat16", POOL_B): "max_ch_256_b8"}
+               ("bfloat16", POOL_B): "max_ch_256_b8", ("bfloat16", CHAIN_B64): "max_ch_256_b64"}
 #: chunks of the max_ch=256 float32 step rerun stage by stage on the CPU and held to the main phase's bounds:
 #: the main phase's chunks (its voiced signal, the chunks its own comparison starts at)
 MAX_CH_CPU_CHUNKS = (N_CHUNKS // 2, N_CHUNKS // 2 + 1)
@@ -1366,7 +1370,9 @@ def max_ch_runs(report, dtype, base, base_row, on, ref, chunks, controls, chunks
     (and, reported, the salience of this and the default step against the
     CPU's at two of the switch phase's chunks, :func:`salience_vs_cpu`); in
     bfloat16 also 8 streams through ``jit_step_batch`` against the float32
-    default step's (``base8``: the bfloat16 default's errors). At 64: the
+    default step's (``base8``: the bfloat16 default's errors), and 64 (the 8
+    streams' voices 8 times over) by the same rule, timed beside the
+    default's ``jit_step_batch`` at 64. At 64: the
     launches and ``jit_step`` against the default's audio. At each, the
     salience stage's device ms and ``jit_step``'s p50 beside the default's
     (``base_row``)."""
@@ -1469,6 +1475,35 @@ def max_ch_runs(report, dtype, base, base_row, on, ref, chunks, controls, chunks
             log("switch", f"max_ch 256 {dtype} {POOL_B} streams (jit_step_batch): launches {launches} a step; p50 / "
                           f"p95 {row['batch8']['p50_ms']:.2f} / {row['batch8']['p95_ms']:.2f} ms; each stream off "
                           f"the float32 default step {max(errs):.3e} at most (the default's {max(base8):.3e})")
+            # 64 streams, the 8 streams' voices and controls 8 times over (enc4 and dec0 on the ring's batch
+            # kernel): each stream against its voice's float32 default step by the same rule, and the default
+            # (max_ch 32) beside it
+            rep = CHAIN_B64 // POOL_B
+            chunks64 = [c.repeat(rep, 1) for c in chunks8]
+            stacked64 = stacked8.map(lambda t: t.repeat(rep))
+            reset_launches()
+            pipe.step(StreamState.init_batch(pipe.cfg, CHAIN_B64, device=pipe.device), chunks64[0], stacked64,
+                      batched=True)
+            launches = read_launches()
+            check_launches(f"max_ch 256 {dtype} batched at {CHAIN_B64}", launches, 1, per_step=MAX_CH_LAUNCHES[mc])
+            report[MAX_CH_RUNS[(dtype, CHAIN_B64)]] = {"launches": launches}
+            audio, times = stream_batch(pipe.jit_step_batch, pipe, chunks64, stacked64, timed=True)
+            errs = [rel_err(audio[k], ref["eight"][k % POOL_B]) for k in range(CHAIN_B64)]
+            for k, e in enumerate(errs):
+                if not e <= 2 * base8[k % POOL_B] + CPU_TOL["emitted"]:
+                    raise AssertionError(f"max_ch 256 bfloat16 at {CHAIN_B64} streams, stream {k}: {e:.3e} off the "
+                                         f"float32 default step, over 2 x {base8[k % POOL_B]:.3e} + "
+                                         f"{CPU_TOL['emitted']}")
+            _, base_times = stream_batch(base.jit_step_batch, base, chunks64, stacked64, timed=True)
+            row["batch64"] = {"launches_eager": launches, "p50_ms": float(np.percentile(times[1:], 50)),
+                              "p95_ms": float(np.percentile(times[1:], 95)),
+                              "max_ch_32_p50_ms": float(np.percentile(base_times[1:], 50)),
+                              "max_ch_32_p95_ms": float(np.percentile(base_times[1:], 95)),
+                              "rel_vs_f32_max_ch_32": errs}
+            log("switch", f"max_ch 256 {dtype} {CHAIN_B64} streams (jit_step_batch): launches {launches} a step; "
+                          f"p50 / p95 {row['batch64']['p50_ms']:.2f} / {row['batch64']['p95_ms']:.2f} ms (max_ch 32: "
+                          f"{row['batch64']['max_ch_32_p50_ms']:.2f} / {row['batch64']['max_ch_32_p95_ms']:.2f}); "
+                          f"each stream off its voice's float32 default step {max(errs):.3e} at most")
         del pipe
         torch.cuda.empty_cache()
         row["seconds"] = time.perf_counter() - t0
@@ -2683,7 +2718,8 @@ def phase_timing(report, trace=False):
             r["bound_ms_f32_cuda_cores"] = bound_ms(flops, nbytes)[0]
             r["launch"] = chain_launch(B, H, W, cin, C, dt)
             ln = r["launch"]
-            log("timing", f"chain {label}{suffix} launch ({'ring' if ln['ring'] else 'resident'} kernel): tiles of "
+            log("timing", f"chain {label}{suffix} launch ({'ring' if ln['ring'] else 'resident'} kernel, "
+                          f"{'wgmma' if ln['wgmma'] else 'mma.sync'}): tiles of {ln['streams']} stream(s) x "
                           f"{ln['th']}x{ln['tw']} pixels and {ln['bn']} channels, {ln['wm']} m16 tiles a warp, "
                           f"{ln['threads']} threads; {ln['tiles']} tiles, K split {ln['splits']}, {ln['blocks']} "
                           f"blocks at most a launch, {ln['waves']:.2f} waves over {N_SMS} SMs; {ln['smem_bytes']} B "
@@ -3951,10 +3987,10 @@ def kernel_line(report):
     launches are the wrapper's calls in the reduced-width run of that dtype
     (the widths phase, whose C=8 levels take the kernels' C=8 instances);
     and the chain at each of the six levels past C=32 (``CHAIN_WIDE_SHAPES``,
-    the ring kernel) and its padded widths in both dtypes, and at the batched
-    step's 8 streams in bfloat16, whose launches are the wrapper's calls in the
-    ``pallas_unet_max_ch=256`` step of that dtype and batch (the switch
-    phase). The log-mel's ``max_abs_err`` is the largest over every shape and
+    the ring kernels) and its padded widths in both dtypes, and at the
+    batched step's 8 and 64 streams in bfloat16, whose launches are the
+    wrapper's calls in the ``pallas_unet_max_ch=256`` step of that dtype and
+    batch (the switch phase). The log-mel's ``max_abs_err`` is the largest over every shape and
     both bases, the Slaney entry's over its own basis, the batched entries'
     over their batched shapes, a width's over its own shape; the main path's
     entries leave the widths out."""
@@ -3988,7 +4024,7 @@ def kernel_line(report):
         ("conv_block_res_chain", f"conv_block_res_chain {label}" + ("" if dtype == "float32" else " bfloat16"),
          dtype, run, {label}, lambda parity, label=label: parity == label)
         for shapes, dtypes in ((CHAIN_WIDE_SHAPES + CHAIN_WIDE_PAD_SHAPES, ("float32", "bfloat16")),
-                               (CHAIN_WIDE_SHAPES_BATCH, ("bfloat16",)))
+                               (CHAIN_WIDE_SHAPES_BATCH + CHAIN_WIDE_SHAPES_B64, ("bfloat16",)))
         for label, B, *_ in shapes for dtype in dtypes
         for run in [MAX_CH_RUNS[(dtype, B)]]]
     kernels = []

@@ -5,10 +5,11 @@ which ``ops/unet_block.py:pack_chain`` and ``ops/resblock.py:pack_bank``
 make once per weight version; the channel counts the two kernels are built
 for, and the zero padding that runs any narrower count on the next one up
 (:func:`built_width`, :func:`pad_to`); the same fragments in the order of
-the chain's ring kernel, which streams them through shared memory a slab of
-input channels at a time (:func:`pack_ring`). Also the products of the
-chain's and the bank's plain versions, which round where the kernels round
-(:func:`conv_rounded`).
+the chain's ring kernels, which stream them through shared memory a slab of
+input channels at a time (:func:`pack_ring`), and in bfloat16 the same
+blocks in ``wgmma``'s layout (:func:`pack_ring_wgmma`).
+Also the products of the chain's and the bank's plain versions, which round
+where the kernels round (:func:`conv_rounded`).
 
 Zero-padded channels are exact: a padded channel's weights, bias and input
 are 0, so it stays 0 through every ReLU, leaky ReLU, conv and residual, and
@@ -78,19 +79,39 @@ def slab_channels(dtype: torch.dtype) -> int:
 
 
 def pack_ring(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A conv weight ``[taps, Cin, C]`` in the order the ring kernel streams
-    it: Cin a multiple of :func:`slab_channels` ``sl`` and C of
-    :data:`RING_GROUP`, one contiguous block for each group of 32 output
-    channels and slab of ``sl`` input channels, ``[C / 32, Cin / sl, taps,
-    ...]``, each block :func:`pack_taps` of ``[taps, sl, 32]`` (its ``taps
-    * sl / ks`` K steps of 4 n8 tiles). A stage of the ring is one such
-    block a group."""
+    """A conv weight ``[taps, Cin, C]`` in the order the ring kernels
+    stream it on ``mma.sync``: Cin a multiple of :func:`slab_channels`
+    ``sl`` and C of :data:`RING_GROUP`, one contiguous block for each group
+    of 32 output channels and slab of ``sl`` input channels, ``[C / 32, Cin
+    / sl, taps, ...]``, each block :func:`pack_taps` of ``[taps, sl, 32]``
+    (its ``taps * sl / ks`` K steps of 4 n8 tiles, 2048 bytes a tap). A
+    stage of the ring is one such block a group."""
+    G, S, w = _ring_blocks(w, dtype)
+    return pack_taps(w.reshape(-1, slab_channels(dtype), RING_GROUP), dtype)
+
+
+def pack_ring_wgmma(w: torch.Tensor) -> torch.Tensor:
+    """The same blocks as :func:`pack_ring` in bfloat16, each tap in
+    ``wgmma``'s K-major canonical layout without swizzle, ``[C / 32, Cin /
+    32, taps, 2 K steps, 4 n8 tiles, 2 K halves, 8 n, 8 k]``: core matrices
+    of 8 output x 8 input channels, 128 contiguous bytes each, 128 bytes
+    apart along K and 256 along N, as the ring's batch kernel names them in
+    its ``wgmma`` descriptors."""
+    G, S, w = _ring_blocks(w, torch.bfloat16)
+    taps = w.shape[2]
+    # input channel 16 kk + 8 h + e, output channel 8 j + r
+    return w.float().to(torch.bfloat16).reshape(G, S, taps, 2, 2, 8, 4, 8).permute(
+        0, 1, 2, 3, 6, 4, 7, 5).contiguous()
+
+
+def _ring_blocks(w, dtype):
+    """``w [taps, Cin, C]`` as ``[C / 32, Cin / sl, taps, sl, 32]``."""
     taps, cin, C = w.shape
     sl = slab_channels(dtype)
     if cin % sl or C % RING_GROUP:
         raise ValueError(f"pack_ring: Cin {cin} must be a multiple of {sl} and C {C} of {RING_GROUP}")
-    w = w.reshape(taps, cin // sl, sl, C // RING_GROUP, RING_GROUP).permute(3, 1, 0, 2, 4)
-    return pack_taps(w.reshape(-1, sl, RING_GROUP), dtype)
+    G, S = C // RING_GROUP, cin // sl
+    return G, S, w.reshape(taps, S, sl, G, RING_GROUP).permute(3, 1, 0, 2, 4)
 
 
 def conv_rounded(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:

@@ -354,6 +354,8 @@ WIDE_LEVELS = [(32, 64, 16, 32), (128, 64, 16, 32), (64, 128, 8, 16), (256, 128,
     (64, 64, 7, 9, 2, 2),     # identity first block, ragged
     (512, 256, 1, 8, 1, 1),   # one row: tiles taller than the map
     (256, 256, 3, 5, 1, 2),   # W under 8
+    # enc4 and dec0 with a last tile of fewer streams than the tile takes
+    *[(cin, C, H, W, B, 2) for cin, C, H, W in WIDE_LEVELS[4:] for B in (3, 5, 63)],
 ])
 def test_unet_chain_ring_kernel_matches_plain(cuda, cin, C, H, W, B, n, dtype):
     x, blocks = _chain(np.random.default_rng(cin * 7 + C + B), B, H, W, cin, C, n, cuda)
@@ -369,16 +371,45 @@ def test_unet_chain_ring_kernel_matches_plain(cuda, cin, C, H, W, B, n, dtype):
     _close(got, want, *BOUNDS["chain"][dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tile", [(px // 8, 8, wm, nw, kw) for px, nw, wm in unet_block.RING_TILES for kw in (1, 3)
-                                  if px // (16 * wm) * nw * kw <= unet_block.RING_MAX_WARPS]
-                         + [(8, 16, 2, 2, 1), (4, 16, 1, 1, 1), (16, 8, 2, 2, 1), (1, 32, 2, 1, 9), (4, 8, 2, 2, 2),
-                            (4, 8, 1, 2, 3, 3, 2), (2, 16, 1, 1, 1, 3, 1)])
+#: one-stream tiles (th, tw, wm, nw, kw, 1, False[, split_in, split_c]): every RING_TILES block at 1 and 3 warps
+#: along K, and others with 1 to 9 warps along K and K split as the tile sets it; each in both dtypes
+RING_ONE_STREAM_TILES = [(px // 8, 8, wm, nw, kw, 1, False) for px, nw, wm in unet_block.RING_TILES for kw in (1, 3)
+                         if px // (16 * wm) * nw * kw <= unet_block.RING_MAX_WARPS] + [
+    (8, 16, 2, 2, 1, 1, False), (4, 16, 1, 1, 1, 1, False), (16, 8, 2, 2, 1, 1, False), (1, 32, 2, 1, 9, 1, False),
+    (4, 8, 2, 2, 2, 1, False), (4, 8, 1, 2, 3, 1, False, 3, 2), (2, 16, 1, 1, 1, 1, False, 3, 1)]
+
+
+def _ring_tiles():
+    """RING_ONE_STREAM_TILES in both dtypes (ids ``tile{i}-dtype{j}``); every further tile the rule can pick
+    at the six wide levels from 1 to 64 streams; and the batch kernel's tile as 1 (wgmma), 2, 4 and 8
+    streams' tiles, one with K split."""
+    dtypes = (torch.float32, torch.bfloat16)
+    out = [pytest.param(t, dt, id=f"tile{i}-dtype{j}") for i, t in enumerate(RING_ONE_STREAM_TILES)
+           for j, dt in enumerate(dtypes)]
+    seen = {(p.values[0], p.values[1]) for p in out}
+    for j, dtype in enumerate(dtypes):
+        wg = dtype == torch.bfloat16
+        more = [o for B in (1, 3, 5, 8, 63, 64) for cin, C, H, W in WIDE_LEVELS
+                for o in unet_block.ring_options(B, H, W, C, dtype)]
+        more += [(4, 8, 1, 2, 1, 2, wg), (2, 8, 1, 2, 1, 4, wg), (1, 8, 1, 2, 1, 8, wg), (4, 8, 1, 2, 1, 2, wg, 3, 2)]
+        more += [(4, 16, 1, 2, 1, 1, True)] if wg else []
+        for t in dict.fromkeys(more):
+            if (t, dtype) not in seen:
+                seen.add((t, dtype))
+                out.append(pytest.param(t, dtype, id="x".join(map(str, t)).replace("True", "wgmma")
+                                        .replace("False", "mma") + f"-dtype{j}"))
+    return out
+
+
+@pytest.mark.parametrize("tile,dtype", _ring_tiles())
 def test_unet_chain_ring_kernel_at_every_tile(cuda, tile, dtype):
-    """Each block shape of the ring kernel, with 1 to 9 warps along K, on a
+    """Each tile the ring kernel's rule can pick (tiles of one stream and of
+    several, mma.sync and wgmma), and others with 1 to 9 warps along K, on a
     ragged batched level with a shortcut and one without, with K split
-    across blocks by the rule and as the tile sets it."""
-    for cin, C, H, W, B in [(96, 64, 11, 21, 3), (128, 128, 5, 9, 1)]:
+    across blocks by the rule and as the tile sets it; a tile of several
+    streams takes tiles of its th x tw from each of S streams, the last
+    group short of S."""
+    for cin, C, H, W, B in [(96, 64, 11, 21, 3), (128, 128, 5, 9, 1), (96, 128, 4, 8, 7)]:
         x, blocks = _chain(np.random.default_rng(cin + H), B, H, W, cin, C, 2, cuda)
         x = x.to(dtype)
         got = unet_block.conv_block_res_chain(x, unet_block.pack_chain(blocks, dtype), tile=tile)
@@ -388,13 +419,17 @@ def test_unet_chain_ring_kernel_at_every_tile(cuda, tile, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_unet_chain_ring_kernel_repeats_bit_for_bit(cuda, dtype):
-    """The split K sums its partials in split order, with no float atomics:
-    the same bits at every call, captured in a graph too."""
-    x, blocks = _chain(np.random.default_rng(3), 1, 4, 8, 512, 256, 4, cuda)
+@pytest.mark.parametrize("B", [1, 64])
+def test_unet_chain_ring_kernel_repeats_bit_for_bit(cuda, B, dtype):
+    """The split K sums its partials in split order, the warps along K
+    theirs in warp order, with no float atomics: the same bits at every
+    call, captured in a graph too; at one stream (K split) and at 64 (tiles
+    of several streams)."""
+    x, blocks = _chain(np.random.default_rng(3), B, 4, 8, 512, 256, 4, cuda)
     x = x.to(dtype)
     packed = unet_block.pack_chain(blocks, dtype)
-    assert max(unet_block.chain_tiling(1, 4, 8, 512, 256, dtype, unet_block._sms(x.device)).splits) > 1
+    tl = unet_block.chain_tiling(B, 4, 8, 512, 256, dtype, unet_block._sms(x.device))
+    assert max(tl.splits) > 1 if B == 1 else tl.streams > 1
     first = unet_block.conv_block_res_chain(x, packed)
     for _ in range(5):
         assert torch.equal(unet_block.conv_block_res_chain(x, packed), first)
