@@ -878,7 +878,7 @@ def phase_graphs(report, key, run, reload_weights=False):
     import torch
 
     from obs_rvc_tpu_torch.models.checkpoints import cast_params_for_serving
-    from obs_rvc_tpu_torch.stream import graphs
+    from obs_rvc_tpu_torch.serve.metrics import process_counter
 
     pipe, chunks, controls = run["pipe"], run["chunks"], run["controls"]
     dtype = str(pipe.compute_dtype).removeprefix("torch.")
@@ -909,7 +909,7 @@ def phase_graphs(report, key, run, reload_weights=False):
         capture_s = time.perf_counter() - t0
         per_graph = ({"jit_step": holder.graph.capture_seconds} if mode == "fused"
                      else {name: g.capture_seconds for name, g in holder.graphs.items()})
-        captures0 = graphs.CAPTURES
+        captures0 = process_counter("captures")
         audio, times = stream(step, pipe, chunks, controls, timed=True)
         peak_mem = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
@@ -925,7 +925,7 @@ def phase_graphs(report, key, run, reload_weights=False):
         sched, _ = stream(step, pipe, chunks[:12], controls_at)
         sched_bit, sched_rel = check_same(f"{key} {mode} with controls changed", sched, sched_eager,
                                           CPU_TOL["emitted"])
-        recaptures = graphs.CAPTURES - captures0
+        recaptures = process_counter("captures") - captures0
         r = out[mode] = {
             "capture_s": capture_s, "capture_s_per_graph": per_graph, "bit_identical": bit, "rel_max_err": rel,
             "step_ms": times, "step_p50_ms": p50, "step_p95_ms": float(np.percentile(steady, 95)),
@@ -986,9 +986,10 @@ def phase_graphs(report, key, run, reload_weights=False):
 
 
 def stage_breakdown(report, key, pipe, state, chunks, controls):
-    """Host-clock time of each stage of the step, each ended by a
-    synchronize (the step's ``stage_times``), p50 over the chunks: where the
-    step's time goes."""
+    """Device ms of each stage of the eager step, between CUDA events on the
+    step's stream around its launches (the step's ``stage_times``: one wait
+    a step, no synchronize a stage), p50 over the chunks: where the step's
+    time goes."""
     times = {n: [] for n in ("pre", "features", "mel", "salience", "pitch_post", "synth", "post")}
     for chunk in chunks:
         stage_times = {}
@@ -997,7 +998,7 @@ def stage_breakdown(report, key, pipe, state, chunks, controls):
             times[n].append(ms)
     p50 = {n: float(np.percentile(v[2:], 50)) for n, v in times.items()}
     report[key]["stages_p50_ms"] = p50
-    log(key, f"stage p50 over {len(chunks) - 2} chunks, each ended by a synchronize: "
+    log(key, f"stage device ms p50 over {len(chunks) - 2} chunks, by CUDA events around each stage: "
                 + ", ".join(f"{n} {v:.2f} ms" for n, v in p50.items()) + f"; sum {sum(p50.values()):.2f} ms")
 
 
@@ -1776,7 +1777,7 @@ def phase_serve(report, main_pipe):
 
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.serve import cli
-    from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+    from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics, process_counter
     from obs_rvc_tpu_torch.serve.rpc import RpcClient
     from obs_rvc_tpu_torch.serve.ws import WsStreamClient
     from obs_rvc_tpu_torch.stream import RvcEngine, graphs
@@ -1799,17 +1800,17 @@ def phase_serve(report, main_pipe):
 
     # the defaults: the card, bfloat16, staged graphs, v2 at 40 kHz, 0.3 s chunks; random weights from
     # seed 0, fan-in scaled, as the main phase's pipeline
-    captures0 = graphs.CAPTURES
+    captures0 = process_counter("captures")
     ChunkMetrics.record = record_each
     try:
         with Server(server_argv(host)) as srv:
             bound = srv.bound
-            captured_at_start = graphs.CAPTURES - captures0
+            captured_at_start = process_counter("captures") - captures0
             log("serve", f"server listening in {srv.startup_s:.1f} s with {captured_at_start} graphs captured "
                          f"(the staged step's 7, the engine's 1): {bound}")
             metrics_url = f"http://{host}:{bound['health']}/metrics"
             reset_launches()
-            captures1 = graphs.CAPTURES
+            captures1 = process_counter("captures")
 
             # 1. the duplex stream and 2. its WebSocket form, each converting whole chunks
             door_out = {}
@@ -1886,7 +1887,7 @@ def phase_serve(report, main_pipe):
 
             metrics = wait_metrics_settled(metrics_url)
             launches = read_launches()
-            captured = graphs.CAPTURES - captures1
+            captured = process_counter("captures") - captures1
             served = metrics["chunks"] + len(requests) + cli_chunks
             log("serve", f"/metrics {metrics}")
             # replays call no wrapper: only the graphs captured meanwhile (the new RPC geometry's and the
@@ -1902,7 +1903,7 @@ def phase_serve(report, main_pipe):
 
             # replays launch the hand kernels: a device trace of 3 RPC requests and a duplex session
             chunks_before = metrics["chunks"]
-            captures2 = graphs.CAPTURES
+            captures2 = process_counter("captures")
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 # the tracer can miss the first kernels after it starts: a request not counted, then a marker
@@ -1925,9 +1926,9 @@ def phase_serve(report, main_pipe):
             want = {k: v * (3 + traced_chunks) for k, v in kernels_per_step().items()}
             log("serve", f"device trace of 3 RPC requests and a {traced_chunks}-chunk duplex session, all replays: "
                          f"hand kernels {counts} (want {want}) among {len(events) - marks[-1] - 1} device events")
-            if counts != want or graphs.CAPTURES != captures2:
+            if counts != want or process_counter("captures") != captures2:
                 raise AssertionError(f"serve: the traced replays launched {counts}, want {want}; "
-                                     f"{graphs.CAPTURES - captures2} captures")
+                                     f"{process_counter('captures') - captures2} captures")
 
         # the fused step shared through the exec cache: a second server
         with Server(server_argv(host, ["--step-mode", "fused", "--exec-cache"])) as srv2:
@@ -2036,16 +2037,17 @@ def phase_pitch_serve(report):
 
     from obs_rvc_tpu_torch.config import ChunkConfig
     from obs_rvc_tpu_torch.serve import cli
-    from obs_rvc_tpu_torch.stream import graphs
+    from obs_rvc_tpu_torch.serve.metrics import process_counter
     from obs_rvc_tpu_torch.utils import read_wav, write_wav
 
     host = "127.0.0.1"
     cfg = ChunkConfig.build()
     chunk = cfg.sample_frame_size
-    captures0 = graphs.CAPTURES
+    captures0 = process_counter("captures")
     out = report["pitch_serve"] = {}
     with Server(server_argv(host, ["--pitch-algorithm", "fcpe"])) as srv:
-        out["fcpe_startup_s"], out["fcpe_graphs_captured_at_start"] = srv.startup_s, graphs.CAPTURES - captures0
+        out["fcpe_startup_s"] = srv.startup_s
+        out["fcpe_graphs_captured_at_start"] = process_counter("captures") - captures0
         url = f"http://{host}:{srv.bound['health']}/metrics"
         wav = voiced_signal((PITCH_SERVE_CHUNKS + 2) * chunk, cfg.sample_rate, seed=SEED + 40)
         t0 = time.perf_counter()
@@ -2055,7 +2057,7 @@ def phase_pitch_serve(report):
                            f"back ({streamed.size / chunk:.2f} chunks) in {time.perf_counter() - t0:.1f} s, all finite, "
                            f"tail max |y| {float(np.abs(streamed[2 * chunk :]).max()):.4f}")
         before = wait_metrics_settled(url)
-        captures1 = graphs.CAPTURES
+        captures1 = process_counter("captures")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # the tracer can miss the first kernels after it starts (a lone spin of ~5 ms was missed): 500
@@ -2080,9 +2082,9 @@ def phase_pitch_serve(report):
         want = {k: v * traced for k, v in kernels_per_step("fcpe").items()}
         log("pitch-serve", f"device trace of a {traced}-chunk duplex session, all replays: hand kernels {counts} "
                            f"(want {want}); /metrics {metrics}")
-        if counts != want or graphs.CAPTURES != captures1:
+        if counts != want or process_counter("captures") != captures1:
             raise AssertionError(f"pitch-serve: the traced replays launched {counts}, want {want}; "
-                                 f"{graphs.CAPTURES - captures1} captures")
+                                 f"{process_counter('captures') - captures1} captures")
         if metrics["chunks"] < PITCH_SERVE_CHUNKS or metrics["errors"] != 0:
             raise AssertionError(f"pitch-serve: /metrics counts {metrics['chunks']} chunks and {metrics['errors']} errors")
         out.update(metrics=metrics, kernels_in_trace=counts, traced_chunks=traced)

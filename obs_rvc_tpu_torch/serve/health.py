@@ -1,6 +1,7 @@
 """HTTP health and metrics (counterpart of ``obs_rvc_tpu/serve/health.py``):
 ``GET /healthz`` → 200 "ok"; ``GET /metrics`` → the JSON of a
-:class:`~obs_rvc_tpu_torch.serve.metrics.MetricsSnapshot`.
+:class:`~obs_rvc_tpu_torch.serve.metrics.MetricsSnapshot`: chunk latency and
+counts, and the door's spans (p50/p95), stage times and counters.
 """
 
 from __future__ import annotations

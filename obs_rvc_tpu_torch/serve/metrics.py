@@ -3,17 +3,229 @@
 and counters, summarised as p50/p95 chunk latency, real-time factor,
 audio-seconds per second, underruns, dropped input samples and failed steps.
 One collector may be shared by several sessions; its updates take a lock.
+
+Besides, the serving path's spans and counters (:class:`Spans`), kept two
+ways: per door, in the :class:`ChunkMetrics` of the session or pool whose
+work recorded them (``/metrics`` shows them), and per process, read through
+:func:`process_snapshot`. A door marks its work with
+:meth:`ChunkMetrics.door`; what the layers below record inside it (a span,
+a graph's counters, a stage's device time) goes to that door's collector
+and to the process's.
+
+- A span (:class:`span`) is a named host interval on
+  ``time.perf_counter_ns``: with no profiler running it costs two clock
+  reads and an append under each collector's lock. While a
+  ``torch.profiler`` runs it is also a profiler range of the same name, a
+  CPU-side range that leaves no event on the device's timeline, so a trace
+  shows each idle gap of the device under the program range the host was in.
+- Stage times are device ms from CUDA events (``stream/graphs.py``), kept
+  per stage as ``stage.<stage>`` and the summed waits between stages as
+  ``stage_gap``. The CPU's host-clocked stage times stay with their door.
+- Counters: ``captures`` (every CUDA graph capture of the process),
+  ``serving_captures`` (those a serving step made: a first chunk at a new
+  geometry, a weights reload; each stalls a stream), ``graph.replays`` and
+  ``graph.copies`` (the copies a graph's copy-in launches outside it).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import dataclasses
 import statistics
 import threading
 import time
-from typing import Deque
+from typing import Deque, Optional
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+#: recent samples of each span the process-wide collector keeps for its percentiles
+PROCESS_RESERVOIR = 4096
+#: the prefix of a stage's device ms; the summed waits between a step's stages
+STAGE, STAGE_GAP = "stage.", "stage_gap"
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _p95(ordered: list) -> float:
+    return ordered[max(0, int(len(ordered) * 0.95) - 1)]
+
+
+class Spans:
+    """Named millisecond samples and named counters: per sample name the
+    count, the total and the last ``reservoir`` samples; per counter its total."""
+
+    def __init__(self, reservoir: int):
+        self._reservoir = reservoir
+        self._lock = threading.Lock()
+        self._samples: dict[str, list] = {}  # name -> [count, total ms, recent ms]
+        self._counters: dict[str, int] = {}
+
+    def add(self, samples: dict) -> None:
+        """Record ``{name: ms}``."""
+        with self._lock:
+            for name, ms in samples.items():
+                s = self._samples.get(name)
+                if s is None:
+                    s = self._samples[name] = [0, 0.0, collections.deque(maxlen=self._reservoir)]
+                s[0] += 1
+                s[1] += ms
+                s[2].append(ms)
+
+    def count(self, counts: dict) -> None:
+        """Add ``{name: n}`` to the counters."""
+        with self._lock:
+            for name, n in counts.items():
+                self._counters[name] = self._counters.get(name, 0) + n
+
+    def samples(self, name: str) -> list:
+        """The recent samples of ``name``, oldest first (empty when none)."""
+        with self._lock:
+            s = self._samples.get(name)
+            return list(s[2]) if s is not None else []
+
+    def counter(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def snapshot(self) -> dict:
+        """``{"spans": {name: {count, total_ms, p50_ms, p95_ms}}, "counters": {name: n}}``."""
+        with self._lock:
+            held = {name: (s[0], s[1], sorted(s[2])) for name, s in self._samples.items()}
+            counters = dict(self._counters)
+        spans = {name: {"count": n, "total_ms": round(total, 3), "p50_ms": round(statistics.median(ts), 3),
+                        "p95_ms": round(_p95(ts), 3)}
+                 for name, (n, total, ts) in sorted(held.items())}
+        return {"spans": spans, "counters": counters}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._samples.clear()
+            self._counters.clear()
+
+
+_PROCESS = Spans(PROCESS_RESERVOIR)
+
+
+class Door:
+    """The door whose work is running (``with metrics.door(name):``, one
+    object per entry): its collector, its name (a span's prefix:
+    ``session``, ``pool``) and whether this is a serving step (not the
+    door's ``prepare``)."""
+
+    __slots__ = ("metrics", "name", "serving", "_token")
+
+    def __init__(self, metrics: "ChunkMetrics", name: str, serving: bool):
+        self.metrics, self.name, self.serving = metrics, name, serving
+
+    def __enter__(self) -> "Door":
+        self._token = _DOOR.set(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _DOOR.reset(self._token)
+
+
+_DOOR: contextvars.ContextVar[Optional[Door]] = contextvars.ContextVar("rvc_door", default=None)
+
+
+def current_door() -> Optional[Door]:
+    return _DOOR.get()
+
+
+def process_snapshot() -> dict:
+    """Every span and counter the process recorded, all doors together (and
+    what ran outside any door), as :meth:`Spans.snapshot` gives them."""
+    return _PROCESS.snapshot()
+
+
+def process_samples(name: str) -> list:
+    """The process's recent samples (ms) of span ``name``, oldest first."""
+    return _PROCESS.samples(name)
+
+
+def process_counter(name: str) -> int:
+    return _PROCESS.counter(name)
+
+
+def reset() -> None:
+    """Forget the process's spans and counters (for tests)."""
+    _PROCESS.reset()
+
+
+def observe(samples: dict) -> None:
+    """Record ``{name: ms}`` in the process's collector and the running door's."""
+    _PROCESS.add(samples)
+    door = _DOOR.get()
+    if door is not None:
+        door.metrics.spans.add(samples)
+
+
+def count(counts: dict) -> None:
+    """Add ``{name: n}`` to the process's counters and the running door's."""
+    _PROCESS.count(counts)
+    door = _DOOR.get()
+    if door is not None:
+        door.metrics.spans.count(counts)
+
+
+def count_capture() -> None:
+    """One CUDA graph capture; a serving step's also counts in ``serving_captures``."""
+    door = _DOOR.get()
+    count({"captures": 1, "serving_captures": 1} if door is not None and door.serving else {"captures": 1})
+
+
+def record_step_stages(door: Optional[Door], stages: dict, gap: Optional[float], on_card: bool) -> None:
+    """One step's stage ms (and, on a card, the device's summed wait between
+    its stages) for the door that ran it; the process keeps the card's only."""
+    samples = {STAGE + name: ms for name, ms in stages.items()}
+    if gap is not None:
+        samples[STAGE_GAP] = gap
+    if on_card:
+        _PROCESS.add(samples)
+    if door is not None:
+        door.metrics.spans.add(samples)
+
+
+def profiler_range(name: str):
+    """A profiler range named ``name`` while a profiler runs (CPU-side: no
+    device event), else nothing."""
+    return _RecordFunctionFast(name) if _profiling() else contextlib.nullcontext()
+
+
+class span:
+    """``with span(name):`` records the block's host ms under ``name``
+    (:func:`observe`; :attr:`ms` after the block), and is a profiler range
+    while a profiler runs."""
+
+    __slots__ = ("name", "ms", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.ms = 0.0
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _profiling():
+            self._range = _RecordFunctionFast(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ms = (time.perf_counter_ns() - self._t0) * 1e-6
+        observe({self.name: self.ms})
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+
+def door_span(part: str):
+    """:class:`span` ``<door>.<part>`` inside a door's work; nothing outside one."""
+    door = _DOOR.get()
+    return span(f"{door.name}.{part}") if door is not None else contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -27,8 +239,13 @@ class MetricsSnapshot:
     underruns: int
     dropped_input_samples: int
     errors: int = 0
-    #: per-stage p50 wall ms (sessions that run staged with ``stage_timing``)
+    #: per-stage p50 ms: device time by CUDA events on a card (every chunk's
+    #: with ``stage_timing``, else every few), wall time on the CPU (``stage_timing``)
     stage_p50_ms: dict = dataclasses.field(default_factory=dict)
+    #: the door's spans and stage times: ``{name: {count, total_ms, p50_ms, p95_ms}}``
+    spans: dict = dataclasses.field(default_factory=dict)
+    #: the door's counters (``captures``, ``serving_captures``, ``graph.replays``, ``graph.copies``)
+    counters: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -38,13 +255,19 @@ class ChunkMetrics:
     def __init__(self, chunk_seconds: float, window: int = 256):
         self.chunk_seconds = chunk_seconds
         self._times_ms: Deque[float] = collections.deque(maxlen=window)
-        self._stage_ms: dict[str, Deque[float]] = {}
-        self._window = window
         self._lock = threading.Lock()
         self.total_chunks = 0
         self.underruns = 0
         self.dropped_input_samples = 0
         self.errors = 0
+        #: this door's spans, stage times and counters (the last ``window`` samples of each)
+        self.spans = Spans(window)
+
+    def door(self, name: str, serving: bool = True) -> Door:
+        """``with metrics.door(name):`` marks the door's work: what is
+        recorded inside (on this thread) goes to this collector too;
+        ``serving`` False for its ``prepare``."""
+        return Door(self, name, serving)
 
     @contextlib.contextmanager
     def time_chunk(self):
@@ -69,10 +292,8 @@ class ChunkMetrics:
             self.dropped_input_samples += samples
 
     def record_stages(self, stage_ms: dict) -> None:
-        """Record one chunk's per-stage wall times (``{stage: ms}``)."""
-        with self._lock:
-            for name, ms in stage_ms.items():
-                self._stage_ms.setdefault(name, collections.deque(maxlen=self._window)).append(ms)
+        """Record one chunk's per-stage ms (``{stage: ms}``)."""
+        self.spans.add({STAGE + name: ms for name, ms in stage_ms.items()})
 
     def record_error(self) -> None:
         """A chunk step raised and was replaced by silence."""
@@ -82,18 +303,19 @@ class ChunkMetrics:
     def snapshot(self) -> MetricsSnapshot:
         with self._lock:
             ts = sorted(self._times_ms)
-            stage_p50 = {name: round(statistics.median(v), 3) for name, v in self._stage_ms.items() if v}
             counts = (self.total_chunks, self.underruns, self.dropped_input_samples, self.errors)
+        held = self.spans.snapshot()
+        stage_p50 = {name[len(STAGE):]: s["p50_ms"] for name, s in held["spans"].items() if name.startswith(STAGE)}
         total, underruns, dropped, errors = counts
         if not ts:
-            return MetricsSnapshot(0, 0.0, 0.0, 0.0, 0.0, 0.0, underruns, dropped, errors, stage_p50)
+            return MetricsSnapshot(0, 0.0, 0.0, 0.0, 0.0, 0.0, underruns, dropped, errors, stage_p50,
+                                   held["spans"], held["counters"])
         p50 = statistics.median(ts)
-        p95 = ts[max(0, int(len(ts) * 0.95) - 1)]
         mean = sum(ts) / len(ts)
         return MetricsSnapshot(
             chunks=total,
             p50_ms=round(p50, 3),
-            p95_ms=round(p95, 3),
+            p95_ms=round(_p95(ts), 3),
             mean_ms=round(mean, 3),
             rtf=round((p50 / 1000.0) / self.chunk_seconds, 4),
             audio_seconds_per_second=round(self.chunk_seconds / (mean / 1000.0), 2),
@@ -101,4 +323,6 @@ class ChunkMetrics:
             dropped_input_samples=dropped,
             errors=errors,
             stage_p50_ms=stage_p50,
+            spans=held["spans"],
+            counters=held["counters"],
         )

@@ -99,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="share the fused step's and the RPC engine's captured graphs by key within this process "
                         "(a CUDA graph cannot be saved; the kernels' builds persist under _build/ regardless)")
     p.add_argument("--stage-timing", action="store_true",
-                   help="collect per-stage p50s into /metrics (each stage then ends in a synchronize)")
+                   help="time every chunk's stages into /metrics' stage_p50_ms, not every few chunks': a CUDA "
+                        "event at each stage boundary, no synchronize")
     return p
 
 

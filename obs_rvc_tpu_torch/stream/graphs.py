@@ -25,10 +25,19 @@ row's split ContentVec and exact table, ``parallel/sharding.py``) is a
 segments, each on its own device, which the function's Python body names as
 it runs (``run(name, fn, *args, device=)``, the calls that
 :func:`~obs_rvc_tpu_torch.device.run_inline` runs eagerly).
+
+What the serving path measures here goes to ``serve/metrics.py``'s
+collectors: each capture (``captures``, and ``serving_captures`` inside a
+door's serving step), each replay and the copies each copy-in launches, the
+weights check of a graph that reads weights (``<door>.weights_check``), and
+the staged step's stage times: a :class:`StageClock` records CUDA events at
+the stage boundaries of every :data:`STAGE_EVENTS_EVERY`-th step, read once
+they have completed (:func:`resolve_stages`), never by a synchronize.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import inspect
@@ -41,13 +50,15 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from obs_rvc_tpu_torch.serve import metrics
+
 logger = logging.getLogger(__name__)
 
 #: calls of the function on a side stream before its capture
 WARMUP_CALLS = 1
-#: captures made by this process, all graphs together
-CAPTURES = 0
-_COUNT_LOCK = threading.Lock()
+#: without ``stage_timing``, the staged step times its stages by CUDA events every this many steps
+STAGE_EVENTS_EVERY = 4
+_CAPTURER_LOCK = threading.Lock()
 _capturer: Optional[concurrent.futures.ThreadPoolExecutor] = None
 
 
@@ -57,7 +68,7 @@ def _capture_thread() -> concurrent.futures.ThreadPoolExecutor:
     thread's first call; captured here, a new geometry's graph reuses the
     handles of the captures before it, whichever thread asked for it."""
     global _capturer
-    with _COUNT_LOCK:
+    with _CAPTURER_LOCK:
         if _capturer is None:
             _capturer = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="cuda-graph-capture")
         return _capturer
@@ -107,9 +118,11 @@ def _static_leaf(leaf, device: torch.device):
     raise TypeError(f"a graphed function takes tensors, numbers and None, not {type(leaf).__name__}")
 
 
-def _copy_in(static: list, args: list, name: str) -> None:
+def _copy_in(static: list, args: list, name: str) -> int:
+    """Copy ``args`` into the static leaves; returns the copies launched."""
     if len(static) != len(args):
         raise ValueError(f"{name}: {len(args)} argument leaves, the graph was made for {len(static)}")
+    copies = 0
     for s, a in zip(static, args):
         if isinstance(s, torch.Tensor):
             if isinstance(a, torch.Tensor):
@@ -118,10 +131,13 @@ def _copy_in(static: list, args: list, name: str) -> None:
                                      f"takes {tuple(s.shape)}")
                 if a is not s:
                     s.copy_(a)
+                    copies += 1
             else:
                 s.fill_(a)
+                copies += 1
         elif a is not s:
             raise ValueError(f"{name}: {a!r} where the graph was made for the constant {s!r}")
+    return copies
 
 
 class WeightsVersion:
@@ -188,7 +204,6 @@ class GraphedFunction:
             return True
 
     def _capture(self, key) -> None:
-        global CAPTURES
         self._graph = self._out = None
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
@@ -199,8 +214,7 @@ class GraphedFunction:
         self._graph, self._out, self._weights_key = graph, out, key
         self.captures += 1
         self.capture_seconds, self.warmup_seconds = time.perf_counter() - t0, warmup
-        with _COUNT_LOCK:
-            CAPTURES += 1
+        metrics.count_capture()
         logger.info("captured %s in %.1f ms (the warm-up call %.1f ms)", self.name, self.capture_seconds * 1e3,
                     warmup * 1e3)
 
@@ -242,16 +256,23 @@ class GraphedFunction:
         returns (enqueued on the same stream: a run on another stream first
         waits for everything the last run's stream had enqueued)."""
         with self.lock:
-            self.capture()  # before the copy-in: the warm-up calls write the static arguments
+            # before the copy-in: the warm-up calls write the static arguments
+            if self._version is None:
+                self.capture()
+            else:
+                with metrics.door_span("weights_check"):
+                    self.capture()
             if self.device.type == "cuda":
                 stream = torch.cuda.current_stream(self.device)
                 if self._stream is not None and self._stream != stream:
                     stream.wait_stream(self._stream)
                 self._stream = stream
-            _copy_in(self._static_leaves, leaves(args), self.name)
+            copies = _copy_in(self._static_leaves, leaves(args), self.name)
             if self._graph is None:
+                metrics.count({"graph.copies": copies})
                 return self.fn(*self.static_args)
             self._graph.replay()
+            metrics.count({"graph.copies": copies, "graph.replays": 1})
             return self._out
 
     def replay(self) -> None:
@@ -281,13 +302,140 @@ def _card(device) -> torch.device:
     return device
 
 
-def stage_runner(graphs: dict, device, pools: dict, stage_times: Optional[dict] = None):
+class StageClock:
+    """One step's stage boundaries: on a card a CUDA timing event on the
+    step's stream before and after each stage (no synchronize), on the CPU
+    the host clock (the eager stages run synchronously there). A features
+    segment (``"features/..."``, a :attr:`RvcPipeline.segmented` row's,
+    which may run on another card) is not timed, and no gap is counted
+    across it: on such a row the features stage is left out."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self._stream = torch.cuda.current_stream(device) if self.on_card else None
+        #: (stage, start, end, whether an untimed piece ran since the last stage)
+        self.marks: list = []
+        self._broken = False
+        #: the door whose step this is, and the process's captures when it began
+        self.door = metrics.current_door()
+        self.captures = metrics.process_counter("captures")
+
+    def _mark(self):
+        if not self.on_card:
+            return time.perf_counter_ns()
+        try:  # an event of a delivered step: creating one took ~20 us of host time on an H100 machine
+            event = _FREE_EVENTS[self.device].pop()
+        except IndexError:
+            event = torch.cuda.Event(enable_timing=True)
+        event.record(self._stream)
+        return event
+
+    def time(self, name: str, call: Callable) -> Any:
+        """``call()``, between two marks under ``name``'s stage."""
+        if "/" in name:
+            self._broken = True
+            return call()
+        start = self._mark()
+        out = call()
+        self.marks.append((name, start, self._mark(), self._broken))
+        self._broken = False
+        return out
+
+    def done(self) -> bool:
+        """Whether every mark has completed (by ``query``: never waits)."""
+        return not self.on_card or not self.marks or self.marks[-1][2].query()
+
+    def wait(self) -> None:
+        """Wait for the step's last mark."""
+        if self.on_card and self.marks:
+            self.marks[-1][2].synchronize()
+
+    def times(self) -> tuple[dict, Optional[float]]:
+        """``({stage: ms}, summed ms between consecutive stages)``, once
+        :meth:`done`; on the CPU no gap (``None``)."""
+        stages, gap, prev = {}, 0.0, None
+        for name, start, end, broken in self.marks:
+            stages[name] = self._ms(start, end)
+            if prev is not None and not broken:
+                gap += self._ms(prev, start)
+            prev = end
+        return stages, (gap if self.on_card else None)
+
+    def _ms(self, a, b) -> float:
+        return a.elapsed_time(b) if self.on_card else (b - a) * 1e-6
+
+
+#: timed steps whose events are not resolved yet, oldest first
+_PENDING: collections.deque = collections.deque(maxlen=64)
+#: the timing events of delivered steps, by card, for later steps to record again
+_FREE_EVENTS: collections.defaultdict = collections.defaultdict(list)
+_PENDING_LOCK = threading.Lock()
+_STEPS = itertools.count()
+
+
+def stage_clock(device, every_step: bool = False) -> Optional[StageClock]:
+    """The clock of a staged step on ``device``, or None for an untimed one:
+    on a card every :data:`STAGE_EVENTS_EVERY`-th step (every one with
+    ``every_step``), never while the stream is being captured; on the CPU
+    only with ``every_step``."""
+    device = _card(device)
+    if device.type != "cuda":
+        return StageClock(device) if every_step else None
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    if every_step or next(_STEPS) % STAGE_EVENTS_EVERY == 0:
+        return StageClock(device)
+    return None
+
+
+def finish_stages(clock: Optional[StageClock], stage_times: Optional[dict] = None) -> None:
+    """After the step's work is enqueued: with ``stage_times``, wait for the
+    step's last event and write each stage's ms into it. The step's times go
+    to its door and the process (:func:`metrics.record_step_stages`) once its
+    events complete (now on the CPU, else at :func:`resolve_stages`), unless
+    a graph was captured meanwhile (its warm-up ran between the events)."""
+    if clock is None:
+        return
+    if stage_times is not None:
+        clock.wait()
+        stage_times.update(clock.times()[0])
+    if metrics.process_counter("captures") != clock.captures:
+        return
+    if clock.done():
+        _deliver(clock)
+    else:
+        with _PENDING_LOCK:
+            _PENDING.append(clock)
+
+
+def resolve_stages() -> None:
+    """Deliver the timed steps whose events have completed, oldest first
+    (by ``query``: never waits). A staged step calls it once its own work
+    is enqueued: the steps before it, whose output their door has waited
+    for, are read while the device runs this one."""
+    while True:
+        with _PENDING_LOCK:
+            if not _PENDING or not _PENDING[0].done():
+                return
+            clock = _PENDING.popleft()
+        _deliver(clock)
+
+
+def _deliver(clock: StageClock) -> None:
+    stages, gap = clock.times()
+    if stages:
+        metrics.record_step_stages(clock.door, stages, gap, clock.on_card)
+    if clock.on_card:
+        _FREE_EVENTS[clock.device].extend(e for _, start, end, _ in clock.marks for e in (start, end))
+
+
+def stage_runner(graphs: dict, device, pools: dict, clock: Optional[StageClock] = None):
     """``run(name, fn, *args, device=None)`` for the stage-by-stage step: each
     stage's graph, captured at its first call from these args on ``device``
     (by default the step's; ``graphs`` keeps them by name, ``pools`` one
-    memory pool per card), replayed; with ``stage_times``, each replay ends
-    in a synchronize and its wall ms is written under the stage's name (a
-    segment's, ``"features/..."``, added to its stage's)."""
+    memory pool per card), replayed; with a ``clock``, between its marks
+    (:class:`StageClock`)."""
     device = _card(device)
 
     def run(name: str, fn: Callable, *args, device=device) -> Any:
@@ -297,14 +445,9 @@ def stage_runner(graphs: dict, device, pools: dict, stage_times: Optional[dict] 
             if dev not in pools:
                 pools[dev] = graph_pool(dev)
             graph = graphs[name] = GraphedFunction(fn, args, device=dev, name=f"stage_{name}", pool=pools[dev])
-        t0 = time.perf_counter()
-        out = graph.run(*args)
-        if stage_times is not None:
-            if graph.device.type == "cuda":
-                torch.cuda.synchronize(graph.device)
-            stage, _, segment = name.partition("/")
-            stage_times[stage] = (stage_times.get(stage, 0.0) if segment else 0.0) + (time.perf_counter() - t0) * 1e3
-        return out
+        if clock is None:
+            return graph.run(*args)
+        return clock.time(name, lambda: graph.run(*args))
 
     return run
 
@@ -389,7 +532,8 @@ class SegmentedFunction:
         """``fn(*args)`` through the segments; its outputs, valid until the
         next call (hold :attr:`lock` until they are read)."""
         with self.lock:
-            self._drop_if_weights_changed()
+            with metrics.door_span("weights_check"):
+                self._drop_if_weights_changed()
             return self.fn(*args, run=self._segment)
 
     def __call__(self, *args):

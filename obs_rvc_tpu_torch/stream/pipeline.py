@@ -97,7 +97,6 @@ import collections
 import copy
 import dataclasses
 import threading
-import time
 import weakref
 from typing import Optional, Sequence
 
@@ -137,10 +136,15 @@ from obs_rvc_tpu_torch.models.contentvec import extract_feature, feature_frames
 from obs_rvc_tpu_torch.models.layers import VitsLayerNorm
 from obs_rvc_tpu_torch.models.weights import load_state_dict
 from obs_rvc_tpu_torch.retrieval.index import RetrievalIndex
+from obs_rvc_tpu_torch.serve.metrics import door_span
 from obs_rvc_tpu_torch.stream.graphs import (
     GraphedFunction,
     SegmentedFunction,
+    StageClock,
     WeightsVersion,
+    finish_stages,
+    resolve_stages,
+    stage_clock,
     stage_runner,
 )
 from obs_rvc_tpu_torch.stream.state import StreamState
@@ -513,12 +517,20 @@ class RvcPipeline:
         function, eagerly): the state's tensors, the chunk ``[B,
         sample_frame_size]`` and ``rnd`` carry a leading stream axis, and each
         control is ``[B]`` (:meth:`StepControls.stack`) or one value for every
-        stream. With ``stage_times`` (a dict), each stage ends in a device
-        synchronize and its wall ms is written under its name: diagnostics,
+        stream. With ``stage_times`` (a dict), each stage's ms is written
+        under its name: on a card the device time between CUDA events around
+        the stage's launches, the call ending in one wait for the last event
+        (no synchronize a stage); on the CPU its wall time. On a
+        :attr:`segmented` row the features stage is not timed. Diagnostics,
         not throughput."""
         _check_rank(chunk, batched)
-        return self._run_steps(state, chunk.to(self.device, torch.float32), controls, rnd,
-                               self._stage_runner(stage_times))
+        clock = stage_clock(self.device, every_step=True) if stage_times is not None else None
+        out = self._run_steps(state, chunk.to(self.device, torch.float32), controls, rnd,
+                              self._stage_runner(clock))
+        if clock is not None:
+            clock.wait()
+            stage_times.update(clock.times()[0])
+        return out
 
     def _run_steps(self, state, chunk, controls, rnd, run, grouped=False):
         """The step of ``B`` streams (a chunk ``[B, N]``), or of one (``[N]``)
@@ -549,22 +561,14 @@ class RvcPipeline:
                                 controls.rms_mix_rate)
         return StreamState(buf, buf16, new_sola, new_cache), emitted
 
-    def _stage_runner(self, stage_times: Optional[dict]):
-        """``run(name, fn, *args, device=None)``: :func:`run_inline`; with
-        ``stage_times``, also synchronizes the device and records the
-        stage's wall ms (a features segment's added to the stage's)."""
-        if stage_times is None:
+    def _stage_runner(self, clock: Optional[StageClock]):
+        """``run(name, fn, *args, device=None)``: :func:`run_inline`; with a
+        ``clock``, between its marks (:class:`~obs_rvc_tpu_torch.stream.graphs.StageClock`)."""
+        if clock is None:
             return run_inline
 
         def run(name, fn, *args, device=None):
-            t0 = time.perf_counter()
-            out = run_inline(name, fn, *args, device=device)
-            dev = self.device if device is None else torch.device(device)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stage, _, segment = name.partition("/")
-            stage_times[stage] = (stage_times.get(stage, 0.0) if segment else 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
+            return clock.time(name, lambda: run_inline(name, fn, *args, device=device))
 
         return run
 
@@ -606,15 +610,28 @@ class RvcPipeline:
 
     @torch.no_grad()
     def staged_step(self, state: StreamState, chunk: torch.Tensor, controls: StepControls,
-                    stage_times: Optional[dict] = None, batched: bool = False) -> tuple[StreamState, torch.Tensor]:
+                    stage_times: Optional[dict] = None, batched: bool = False,
+                    timed: bool = False) -> tuple[StreamState, torch.Tensor]:
         """The step as one CUDA graph per stage (``pre`` … ``post``), each
         captured at its first call and replayed in turn, the counterpart of
         the JAX ``staged_step``; ``batched`` as in :meth:`step`, with the
         stage graphs of that batch size. The state is donated, as in
-        ``jit_step``. With ``stage_times``, each replay ends in a synchronize
-        and its wall ms is written under the stage's name."""
+        ``jit_step``.
+
+        On a card every few steps (every one with ``timed`` or
+        ``stage_times``) record CUDA events around each stage on the step's
+        stream, and each stage's device ms and the device's waits between
+        stages go to the metrics once the events have completed, read at a
+        later step after its launches
+        (:class:`~obs_rvc_tpu_torch.stream.graphs.StageClock`; on the CPU,
+        only with ``timed`` or ``stage_times``, the stages' wall ms, to the
+        running door's metrics alone). With ``stage_times``, each stage's ms is written
+        under its name too, the call ending in one wait for the step's last
+        event, not a synchronize a stage. On a :attr:`segmented` row only
+        the stages on the step's card are timed: the features stage is not."""
         _check_rank(chunk, batched)
-        return self.staged_batch_graphs(chunk.shape[0] if batched else 1)(state, chunk, controls, stage_times)
+        return self.staged_batch_graphs(chunk.shape[0] if batched else 1)(state, chunk, controls, stage_times,
+                                                                         timed)
 
     @property
     def jit_infer(self):
@@ -831,14 +848,20 @@ class StagedGraphs:
             self._pools = {}
             self._weights_key = key
 
-    def __call__(self, state, chunk, controls, stage_times=None):
+    def __call__(self, state, chunk, controls, stage_times=None, timed=False):
         pipe = self._pipe()
         if chunk.dim() == 1:  # as in GraphedStep
-            return state, _one_stream(lambda *a: self(*a, stage_times), state, chunk, controls.on(pipe.device))[1]
+            return state, _one_stream(lambda *a: self(*a, stage_times, timed), state, chunk,
+                                      controls.on(pipe.device))[1]
         with self.lock:
             if pipe.device.type == "cuda":
-                self._drop_if_weights_changed()
-            run = stage_runner(self.graphs, pipe.device, self._pools, stage_times)
+                with door_span("weights_check"):
+                    self._drop_if_weights_changed()
+            clock = stage_clock(pipe.device, every_step=timed or stage_times is not None)
+            run = stage_runner(self.graphs, pipe.device, self._pools, clock)
             new, emitted = pipe._run_steps(state, chunk, controls, None, run)
             _write_state(state, new)
-            return state, emitted.clone()
+            out = emitted.clone()
+        finish_stages(clock, stage_times)
+        resolve_stages()  # the earlier steps' events, read while the device runs this one
+        return state, out

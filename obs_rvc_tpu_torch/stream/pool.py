@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from obs_rvc_tpu_torch.device import run_inline
-from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics, observe, profiler_range
 from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
 from obs_rvc_tpu_torch.stream.ringbuf import make_ring_buffer
 from obs_rvc_tpu_torch.stream.state import StreamState
@@ -399,12 +399,13 @@ class StreamPool:
     def prepare(self) -> None:
         """Capture every row's tick graphs now (the server calls it before it listens)."""
         self._refresh_rows()
-        for row in self._rows:
-            if self.mode == "fused":
-                self._fused(row)
-            else:
-                with row.on_stream():
-                    row.pipeline.staged_batch_graphs(row.hi - row.lo).capture()
+        with self.metrics.door("pool", serving=False):
+            for row in self._rows:
+                if self.mode == "fused":
+                    self._fused(row)
+                else:
+                    with row.on_stream():
+                        row.pipeline.staged_batch_graphs(row.hi - row.lo).capture()
 
     def _to_device(self, a: np.ndarray, row: Optional[_Row] = None) -> torch.Tensor:
         row = row or self._rows[0]
@@ -461,7 +462,15 @@ class StreamPool:
         Slots without a full chunk ride the step with silence but are frozen:
         their post-step state and output are discarded by the merge, so a
         starved stream resumes with its context intact. Slots cleared while
-        the tick ran (epoch moved) get their rows zeroed again after it."""
+        the tick ran (epoch moved) get their rows zeroed again after it.
+
+        A tick's phases (:attr:`last_tick_phases`) go to the metrics too, as
+        ``pool.controls``, ``pool.drain``, ``pool.dispatch``, ``pool.d2h``
+        and ``pool.merge``, and each is a profiler range while one runs."""
+        with self.metrics.door("pool"):
+            return self._tick()
+
+    def _tick(self) -> int:
         t0 = time.perf_counter()
         with self._lock:
             active = list(self._active)
@@ -470,20 +479,22 @@ class StreamPool:
             epochs = list(self._epoch)
 
         controls = []
-        for row in self._rows:
-            with row.on_stream():
-                controls.append(self._controls_device(controls_snap, cver, row))
+        with profiler_range("pool.controls"):
+            for row in self._rows:
+                with row.on_stream():
+                    controls.append(self._controls_device(controls_snap, cver, row))
         t_controls = time.perf_counter()
 
         chunks = np.zeros((self.capacity, self._chunk), np.float32)
         have = np.zeros(self.capacity, bool)
-        for i in range(self.capacity):
-            if not active[i]:
-                continue
-            c = self._in[i].pop_exact(self._chunk)
-            if c is not None:
-                chunks[i] = c
-                have[i] = True
+        with profiler_range("pool.drain"):
+            for i in range(self.capacity):
+                if not active[i]:
+                    continue
+                c = self._in[i].pop_exact(self._chunk)
+                if c is not None:
+                    chunks[i] = c
+                    have[i] = True
         if not have.any():
             return 0
         self._ready_since = None
@@ -497,14 +508,16 @@ class StreamPool:
             try:
                 self._refresh_rows()
                 sent = []  # every row dispatched, then collected
-                for row, ctl in zip(self._rows, controls):
-                    with row.on_stream():
-                        sent.append(self._dispatch(row, chunks[row.lo : row.hi], have[row.lo : row.hi], ctl))
+                with profiler_range("pool.dispatch"):
+                    for row, ctl in zip(self._rows, controls):
+                        with row.on_stream():
+                            sent.append(self._dispatch(row, chunks[row.lo : row.hi], have[row.lo : row.hi], ctl))
                 t_step = time.perf_counter()
                 if self.pipelined:
                     t_d2h = t_step  # delivered after the next tick's dispatch, or on flush
                 else:
-                    out = self._collect(sent)
+                    with profiler_range("pool.d2h"):
+                        out = self._collect(sent)
                     t_d2h = time.perf_counter()
             except Exception:
                 logger.exception("batched step failed; emitting silence for fed slots and resetting them")
@@ -515,7 +528,7 @@ class StreamPool:
                 t_step = t_d2h = time.perf_counter()
                 out = np.zeros((self.capacity, self._chunk), np.float32)
 
-        with self._lock:
+        with self._lock, profiler_range("pool.merge"):
             # output goes only to slots that consumed input this tick and were not cleared meanwhile
             fresh_ok = [have[i] and self._epoch[i] == epochs[i] for i in range(self.capacity)]
             stale = np.array([self._epoch[i] != epochs[i] for i in range(self.capacity)])
@@ -543,6 +556,7 @@ class StreamPool:
             "d2h_ms": (t_d2h - t_step) * 1e3 + (t_end - t_pub) * 1e3,
             "merge_ms": (t_pub - t_d2h) * 1e3,
         }
+        observe({f"pool.{k[:-3]}": ms for k, ms in self.last_tick_phases.items()})
         return int(have.sum())
 
     def flush_pending(self) -> None:

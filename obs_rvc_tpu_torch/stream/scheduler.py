@@ -21,6 +21,13 @@ same calls run the step eagerly.
   :class:`StepControls`), never mutated in place.
 - The state's tensors live on the pipeline's device; the rings are host
   memory.
+- Each chunk's host time is kept in spans (``serve/metrics.py``), in the
+  session's metrics and the process's: ``session.chunk`` from the pop to the
+  push, its parts ``session.pop``, ``session.enqueue`` (the step's launches,
+  with ``session.weights_check`` inside, and the output's copy into pinned
+  memory enqueued behind it), ``session.wait`` (the host blocked on the
+  device), ``session.download`` (out of the pinned buffer) and
+  ``session.push``, and ``session.host``, the chunk less its wait.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics
+from obs_rvc_tpu_torch.serve.metrics import ChunkMetrics, observe, span
 from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
 from obs_rvc_tpu_torch.stream.ringbuf import make_ring_buffer
 from obs_rvc_tpu_torch.stream.state import StreamState
@@ -64,14 +71,17 @@ class StreamSession:
         #: fused mode: take the step's graph from cached_capture, shared by key
         self.exec_cache = exec_cache
         self._fused_step = None
-        #: per-stage wall times into the metrics (staged mode; each stage then
-        #: ends in a device synchronize)
+        #: every chunk's stage times into the metrics (staged mode), not every
+        #: few chunks': CUDA events at each stage boundary on a card, no synchronize
         self.stage_timing = stage_timing
         cfg = pipeline.cfg
         self._chunk = cfg.sample_frame_size
         self._in = make_ring_buffer(self._chunk * input_capacity_chunks)
         self._out = make_ring_buffer(self._chunk * output_capacity_chunks)
         self.state = pipeline.new_state()
+        #: on a card, the pinned buffer each chunk's output is copied into, and the event of that copy
+        self._host_out: Optional[torch.Tensor] = None
+        self._copied: Optional[torch.cuda.Event] = None
         #: pass one ChunkMetrics to several sessions to aggregate them
         self.metrics = metrics if metrics is not None else ChunkMetrics(chunk_seconds=cfg.latency_seconds)
         self._running = False
@@ -102,10 +112,11 @@ class StreamSession:
     def prepare(self) -> None:
         """Capture this mode's graphs now, if nobody has yet (the server calls
         it once before it listens, and :meth:`start` for each session)."""
-        if self.mode == "fused":
-            self._fused()
-        else:
-            self.pipeline.staged_graphs.capture()
+        with self.metrics.door("session", serving=False):
+            if self.mode == "fused":
+                self._fused()
+            else:
+                self.pipeline.staged_graphs.capture()
 
     def _fused(self):
         if self._fused_step is None:
@@ -118,16 +129,25 @@ class StreamSession:
             self._fused_step = step
         return self._fused_step
 
-    def _step(self, chunk: np.ndarray) -> np.ndarray:
+    def _step(self, chunk: np.ndarray) -> torch.Tensor:
+        """Enqueue one chunk's step; its output, on the pipeline's device."""
         chunk = torch.from_numpy(chunk)
         if self.mode == "fused":
-            _, out = self._fused()(self.state, chunk, self.controls)
-        else:
-            stage_times = {} if self.stage_timing else None
-            _, out = self.pipeline.staged_step(self.state, chunk, self.controls, stage_times=stage_times)
-            if stage_times:
-                self.metrics.record_stages(stage_times)
-        return out.cpu().numpy()
+            return self._fused()(self.state, chunk, self.controls)[1]
+        return self.pipeline.staged_step(self.state, chunk, self.controls, timed=self.stage_timing)[1]
+
+    def _to_host(self, out: torch.Tensor) -> torch.Tensor:
+        """``out`` in host memory: on a card, the session's pinned buffer,
+        its copy enqueued behind the step (:attr:`_copied` records when it
+        has landed; the buffer is read before the next chunk's copy)."""
+        if out.device.type != "cuda":
+            return out
+        if self._host_out is None:
+            self._host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._copied = torch.cuda.Event()
+        self._host_out.copy_(out, non_blocking=True)
+        self._copied.record(torch.cuda.current_stream(out.device))
+        return self._host_out
 
     def _reset_state(self) -> None:
         for t in vars(self.state).values():
@@ -136,20 +156,31 @@ class StreamSession:
     def process_pending(self, max_chunks: int = 4) -> int:
         """Run up to ``max_chunks`` chunk steps; returns the chunks produced."""
         done = 0
-        for _ in range(max_chunks):
-            chunk = self._in.pop_exact(self._chunk)
-            if chunk is None:
-                break
-            with self.metrics.time_chunk():
-                try:
-                    out = self._step(chunk)
-                except Exception:
-                    logger.exception("chunk step failed; emitting silence and resetting state")
-                    self.metrics.record_error()
-                    out = np.zeros(self._chunk, np.float32)
-                    self._reset_state()
-            self._out.push(out)
-            done += 1
+        with self.metrics.door("session"):
+            # the worker is the input ring's one reader: a chunk it sees available stays so
+            while done < max_chunks and self._in.available() >= self._chunk:
+                wait = span("session.wait")
+                with span("session.chunk") as whole:
+                    with span("session.pop"):
+                        chunk = self._in.pop_exact(self._chunk)
+                    with self.metrics.time_chunk():
+                        try:
+                            with span("session.enqueue"):
+                                out = self._to_host(self._step(chunk))
+                            with wait:  # the host blocked on the device: the step, and its output's copy
+                                if self._copied is not None:
+                                    self._copied.synchronize()
+                            with span("session.download"):
+                                out = out.numpy().copy()
+                        except Exception:
+                            logger.exception("chunk step failed; emitting silence and resetting state")
+                            self.metrics.record_error()
+                            out = np.zeros(self._chunk, np.float32)
+                            self._reset_state()
+                    with span("session.push"):
+                        self._out.push(out)
+                observe({"session.host": whole.ms - wait.ms})
+                done += 1
         return done
 
     def _loop(self) -> None:

@@ -85,7 +85,9 @@ def stage_device_ms(pipe, batch, state, chunk, controls) -> tuple:
     its step's work). On a card: one staged step from a copy of ``state``
     (capturing the stage graphs if need be) leaves ``chunk``'s inputs in
     each stage graph's arguments, then CUDA events time that graph alone,
-    replayed back to back. On the CPU: the host ms of each eager stage."""
+    replayed back to back. On the CPU: the wall ms of each eager stage
+    (``staged_step``'s ``stage_times``, the device ms between CUDA events on
+    the timed path on a card)."""
     import torch
 
     from obs_rvc_tpu_torch.stream.graphs import leaves

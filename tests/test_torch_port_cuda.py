@@ -854,6 +854,89 @@ def test_graphs_are_captured_again_after_a_weight_reload(cuda, deterministic_cud
     assert (pipe.jit_step.captures, pipe.staged_graphs.captures) == (captures[0] + 1, captures[1] + 7)
 
 
+def test_stage_events_time_the_staged_step_without_a_synchronize(cuda, monkeypatch):
+    """Events at every stage boundary call ``torch.cuda.synchronize`` no more
+    often than a step without them, and give each stage's device ms and the
+    waits between stages once the step's output is read."""
+    from obs_rvc_tpu_torch.serve import metrics
+    from obs_rvc_tpu_torch.stream import StepControls, pipeline
+
+    pipe = _graph_pipe(cuda)
+    chunks = [c.to(cuda) for c in _chunks(pipe, 3)]
+    state, controls = pipe.new_state(), StepControls.default()
+    pipe.staged_step(state, chunks[0], controls)  # the capture
+    calls = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: (calls.append(1), sync(*a, **k))[1])
+
+    def synchronizes(**kw):
+        calls.clear()
+        for c in chunks:
+            pipe.staged_step(state, c, controls, **kw)[1].cpu()
+        return len(calls)
+
+    metrics.reset()
+    timed = synchronizes(timed=True)
+    times = {}
+    with_dict = synchronizes(stage_times=times)
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "stage_clock", lambda *a, **k: None)
+        untimed = synchronizes()
+    assert timed <= untimed and with_dict <= untimed
+    assert set(times) == {"pre", "features", "mel", "salience", "pitch_post", "synth", "post"}
+    assert all(v > 0 for v in times.values())
+    pipeline.resolve_stages()
+    snap = metrics.process_snapshot()["spans"]
+    assert all(snap[f"stage.{s}"]["count"] >= 2 * len(chunks) for s in times)
+    assert snap["stage_gap"]["count"] >= 2 * len(chunks) and snap["stage_gap"]["p50_ms"] >= 0
+
+
+def test_spans_leave_no_device_event_in_a_trace(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from obs_rvc_tpu_torch.stream import StepControls, StreamSession
+
+    pipe = _graph_pipe(cuda)
+    sess = StreamSession(pipe, StepControls.default(), mode="staged")
+    sess.prepare()
+    chunk = torch.cat(_chunks(pipe, 1)).numpy()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        for _ in range(3):
+            sess.push_audio(chunk)
+            sess.process_pending()
+        torch.cuda.synchronize()
+    ours = [e for e in prof.events() if e.name.startswith(("session.", "stage", "pool."))]
+    assert {e.name for e in ours} >= {"session.chunk", "session.enqueue", "session.wait"}
+    assert all(e.device_type == torch.autograd.DeviceType.CPU for e in ours)
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def test_a_weight_reload_while_serving_counts_serving_captures(cuda, deterministic_cudnn):
+    from obs_rvc_tpu_torch.serve import metrics
+    from obs_rvc_tpu_torch.stream import StepControls, StreamSession
+
+    metrics.reset()
+    pipe = _graph_pipe(cuda)
+    sess = StreamSession(pipe, StepControls.default(), mode="staged")
+    sess.prepare()
+    chunks = [c.numpy() for c in _chunks(pipe, 3)]
+
+    def serve(cs):
+        with torch.no_grad():
+            for c in cs:
+                sess.push_audio(c)
+                assert sess.process_pending() == 1
+
+    serve(chunks[:2])
+    assert (metrics.process_counter("captures"), metrics.process_counter("serving_captures")) == (7, 0)
+    pipe.init_params(seed=1, std=None)
+    serve(chunks[2:])
+    assert (metrics.process_counter("captures"), metrics.process_counter("serving_captures")) == (14, 7)
+    counters = sess.metrics.snapshot().counters
+    assert (counters["captures"], counters["serving_captures"]) == (14, 7)
+    assert counters["graph.replays"] == 7 * 4  # prepare's step of silence, then the three chunks
+
+
 def test_a_capture_that_fails_raises(cuda):
     """A function the card cannot capture (it reads a value on the host)
     raises; nothing runs it eagerly instead."""
