@@ -956,7 +956,7 @@ def phase_graphs(report, key, run, reload_weights=False):
     for _ in range(100):
         version.key()
     out["weights_check_ms"] = (time.perf_counter() - t0) * 10
-    log(key, f"the per-call weights check ({len(version._tensors)} parameters and buffers): "
+    log(key, f"the per-call weights check ({version.tensors} parameters and buffers): "
              f"{out['weights_check_ms']:.3f} ms on the host")
     log(key, f"MFU against the {peak_name} TFLOP/s peak: eager {out['mfu_eager']:.2%}, fused "
              f"{out['fused']['mfu']:.2%}, staged {out['staged']['mfu']:.2%}")

@@ -29,7 +29,8 @@ it runs (``run(name, fn, *args, device=)``, the calls that
 What the serving path measures here goes to ``serve/metrics.py``'s
 collectors: each capture (``captures``, and ``serving_captures`` inside a
 door's serving step), each replay and the copies each copy-in launches, the
-weights check of a graph that reads weights (``<door>.weights_check``), and
+weights check of a graph that reads weights (``<door>.weights_check``; the
+checks and the changes they found, ``weights.checks`` and ``weights.changes``), and
 the staged step's stage times: a :class:`StageClock` records CUDA events at
 the stage boundaries of every :data:`STAGE_EVENTS_EVERY`-th step, read once
 they have completed (:func:`resolve_stages`), never by a synchronize.
@@ -50,6 +51,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from obs_rvc_tpu_torch.ops import _cuda
 from obs_rvc_tpu_torch.serve import metrics
 
 logger = logging.getLogger(__name__)
@@ -146,20 +148,44 @@ class WeightsVersion:
     ``load_state_dict`` bumps the versions; a cast to another dtype moves the
     storage. The list of tensors is taken again when a module is swapped, or
     when a module that puts new tensors in its buffers (the retrieval
-    index) counts another load in its ``generation``."""
+    index) counts another load in its ``generation``.
+
+    Two keys of one object are equal exactly when, between the calls that
+    returned them, the modules stayed the same objects at the same
+    ``generation`` and no tensor's storage or version was seen to change.
+    The tensors are compared in one native call (``csrc/weights_snapshot.cpp``),
+    which counts an epoch up whenever any differs from the last call; the
+    key is the modules' ids and generations and that epoch. A change found
+    takes the list of tensors again too, so the new tensors a cast puts in
+    the buffers are the ones watched after it. Each call counts in
+    ``weights.checks``, and a key unequal to the one before in
+    ``weights.changes``."""
 
     def __init__(self, modules: Callable[[], Iterable[torch.nn.Module]]):
         self._modules = weakly(modules)
         self._ids: Optional[tuple] = None
-        self._tensors: list = []
+        self._snapshot = None
+        self._key: Optional[tuple] = None
 
     def key(self) -> tuple:
         mods = tuple(self._modules())
         ids = tuple((id(m), getattr(m, "generation", 0)) for m in mods)
-        if ids != self._ids:
+        epoch = self._snapshot.advance() if ids == self._ids else None
+        if epoch is None or epoch != self._key[-1]:
+            # a change found takes the list again: a cast puts new tensors in the modules' buffers
+            if self._snapshot is None:
+                self._snapshot = _cuda.extension("weights_snapshot").Snapshot()
             self._ids = ids
-            self._tensors = [t for m in mods for t in itertools.chain(m.parameters(), m.buffers())]
-        return ids + tuple((t.data_ptr(), t._version) for t in self._tensors)
+            epoch = self._snapshot.take([t for m in mods for t in itertools.chain(m.parameters(), m.buffers())])
+        key = ids + (epoch,)
+        metrics.count({"weights.checks": 1, "weights.changes": int(self._key is not None and key != self._key)})
+        self._key = key
+        return key
+
+    @property
+    def tensors(self) -> int:
+        """The parameters and buffers the last key covered."""
+        return 0 if self._snapshot is None else len(self._snapshot)
 
 
 class GraphedFunction:

@@ -12,7 +12,8 @@ algorithm), replayed from two threads, captured again after a weight
 reload, and a capture that fails; retrieval's edge cases on the card (a
 union with fewer valid rows than k, a slab length that is no multiple of
 8, a bfloat16 table's float32 scores, the blend graphed, a second table
-loaded into a graphed step). On a machine with a card, run them as::
+loaded into a graphed step); the weights check before each staged step, and
+its host cost at RVC v2 40k (printed). On a machine with a card, run them as::
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
@@ -852,6 +853,70 @@ def test_graphs_are_captured_again_after_a_weight_reload(cuda, deterministic_cud
     assert torch.equal(_stream(pipe.jit_step, pipe, chunks, controls), want)
     assert torch.equal(_stream(pipe.staged_step, pipe, chunks, controls), want)
     assert (pipe.jit_step.captures, pipe.staged_graphs.captures) == (captures[0] + 1, captures[1] + 7)
+
+
+def test_a_weight_change_between_two_staged_steps_recaptures_and_the_next_chunk_is_the_eager_steps(
+        cuda, deterministic_cudnn):
+    """The weights check before each staged step: a reload, then a raw write
+    to one parameter, each between two chunks of one stream; the staged step
+    captures its seven graphs again, and its next chunk equals an eager
+    step's bit for bit."""
+    from obs_rvc_tpu_torch.serve import metrics
+    from obs_rvc_tpu_torch.stream import StepControls
+
+    pipe = _graph_pipe(cuda)
+    chunks = [c.to(cuda) for c in _chunks(pipe, 3)]
+    controls = StepControls.default(pitch_shift=3.0, rms_mix_rate=0.5)
+    metrics.reset()
+    with torch.no_grad():
+        eager, graphed = pipe.new_state(), pipe.new_state()
+        eager, want = pipe.step(eager, chunks[0], controls)
+        graphed, got = pipe.staged_step(graphed, chunks[0], controls)
+        assert torch.equal(got, want)
+        changes = (lambda: pipe.init_params(seed=1, std=None), lambda: next(pipe.synthesizer.parameters()).mul_(1.5))
+        for chunk, change in zip(chunks[1:], changes):
+            captures = pipe.staged_graphs.captures
+            change()
+            eager, want = pipe.step(eager, chunk, controls)
+            graphed, got = pipe.staged_step(graphed, chunk, controls)
+            assert pipe.staged_graphs.captures == captures + 7
+            assert torch.equal(got, want)
+    assert metrics.process_counter("weights.changes") == 2
+
+
+def test_the_weights_check_at_rvc_v2_40k_with_rmvpe_prints_its_host_cost(cuda):
+    """The weights check's host time a call over RVC v2 40k's networks with
+    ContentVec and RMVPE at published widths, beside the Python tuple of every
+    tensor it replaces: printed, not asserted (run with ``-s``)."""
+    import itertools
+    import time
+
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.stream import RvcPipeline
+    from obs_rvc_tpu_torch.stream.graphs import WeightsVersion
+
+    pipe = RvcPipeline(ChunkConfig.build(model_sample_rate=40000), device=cuda, compute_dtype=torch.bfloat16)
+    version = WeightsVersion(pipe._weight_modules)
+    key = version.key()
+    tensors = [t for m in pipe._weight_modules() for t in itertools.chain(m.parameters(), m.buffers())]
+    assert version.tensors == len(tensors)
+
+    def per_call_us(fn, n=200):
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        return best
+
+    native = per_call_us(version.key)
+    python = per_call_us(lambda: tuple((t.data_ptr(), t._version) for t in tensors))
+    assert version.key() == key
+    parts = ", ".join(f"{name} {sum(1 for _ in itertools.chain(m.parameters(), m.buffers()))}"
+                      for name, m in pipe.modules().items())
+    print(f"\nthe weights check over {len(tensors)} tensors ({parts}): WeightsVersion.key() {native:.1f} us a call, "
+          f"the Python tuple {python:.1f} us (best of 5 x 200 calls)")
 
 
 def test_stage_events_time_the_staged_step_without_a_synchronize(cuda, monkeypatch):

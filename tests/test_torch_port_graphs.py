@@ -13,6 +13,7 @@ agrees with JAX to atol 2e-3, the synthesizer's bound.
 """
 
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -218,19 +219,79 @@ def test_envelope_mixing_with_a_tensor_control_matches_jax(mix):
                                                       mix).numpy().tobytes()
 
 
-def test_weights_version_sees_reloads_casts_and_swaps():
+def _first_batchnorm(module):
+    return next(m for m in module.modules() if isinstance(m, torch.nn.BatchNorm2d))
+
+
+def _attach_index(pipe):
+    from obs_rvc_tpu_torch.retrieval import RetrievalIndex
+
+    table = np.random.default_rng(0).standard_normal((16, SY["feature_dim"])).astype(np.float32)
+    pipe.retrieval_index = RetrievalIndex().load(RetrievalIndex.make_params(table), "cpu")
+
+
+def _set_data(p):
+    p.data = p.data.clone()
+
+
+#: one kind of change each: what the weights check must see before the next replay
+WEIGHT_CHANGES = {
+    "reload": lambda pipe: pipe.init_params(seed=3),  # load_state_dict writes in place
+    "in_place_write": lambda pipe: next(pipe.synthesizer.parameters()).mul_(2.0),
+    "buffer_write": lambda pipe: _first_batchnorm(pipe.rmvpe).running_mean.add_(1.0),
+    "cast": lambda pipe: pipe.rmvpe.to(torch.float64),  # moves the storage
+    "data_assigned": lambda pipe: _set_data(next(pipe.contentvec.parameters())),
+    "module_swap": lambda pipe: setattr(pipe, "synthesizer", type(pipe.synthesizer)(pipe.synth_cfg)),
+    "index_generation": lambda pipe: setattr(pipe.retrieval_index, "generation", pipe.retrieval_index.generation + 1),
+}
+
+
+@pytest.mark.parametrize("change", list(WEIGHT_CHANGES))
+def test_weights_version_sees_reloads_casts_and_swaps(change):
     pipe = _small_pipe()
+    _attach_index(pipe)
     version = WeightsVersion(pipe._weight_modules)
     key = version.key()
     assert version.key() == key
-    pipe.init_params(seed=3)  # load_state_dict writes in place
-    reloaded = version.key()
-    assert reloaded != key
-    pipe.rmvpe.to(torch.float64)  # a cast moves the storage
-    cast = version.key()
-    assert cast != reloaded
-    pipe.synthesizer = type(pipe.synthesizer)(pipe.synth_cfg)  # a module swapped in
-    assert version.key() != cast
+    with torch.no_grad():
+        WEIGHT_CHANGES[change](pipe)
+    changed = version.key()
+    assert changed != key
+    assert version.key() == changed
+
+
+def _tuple_key(modules):
+    """The weights check as a Python tuple: every module's id and generation,
+    every parameter's and buffer's data pointer and version."""
+    mods = tuple(modules())
+    return tuple((id(m), getattr(m, "generation", 0)) for m in mods) + tuple(
+        (t.data_ptr(), t._version) for m in mods for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+def test_weights_version_keys_follow_the_tuple_of_every_tensor():
+    """A seeded sequence of changes and pauses: the native check's keys
+    compare equal where the tuple's do, call to call, and two keys are
+    never equal where the tuples differ."""
+    pipe = _small_pipe()
+    _attach_index(pipe)
+    version = WeightsVersion(pipe._weight_modules)
+    rng = np.random.default_rng(22)
+    names = list(WEIGHT_CHANGES) + ["none"] * 4
+    keys, tuples = [version.key()], [_tuple_key(pipe._weight_modules)]
+    for step in range(48):
+        name = names[rng.integers(len(names))]
+        with torch.no_grad():
+            if name == "cast":  # back and forth, so both ways are met
+                pipe.rmvpe.to(torch.float64 if next(pipe.rmvpe.parameters()).dtype == torch.float32 else torch.float32)
+            elif name != "none":
+                WEIGHT_CHANGES[name](pipe)
+        keys.append(version.key())
+        tuples.append(_tuple_key(pipe._weight_modules))
+        assert (keys[-1] == keys[-2]) == (tuples[-1] == tuples[-2]), (step, name)
+    for i in range(len(keys)):
+        for j in range(i):
+            assert keys[i] != keys[j] or tuples[i] == tuples[j], (j, i)
+    assert len({k for k in keys}) > 10
 
 
 def test_weight_reload_after_the_first_call_reaches_the_graphed_step():

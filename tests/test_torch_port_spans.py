@@ -1,15 +1,17 @@
 """The serving path's spans and counters (``serve/metrics.py``) on the CPU:
 a session and a pool fill the process's collector and their own, a capture
 counts apart when a serving step makes it, the spans are CPU-side profiler
-ranges, the stage clock's arithmetic (device events stood in for), and the
-benchmark's readers of the collector. Reduced widths (``CV``/``RM``/``SY``)
-and the small geometry of the session tests. That the card's events add no
-synchronize, and a reload while serving, are held by
-``tests/test_torch_port_cuda.py``.
+ranges, the weights checks and the changes they find are counted, the stage
+clock's arithmetic (device events stood in for), and the benchmark's readers
+of the collector. Reduced widths (``CV``/``RM``/``SY``) and the small
+geometry of the session tests. That the card's events add no synchronize,
+and a reload while serving, are held by ``tests/test_torch_port_cuda.py``.
 """
 
 import importlib.util
+import json
 import pathlib
+import urllib.request
 
 import pytest
 import torch
@@ -20,6 +22,7 @@ from obs_rvc_tpu_torch.models.contentvec import ContentVecConfig
 from obs_rvc_tpu_torch.models.rmvpe import RMVPEConfig
 from obs_rvc_tpu_torch.models.synthesizer import SynthesizerConfig
 from obs_rvc_tpu_torch.serve import metrics
+from obs_rvc_tpu_torch.serve.health import start_health_server
 from obs_rvc_tpu_torch.stream import RvcPipeline, StepControls, StreamPool, StreamSession, graphs
 from obs_rvc_tpu_torch.stream.graphs import GraphedFunction, StageClock
 
@@ -122,18 +125,21 @@ def test_captures_count_apart_when_a_serving_step_makes_them():
     assert door.snapshot().counters == {"captures": 2, "serving_captures": 1}
 
 
+def _capture_on_the_cpu(self):
+    """``GraphedFunction.capture`` stood in for on the CPU: the same weights
+    test a card makes, and a capture counted where a card would capture."""
+    key = self._version.key() if self._version is not None else None
+    if getattr(self, "_held_key", "nothing") == key:
+        return False
+    self._held_key = key
+    metrics.count_capture()
+    return True
+
+
 def test_a_weights_reload_counts_a_serving_capture(monkeypatch):
     """The counter's logic through a session's doors: a graph's capture on
     the CPU stood in for by the same weights test a card makes, no graph."""
-    def capture(self):
-        key = self._version.key() if self._version is not None else None
-        if getattr(self, "_held_key", "nothing") == key:
-            return False
-        self._held_key = key
-        metrics.count_capture()
-        return True
-
-    monkeypatch.setattr(GraphedFunction, "capture", capture)
+    monkeypatch.setattr(GraphedFunction, "capture", _capture_on_the_cpu)
     pipe = make_pipe()
     sess = StreamSession(pipe, StepControls.default(), mode="fused")
     sess.prepare()
@@ -146,6 +152,33 @@ def test_a_weights_reload_counts_a_serving_capture(monkeypatch):
     assert (metrics.process_counter("captures"), metrics.process_counter("serving_captures")) == (2, 1)
     assert sess.metrics.snapshot().counters["captures"] == 2
     assert sess.metrics.snapshot().counters["serving_captures"] == 1
+
+
+def test_weights_checks_count_and_only_a_reload_counts_a_change(monkeypatch):
+    """``weights.checks`` counts every weights check of a session's graph,
+    ``weights.changes`` only the one after a reload; both in the door's
+    ``/metrics`` counters beside ``serving_captures``."""
+    monkeypatch.setattr(GraphedFunction, "capture", _capture_on_the_cpu)
+    pipe = make_pipe()
+    sess = StreamSession(pipe, StepControls.default(), mode="fused")
+    sess.prepare()
+    checks = metrics.process_counter("weights.checks")
+    assert checks >= 1 and metrics.process_counter("weights.changes") == 0
+    chunks = _chunks(pipe, 4)
+    _serve(sess, chunks[:2])
+    assert (metrics.process_counter("weights.checks"), metrics.process_counter("weights.changes")) == (checks + 2, 0)
+    pipe.init_params(1)  # load_state_dict: the versions bumped
+    _serve(sess, chunks[2:])
+    assert (metrics.process_counter("weights.checks"), metrics.process_counter("weights.changes")) == (checks + 4, 1)
+    server, port = start_health_server(sess.metrics)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            counters = json.loads(r.read())["counters"]
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert counters == metrics.process_snapshot()["counters"]
+    assert (counters["weights.checks"], counters["weights.changes"], counters["serving_captures"]) == (checks + 4, 1, 1)
 
 
 def test_spans_are_cpu_side_profiler_ranges(pipe):
