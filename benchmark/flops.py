@@ -39,17 +39,15 @@ def count(cfg: dict) -> dict:
     out = {}
     with torch.device("meta"), torch.no_grad():
         ring16 = torch.zeros(1, geo.ring16)
+        T, dim = geo.return_frames, mods["synthesizer"].s.feature_dim
+        args = {"contentvec": (ring16,),
+                "synthesizer": (torch.zeros(1, T, dim), torch.zeros(1, T, dtype=torch.long), torch.zeros(1, T),
+                                torch.zeros(1, dtype=torch.long)),
+                # the pitch network's own input, its front end outside the count
+                cfg["pitch"]: (ref.pitch.inputs(torch.zeros(1, geo.pitch_window)),)}
         for name, mod in mods.items():
             with FlopCounterMode(display=False) as fc:
-                if name == "contentvec":
-                    mod(ring16)
-                elif name == "synthesizer":
-                    T = geo.return_frames
-                    mod(torch.zeros(1, T, mod.s.feature_dim), torch.zeros(1, T, dtype=torch.long),
-                        torch.zeros(1, T), torch.zeros(1, dtype=torch.long))
-                else:
-                    mel = torch.zeros(1, 128, geo.pitch_frames)
-                    mod(mel if name == "rmvpe" else mel.transpose(1, 2))
+                mod(*args[name])
             out[name] = int(fc.get_total_flops())
         with FlopCounterMode(display=False) as fc:
             ref.outputs(torch.zeros(1, 9 * geo.chunk), torch.full((1,), 8, dtype=torch.long))

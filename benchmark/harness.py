@@ -83,15 +83,14 @@ def _tuples(x):
 
 
 def sizes(cfg: dict) -> dict:
-    """The reference networks' sizes by network name, from a configuration."""
-    from benchmark.reference import nets
+    """The reference networks' sizes by network name, from a configuration:
+    ``contentvec``, the pitch network's (``cfg["pitch"]``), ``synthesizer``."""
+    from benchmark.reference.step import network
 
-    kinds = {"contentvec": nets.ContentVecSize, "rmvpe": nets.RmvpeSize, "fcpe": nets.FcpeSize,
-             "synthesizer": nets.SynthSize}
     out = {}
     for name in ("contentvec", cfg["pitch"], "synthesizer"):
         fields = {k: _tuples(v) for k, v in cfg[name].items() if k not in cfg.get("program_only", [])}
-        out[name] = kinds[name](**fields)
+        out[name] = network(name).Size(**fields)
     return out
 
 
@@ -114,8 +113,9 @@ class Program:
     def __init__(self, cfg: dict, traffic: dict, state_dicts: dict, device):
         import torch
 
+        from benchmark.reference.step import network
+        from obs_rvc_tpu_torch import models
         from obs_rvc_tpu_torch.config import ChunkConfig
-        from obs_rvc_tpu_torch.models import ContentVecConfig, FcpeConfig, RMVPEConfig, SynthesizerConfig
         from obs_rvc_tpu_torch.stream.pipeline import RvcPipeline, StepControls
 
         def clock():
@@ -132,18 +132,18 @@ class Program:
                                       extra_inference_time=g["context_s"],
                                       feature_dim=cfg["contentvec"]["dim"])
         pitch = cfg["pitch"]
-        kw = {"contentvec_cfg": ContentVecConfig(**cfg["contentvec"], tap_layer=cfg["contentvec"]["num_layers"],
-                                                 out_dim=cfg["contentvec"]["dim"]),
-              "synth_cfg": SynthesizerConfig(**{k: _tuples(v) for k, v in cfg["synthesizer"].items()})}
-        if pitch == "rmvpe":
-            kw["rmvpe_cfg"] = RMVPEConfig(**cfg["rmvpe"])
-        else:
-            kw["fcpe_cfg"] = FcpeConfig(**cfg["fcpe"])
+        names = network(pitch).PROGRAM
+        kw = {"contentvec_cfg": models.ContentVecConfig(**cfg["contentvec"], tap_layer=cfg["contentvec"]["num_layers"],
+                                                        out_dim=cfg["contentvec"]["dim"]),
+              "synth_cfg": models.SynthesizerConfig(**{k: _tuples(v) for k, v in cfg["synthesizer"].items()}),
+              names["pipeline_kw"]: getattr(models, names["config"])(**cfg[pitch])}
         self.pipe = RvcPipeline(chunk_cfg, device=device, compute_dtype=getattr(torch, cfg["dtype"]),
-                                pitch_algorithm=pitch, **kw)
+                                pitch_algorithm=names["pitch_algorithm"], **kw)
         self.timings["construct"] = clock() - t0
+        #: the benchmark's state dicts by the program's names of its networks
+        by_program = {"contentvec": "contentvec", names["pitch_algorithm"]: pitch, "synthesizer": "synthesizer"}
         for name, module in self.pipe.modules().items():
-            module.load_state_dict(state_dicts[name], strict=True)
+            module.load_state_dict(state_dicts[by_program[name]], strict=True)
         self.timings["load"] = clock() - t0 - self.timings["construct"]
         c = cfg["controls"]
         controls = StepControls.default(pitch_shift=c["pitch_shift"], rms_mix_rate=c["rms_mix_rate"],

@@ -1,11 +1,12 @@
-"""The three networks of an RVC v2 streaming step, in plain PyTorch and float32.
+"""The networks of an RVC v2 streaming step around its pitch network, in
+plain PyTorch and float32; the pitch networks are in :mod:`benchmark.reference.pitch`,
+one file each, built on this file's precision and products.
 
 A frozen reference, written from the published descriptions (fairseq's
-HuBERT-base as ContentVec, RMVPE's ``E2E`` of arXiv:2306.15412, torchfcpe's
-``CFNaiveMelPE``, RVC's ``SynthesizerTrnMs768NSFsid``). It imports nothing
-of the program under test: no kernel, no packing, no graph. Module and
-parameter names follow the upstream checkpoints, so one state dict loads
-into the program and into this file alike.
+HuBERT-base as ContentVec, RVC's ``SynthesizerTrnMs768NSFsid``). It imports
+nothing of the program under test: no kernel, no packing, no graph. Module
+and parameter names follow the upstream checkpoints, so one state dict
+loads into the program and into this file alike.
 
 Every product (a linear layer, a convolution, an attention product, a GRU
 gate) reads its activation through ``prec.act`` and its weight as loaded:
@@ -16,7 +17,6 @@ Departures from upstream, each the served program's own:
 
 - ContentVec's GELU is the tanh approximation, and its positional conv has
   a plain weight (upstream holds it weight-normed; a checkpoint folds it).
-- RMVPE's BiGRU is written out gate by gate, in PyTorch's (r, z, n) order.
 - The synthesizer takes no prior noise and no source noise (the streaming
   step passes neither), so its output is a function of its inputs.
 """
@@ -176,186 +176,6 @@ class ContentVec(nn.Module):
             h = _lin(p, layer.fc2, F.gelu(_lin(p, layer.fc1, x), approximate="tanh"))
             x = layer.final_layer_norm(x + h)
         return x
-
-
-# ---------------------------------------------------------------------------
-# RMVPE
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class RmvpeSize:
-    en_de_layers: int = 5
-    inter_layers: int = 4
-    n_blocks: int = 4
-    en_out_channels: int = 16
-    gru_hidden: int = 256
-
-
-class _ConvBlockRes(nn.Module):
-    def __init__(self, cin, c):
-        super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(cin, c, 3, padding=1, bias=False), nn.BatchNorm2d(c), nn.ReLU(),
-                                  nn.Conv2d(c, c, 3, padding=1, bias=False), nn.BatchNorm2d(c), nn.ReLU())
-        self.shortcut = nn.Conv2d(cin, c, 1) if cin != c else None
-
-    def run(self, p, x):
-        y = F.relu(self.conv[1](_conv2d(p, self.conv[0], x)))
-        y = F.relu(self.conv[4](_conv2d(p, self.conv[3], y)))
-        return y + (_conv2d(p, self.shortcut, x) if self.shortcut is not None else x)
-
-
-def _chain(cin, c, n):
-    return nn.ModuleList([_ConvBlockRes(cin, c)] + [_ConvBlockRes(c, c) for _ in range(n - 1)])
-
-
-class _Enc(nn.Module):
-    def __init__(self, cin, c, n):
-        super().__init__()
-        self.conv = _chain(cin, c, n)
-
-
-class _Dec(nn.Module):
-    def __init__(self, cin, c, n):
-        super().__init__()
-        self.conv1 = nn.Sequential(nn.ConvTranspose2d(cin, c, 3, stride=2, padding=1, output_padding=1,
-                                                      bias=False), nn.BatchNorm2d(c))
-        self.conv2 = _chain(2 * c, c, n)
-
-
-class _Gru(nn.Module):
-    def __init__(self, n_in, hidden):
-        super().__init__()
-        self.gru = nn.GRU(n_in, hidden, 1, batch_first=True, bidirectional=True)
-
-
-class Rmvpe(nn.Module):
-    """log-mel ``[B, 128, T]`` → salience ``[B, T, 360]``."""
-
-    def __init__(self, s: RmvpeSize = RmvpeSize(), prec: Precision = FLOAT32):
-        super().__init__()
-        self.s, self.prec = s, prec
-        unet = nn.Module()
-        unet.encoder = nn.Module()
-        unet.encoder.bn = nn.BatchNorm2d(1)
-        unet.encoder.layers = nn.ModuleList()
-        cin, c = 1, s.en_out_channels
-        for _ in range(s.en_de_layers):
-            unet.encoder.layers.append(_Enc(cin, c, s.n_blocks))
-            cin, c = c, c * 2
-        unet.intermediate = nn.Module()
-        unet.intermediate.layers = nn.ModuleList([_Enc(cin, c, s.n_blocks)]
-                                                 + [_Enc(c, c, s.n_blocks) for _ in range(s.inter_layers - 1)])
-        unet.decoder = nn.Module()
-        unet.decoder.layers = nn.ModuleList()
-        for _ in range(s.en_de_layers):
-            unet.decoder.layers.append(_Dec(c, c // 2, s.n_blocks))
-            c //= 2
-        self.unet = unet
-        self.cnn = nn.Conv2d(s.en_out_channels, 3, 3, padding=1)
-        self.fc = nn.Sequential(_Gru(3 * 128, s.gru_hidden), nn.Linear(2 * s.gru_hidden, 360))
-
-    def _gru_dir(self, x, suffix):
-        p, g = self.prec, self.fc[0].gru
-        w_ih, w_hh = getattr(g, "weight_ih_l0" + suffix), getattr(g, "weight_hh_l0" + suffix)
-        b_ih, b_hh = getattr(g, "bias_ih_l0" + suffix), getattr(g, "bias_hh_l0" + suffix)
-        B, T, _ = x.shape
-        H = w_hh.shape[1]
-        gi = F.linear(p.act(x), w_ih, b_ih)  # [B, T, 3H]
-        h = x.new_zeros(B, H)
-        out = [None] * T
-        steps = range(T - 1, -1, -1) if suffix else range(T)
-        for t in steps:
-            gh = F.linear(p.act(h), w_hh, b_hh)
-            r = torch.sigmoid(gi[:, t, :H] + gh[:, :H])
-            z = torch.sigmoid(gi[:, t, H : 2 * H] + gh[:, H : 2 * H])
-            n = torch.tanh(gi[:, t, 2 * H :] + r * gh[:, 2 * H :])
-            h = (1.0 - z) * n + z * h
-            out[t] = h
-        return torch.stack(out, dim=1)
-
-    def forward(self, mel):
-        p = self.prec
-        x = self.unet.encoder.bn(mel.float().transpose(-1, -2).unsqueeze(1))
-        skips = []
-        for layer in self.unet.encoder.layers:
-            for blk in layer.conv:
-                x = blk.run(p, x)
-            skips.append(x)
-            x = F.avg_pool2d(x, 2)
-        for layer in self.unet.intermediate.layers:
-            for blk in layer.conv:
-                x = blk.run(p, x)
-        for i, layer in enumerate(self.unet.decoder.layers):
-            up = layer.conv1[0]
-            x = F.conv_transpose2d(p.act(x), up.weight, None, stride=2, padding=1, output_padding=1)
-            x = torch.cat((F.relu(layer.conv1[1](x)), skips[-1 - i]), dim=1)
-            for blk in layer.conv2:
-                x = blk.run(p, x)
-        x = _conv2d(p, self.cnn, x).transpose(1, 2).flatten(-2)  # [B, T, 384]
-        h = torch.cat([self._gru_dir(x, ""), self._gru_dir(x, "_reverse")], dim=-1)
-        return torch.sigmoid(_lin(p, self.fc[1], h))
-
-
-# ---------------------------------------------------------------------------
-# FCPE (torchfcpe CFNaiveMelPE: hidden 512, 6 layers)
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class FcpeSize:
-    n_mels: int = 128
-    hidden: int = 512
-    n_layers: int = 6
-    expansion: int = 2
-    conv_kernel: int = 31
-
-
-class _Dw(nn.Module):
-    def __init__(self, c, k):
-        super().__init__()
-        self.conv = nn.Conv1d(c, c, k, groups=c)
-
-
-class _Conformer(nn.Module):
-    def __init__(self, dim, inner, k):
-        super().__init__()
-        self.net = nn.Sequential(nn.LayerNorm(dim), nn.Identity(), nn.Conv1d(dim, 2 * inner, 1), nn.Identity(),
-                                 _Dw(inner, k), nn.Identity(), nn.Conv1d(inner, dim, 1))
-
-
-class _FcpeLayer(nn.Module):
-    def __init__(self, s: FcpeSize):
-        super().__init__()
-        self.conformer = _Conformer(s.hidden, s.hidden * s.expansion, s.conv_kernel)
-
-
-class Fcpe(nn.Module):
-    """Slaney log-mel ``[B, T, 128]`` → salience ``[B, T, 360]``."""
-
-    def __init__(self, s: FcpeSize = FcpeSize(), prec: Precision = FLOAT32):
-        super().__init__()
-        self.s, self.prec = s, prec
-        self.input_stack = nn.Sequential(nn.Conv1d(s.n_mels, s.hidden, 3, padding=1), nn.GroupNorm(4, s.hidden),
-                                         nn.Identity(), nn.Conv1d(s.hidden, s.hidden, 3, padding=1))
-        self.net = nn.Module()
-        self.net.encoder_layers = nn.ModuleList(_FcpeLayer(s) for _ in range(s.n_layers))
-        self.norm = nn.LayerNorm(s.hidden)
-        self.output_proj = nn.Linear(s.hidden, 360)
-
-    def forward(self, mel):
-        p, st = self.prec, self.input_stack
-        x = mel.float().transpose(1, 2)
-        x = _conv1d(p, st[3], F.leaky_relu(st[1](_conv1d(p, st[0], x)), 0.01)).transpose(1, 2)
-        inner = self.s.hidden * self.s.expansion
-        for layer in self.net.encoder_layers:
-            net = layer.conformer.net
-            h = _conv1d(p, net[2], net[0](x).transpose(1, 2))
-            h = h[:, :inner] * torch.sigmoid(h[:, inner:])
-            dw = net[4].conv
-            h = F.silu(_conv1d(p, dw, h, padding=dw.kernel_size[0] // 2))
-            x = x + _conv1d(p, net[6], h).transpose(1, 2)
-        return torch.sigmoid(_lin(p, self.output_proj, self.norm(x)))
 
 
 # ---------------------------------------------------------------------------

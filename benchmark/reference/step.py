@@ -5,7 +5,7 @@ One chunk of device-rate audio goes through::
 
     the device-rate ring, its last window resampled to 16 kHz into the 16 kHz ring
     → ContentVec features, doubled to 100 Hz, the chunk's frames sliced
-    → the pitch window's log-mel (RMVPE: HTK scale; FCPE: Slaney) → salience → f0
+    → the pitch window through the pitch network's front end (a log-mel) → salience → f0
       → the pitch shift → the chunk's track, quantised to coarse codes
     → the synthesizer at the model rate → resampled to the device rate
     → the loudness envelope mixed toward the input's
@@ -29,12 +29,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmark.reference import nets
+from benchmark.reference import nets, pitch
 
 ZC_16K = 160
 PITCH_CACHE = 1024
@@ -179,37 +180,6 @@ def log_mel(x: torch.Tensor, htk: bool, fmin: float, hop=160, n_fft=1024) -> tor
     return torch.log(torch.clamp(mag @ basis.T, min=1e-5)).transpose(1, 2)
 
 
-RMVPE_CENTS = torch.from_numpy(((np.arange(368, dtype=np.float64) - 4.0) * 20.0 + 1997.3794084376191)
-                               .astype(np.float32))
-
-
-def decode_rmvpe(sal: torch.Tensor, threshold=0.03) -> torch.Tensor:
-    """Salience ``[B, T, 360]`` → f0 Hz: the salience-weighted mean of the
-    cents of the 9 bins around the peak (4 bins of zeros padded each side),
-    0 where the peak is not above ``threshold``."""
-    padded = F.pad(sal, (4, 4))
-    c = torch.argmax(padded, dim=-1).clamp(4, padded.shape[-1] - 5)
-    idx = c[..., None] - 4 + torch.arange(9, device=sal.device)
-    w = torch.gather(padded, -1, idx)
-    cents = (w * RMVPE_CENTS.to(sal.device)[idx]).sum(-1) / w.sum(-1).clamp(min=1e-12)
-    cents = torch.where(sal.amax(-1) > threshold, cents, torch.zeros_like(cents))
-    f0 = 10.0 * torch.exp2(cents / 1200.0)
-    return torch.where(f0 == 10.0, torch.zeros_like(f0), f0)
-
-
-def decode_fcpe(sal: torch.Tensor, threshold=0.05) -> torch.Tensor:
-    """torchfcpe's local-argmax decode on its linear cent grid (32.70 to 1975.5 Hz)."""
-    n = sal.shape[-1]
-    table = torch.linspace(1200.0 * math.log2(32.70 / 10.0), 1200.0 * math.log2(1975.5 / 10.0), n,
-                           dtype=torch.float64, device=sal.device).float()
-    c = torch.argmax(sal, dim=-1)
-    idx = torch.clamp(c[..., None] - 4 + torch.arange(9, device=sal.device), 0, n - 1)
-    w = torch.gather(sal, -1, idx)
-    cents = (w * table[idx]).sum(-1) / w.sum(-1).clamp(min=1e-12)
-    f0 = 10.0 * torch.exp2(cents / 1200.0)
-    return torch.where(sal.amax(-1) > threshold, f0, torch.zeros_like(f0))
-
-
 def coarse_codes(f0: torch.Tensor) -> torch.Tensor:
     """f0 Hz → RVC's coarse pitch codes 1..255 on the mel scale between 50 and 500 Hz."""
     lo, hi = (1127.0 * math.log(1.0 + f / 700.0) for f in (50.0, 500.0))
@@ -278,10 +248,10 @@ class Reference:
     weights as the configuration serves them (rounded to its dtype, then
     computed in float32), or rounded further by ``prec`` for the control."""
 
-    def __init__(self, geo: Geometry, pitch: str, contentvec, pitch_net, synth, controls: Controls):
-        if pitch not in ("rmvpe", "fcpe"):
-            raise ValueError(f"the reference has no pitch network {pitch!r}")
-        self.geo, self.pitch, self.controls = geo, pitch, controls
+    def __init__(self, geo: Geometry, pitch_name: str, contentvec, pitch_net, synth, controls: Controls):
+        self.geo, self.controls = geo, controls
+        #: the pitch network's file: its front end and decode
+        self.pitch = pitch.load(pitch_name)
         self.contentvec, self.pitch_net, self.synth = contentvec, pitch_net, synth
         g = geo
         start = PITCH_CACHE - g.hubert_length + g.skip_head
@@ -321,11 +291,7 @@ class Reference:
         feats = self.contentvec(ring16)
         feats = torch.cat([torch.repeat_interleave(feats, 2, dim=1), feats[:, -1:]], dim=1)
         phone = feats[:, g.skip_head : g.skip_head + g.return_frames]
-        window = ring16[:, -g.pitch_window :]
-        if self.pitch == "rmvpe":
-            f0 = decode_rmvpe(self.pitch_net(log_mel(window, htk=True, fmin=30.0)))
-        else:
-            f0 = decode_fcpe(self.pitch_net(log_mel(window, htk=False, fmin=0.0).transpose(1, 2)))
+        f0 = self.pitch.decode(self.pitch_net(self.pitch.inputs(ring16[:, -g.pitch_window :])))
         f0 = f0 * float(torch.exp2(torch.tensor(c.pitch_shift, dtype=torch.float32, device="cpu") / 12.0))
         f0 = f0[:, self.f0_slice]
         sid = torch.full((f0.shape[0],), c.sid, dtype=torch.long, device=f0.device)
@@ -371,20 +337,28 @@ class ReferenceStreams:
         return emitted
 
 
-def build(geo: Geometry, pitch: str, sizes: dict, state_dicts: dict, controls: Controls, device,
+#: the networks around the pitch network, in the form of a pitch network's file
+CORE = {"contentvec": types.SimpleNamespace(Net=nets.ContentVec, Size=nets.ContentVecSize, HEADS=()),
+        "synthesizer": types.SimpleNamespace(Net=nets.Synth, Size=nets.SynthSize, HEADS=())}
+
+
+def network(name: str):
+    """Network ``name``'s ``Net``, ``Size`` and ``HEADS``: ``contentvec``,
+    ``synthesizer``, or a pitch network's file (:func:`benchmark.reference.pitch.load`)."""
+    return CORE[name] if name in CORE else pitch.load(name)
+
+
+def build(geo: Geometry, pitch_name: str, sizes: dict, state_dicts: dict, controls: Controls, device,
           prec: nets.Precision = nets.FLOAT32) -> Reference:
     """The reference's networks on ``device`` from ``state_dicts`` (by
     network: ``contentvec``, the pitch network's name, ``synthesizer``),
     each weight as given (rounded by ``prec`` for the control)."""
-    makers = {"contentvec": (nets.ContentVec, nets.ContentVecSize),
-              "rmvpe": (nets.Rmvpe, nets.RmvpeSize), "fcpe": (nets.Fcpe, nets.FcpeSize),
-              "synthesizer": (nets.Synth, nets.SynthSize)}
     mods = {}
-    for name in ("contentvec", pitch, "synthesizer"):
-        cls, size = makers[name]
-        mods[name] = make_module(cls, size(**sizes.get(name, {})), device, prec,
+    for name in ("contentvec", pitch_name, "synthesizer"):
+        net = network(name)
+        mods[name] = make_module(net.Net, net.Size(**sizes.get(name, {})), device, prec,
                                  nets.prec_weights(state_dicts[name], prec))
-    return Reference(geo, pitch, mods["contentvec"], mods[pitch], mods["synthesizer"], controls)
+    return Reference(geo, pitch_name, mods["contentvec"], mods[pitch_name], mods["synthesizer"], controls)
 
 
 def make_module(cls, size, device, prec=nets.FLOAT32, state_dict=None):

@@ -53,10 +53,14 @@ print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for f in (REPO / "benchmark" / "reference").glob("*.py"):
+    files = sorted((REPO / "benchmark" / "reference").rglob("*.py"))
+    assert any(f.parent.name == "pitch" and f.stem != "__init__" for f in files)
+    for f in files:
         bad = _top_level_imports(f) & {"obs_rvc_tpu_torch", *BANNED}
         assert not bad, f"{f.name} imports {bad}"
     code = ("import sys; sys.path.insert(0, %r); import benchmark.reference.step, benchmark.reference.nets; "
+            "from benchmark.reference import pitch; "
+            "[pitch.load(f.stem) for f in pitch.HERE.glob('*.py') if f.stem != '__init__']; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & {'obs_rvc_tpu_torch', 'jax', 'flax', "
             "'jaxlib', 'obs_rvc_tpu'}))") % str(REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=REPO)

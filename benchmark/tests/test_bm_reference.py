@@ -2,6 +2,7 @@
 widths: network by network on the same weights, and through a whole run of
 the harness, whose comparison must find the float32 program correct."""
 
+import hashlib
 import io
 import json
 
@@ -37,7 +38,7 @@ def test_networks_match_the_port(pitch):
     sizes = harness.sizes(cfg)
     sds = weights.make_weights(sizes, 5, "cpu")
     port = _port_modules(cfg)
-    ref = {n: refstep.make_module(weights.MAKERS[n][0], sizes[n], "cpu", state_dict=sd) for n, sd in sds.items()}
+    ref = {n: refstep.make_module(refstep.network(n).Net, sizes[n], "cpu", state_dict=sd) for n, sd in sds.items()}
     for name, m in port.items():
         m.load_state_dict(sds[name], strict=True)
     gen = torch.Generator().manual_seed(3)
@@ -118,3 +119,60 @@ def test_precision_rounds_to_float8():
     y = p.act(x)
     assert 0 < (x - y).abs().max() <= 2.0 ** -4
     assert torch.equal(nets.FLOAT32.act(x), x)
+
+
+#: taken on the tree before the pitch networks moved into ``reference/pitch/``, at
+#: ``tiny.py``'s sizes and the seed below: the sha256 of every weight (network,
+#: key, dtype, shape and bytes, in the order drawn), and, for chunks 2 and 5 of
+#: two streams stepped by the reference, 8 seeded projections of each emitted
+#: chunk and its norm (the projections move by ~3e-6 of the norm with the CPU's
+#: thread count, which sums convolutions in another order)
+MOVED_SEED = 2**31 + 11
+BEFORE_THE_MOVE = {
+    "rmvpe": ("ed4064de6d214c4abaef4fbb3e13994dd9dccceb1524abcaaffd813af41c654c", [
+        ([-14.73048, -5.48074, -19.38464, -11.05062, -13.83814, -31.00871, -18.01302, 18.90314], 12.399405),
+        ([-8.04051, -23.17204, -8.66636, -4.23964, 1.3189, -20.93842, -5.52408, 31.64168], 10.94569),
+        ([-13.60882, -8.7741, -11.66229, -7.60198, -9.88223, -39.39526, -13.30203, 28.72752], 13.322908),
+        ([-4.07412, -14.11785, -6.62845, -4.6924, -9.92117, -31.18791, -9.98628, 31.64803], 11.606114)],
+        {"contentvec": 33447876608, "rmvpe": 4590403584, "synthesizer": 32847285600, "total": 70908401824}),
+    "fcpe": ("3791b891a6253e4ec83eed0f4b4d03573179da771fb25758e1e55c60f64b08b8", [
+        ([-8.2313, -9.32014, -10.27692, -0.6088, -7.11378, -3.14644, -11.87558, -6.59441], 11.460416),
+        ([-6.23143, -6.67515, -6.94029, -5.52263, 0.52974, -1.20461, -22.62724, -13.97454], 11.737545),
+        ([-5.93435, -11.08826, 5.40582, -8.42946, -1.86024, -3.19058, -7.06843, -0.31942], 11.73917),
+        ([-8.8496, -9.09885, -0.69776, -6.35738, -9.85649, -2.20538, -8.29271, 2.71285], 11.965013)],
+        {"contentvec": 33447876608, "fcpe": 1381761024, "synthesizer": 32847285600, "total": 67699759264}),
+}
+
+
+@pytest.mark.parametrize("pitch", sorted(BEFORE_THE_MOVE))
+def test_nothing_the_benchmark_reads_moved(pitch):
+    """The weights (bit for bit, drawn in the same order), the reference's
+    emitted audio and the configurations' FLOPs a chunk read as they did
+    before the pitch networks became one file each."""
+    from benchmark.traffic import generate
+
+    digest, chunks, flops = BEFORE_THE_MOVE[pitch]
+    cfg = tiny.tiny_config(pitch)
+    sizes = harness.sizes(cfg)
+    sds = weights.make_weights(sizes, MOVED_SEED, "cpu")
+    h = hashlib.sha256()
+    for name, sd in sds.items():
+        h.update(name.encode())
+        for key, v in sd.items():
+            h.update(f"{key}|{v.dtype}|{tuple(v.shape)}".encode())
+            h.update(v.contiguous().numpy().tobytes())
+    assert list(sds) == ["contentvec", pitch, "synthesizer"] and h.hexdigest() == digest
+    geo = harness.geometry(cfg)
+    ref = refstep.build(geo, pitch, {n: harness._asdict(s) for n, s in sizes.items()},
+                        {n: weights.round_to(sd, torch.bfloat16) for n, sd in sds.items()}, refstep.Controls(), "cpu")
+    signal = generate.voice({"period_s": 1.0}, 2, geo.sample_rate, geo.chunk, MOVED_SEED, "cpu")
+    streams = refstep.ReferenceStreams(ref, 2, "cpu")
+    emitted = [streams.step(torch.stack([generate.chunk(signal, s, k, geo.chunk) for s in range(2)]))
+               for k in range(6)]
+    probes = torch.randn(8, geo.chunk, generator=torch.Generator().manual_seed(0))
+    rows = [e[s] for e in (emitted[2], emitted[5]) for s in range(2)]
+    for row, (proj, norm) in zip(rows, chunks):
+        assert float(torch.linalg.vector_norm(row)) == pytest.approx(norm, rel=1e-5)
+        assert torch.allclose(probes @ row, torch.tensor(proj), rtol=0, atol=1e-4 * norm), (probes @ row, proj)
+    stored = [json.loads((tiny.REPO / c["file"]).read_text()) for c in harness.load_spec()["configs"]]
+    assert [c["flops_per_chunk"] for c in stored if c["pitch"] == pitch] == [flops]

@@ -1,6 +1,7 @@
 """A copy of the benchmark's files with one cell at reduced widths, for runs
 on the CPU: the CPU tests' sizes (a 0.10 s chunk over 0.5 s of context,
-ContentVec 64 wide, a three-level RMVPE, a 128-channel 40 kHz generator)."""
+ContentVec 64 wide, the pitch network at its file's ``TINY`` sizes, a
+128-channel 40 kHz generator)."""
 
 from __future__ import annotations
 
@@ -9,34 +10,32 @@ import json
 import pathlib
 import shutil
 
+from benchmark.reference.step import network
+
 REPO = pathlib.Path(__file__).resolve().parents[2]
 
 CONTENTVEC = {"dim": 64, "num_layers": 2, "num_heads": 4, "ffn_dim": 128, "conv_pos_kernel": 128,
               "conv_pos_groups": 16}
-RMVPE = {"en_de_layers": 3, "inter_layers": 1, "n_blocks": 2, "en_out_channels": 8, "gru_hidden": 32,
-         "pallas_unet_max_ch": 32}
-FCPE = {"n_mels": 128, "hidden": 64, "n_layers": 2, "expansion": 2, "conv_kernel": 31}
 SYNTH = {"feature_dim": 64, "inter_channels": 16, "hidden_channels": 16, "filter_channels": 32, "n_layers": 2,
          "upsample_initial_channel": 128, "gin_channels": 16, "spk_embed_dim": 4}
 
 
-def tiny_config(pitch: str = "rmvpe", dtype: str = "float32", limits=None) -> dict:
-    cfg = json.loads((REPO / f"benchmark/configs/rvc-v2-40k-{pitch}.json").read_text())
+def tiny_config(pitch: str, dtype: str = "float32", limits=None) -> dict:
+    """The first configuration (by file name) whose pitch network is ``pitch``, at reduced widths."""
+    cfg = next(c for c in (json.loads(f.read_text()) for f in sorted((REPO / "benchmark/configs").glob("*.json")))
+               if c["pitch"] == pitch)
     cfg["name"] = f"tiny-{pitch}"
     cfg["dtype"] = dtype
     cfg["geometry"] = {**cfg["geometry"], "chunk_s": 0.10, "context_s": 0.5}
     cfg["contentvec"] = dict(CONTENTVEC)
-    if pitch == "rmvpe":
-        cfg["rmvpe"] = dict(RMVPE)
-    else:
-        cfg["fcpe"] = dict(FCPE)
+    cfg[pitch] = dict(network(pitch).TINY)
     cfg["synthesizer"] = {**cfg["synthesizer"], **SYNTH}
     cfg["limits"] = limits if limits is not None else {"audio_err": 1e-3, "chunk_limit": 1e-3, "sola_margin": 0.0,
                                                        "chunks_off": 0.0}
     return cfg
 
 
-def tiny_root(tmp: pathlib.Path, pitch: str = "rmvpe", door: str = "session", dtype: str = "float32",
+def tiny_root(tmp: pathlib.Path, pitch: str, door: str = "session", dtype: str = "float32",
               limits=None) -> pathlib.Path:
     """``tmp`` holding ``BENCHMARK.json`` with the one cell ``tiny`` and its files."""
     (tmp / "benchmark" / "configs").mkdir(parents=True, exist_ok=True)
@@ -56,7 +55,7 @@ def tiny_root(tmp: pathlib.Path, pitch: str = "rmvpe", door: str = "session", dt
     (tmp / "benchmark" / "traffic" / "tiny.json").write_text(json.dumps(traffic))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     spec["configs"] = [{"name": cfg["name"], "source": cfg["source"], "file": "benchmark/configs/tiny.json",
-                        "reduced": ["contentvec", "rmvpe", "fcpe", "synthesizer", "geometry"], "why": "CPU tests"}]
+                        "reduced": ["contentvec", pitch, "synthesizer", "geometry"], "why": "CPU tests"}]
     spec["workloads"] = [{"name": "tiny", "config": cfg["name"], "traffic": "tiny", "chips": 1, "why": "CPU tests"}]
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:

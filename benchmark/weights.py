@@ -1,9 +1,10 @@
 """Seeded random weights for a configuration, made on the device.
 
 The keys and shapes are those of the reference's networks
-(:mod:`benchmark.reference.nets`), which follow the upstream checkpoints;
-the program loads the same dict (``load_state_dict(strict=True)``), so a
-key that one side lacks fails the run. The rule: norms' scales and
+(:mod:`benchmark.reference.nets`, :mod:`benchmark.reference.pitch`), which
+follow the upstream checkpoints; the program loads the same dict
+(``load_state_dict(strict=True)``), so a key that one side lacks fails the
+run. The rule: norms' scales and
 variances 1, biases, shifts and means 0, every other weight
 ``N(0, 1) / sqrt(fan_in)`` (activations stay near unit size through the
 depth), drawn in one call a network from a ``torch.Generator`` on the
@@ -19,8 +20,8 @@ audio with it):
   low-frequency cosines over the codes, with random amplitudes and phases
   per channel. A code that rounds the other way then changes the
   synthesizer's input a little, not by a whole random row;
-- the salience head (RMVPE's ``fc.1``, FCPE's ``output_proj``) makes one
-  peak over the pitch bins, near the middle of a voice's range, that moves
+- the pitch network's salience head (the keys its file names in ``HEADS``)
+  makes one peak over the pitch bins, near the middle of a voice's range, that moves
   with the input and never saturates the sigmoid, as a trained head's peak
   does not: with ``x = b - 150`` for bin ``b``, row ``b`` of the weight is
   ``sin(w x) v`` (``w`` a period of 40 bins, ``v`` random) and its bias
@@ -53,10 +54,9 @@ import torch
 import torch.nn as nn
 
 from benchmark.reference import nets
+from benchmark.reference.step import network
 
 NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d, nets._VitsNorm)
-MAKERS = {"contentvec": (nets.ContentVec, nets.ContentVecSize), "rmvpe": (nets.Rmvpe, nets.RmvpeSize),
-          "fcpe": (nets.Fcpe, nets.FcpeSize), "synthesizer": (nets.Synth, nets.SynthSize)}
 
 
 def _fan_in(owner: nn.Module, shape: tuple) -> int:
@@ -68,7 +68,7 @@ def _fan_in(owner: nn.Module, shape: tuple) -> int:
 def skeleton(name: str, size) -> nn.Module:
     """The reference network ``name`` on the meta device: its keys, shapes and owners."""
     with torch.device("meta"):
-        return MAKERS[name][0](size)
+        return network(name).Net(size)
 
 
 def make_state_dict(module: nn.Module, gen: torch.Generator, device) -> dict:
@@ -101,8 +101,6 @@ def make_state_dict(module: nn.Module, gen: torch.Generator, device) -> dict:
     return sd
 
 
-#: the salience heads, by the key of their weight
-HEADS = ("fc.1.weight", "output_proj.weight")
 #: the cosines a smooth embedding sums
 SMOOTH_TERMS = 4
 #: the peaked head: its centre bin, period in bins, the scale of v, C, E and the peak's logit
@@ -135,15 +133,16 @@ def _peaked_head(shape, gen, device) -> tuple[torch.Tensor, torch.Tensor]:
 SOURCE_KEY, SOURCE_GAIN = "dec.m_source.l_linear.weight", 0.05
 
 
-def structure(sd: dict, gen: torch.Generator, device) -> dict:
-    """``sd`` with the pitch embedding made smooth, the salience head peaked
-    and the harmonic source's projection small (see the module)."""
+def structure(sd: dict, gen: torch.Generator, device, heads: tuple) -> dict:
+    """``sd`` with the pitch embedding made smooth, the salience head (the
+    weights keyed by ``heads``) peaked and the harmonic source's projection
+    small (see the module)."""
     if SOURCE_KEY in sd:
         sd[SOURCE_KEY] = torch.full_like(sd[SOURCE_KEY], SOURCE_GAIN)
     for key in list(sd):
         if key.endswith("emb_pitch.weight"):
             sd[key] = _smooth_rows(tuple(sd[key].shape), gen, device)
-        elif key in HEADS:
+        elif key in heads:
             sd[key], sd[key[: -len("weight")] + "bias"] = _peaked_head(tuple(sd[key].shape), gen, device)
     return sd
 
@@ -153,7 +152,7 @@ def make_weights(nets_sizes: dict, seed: int, device) -> dict:
     every draw from one generator on ``device`` seeded with ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % 2**63)
-    return {name: structure(make_state_dict(skeleton(name, size), gen, device), gen, device)
+    return {name: structure(make_state_dict(skeleton(name, size), gen, device), gen, device, network(name).HEADS)
             for name, size in nets_sizes.items()}
 
 
