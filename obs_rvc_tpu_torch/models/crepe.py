@@ -17,6 +17,13 @@ The network computes in its weights' dtype: the frames are cast to it on
 entry, and the salience comes out in float32. Frames are hop-aligned with
 RMVPE's mel frames (hop 160, centred), so the step's pitch-cache geometry
 is the same for either network.
+
+The forward names a point before the first block, after each block and
+after the classifier (``serve/metrics.py:Marks``), where the stage it runs
+in records them: a stage graph's capture on a card, as CUDA events that
+each replay records again, read on the timed steps as the spans
+``crepe.conv1`` … ``crepe.conv6`` and ``crepe.head`` (device ms), and a
+timed step on the CPU, by the host clock. Anywhere else it records nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.dsp.stft import frame_signal
+from obs_rvc_tpu_torch.serve.metrics import stage_marks
 
 WINDOW_SIZE = 1024
 N_CLASS = 360
@@ -60,15 +68,23 @@ class Crepe(nn.Module):
         self.classifier = nn.Linear(self.in_features, N_CLASS)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        marks = stage_marks()
+        if marks is not None:
+            marks.mark("crepe")
         x = frames.to(self.classifier.weight.dtype)[:, None, :]  # [N, 1, 1024]
         for i in range(6):
             x = getattr(self, f"conv{i + 1}")(F.pad(x, _PADS[i])[..., None])[..., 0]
             x = getattr(self, f"conv{i + 1}_BN")(F.relu(x))
             x = F.max_pool1d(x, 2, 2)
+            if marks is not None:
+                marks.mark(f"crepe.conv{i + 1}")
         # time-major, as torchcrepe's permute(0, 2, 1, 3) and flax's NWC reshape: [N, C, H] → [N, H*C]
         x = x.transpose(1, 2).reshape(x.shape[0], -1)
         assert x.shape[-1] == self.in_features, x.shape
-        return torch.sigmoid(self.classifier(x)).float()
+        out = torch.sigmoid(self.classifier(x)).float()
+        if marks is not None:
+            marks.mark("crepe.head")
+        return out
 
 
 def extract_crepe_frames(x16: torch.Tensor, num_frames: int, hop_length: int = 160) -> torch.Tensor:

@@ -21,6 +21,12 @@ and to the process's.
 - Stage times are device ms from CUDA events (``stream/graphs.py``), kept
   per stage as ``stage.<stage>`` and the summed waits between stages as
   ``stage_gap``. The CPU's host-clocked stage times stay with their door.
+- Marks inside a stage (:class:`Marks`): a network's forward names points
+  between its blocks (CREPE's ``crepe.conv1`` … ``crepe.conv6``,
+  ``crepe.head``), each span the time from the point before, kept under
+  the name of the point that ends it. On a card a stage graph's capture
+  bakes them in as CUDA events that every replay records again, read on
+  the timed steps; on the CPU they are the host clock of a timed step.
 - Counters: ``captures`` (every CUDA graph capture of the process),
   ``serving_captures`` (those a serving step made: a first chunk at a new
   geometry, a weights reload; each stalls a stream), ``graph.replays`` and
@@ -177,16 +183,75 @@ def count_capture() -> None:
     count({"captures": 1, "serving_captures": 1} if door is not None and door.serving else {"captures": 1})
 
 
-def record_step_stages(door: Optional[Door], stages: dict, gap: Optional[float], on_card: bool) -> None:
+def record_step_stages(door: Optional[Door], stages: dict, gap: Optional[float], on_card: bool,
+                       inner: Optional[dict] = None) -> None:
     """One step's stage ms (and, on a card, the device's summed wait between
-    its stages) for the door that ran it; the process keeps the card's only."""
+    its stages; ``inner``, the spans :class:`Marks` named inside its stages)
+    for the door that ran it; the process keeps the card's only."""
     samples = {STAGE + name: ms for name, ms in stages.items()}
     if gap is not None:
         samples[STAGE_GAP] = gap
+    record_spans(door, {**samples, **(inner or {})}, on_card)
+
+
+def record_spans(door: Optional[Door], spans: dict, on_card: bool) -> None:
+    """``{name: ms}`` of one timed step for the door that ran it; the process keeps the card's only."""
     if on_card:
-        _PROCESS.add(samples)
+        _PROCESS.add(spans)
     if door is not None:
-        door.metrics.spans.add(samples)
+        door.metrics.spans.add(spans)
+
+
+class Marks:
+    """Named points inside one call of a stage's function, from which its
+    spans are read: on a card CUDA timing events recorded on the current
+    stream, ``external`` so that a graph's capture bakes each in as an
+    event-record node that every replay records again; on the CPU the host
+    clock. The first point opens the first span; each later one ends the
+    span named after it."""
+
+    __slots__ = ("on_card", "points")
+
+    def __init__(self, on_card: bool):
+        self.on_card = on_card
+        self.points: list = []
+
+    def mark(self, name: str) -> None:
+        if self.on_card:
+            point = torch.cuda.Event(enable_timing=True, external=True)
+            point.record()
+        else:
+            point = time.perf_counter_ns()
+        self.points.append((name, point))
+
+    def spans(self) -> dict:
+        """``{name: ms}`` of every point after the first; on a card it first
+        waits for the last point's event (the caller's own wait for the step
+        has as a rule already covered it)."""
+        if self.on_card and self.points:
+            self.points[-1][1].synchronize()
+        return {name: (a.elapsed_time(b) if self.on_card else (b - a) * 1e-6)
+                for (_, a), (name, b) in zip(self.points, self.points[1:])}
+
+
+_MARKS: contextvars.ContextVar[Optional[Marks]] = contextvars.ContextVar("rvc_marks", default=None)
+
+
+def stage_marks() -> Optional[Marks]:
+    """Where the running stage's function records its :class:`Marks`, or
+    None: set while a stage graph is captured on a card and while a timed
+    step runs a stage on the CPU (``stream/graphs.py``), never else."""
+    return _MARKS.get()
+
+
+@contextlib.contextmanager
+def marking(marks: Marks):
+    """``with marking(marks):`` makes ``marks`` the :func:`stage_marks` of the block."""
+    token = _MARKS.set(marks)
+    try:
+        yield marks
+    finally:
+        _MARKS.reset(token)
 
 
 def profiler_range(name: str):

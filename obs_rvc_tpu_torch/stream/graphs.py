@@ -34,12 +34,22 @@ checks and the changes they found, ``weights.checks`` and ``weights.changes``), 
 the staged step's stage times: a :class:`StageClock` records CUDA events at
 the stage boundaries of every :data:`STAGE_EVENTS_EVERY`-th step, read once
 they have completed (:func:`resolve_stages`), never by a synchronize.
+
+Inside a stage, a network may name points between its blocks
+(``metrics.Marks``: CREPE's conv stack). A stage graph's capture bakes
+them in as CUDA events that every replay records again, so they are read
+only on a timed step's replay, after the door's own wait for that step's
+output and before the graph is launched again (the next replay overwrites
+them): at the graph's next :meth:`GraphedFunction.run` or
+:meth:`~GraphedFunction.replay`, or at once where the step waits for its
+last event itself (``stage_times``). An untimed step reads nothing.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import inspect
 import itertools
@@ -196,7 +206,8 @@ class GraphedFunction:
     graphs that replay in the order they were captured, never at once."""
 
     def __init__(self, fn: Callable, example_args: tuple, *, device, name: str,
-                 weights: Optional[Callable[[], Iterable[torch.nn.Module]]] = None, pool=None):
+                 weights: Optional[Callable[[], Iterable[torch.nn.Module]]] = None, pool=None,
+                 marked: bool = False):
         self.fn = weakly(fn)
         self.name = name
         self.device = torch.device(device)
@@ -216,6 +227,11 @@ class GraphedFunction:
         self._weights_key = None
         #: the stream of the last run: a run on another stream waits for its work first
         self._stream: Optional[torch.cuda.Stream] = None
+        #: whether a capture records the function's marks (a stage's graph); those of the last
+        #: capture, if it recorded any; the door a timed replay of them is to be read for
+        self._marked = marked
+        self.inner: Optional[metrics.Marks] = None
+        self._unread: Any = _NOTHING
 
     def capture(self) -> bool:
         """Capture now, unless a graph of the current weights is held (or
@@ -230,14 +246,16 @@ class GraphedFunction:
             return True
 
     def _capture(self, key) -> None:
-        self._graph = self._out = None
+        self._graph = self._out = self.inner = None
+        self._unread = _NOTHING
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         try:
-            graph, out, warmup = _capture_thread().submit(self._record, current).result()
+            graph, out, warmup, inner = _capture_thread().submit(self._record, current).result()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: {e}") from e
         self._graph, self._out, self._weights_key = graph, out, key
+        self.inner = inner if inner is not None and inner.points else None
         self.captures += 1
         self.capture_seconds, self.warmup_seconds = time.perf_counter() - t0, warmup
         metrics.count_capture()
@@ -247,9 +265,9 @@ class GraphedFunction:
     def _record(self, caller: torch.cuda.Stream):
         """The warm-up and the capture, on the capture thread and a side
         stream ordered after ``caller``'s work; returns (graph, outputs,
-        warm-up seconds). Not through ``torch.cuda.graph``, whose entry
-        collects garbage and empties the allocator's cache while other
-        sessions serve."""
+        warm-up seconds, the marks the capture recorded or None). Not through
+        ``torch.cuda.graph``, whose entry collects garbage and empties the
+        allocator's cache while other sessions serve."""
         t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(caller)
@@ -267,13 +285,15 @@ class GraphedFunction:
             torch._C._cuda_clearCublasWorkspaces()
             # thread_local: the sessions' worker threads go on replaying other graphs meanwhile
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            inner = metrics.Marks(on_card=True) if self._marked else None
             try:
-                out = self.fn(*self.static_args)
+                with metrics.marking(inner) if inner is not None else contextlib.nullcontext():
+                    out = self.fn(*self.static_args)
             finally:
                 graph.capture_end()
                 torch._C._cuda_clearCublasWorkspaces()
         caller.wait_stream(side)
-        return graph, out, warmup
+        return graph, out, warmup, inner
 
     def run(self, *args):
         """Copy ``args`` in and replay (on the CPU: call ``fn``) on the
@@ -282,6 +302,8 @@ class GraphedFunction:
         returns (enqueued on the same stream: a run on another stream first
         waits for everything the last run's stream had enqueued)."""
         with self.lock:
+            if self._unread is not _NOTHING:
+                self.read_inner()
             # before the copy-in: the warm-up calls write the static arguments
             if self._version is None:
                 self.capture()
@@ -307,12 +329,32 @@ class GraphedFunction:
         (a function that writes its own arguments sees its last output)."""
         if self._graph is None:
             raise RuntimeError(f"{self.name} holds no captured graph")
+        if self._unread is not _NOTHING:
+            self.read_inner()
         self._graph.replay()
+
+    def hold_inner(self, door: Optional[metrics.Door]) -> None:
+        """The last replay was timed: read its :attr:`inner` marks for
+        ``door`` before the graph is launched again."""
+        self._unread = door
+
+    def read_inner(self) -> None:
+        """The held replay's marks, as spans, to its door and the process
+        (a wait for its last event first; the door's own wait for the step
+        has as a rule already covered it)."""
+        with self.lock:
+            door, self._unread = self._unread, _NOTHING
+            if door is not _NOTHING and self.inner is not None:
+                metrics.record_spans(door, self.inner.spans(), on_card=True)
 
     def __call__(self, *args):
         """:meth:`run`, with the outputs copied out of the graph's memory."""
         with self.lock:
             return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, self.run(*args))
+
+
+#: no timed replay's marks wait to be read
+_NOTHING = object()
 
 
 def graph_pool(device):
@@ -334,7 +376,11 @@ class StageClock:
     the host clock (the eager stages run synchronously there). A features
     segment (``"features/..."``, a :attr:`RvcPipeline.segmented` row's,
     which may run on another card) is not timed, and no gap is counted
-    across it: on such a row the features stage is left out."""
+    across it: on such a row the features stage is left out. The marks a
+    stage's network names inside it (``metrics.Marks``) are a replayed
+    graph's events on a card, held by the graph until read
+    (:meth:`GraphedFunction.read_inner`), and the host clock on the CPU,
+    delivered with the stages."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -346,6 +392,9 @@ class StageClock:
         #: the door whose step this is, and the process's captures when it began
         self.door = metrics.current_door()
         self.captures = metrics.process_counter("captures")
+        #: the graphs whose marks this step replayed (a card's); the marks' spans (the CPU's)
+        self.held: list = []
+        self.inner: dict = {}
 
     def _mark(self):
         if not self.on_card:
@@ -357,13 +406,22 @@ class StageClock:
         event.record(self._stream)
         return event
 
-    def time(self, name: str, call: Callable) -> Any:
-        """``call()``, between two marks under ``name``'s stage."""
+    def time(self, name: str, call: Callable, graph: Optional[GraphedFunction] = None) -> Any:
+        """``call()``, between two marks under ``name``'s stage; ``graph``
+        the stage's graph that ``call`` replays."""
         if "/" in name:
             self._broken = True
             return call()
         start = self._mark()
-        out = call()
+        if self.on_card:
+            out = call()
+            if graph is not None and graph.inner is not None:
+                graph.hold_inner(self.door)
+                self.held.append(graph)
+        else:
+            with metrics.marking(metrics.Marks(on_card=False)) as inner:
+                out = call()
+            self.inner.update(inner.spans())
         self.marks.append((name, start, self._mark(), self._broken))
         self._broken = False
         return out
@@ -426,6 +484,8 @@ def finish_stages(clock: Optional[StageClock], stage_times: Optional[dict] = Non
     if stage_times is not None:
         clock.wait()
         stage_times.update(clock.times()[0])
+        for graph in clock.held:
+            graph.read_inner()
     if metrics.process_counter("captures") != clock.captures:
         return
     if clock.done():
@@ -451,7 +511,7 @@ def resolve_stages() -> None:
 def _deliver(clock: StageClock) -> None:
     stages, gap = clock.times()
     if stages:
-        metrics.record_step_stages(clock.door, stages, gap, clock.on_card)
+        metrics.record_step_stages(clock.door, stages, gap, clock.on_card, clock.inner)
     if clock.on_card:
         _FREE_EVENTS[clock.device].extend(e for _, start, end, _ in clock.marks for e in (start, end))
 
@@ -470,10 +530,11 @@ def stage_runner(graphs: dict, device, pools: dict, clock: Optional[StageClock] 
             dev = _card(device)
             if dev not in pools:
                 pools[dev] = graph_pool(dev)
-            graph = graphs[name] = GraphedFunction(fn, args, device=dev, name=f"stage_{name}", pool=pools[dev])
+            graph = graphs[name] = GraphedFunction(fn, args, device=dev, name=f"stage_{name}", pool=pools[dev],
+                                                   marked=True)
         if clock is None:
             return graph.run(*args)
-        return clock.time(name, lambda: graph.run(*args))
+        return clock.time(name, lambda: graph.run(*args), graph)
 
     return run
 

@@ -956,6 +956,40 @@ def test_stage_events_time_the_staged_step_without_a_synchronize(cuda, monkeypat
     assert snap["stage_gap"]["count"] >= 2 * len(chunks) and snap["stage_gap"]["p50_ms"] >= 0
 
 
+CREPE_SPANS = tuple(f"crepe.conv{i}" for i in range(1, 7)) + ("crepe.head",)
+
+
+def test_crepe_marks_time_its_blocks_inside_the_salience_graph(cuda, monkeypatch):
+    """The ``salience`` graph's capture bakes in CREPE's eight events; after
+    a timed replay its seven spans are positive and sum to no more than the
+    stage's own time. A timed step's spans are read at the graph's next
+    launch (or at once with ``stage_times``), an untimed step's never."""
+    from obs_rvc_tpu_torch.serve import metrics
+    from obs_rvc_tpu_torch.stream import StepControls, pipeline
+
+    pipe = _graph_pipe(cuda, torch.bfloat16, pitch_algorithm="crepe")
+    chunks = [c.to(cuda) for c in _chunks(pipe, 4)]
+    state, controls = pipe.new_state(), StepControls.default()
+    metrics.reset()
+    with monkeypatch.context() as m:
+        m.setattr(pipeline, "stage_clock", lambda *a, **k: None)
+        for c in chunks:  # the first captures
+            pipe.staged_step(state, c, controls)[1].cpu()
+    inner = pipe.staged_graphs.graphs["salience"].inner
+    assert [name for name, _ in inner.points] == ["crepe", *CREPE_SPANS]
+    assert all(g.inner is None for name, g in pipe.staged_graphs.graphs.items() if name != "salience")
+    assert not any(n.startswith("crepe") for n in metrics.process_snapshot()["spans"])
+    times = {}
+    pipe.staged_step(state, chunks[1], controls, stage_times=times)
+    spans = {n: metrics.process_samples(n) for n in CREPE_SPANS}
+    assert all(len(v) == 1 and v[0] > 0 for v in spans.values()), spans
+    assert sum(v[0] for v in spans.values()) <= times["salience"], (spans, times)
+    pipe.staged_step(state, chunks[2], controls, timed=True)[1].cpu()
+    assert len(metrics.process_samples("crepe.head")) == 1  # held until the graph's next launch
+    pipe.staged_step(state, chunks[3], controls)[1].cpu()
+    assert all(len(metrics.process_samples(n)) == 2 for n in CREPE_SPANS)
+
+
 def test_spans_leave_no_device_event_in_a_trace(cuda):
     from torch.profiler import ProfilerActivity, profile
 
