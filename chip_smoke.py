@@ -614,6 +614,185 @@ def phase_parity(report):
     report["parity"] = out
 
 
+# CREPE's first two blocks on their kernel (ops/crepe_conv.py): (label, capacity, block, frames). 64 frames are
+# one stream's pitch window; 128 two streams'; 300 an offline clip's share, where conv2 splits K no more (S = 1)
+CREPE_CONV_SHAPES = [("conv1-full-64", "full", 1, 64), ("conv2-full-64", "full", 2, 64),
+                     ("conv1-full-128", "full", 1, 128), ("conv2-full-128", "full", 2, 128),
+                     ("conv1-full-300", "full", 1, 300), ("conv2-full-300", "full", 2, 300),
+                     ("conv1-tiny-64", "tiny", 1, 64)]
+#: the kernel's error off the float32 block of the same bf16 operands, against cuDNN bf16's: e <= 2 e_cudnn + tol
+CREPE_CONV_TOL = 1e-3
+
+
+def crepe_conv_model(capacity, dev):
+    """CREPE at ``capacity`` in bfloat16 on ``dev`` (eval): fan-in-scaled
+    random weights from :data:`SEED`, then each block's conv bias and norm
+    (weight of either sign, bias, running mean and variance) drawn too, so
+    the epilogue's every term counts."""
+    import torch
+
+    from obs_rvc_tpu_torch.models.crepe import Crepe, CrepeConfig
+    from obs_rvc_tpu_torch.models.weights import load_state_dict
+    from obs_rvc_tpu_torch.stream.pipeline import _random_state_dict
+
+    model = Crepe(CrepeConfig(capacity))
+    rng = np.random.default_rng(SEED)
+    load_state_dict(model, _random_state_dict(model, rng, None))
+    with torch.no_grad():
+        for i in range(1, 7):
+            conv, bn = getattr(model, f"conv{i}"), getattr(model, f"conv{i}_BN")
+            C = conv.out_channels
+            conv.bias.copy_(torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1))
+            bn.weight.copy_(torch.from_numpy(rng.standard_normal(C).astype(np.float32)))
+            bn.bias.copy_(torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1))
+            bn.running_mean.copy_(torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, C).astype(np.float32)))
+    return model.to(dev, torch.bfloat16).eval()
+
+
+def crepe_conv_case(model, block, N, dev):
+    """Block ``block`` (1 or 2) of ``model`` at ``N`` frames of the voiced
+    signal: its input (conv2's: conv1's plain block, blocked), the kernel's
+    call, its plain version and cuDNN's bfloat16 form (the module's own
+    code: conv, ReLU, BatchNorm, pool), and the float32 block of the same
+    bfloat16 operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from obs_rvc_tpu_torch.models.crepe import _PADS, extract_crepe_frames
+    from obs_rvc_tpu_torch.ops import crepe_conv
+
+    sig = torch.from_numpy(voiced_signal(160 * (N - 1) + 1, 16000)).to(dev)
+    frames = extract_crepe_frames(sig[None], N)[0].to(torch.bfloat16).contiguous()
+    conv1, bn1 = model.conv1, model.conv1_BN
+    f1 = crepe_conv.fold(conv1, bn1)
+    if block == 1:
+        x, x_ncl, kind = frames, frames[:, None], "frames"
+    else:
+        x = crepe_conv.block_frames_plain(frames, f1)
+        x_ncl, kind = crepe_conv.from_blocked(x).contiguous(), "taps"
+    conv, bn = getattr(model, f"conv{block}"), getattr(model, f"conv{block}_BN")
+    folded = crepe_conv.fold(conv, bn)
+    packed = crepe_conv.pack(folded, kind)
+    kernel = crepe_conv.block_frames if block == 1 else crepe_conv.block_taps
+    plain = crepe_conv.block_frames_plain if block == 1 else crepe_conv.block_taps_plain
+    stride = conv.stride[0]
+
+    def cudnn():
+        y = conv(F.pad(x_ncl, _PADS[block - 1])[..., None])[..., 0]
+        return F.max_pool1d(bn(F.relu(y)), 2, 2)
+
+    with torch.no_grad():
+        y = F.conv1d(F.pad(x_ncl.float(), _PADS[block - 1]), folded.w, stride=stride)
+        ref = F.max_pool1d(torch.relu(y + folded.bias[:, None]) * folded.scale[:, None] + folded.shift[:, None], 2, 2)
+    as_ncl = (lambda t: crepe_conv.from_blocked(t)) if block == 1 else (lambda t: t)
+    return {"x": x, "kind": kind, "packed": packed, "kernel": lambda: kernel(x, packed),
+            "plain": lambda: plain(x, folded), "cudnn": cudnn, "ref": ref, "as_ncl": as_ncl,
+            "flops": 2 * N * y.shape[-1] * conv.in_channels * conv.out_channels * conv.kernel_size[0],
+            "bytes": 2 * (x.numel() + conv.weight.numel() + ref.numel())}
+
+
+def phase_crepe_conv(report, timing=True):
+    """CREPE's conv kernel (``ops/crepe_conv.py``) on the card at
+    :data:`CREPE_CONV_SHAPES`: against the float32 block of the same
+    bfloat16 operands by the rule ``e <= 2 e_cudnn + tol`` (cuDNN's
+    bfloat16 block, the module's code, as ``e_cudnn``), against its plain
+    version (bfloat16 steps), bit for bit across two launches and inside a
+    CUDA graph's replays, one launch counted a call; with ``timing``, its
+    device time beside its bound, the plain version's, cuDNN's
+    (deterministic, as the port runs it) and, for conv2, cuDNN's in eight
+    convolutions of 128 channels summed in float32 (``split8``, as
+    ``scripts/torch_crepe_probe.py`` times it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from obs_rvc_tpu_torch.ops import crepe_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda")
+    models, out = {}, {}
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, capacity, block, N in CREPE_CONV_SHAPES:
+        model = models.setdefault(capacity, crepe_conv_model(capacity, dev))
+        case = crepe_conv_case(model, block, N, dev)
+        with torch.no_grad():
+            before = crepe_conv.LAUNCHES
+            got = case["kernel"]()
+            again = case["kernel"]()
+            if crepe_conv.LAUNCHES != before + 2:
+                raise AssertionError(f"crepe_conv {label}: {crepe_conv.LAUNCHES - before} launches for 2 calls")
+            plain = case["plain"]()
+            cudnn = case["cudnn"]()
+            torch.cuda.synchronize()
+        got_ncl, plain_ncl, ref = case["as_ncl"](got).float(), case["as_ncl"](plain).float(), case["ref"]
+        if not bool(torch.isfinite(got_ncl).all()):
+            raise AssertionError(f"crepe_conv {label}: non-finite outputs")
+        scale = float(ref.abs().max())
+        e_k = float((got_ncl - ref).abs().max()) / scale
+        e_c = float((cudnn.float() - ref).abs().max()) / scale
+        # the kernel against its plain version, in bf16 steps at each output's magnitude (floored at 2^-8 of the
+        # largest): the two sum in other orders, so a value may round the other way
+        mag = plain_ncl.abs().clamp_min(scale * 2**-8)
+        steps = float(((got_ncl - plain_ncl).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+        differ = float((got_ncl != plain_ncl).float().mean())
+        row = {"e_kernel": e_k, "e_cudnn_bf16": e_c, "bf16_steps_off_plain": steps, "share_off_plain": differ,
+               "repeat_bit_identical": bool(torch.equal(got, again)), "ref_max": scale}
+        if e_k > 2 * e_c + CREPE_CONV_TOL or steps > 2 or not row["repeat_bit_identical"]:
+            raise AssertionError(f"crepe_conv {label}: {row}")
+        if case["kind"] == "taps":
+            row["splits"] = crepe_conv.taps_splits(N, case["packed"].cin, n_sms)
+        # inside a CUDA graph: its replays equal the eager launch bit for bit
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            case["kernel"]()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph), torch.no_grad():
+            graphed = case["kernel"]()
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(graphed.clone())
+        row["graph_bit_identical"] = all(torch.equal(r, got) for r in replays)
+        if not row["graph_bit_identical"]:
+            raise AssertionError(f"crepe_conv {label}: a CUDA graph's replay differs from the eager launch")
+        del graph, graphed
+        if timing:
+            with torch.no_grad():
+                row["kernel_ms"] = graph_ms(case["kernel"])
+                row["plain_ms"] = graph_ms(case["plain"])
+                row["cudnn_ms"] = graph_ms(case["cudnn"])
+                if block == 2:
+                    conv, x4 = model.conv2, F.pad(crepe_conv.from_blocked(case["x"]), (31, 32))[..., None]
+
+                    def split8(x4=x4, c=conv):
+                        parts = [F.conv2d(x4[:, g : g + 128], c.weight[:, g : g + 128]).float()
+                                 for g in range(0, c.in_channels, 128)]
+                        return (torch.stack(parts).sum(0) + c.bias.float()[:, None, None]).to(x4.dtype)
+
+                    row["cudnn_split8_ms"] = graph_ms(split8)
+            row["gflop"] = case["flops"] / 1e9
+            row["mb"] = case["bytes"] / 1e6
+            row["bound_ms"], row["bound_by"] = bound_ms(case["flops"], case["bytes"], BF16_PEAK_FLOPS)
+            row["tflops"] = case["flops"] / row["kernel_ms"] / 1e9
+        out[label] = row
+        log("crepe_conv", f"{label} [{N} frames]: e {e_k:.3e} vs cuDNN bf16 {e_c:.3e} (rule 2e + {CREPE_CONV_TOL}); "
+                          f"off the plain version by {steps:.2f} bf16 steps at most, {differ:.2%} of outputs; two "
+                          "launches and a graph's replays bit-identical"
+                          + (f"; splits {row['splits']}" if "splits" in row else "")
+                          + (f"; kernel {row['kernel_ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, bound "
+                             f"{row['bound_ms']:.4f} by {row['bound_by']}), plain {row['plain_ms']:.4f}, cuDNN "
+                             f"{row['cudnn_ms']:.4f}" + (f", cuDNN split8 {row['cudnn_split8_ms']:.4f}"
+                                                        if "cudnn_split8_ms" in row else "") if timing else ""))
+    torch.backends.cudnn.deterministic = deterministic
+    report["crepe_conv"] = out
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -688,7 +867,7 @@ def phase_main(report, key, n_chunks, dtype, version="v2", cpu_chunks=0, breakdo
     peak = torch.cuda.max_memory_allocated()
     audio = torch.cat(outs).cpu()
     log(key, f"streamed {n_chunks} chunks; kernel launches {launches}")
-    check_launches(key, launches, n_chunks, pitch, per_step)
+    check_launches(key, launches, n_chunks, pitch, per_step, dtype)
     if audio.shape != (n_chunks * cfg.sample_frame_size,) or not bool(torch.isfinite(audio).all()):
         raise AssertionError(f"{key}: output shape {tuple(audio.shape)} or non-finite values")
     tail = audio[4 * cfg.sample_frame_size :]
@@ -730,16 +909,25 @@ def compare_dtypes(report, f32, bf16, key="bf16_vs_f32"):
 
 
 #: launches of each kernel's wrapper per step (and per engine request), by pitch algorithm: CREPE
-#: and FCPE replace RMVPE's U-Net chain; FCPE's Slaney log-mel runs the log-mel kernel, CREPE's frames do not
-LAUNCHES_PER_STEP = {"rmvpe": {"log_mel": 1, "conv_block_res_chain": 4, "resblock_bank": 2},
-                     "crepe": {"log_mel": 0, "conv_block_res_chain": 0, "resblock_bank": 2},
-                     "fcpe": {"log_mel": 1, "conv_block_res_chain": 0, "resblock_bank": 2}}
+#: and FCPE replace RMVPE's U-Net chain; FCPE's Slaney log-mel runs the log-mel kernel, CREPE's frames do not.
+#: CREPE's conv kernel runs in bfloat16 only (CREPE_BF16_LAUNCHES)
+LAUNCHES_PER_STEP = {"rmvpe": {"log_mel": 1, "conv_block_res_chain": 4, "resblock_bank": 2, "crepe_conv": 0},
+                     "crepe": {"log_mel": 0, "conv_block_res_chain": 0, "resblock_bank": 2, "crepe_conv": 0},
+                     "fcpe": {"log_mel": 1, "conv_block_res_chain": 0, "resblock_bank": 2, "crepe_conv": 0}}
+#: CREPE in bfloat16: its conv1 and conv2 blocks on the conv kernel, a wrapper call each a step
+CREPE_BF16_LAUNCHES = {"crepe_conv": 2}
+
+
+def launches_per_step(pitch="rmvpe", dtype="float32"):
+    """:data:`LAUNCHES_PER_STEP` of ``pitch`` in ``dtype``."""
+    return dict(LAUNCHES_PER_STEP[pitch], **(CREPE_BF16_LAUNCHES if (pitch, dtype) == ("crepe", "bfloat16") else {}))
 
 
 def _counter_modules():
-    from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
+    from obs_rvc_tpu_torch.ops import crepe_conv, resblock, stft_mel, unet_block
 
-    return {"log_mel": stft_mel, "conv_block_res_chain": unet_block, "resblock_bank": resblock}
+    return {"log_mel": stft_mel, "conv_block_res_chain": unet_block, "resblock_bank": resblock,
+            "crepe_conv": crepe_conv}
 
 
 def reset_launches():
@@ -751,32 +939,46 @@ def read_launches():
     return {name: mod.LAUNCHES for name, mod in _counter_modules().items()}
 
 
-def check_launches(phase, launches, steps, pitch="rmvpe", per_step=None):
-    want = {k: v * steps for k, v in (per_step or LAUNCHES_PER_STEP[pitch]).items()}
+def check_launches(phase, launches, steps, pitch="rmvpe", per_step=None, dtype="float32"):
+    """``launches`` against ``per_step`` (default :func:`launches_per_step`) times ``steps``; a wrapper
+    ``per_step`` does not name launches 0 times."""
+    per = dict.fromkeys(_counter_modules(), 0) | (per_step or launches_per_step(pitch, dtype))
+    want = {k: v * steps for k, v in per.items()}
     if launches != want:
         raise AssertionError(f"{phase}: expected {want} launches for {steps} steps, got {launches}")
 
 
 #: each hand kernel's device function and its launches per step (and per engine request), by pitch
 #: algorithm: the C calls of LAUNCHES_PER_STEP launch 1 log-mel, 8 chain (per level) and 3 bank (per level, one a
-#: dilation) kernels, and the bank's sum kernel where its tiling splits a level's last step (kernels_per_step)
-KERNELS_PER_STEP = {"rmvpe": {"log_mel_kernel": 1, "conv3x3_kernel": 32, "resblock_bank_kernel": 6},
-                    "crepe": {"log_mel_kernel": 0, "conv3x3_kernel": 0, "resblock_bank_kernel": 6},
-                    "fcpe": {"log_mel_kernel": 1, "conv3x3_kernel": 0, "resblock_bank_kernel": 6}}
+#: dilation) kernels, and the bank's sum kernel where its tiling splits a level's last step; CREPE in bfloat16
+#: 2 conv kernels and the sum of conv2's split parts where it splits K (kernels_per_step)
+KERNELS_PER_STEP = {"rmvpe": {"log_mel_kernel": 1, "conv3x3_kernel": 32, "resblock_bank_kernel": 6,
+                              "crepe_conv_kernel": 0},
+                    "crepe": {"log_mel_kernel": 0, "conv3x3_kernel": 0, "resblock_bank_kernel": 6,
+                              "crepe_conv_kernel": 0},
+                    "fcpe": {"log_mel_kernel": 1, "conv3x3_kernel": 0, "resblock_bank_kernel": 6,
+                             "crepe_conv_kernel": 0}}
 
 
-def kernels_per_step(pitch="rmvpe", B=1):
-    """:data:`KERNELS_PER_STEP` at ``B`` streams a step: with one bank sum
-    kernel for each of the generator's bank levels (``BANK_SHAPES``) whose
-    last step ``bank_tiling`` splits at that batch (one stream's levels, on
-    this card)."""
+def kernels_per_step(pitch="rmvpe", B=1, dtype="bfloat16"):
+    """:data:`KERNELS_PER_STEP` at ``B`` streams a step in ``dtype``: with
+    one bank sum kernel for each of the generator's bank levels
+    (``BANK_SHAPES``) whose last step ``bank_tiling`` splits at that batch
+    (one stream's levels, on this card); for CREPE in bfloat16 its two conv
+    kernels, and the sum of conv2's parts where ``taps_splits`` splits its
+    K at the step's frames."""
     import torch
 
-    from obs_rvc_tpu_torch.ops import resblock
+    from obs_rvc_tpu_torch.config import ChunkConfig
+    from obs_rvc_tpu_torch.ops import crepe_conv, resblock
 
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     sums = sum(resblock.bank_tiling(B, L, C, torch.bfloat16, n_sms).split for _, _, L, C in BANK_SHAPES)
-    return dict(KERNELS_PER_STEP[pitch], resblock_bank_sum_kernel=sums)
+    out = dict(KERNELS_PER_STEP[pitch], resblock_bank_sum_kernel=sums, crepe_conv_reduce_kernel=0)
+    if (pitch, dtype) == ("crepe", "bfloat16"):
+        frames = B * ChunkConfig.build().rmvpe_n_frames
+        out.update(crepe_conv_kernel=2, crepe_conv_reduce_kernel=int(crepe_conv.taps_splits(frames, 1024, n_sms) > 1))
+    return out
 #: the schedule of live controls the graphs are streamed with: (first chunk, pitch shift, rms_mix_rate)
 CONTROL_SCHEDULE = [(0, 0.0, 1.0), (4, 12.0, 1.0), (6, 12.0, 0.5), (8, -5.0, 0.5)]
 
@@ -918,7 +1120,7 @@ def phase_graphs(report, key, run, reload_weights=False):
                               chunk=pipe.cfg.sample_frame_size)
         steady = np.asarray(times[4:])
         p50 = float(np.percentile(steady, 50))
-        want = {k: v * 5 for k, v in kernels_per_step(pipe.pitch_algorithm).items()}
+        want = {k: v * 5 for k, v in kernels_per_step(pipe.pitch_algorithm, dtype=dtype).items()}
         (counts, busy, summed, wall, _), retraced = trace_replays(key, step, pipe, chunks[:5], controls, want)
         # the live controls changed mid-stream: the same as eager, and nothing captured again
         sched_eager, _ = stream(pipe.step, pipe, chunks[:12], controls_at)
@@ -2418,7 +2620,7 @@ def phase_pool(report):
         reset_launches()
         eager_p, _ = stream_batch(lambda s, c, k: p.step(s, c, k, batched=True), p, ch, ctl)
         launched = read_launches()
-        check_launches(f"pool {algo}", launched, len(ch), algo)
+        check_launches(f"pool {algo}", launched, len(ch), algo, dtype="bfloat16")
         graphed_p, _ = stream_batch(p.jit_step_batch, p, ch, ctl)
         same = check_same(f"pool {algo} jit_step_batch vs eager", graphed_p, eager_p, CPU_TOL["emitted"])
         if bool((eager_p[:, n:].abs().amax(dim=1) < 1e-3).any()):
@@ -4054,8 +4256,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps with torch.profiler (device busy share, top operators)")
     ap.add_argument("--only", default="",
-                    help="run only these phases after the build, comma-separated (parity, widths, switch, "
-                         "stage_repeat, mesh, bench, timing), and print no kernel line: for iterating on one phase")
+                    help="run only these phases after the build, comma-separated (parity, crepe_conv, widths, "
+                         "switch, stage_repeat, mesh, bench, timing), and print no kernel line: for iterating on one "
+                         "phase")
     ap.add_argument("--stage-repeat-child", nargs=2, metavar=("OUT", "LOG"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4110,6 +4313,7 @@ def main(argv=None) -> int:
         phases = {"stage_repeat": lambda: phase_stage_repeat(report), "mesh": lambda: phase_mesh(report, smi),
                   "bench": lambda: phase_bench(report), "parity": lambda: phase_parity(report),
                   "widths": lambda: phase_widths(report), "switch": lambda: phase_switch(report),
+                  "crepe_conv": lambda: phase_crepe_conv(report),
                   "timing": lambda: phase_timing(report, trace=args.profile)}
         for name in args.only.split(","):
             phases[name]()
@@ -4131,6 +4335,7 @@ def main(argv=None) -> int:
         spent[name] = clock[-1] - clock[-2]
 
     phase_parity(report)
+    phase_crepe_conv(report)
     mark("parity")
     phase_widths(report)
     mark("widths")

@@ -14,7 +14,13 @@ form of these convolutions faster in bfloat16 than the 1-d one (conv6:
 0.10 against 1.46 ms on an H100, ``scripts/torch_crepe_probe.py``).
 
 The network computes in its weights' dtype: the frames are cast to it on
-entry, and the salience comes out in float32. Frames are hop-aligned with
+entry, and the salience comes out in float32. In bfloat16 (eval) the first
+two blocks, conv through pool, run on the hand kernel
+(``ops/crepe_conv.py``, ``csrc/crepe_conv.cu``) wherever its shape rule
+admits them (``crepe_conv.takes_kernel``: ``full``'s conv1 and conv2,
+``tiny``'s conv1), its params folded and packed once per weight version;
+conv1 hands conv2 its output channels-last, blocked by 8 channels. Every
+other block, and float32, stays on cuDNN. Frames are hop-aligned with
 RMVPE's mel frames (hop 160, centred), so the step's pitch-cache geometry
 is the same for either network.
 
@@ -35,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from obs_rvc_tpu_torch.dsp.stft import frame_signal
+from obs_rvc_tpu_torch.ops import crepe_conv
 from obs_rvc_tpu_torch.serve.metrics import stage_marks
 
 WINDOW_SIZE = 1024
@@ -66,18 +73,52 @@ class Crepe(nn.Module):
             setattr(self, f"conv{i + 1}", nn.Conv2d(in_ch[i], out_ch[i], (_KERNELS[i], 1), stride=(_STRIDES[i], 1)))
             setattr(self, f"conv{i + 1}_BN", nn.BatchNorm1d(out_ch[i], eps=1e-3))
         self.classifier = nn.Linear(self.in_features, N_CLASS)
+        #: by block: (weights' key, its fold, its pack or None), replaced as one tuple on a change, so
+        #: threads sharing the module never pair a pack with another weight version's fold
+        self._kernel_params = {}
+
+    def __getstate__(self):
+        # a pack holds device tensors derived from the weights: a copy folds and packs its own
+        return {**self.__dict__, "_kernel_params": {}}
+
+    def _block_params(self, i: int, kind: str, device: torch.device):
+        """Block ``i``'s params for the kernel's wrapper: its fold on the CPU,
+        its pack on a card, made again when a parameter or buffer changed."""
+        conv, bn = getattr(self, f"conv{i + 1}"), getattr(self, f"conv{i + 1}_BN")
+        key = tuple((t.data_ptr(), t._version) for t in (*conv.parameters(), *bn.parameters(), *bn.buffers()))
+        entry = self._kernel_params.get(i)
+        if entry is None or entry[0] != key:
+            entry = (key, crepe_conv.fold(conv, bn), None)
+        if device.type == "cuda" and entry[2] is None:
+            with torch.no_grad():
+                entry = (key, entry[1], crepe_conv.pack(entry[1], kind))
+        self._kernel_params[i] = entry
+        return entry[2] if device.type == "cuda" else entry[1]
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         marks = stage_marks()
         if marks is not None:
             marks.mark("crepe")
-        x = frames.to(self.classifier.weight.dtype)[:, None, :]  # [N, 1, 1024]
+        dtype = self.classifier.weight.dtype
+        x = frames.to(dtype)[:, None, :]  # [N, 1, 1024]; [N, C, L], or [N, C / 8, L, 8] after the kernel
         for i in range(6):
-            x = getattr(self, f"conv{i + 1}")(F.pad(x, _PADS[i])[..., None])[..., 0]
-            x = getattr(self, f"conv{i + 1}_BN")(F.relu(x))
-            x = F.max_pool1d(x, 2, 2)
+            conv = getattr(self, f"conv{i + 1}")
+            kind = crepe_conv.takes_kernel(conv, dtype, self.training, x.shape[2])
+            if kind == "frames":
+                x = crepe_conv.block_frames(x[:, 0].contiguous(), self._block_params(i, kind, x.device))
+            elif kind == "taps":
+                x = crepe_conv.block_taps(x if x.dim() == 4 else crepe_conv.to_blocked(x),
+                                          self._block_params(i, kind, x.device))
+            else:
+                if x.dim() == 4:
+                    x = crepe_conv.from_blocked(x)
+                x = conv(F.pad(x, _PADS[i])[..., None])[..., 0]
+                x = getattr(self, f"conv{i + 1}_BN")(F.relu(x))
+                x = F.max_pool1d(x, 2, 2)
             if marks is not None:
                 marks.mark(f"crepe.conv{i + 1}")
+        if x.dim() == 4:
+            x = crepe_conv.from_blocked(x)
         # time-major, as torchcrepe's permute(0, 2, 1, 3) and flax's NWC reshape: [N, C, H] → [N, H*C]
         x = x.transpose(1, 2).reshape(x.shape[0], -1)
         assert x.shape[-1] == self.in_features, x.shape

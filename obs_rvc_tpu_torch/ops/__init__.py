@@ -8,6 +8,9 @@ PyTorch version (counterpart of ``obs_rvc_tpu.ops``).
   (C up to 256, Cin up to 512).
 - :mod:`resblock` — one NSF upsample level's resblock bank
   (``csrc/resblock.cu``), for the 16<=C<=64 levels.
+- :mod:`crepe_conv` — CREPE's conv1 and conv2 blocks (conv, ReLU,
+  BatchNorm, pool) in bfloat16 (``csrc/crepe_conv.cu``), a kernel of the
+  port's own: the JAX package leaves CREPE to XLA.
 
 A wrapper runs the plain version on a CPU tensor and the kernel on a CUDA
 tensor; its module's ``LAUNCHES`` counts the calls that launched the kernel.

@@ -26,7 +26,8 @@ BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 N_SMS = 132
 #: the device functions of the hand kernels (``csrc/``), as a profiler trace names them
-HAND_KERNELS = ("log_mel_kernel", "conv3x3_kernel", "resblock_bank_kernel", "resblock_bank_sum_kernel")
+HAND_KERNELS = ("log_mel_kernel", "conv3x3_kernel", "resblock_bank_kernel", "resblock_bank_sum_kernel",
+                "crepe_conv_kernel", "crepe_conv_reduce_kernel")
 
 
 def nvidia_smi_line() -> str:

@@ -41,7 +41,7 @@ import torch.nn as nn
 
 from obs_rvc_tpu_torch.dsp.mel import MelSpectrogram
 from obs_rvc_tpu_torch.models.layers import GroupNorm, VitsLayerNorm
-from obs_rvc_tpu_torch.ops import resblock, stft_mel, unet_block
+from obs_rvc_tpu_torch.ops import crepe_conv, resblock, stft_mel, unet_block
 
 pytestmark = pytest.mark.cuda
 
@@ -971,10 +971,12 @@ def test_crepe_marks_time_its_blocks_inside_the_salience_graph(cuda, monkeypatch
     chunks = [c.to(cuda) for c in _chunks(pipe, 4)]
     state, controls = pipe.new_state(), StepControls.default()
     metrics.reset()
+    launches = crepe_conv.LAUNCHES
     with monkeypatch.context() as m:
         m.setattr(pipeline, "stage_clock", lambda *a, **k: None)
         for c in chunks:  # the first captures
             pipe.staged_step(state, c, controls)[1].cpu()
+    assert crepe_conv.LAUNCHES > launches  # tiny's conv1 block runs on the conv kernel, between the marks
     inner = pipe.staged_graphs.graphs["salience"].inner
     assert [name for name, _ in inner.points] == ["crepe", *CREPE_SPANS]
     assert all(g.inner is None for name, g in pipe.staged_graphs.graphs.items() if name != "salience")
@@ -988,6 +990,178 @@ def test_crepe_marks_time_its_blocks_inside_the_salience_graph(cuda, monkeypatch
     assert len(metrics.process_samples("crepe.head")) == 1  # held until the graph's next launch
     pipe.staged_step(state, chunks[3], controls)[1].cpu()
     assert all(len(metrics.process_samples(n)) == 2 for n in CREPE_SPANS)
+
+
+# --- CREPE's conv kernel (ops/crepe_conv.py): conv1 and conv2 with their ReLU, BatchNorm and pool ---
+
+#: the kernel's error off the float32 block of the same bfloat16 operands, against cuDNN bf16's: e <= 2 e_cudnn + tol
+CREPE_CONV_TOL = 1e-3
+
+
+def _crepe(capacity, device, dtype=torch.bfloat16, seed=0):
+    """CREPE on ``device`` in ``dtype`` (eval): fan-in weights, each conv's bias and norm drawn too (norm weights of
+    either sign), so every term of the kernel's epilogue counts."""
+    from obs_rvc_tpu_torch.models.crepe import Crepe, CrepeConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    model = Crepe(CrepeConfig(capacity)).eval()
+    with torch.no_grad():
+        for i in range(1, 7):
+            conv, bn = getattr(model, f"conv{i}"), getattr(model, f"conv{i}_BN")
+            C = conv.out_channels
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / (conv.in_channels * conv.kernel_size[0]) ** 0.5)
+            conv.bias.copy_(torch.randn(C, generator=gen) * 0.1)
+            bn.weight.copy_(torch.randn(C, generator=gen))
+            bn.bias.copy_(torch.randn(C, generator=gen) * 0.1)
+            bn.running_mean.copy_(torch.randn(C, generator=gen) * 0.1)
+            bn.running_var.copy_(torch.rand(C, generator=gen) * 1.5 + 0.5)
+    return model.to(device, dtype)
+
+
+def _crepe_frames(N, device, seed=0):
+    """``N`` normalised frames of a gliding tone in noise, bfloat16."""
+    from obs_rvc_tpu_torch.models.crepe import extract_crepe_frames
+
+    t = torch.arange(160 * (N - 1) + 1) / 16000.0
+    x = 0.3 * torch.sin(2 * torch.pi * torch.cumsum(190.0 * 2 ** torch.sin(2 * torch.pi * 0.7 * t), 0) / 16000.0)
+    x = x + 0.02 * torch.randn(x.shape, generator=torch.Generator().manual_seed(seed))
+    return extract_crepe_frames(x[None].to(device), N)[0].to(torch.bfloat16).contiguous()
+
+
+def _crepe_block(model, block, N, device):
+    """Block ``block`` (1 or 2) at ``N`` frames: ``(kernel call, cuDNN's bf16 block as the module computes it,
+    the float32 block of the same bf16 operands, the kernel's output as [N, C, L])``. conv2's input is conv1's
+    plain block."""
+    import torch.nn.functional as F
+
+    from obs_rvc_tpu_torch.models.crepe import _PADS
+
+    frames = _crepe_frames(N, device, seed=N)
+    if block == 1:
+        x, x_ncl, kind = frames, frames[:, None], "frames"
+    else:
+        x = crepe_conv.block_frames_plain(frames, crepe_conv.fold(model.conv1, model.conv1_BN))
+        x_ncl, kind = crepe_conv.from_blocked(x), "taps"
+    conv, bn = getattr(model, f"conv{block}"), getattr(model, f"conv{block}_BN")
+    folded = crepe_conv.fold(conv, bn)
+    packed = crepe_conv.pack(folded, kind)
+    call = crepe_conv.block_frames if block == 1 else crepe_conv.block_taps
+    with torch.no_grad():
+        cudnn = F.max_pool1d(bn(F.relu(conv(F.pad(x_ncl, _PADS[block - 1])[..., None])[..., 0])), 2, 2)
+        y = F.conv1d(F.pad(x_ncl.float(), _PADS[block - 1]), folded.w, stride=conv.stride[0])
+        ref = F.max_pool1d(torch.relu(y + folded.bias[:, None]) * folded.scale[:, None] + folded.shift[:, None], 2, 2)
+    as_ncl = crepe_conv.from_blocked if block == 1 else (lambda t: t)
+    return (lambda: call(x, packed)), cudnn, ref, as_ncl
+
+
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("block", [1, 2])
+def test_crepe_conv_kernel_against_the_float32_block(cuda, deterministic_cudnn, block, N):
+    """``full``'s conv1 and conv2 blocks at one stream's 64 frames and two streams' 128 (conv2 splits K in 4 and
+    2 parts): off the float32 block of the same bf16 operands by at most ``2 e_cudnn + tol``, cuDNN's bf16 block
+    the yardstick; two launches bit for bit (a fixed-order sum of the split parts, no atomics); one launch
+    counted a call."""
+    model = _crepe("full", cuda)
+    call, cudnn, ref, as_ncl = _crepe_block(model, block, N, cuda)
+    before = crepe_conv.LAUNCHES
+    with torch.no_grad():
+        got, again = call(), call()
+    torch.cuda.synchronize()
+    assert crepe_conv.LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    got = as_ncl(got).float()
+    assert torch.isfinite(got).all() and got.shape == ref.shape
+    scale = float(ref.abs().max())
+    e_k, e_c = float((got - ref).abs().max()) / scale, float((cudnn.float() - ref).abs().max()) / scale
+    assert e_k <= 2 * e_c + CREPE_CONV_TOL, (e_k, e_c)
+
+
+@pytest.mark.parametrize("N", [1, 65, 301])
+def test_crepe_conv_kernel_at_odd_and_offline_frame_counts(cuda, deterministic_cudnn, N):
+    """conv2 at one frame (K in 16 parts), an odd count (the last block's second frame absent) and an offline
+    clip's 301 frames (no split: the epilogue in the GEMM kernel), by the same rule."""
+    model = _crepe("full", cuda, seed=1)
+    call, cudnn, ref, as_ncl = _crepe_block(model, 2, N, cuda)
+    with torch.no_grad():
+        got = as_ncl(call()).float()
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    e_k, e_c = float((got - ref).abs().max()) / scale, float((cudnn.float() - ref).abs().max()) / scale
+    assert e_k <= 2 * e_c + CREPE_CONV_TOL, (N, e_k, e_c)
+
+
+def test_crepe_conv_kernel_inside_a_cuda_graph(cuda):
+    """Both blocks captured in one CUDA graph: each replay equals the eager launches bit for bit."""
+    model = _crepe("full", cuda, seed=2)
+    call1, _, _, _ = _crepe_block(model, 1, 64, cuda)
+    call2, _, _, _ = _crepe_block(model, 2, 64, cuda)
+    with torch.no_grad():
+        want1, want2 = call1(), call2()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call1(), call2()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got1, got2 = call1(), call2()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got1, want1) and torch.equal(got2, want2)
+
+
+def test_crepe_packs_follow_a_weight_reload(cuda, deterministic_cudnn):
+    """The network folds and packs its kernel blocks once per weight version: a ``load_state_dict`` (which
+    ``WeightsVersion`` sees) packs again, and the forward equals a fresh network's on the new weights."""
+    from obs_rvc_tpu_torch.stream.graphs import WeightsVersion
+
+    model = _crepe("full", cuda, seed=3)
+    version = WeightsVersion(lambda: [model])
+    frames = _crepe_frames(8, cuda)
+    with torch.no_grad():
+        model(frames)
+        key0, packs0 = version.key(), {i: e[2].w.data_ptr() for i, e in model._kernel_params.items()}
+        model(frames)
+        assert version.key() == key0 and {i: e[2].w.data_ptr() for i, e in model._kernel_params.items()} == packs0
+        new = _crepe("full", cuda, seed=4)
+        model.load_state_dict(new.state_dict())
+        assert version.key() != key0
+        got = model(frames)
+        want = new(frames)
+    assert sorted(model._kernel_params) == [0, 1]
+    assert all(e[2].w.data_ptr() != packs0[i] for i, e in model._kernel_params.items())
+    assert torch.equal(got, want)
+
+
+def test_crepe_bf16_salience_through_the_kernel_against_cudnns(cuda, deterministic_cudnn, monkeypatch):
+    """``full`` in bfloat16 with conv1 and conv2 on the kernel (two launches a forward) against the same network
+    with every block on cuDNN, both held to the float32 network on the same bf16 weights (TF32 off):
+    ``e <= 2 e_cudnn + 2e-4``, the salience's budget in ``test_torch_port_bf16.py``."""
+    model = _crepe("full", cuda, seed=5)
+    ref_model = _crepe("full", cuda, seed=5)
+    ref_model.load_state_dict(model.state_dict())
+    ref_model = ref_model.float()
+    frames = _crepe_frames(64, cuda, seed=6)
+    with torch.no_grad():
+        before = crepe_conv.LAUNCHES
+        got = model(frames)
+        assert crepe_conv.LAUNCHES == before + 2
+        with monkeypatch.context() as m:
+            m.setattr(crepe_conv, "takes_kernel", lambda *a: "")
+            on_cudnn = model(frames)
+        want = ref_model(frames.float())
+    scale = float(want.abs().max())
+    e_k, e_c = float((got - want).abs().max()) / scale, float((on_cudnn - want).abs().max()) / scale
+    assert e_k <= 2 * e_c + 2e-4, (e_k, e_c)
+
+
+def test_float32_crepe_stays_on_cudnn(cuda):
+    model = _crepe("full", cuda, dtype=torch.float32, seed=7)
+    before = crepe_conv.LAUNCHES
+    with torch.no_grad():
+        out = model(_crepe_frames(4, cuda).float())
+    assert crepe_conv.LAUNCHES == before and model._kernel_params == {} and out.dtype == torch.float32
 
 
 def test_spans_leave_no_device_event_in_a_trace(cuda):
